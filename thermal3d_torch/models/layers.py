@@ -1,0 +1,177 @@
+"""Transformer layers of the DUSt3R family (counterpart of
+thermal3d/models/layers.py).
+
+Pre-norm ViT encoder blocks with RoPE'd self-attention, and croco decoder
+blocks that add RoPE'd cross-attention to the other view's tokens. Module and
+parameter names follow the torch/dust3r checkpoint layout (`attn.qkv`,
+`cross_attn.projq`, `norm_y`, `mlp.fc1`, ...), so a converted state dict loads
+with strict=True.
+
+Parameters are stored in whatever dtype the engine gives them (float32, or
+bfloat16 for `params_dtype='bfloat16'`) and cast to the compute dtype where
+they are used, as the JAX modules do. GEMMs, LayerNorm, GELU and the patch
+conv are plain PyTorch; attention goes through kernels K2/K3
+(kernels/flash_attention.py).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from thermal3d_torch.kernels.flash_attention import (
+    fused_rope_attention, fused_rope_attention_plain, fused_rope_cross_attention,
+    rope_attention_plain)
+
+Rope = Tuple[torch.Tensor, torch.Tensor]  # (cos, sin) tables [S, head_dim]
+
+ATTENTION_IMPLS = ("auto", "torch")
+
+
+class Dense(nn.Module):
+    """y = x W^T + b in the compute dtype (the JAX QuantDense's float path)."""
+
+    def __init__(self, in_dim: int, out_dim: int, dtype: torch.dtype):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_dim, in_dim))
+        self.bias = nn.Parameter(torch.empty(out_dim))
+        self.dtype = dtype
+
+    def forward(self, x):
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                        self.bias.to(self.dtype))
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with eps 1e-6, output in the compute dtype."""
+
+    def __init__(self, dim: int, dtype: torch.dtype):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(dim))
+        self.bias = nn.Parameter(torch.empty(dim))
+        self.dtype = dtype
+
+    def forward(self, x):
+        x = x.to(self.dtype)
+        return F.layer_norm(x, x.shape[-1:], self.weight.to(self.dtype),
+                            self.bias.to(self.dtype), 1e-6)
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int, dtype: torch.dtype):
+        super().__init__()
+        self.fc1 = Dense(dim, hidden, dtype)
+        self.fc2 = Dense(hidden, dim, dtype)
+        # exact erf GELU in float32; the tanh form in bfloat16, as the JAX
+        # model does (its error is below bfloat16's rounding)
+        self.approximate = "tanh" if dtype == torch.bfloat16 else "none"
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+
+
+def _check_impl(impl: str) -> None:
+    if impl not in ATTENTION_IMPLS:
+        raise ValueError(f"attention_impl {impl!r} not in {ATTENTION_IMPLS}")
+
+
+class Attention(nn.Module):
+    """Self-attention on the packed qkv projection with 2-D RoPE on q/k."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
+                 attention_impl: str = "auto"):
+        super().__init__()
+        _check_impl(attention_impl)
+        self.qkv = Dense(dim, 3 * dim, dtype)
+        self.proj = Dense(dim, dim, dtype)
+        self.num_heads = num_heads
+        self.scale = 1.0 / math.sqrt(dim // num_heads)
+        self.attention_impl = attention_impl
+
+    def forward(self, x, rope: Rope):
+        qkv = self.qkv(x)
+        attend = (fused_rope_attention if self.attention_impl == "auto"
+                  else fused_rope_attention_plain)
+        return self.proj(attend(qkv, rope[0], rope[1], self.num_heads, self.scale))
+
+
+class CrossAttention(nn.Module):
+    """Cross-attention: queries from x, keys/values from y; both views share
+    one patch grid, so one RoPE table pair serves q and k."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
+                 attention_impl: str = "auto"):
+        super().__init__()
+        _check_impl(attention_impl)
+        self.projq = Dense(dim, dim, dtype)
+        self.projk = Dense(dim, dim, dtype)
+        self.projv = Dense(dim, dim, dtype)
+        self.proj = Dense(dim, dim, dtype)
+        self.num_heads = num_heads
+        self.scale = 1.0 / math.sqrt(dim // num_heads)
+        self.attention_impl = attention_impl
+
+    def forward(self, x, y, rope: Rope):
+        q, k, v = self.projq(x), self.projk(y), self.projv(y)
+        attend = (fused_rope_cross_attention if self.attention_impl == "auto"
+                  else rope_attention_plain)
+        return self.proj(attend(q, k, v, rope[0], rope[1], self.num_heads, self.scale))
+
+
+class EncoderBlock(nn.Module):
+    """x += attn(norm1(x)); x += mlp(norm2(x))."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
+                 dtype: torch.dtype, attention_impl: str = "auto"):
+        super().__init__()
+        self.norm1 = LayerNorm(dim, dtype)
+        self.attn = Attention(dim, num_heads, dtype, attention_impl)
+        self.norm2 = LayerNorm(dim, dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
+
+    def forward(self, x, rope: Rope):
+        x = x + self.attn(self.norm1(x), rope)
+        return x + self.mlp(self.norm2(x))
+
+
+class DecoderBlock(nn.Module):
+    """croco DecoderBlock:
+        x = x + attn(norm1(x));  y_ = norm_y(y)
+        x = x + cross_attn(norm2(x), y_);  x = x + mlp(norm3(x))"""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
+                 dtype: torch.dtype, attention_impl: str = "auto"):
+        super().__init__()
+        self.norm1 = LayerNorm(dim, dtype)
+        self.attn = Attention(dim, num_heads, dtype, attention_impl)
+        self.norm_y = LayerNorm(dim, dtype)
+        self.norm2 = LayerNorm(dim, dtype)
+        self.cross_attn = CrossAttention(dim, num_heads, dtype, attention_impl)
+        self.norm3 = LayerNorm(dim, dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
+
+    def forward(self, x, y, rope: Rope):
+        x = x + self.attn(self.norm1(x), rope)
+        x = x + self.cross_attn(self.norm2(x), self.norm_y(y), rope)
+        return x + self.mlp(self.norm3(x))
+
+
+class PatchEmbed(nn.Module):
+    """16×16 conv patchifier: NHWC image → [B, h*w, C] tokens (row-major)."""
+
+    def __init__(self, patch_size: int, in_channels: int, embed_dim: int,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.proj = nn.Conv2d(in_channels, embed_dim, patch_size, stride=patch_size)
+        self.dtype = dtype
+
+    def forward(self, img):
+        x = F.conv2d(img.to(self.dtype).permute(0, 3, 1, 2),
+                     self.proj.weight.to(self.dtype), self.proj.bias.to(self.dtype),
+                     stride=self.proj.stride)
+        b, c, h, w = x.shape
+        return x.flatten(2).transpose(1, 2), (h, w)
