@@ -5,10 +5,12 @@
 
 Phases, each of which raises on failure (the script then exits non-zero):
   1. the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel from thermal3d_torch/kernels/csrc with nvcc;
-  3. hold each kernel against its plain PyTorch version on the card at the
-     serving shapes, in bf16 and f32, and time kernel, plain version, the
-     PyTorch library yardstick and the card's bound;
+  2. build every CUDA kernel from thermal3d_torch/kernels/csrc with nvcc (one
+     nvcc process per source, all at once);
+  3. hold each kernel against its plain PyTorch version on the card, in bf16
+     and f32, and time kernel, plain version, the PyTorch library yardstick
+     and the card's bound: K1 and K2/K3 at the serving shapes (S=196); K2/K3
+     (the key-tile loop) and K4/K5/K6 at the MASt3R-512 shapes (S=1024);
   4. drive the serving path: a full-width bf16 DUSt3R-224 InferenceEngine
      (seeded random weights) answers batches of synthetic raw thermal frames
      [32, 320, 416]; its depth is held against the same engine run with the
@@ -17,7 +19,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
      K3 = 16·n; one more batch runs under torch.profiler for the device
      time by layer and the device's idle share; then a float32 engine is
      held against its plain twin;
-  5. print a JSON line of the kernels and, last, the device line.
+  5. drive the pseudo-GT path: a full-width, full-depth bf16
+     MASt3R-512 PseudoGTGenerator (seeded random weights) turns batches of 4
+     synthetic RGB pairs [4, 512, 512, 3] into the eight pseudo-GT arrays,
+     with launch counts K2 = 48·n, K3 = 24·n; pairs/s with and without the
+     host copies; the outputs against a plain twin (attention_impl='torch')
+     and a float32 twin; the geometry against float64 numpy; one step under
+     torch.profiler; then attention_impl='pallas' (K4 = 72·n) at full depth,
+     and 'pallas_grouped4' (K5) and 'pallas_multihead' (K6) at encoder and
+     decoder depth 2 (10·n each), each against its plain twin;
+  6. print JSON lines of the two paths and of the kernels and, last, the
+     device line.
 Without CUDA it exits non-zero before printing any result.
 """
 
@@ -35,6 +47,9 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor core; f
 N_BATCHES = 4
 BATCH = 32
 RAW_HW = (320, 416)
+PAIR_BATCH = 4  # pairs a pseudo-GT step (bench.py's MASt3R-512 batch)
+N_PAIR_BATCHES = 3  # timed pseudo-GT steps after one warm-up step
+PGT_KEYS = ("pointmap1", "pointmap2", "confidence1", "confidence2", "depth1", "depth2")
 # outputs of the bf16 kernel engine vs its plain twin, as max|Δ| / max|ref|:
 # both run the same bf16 trunk and differ only where a kernel's f32
 # summation order flips a bf16 rounding, which 32 residual blocks of random
@@ -45,6 +60,21 @@ BF16_ENGINE_REL_LIMIT = 1e-1
 BF16_NOISE_FACTOR = 2.0
 # the same in float32, where only summation order differs
 F32_ENGINE_REL_LIMIT = 1e-3
+# pseudo-GT outputs of a kernel route, max|Δ|/max|ref| on PGT_KEYS: against a
+# float32 twin (plain attention, the same bf16-rounded weights) at most
+# BF16_NOISE_FACTOR × the bf16 plain twin's own error against it, plus 1e-3,
+# as for the engine; and so, by the triangle inequality, against the bf16
+# plain twin at most (1 + BF16_NOISE_FACTOR) × that error, plus 1e-3. (A
+# fixed 0.1 against the plain twin, as for the engine, was set before the
+# first run and failed there at 0.163: over 24+12 blocks at S=1024 the exp
+# heads amplify bf16 roundings of random weights more than at 224.)
+# geometry of the generator's own pointmaps against a float64 numpy restatement:
+# the focal medians are f32 quotients (a few ulp); the f32 Umeyama pose must
+# fit the valid points as well as the f64 one (residual within 0.1%) and be a
+# rotation
+GEOM_FOCAL_RTOL = 1e-5
+GEOM_RESIDUAL_RTOL = 1e-3
+GEOM_ORTHO_ATOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -140,8 +170,12 @@ def k1_cases(torch):
     return [case]
 
 
-def attention_cases(torch, cross: bool):
-    """K2 at encoder and decoder widths (K3 at decoder width), S=196, D=64."""
+def attention_cases(torch, cross: bool, batch: int = BATCH, grid=(14, 14), widths=None,
+                    reps: int = 20):
+    """K2 (K3 with cross=True) at D=64 on a grid×grid patch grid: the
+    serving shapes (S=196) by default, MASt3R-512's (S=1024) with grid
+    (32, 32). Sequences whose K/V do not fit in shared memory run the
+    key-tile kernel."""
     import torch.nn.functional as F
 
     from thermal3d_torch.kernels.flash_attention import (fused_rope_attention,
@@ -150,9 +184,10 @@ def attention_cases(torch, cross: bool):
                                                          rope_attention_plain, rot_lanes)
     from thermal3d_torch.models.rope import make_grid_positions, rope_tables
 
-    s, d = 196, 64
-    cos, sin = rope_tables(make_grid_positions(14, 14, device="cuda"), d)
-    widths = [(768, 12)] if cross else [(1024, 16), (768, 12)]
+    s, d = grid[0] * grid[1], 64
+    cos, sin = rope_tables(make_grid_positions(*grid, device="cuda"), d)
+    if widths is None:
+        widths = [(768, 12)] if cross else [(1024, 16), (768, 12)]
     cases = []
     for c, nh in widths:
         for dt in (torch.bfloat16, torch.float32):
@@ -160,21 +195,21 @@ def attention_cases(torch, cross: bool):
             gen = torch.Generator(device="cuda").manual_seed(c)
             scale = 1.0 / math.sqrt(d)
             if cross:
-                q, k, v = (torch.randn((BATCH, s, c), generator=gen, device="cuda").to(dt)
+                q, k, v = (torch.randn((batch, s, c), generator=gen, device="cuda").to(dt)
                            for _ in range(3))
                 kern = lambda: fused_rope_cross_attention(q, k, v, cos, sin, nh, scale)  # noqa: E731
                 plain = lambda: rope_attention_plain(q, k, v, cos, sin, nh, scale)  # noqa: E731
-                nbytes = 4 * BATCH * s * c * q.element_size()
+                nbytes = 4 * batch * s * c * q.element_size()
             else:
-                qkv = torch.randn((BATCH, s, 3 * c), generator=gen, device="cuda").to(dt)
+                qkv = torch.randn((batch, s, 3 * c), generator=gen, device="cuda").to(dt)
                 q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
                 kern = lambda: fused_rope_attention(qkv, cos, sin, nh, scale)  # noqa: E731
                 plain = lambda: fused_rope_attention_plain(qkv, cos, sin, nh, scale)  # noqa: E731
-                nbytes = 4 * BATCH * s * c * qkv.element_size()
+                nbytes = 4 * batch * s * c * qkv.element_size()
             nbytes += 2 * s * d * 4  # the cos/sin tables
 
             def heads(t):
-                return t.reshape(BATCH, s, nh, d).transpose(1, 2)
+                return t.reshape(batch, s, nh, d).transpose(1, 2)
 
             def roped(t):
                 tf = heads(t).float()
@@ -186,21 +221,72 @@ def attention_cases(torch, cross: bool):
             ref = plain()
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
+            del out, ref
             # f32: summation order only; bf16: the output is rounded to bf16
-            # (1 ulp at |x| < 2 is 2^-7) and a flipped rounding of p adds one more
+            # (1 ulp at |x| < 2 is 2^-7) and a flipped rounding of p adds one
+            # more (the key-tile loop rounds p against a running max)
             limit = 2e-5 if dt == torch.float32 else 2.0 ** -6
             name = ("K3 fused_rope_cross_attention" if cross else "K2 fused_rope_attention")
-            check(f"{name} [{BATCH},{s},{c}] H={nh} {dname}", err, limit)
-            ms = cuda_ms(kern)
-            plain_ms = cuda_ms(plain)
-            library_ms = cuda_ms(library)
-            flops = 4 * BATCH * nh * s * s * d
+            check(f"{name} [{batch},{s},{c}] H={nh} {dname}", err, limit)
+            ms = cuda_ms(kern, reps=reps)
+            plain_ms = cuda_ms(plain, reps=reps)
+            library_ms = cuda_ms(library, reps=reps)
+            flops = 4 * batch * nh * s * s * d
             bnd, by = bound_ms(nbytes, flops, dname)
             log(f"    ms {ms:.4f} plain {plain_ms:.4f} library(sdpa) {library_ms:.4f} "
                 f"bound {bnd:.4f} ({by})")
-            cases.append(dict(shape=[BATCH, s, c], heads=nh, dtype=dname, max_abs_err=err,
+            cases.append(dict(shape=[batch, s, c], heads=nh, dtype=dname, max_abs_err=err,
                               limit=limit, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                               bound_ms=bnd, bound_by=by))
+            del qr, kr, vh, q, k, v
+            torch.cuda.empty_cache()
+    return cases
+
+
+# K4/K5/K6 at the MASt3R-512 shapes [B, H, S, D]: encoder (8 = 4 pairs × 2
+# views, 16 heads) and decoder (4 pairs, 12 heads), S=1024, D=64
+PLAIN_ATTENTION_SHAPES = ((8, 16, 1024, 64), (4, 12, 1024, 64))
+
+
+def plain_attention_cases(torch, name: str, reps: int = 10):
+    """One of K4 (flash_attention_pallas), K5 (flash_attention_grouped) or K6
+    (flash_attention_multihead) on [B,S,H,D] q/k/v handed over as
+    [B,H,S,D] views, as attention_bshd hands them on the main path."""
+    import torch.nn.functional as F
+
+    from thermal3d_torch.kernels import flash_attention as fa
+
+    kern_fn = getattr(fa, name)
+    cases = []
+    for b, h, s, d in PLAIN_ATTENTION_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            dname = "bfloat16" if dt == torch.bfloat16 else "float32"
+            gen = torch.Generator(device="cuda").manual_seed(h)
+            q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(dt)
+                       .transpose(1, 2) for _ in range(3))
+            scale = 1.0 / math.sqrt(d)
+            kern = lambda: kern_fn(q, k, v, scale)  # noqa: E731
+            plain = lambda: fa.attention_plain(q, k, v, scale)  # noqa: E731
+            library = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)  # noqa: E731
+            out = kern()
+            ref = plain()
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            del out, ref
+            limit = 2e-5 if dt == torch.float32 else 2.0 ** -6  # as for K2/K3
+            check(f"{name} [{b},{h},{s},{d}] {dname}", err, limit)
+            ms = cuda_ms(kern, reps=reps)
+            plain_ms = cuda_ms(plain, reps=reps)
+            library_ms = cuda_ms(library, reps=reps)
+            nbytes = 4 * b * h * s * d * q.element_size()
+            bnd, by = bound_ms(nbytes, 4 * b * h * s * s * d, dname)
+            log(f"    ms {ms:.4f} plain {plain_ms:.4f} library(sdpa) {library_ms:.4f} "
+                f"bound {bnd:.4f} ({by})")
+            cases.append(dict(shape=[b, h, s, d], dtype=dname, max_abs_err=err, limit=limit,
+                              ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bnd,
+                              bound_by=by))
+            del q, k, v
+            torch.cuda.empty_cache()
     return cases
 
 
@@ -227,17 +313,19 @@ def check_outputs(out, np):
                                  f"or non-finite values")
 
 
-# device work by layer, matched on lower-cased kernel names (first match wins)
+# device work by layer, matched on lower-cased kernel names (first match wins;
+# cuDNN's conv kernels carry "fprop"/"dgrad" and are matched before the GEMMs)
 LAYERS = (("K2/K3 rope_attention", ("rope_attention",)),
+          ("K4-K6 softmax_attention", ("softmax_attention",)),
           ("K1 percentile_enhance", ("percentile_enhance",)),
+          ("conv", ("conv", "fprop", "dgrad", "wgrad", "cudnn", "winograd", "implicit")),
           ("GEMM", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas")),
           ("LayerNorm", ("layer_norm",)),
           ("GELU", ("gelu",)),
-          ("conv", ("conv",)),
           ("copies", ("memcpy", "memset")))
 
 
-def profile_batch(torch, fn):
+def profile_batch(torch, fn, what: str = f"one infer() of {BATCH} frames"):
     """One warmed-up call of fn under torch.profiler: device time by layer,
     the device's busy time (union of its kernel and copy spans) and the host
     wall time of the call; idle share = 1 - busy / wall."""
@@ -268,7 +356,7 @@ def profile_batch(torch, fn):
         cur_end = max(cur_end, end)
     busy_ms = busy_us / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-    log(f"profile (one infer() of {BATCH} frames, profiler on): wall {wall_ms:.3f} ms, "
+    log(f"profile ({what}, profiler on): wall {wall_ms:.3f} ms, "
         f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
     log(f"  device ms by layer: {json.dumps(by_layer)}")
     for name, ms in top:
@@ -277,14 +365,34 @@ def profile_batch(torch, fn):
                 device_events=len(spans), by_layer=by_layer)
 
 
+def kernel_counters():
+    """The launch counters of K1-K6, in order."""
+    from thermal3d_torch.kernels import flash_attention as fa
+    from thermal3d_torch.kernels.image_ops import percentile_enhance
+
+    return (percentile_enhance, fa.fused_rope_attention, fa.fused_rope_cross_attention,
+            fa.flash_attention_pallas, fa.flash_attention_grouped,
+            fa.flash_attention_multihead)
+
+
+def run_counted(fn, want_by_name):
+    """Set every kernel count to 0, run fn(), read the counts: they must
+    equal want_by_name (a kernel not named must not launch at all)."""
+    counters = kernel_counters()
+    for c in counters:
+        c.launches = 0
+    result = fn()
+    launches = {c.__name__: c.launches for c in counters}
+    want = {c.__name__: want_by_name.get(c.__name__, 0) for c in counters}
+    if launches != want:
+        raise AssertionError(f"the path did not run through its kernels: launches "
+                             f"{launches}, want {want}")
+    return result, {k: v for k, v in launches.items() if v}
+
+
 def phase_engine(torch, np):
     from thermal3d_torch.core.config import DUSTR_224_LINEAR
     from thermal3d_torch.infer.engine import InferenceEngine
-    from thermal3d_torch.kernels.flash_attention import (fused_rope_attention,
-                                                         fused_rope_cross_attention)
-    from thermal3d_torch.kernels.image_ops import percentile_enhance
-
-    counters = (percentile_enhance, fused_rope_attention, fused_rope_cross_attention)
     cfg = dataclasses.replace(DUSTR_224_LINEAR, compute_dtype="bfloat16")
     t0 = time.perf_counter()
     eng = InferenceEngine(cfg, params_dtype="bfloat16", seed=0)
@@ -296,20 +404,17 @@ def phase_engine(torch, np):
     check_outputs(eng.infer(frames[0]), np)  # warm-up
     torch.cuda.synchronize()
 
-    for fn in counters:
-        fn.launches = 0
-    t0 = time.perf_counter()
-    outs = [eng.infer(f) for f in frames]  # numpy results: waits for the card
-    elapsed = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
+    def serve():
+        t0 = time.perf_counter()
+        outs = [eng.infer(f) for f in frames]  # numpy results: waits for the card
+        return outs, time.perf_counter() - t0
+
+    want = {"percentile_enhance": N_BATCHES, "fused_rope_attention": 40 * N_BATCHES,
+            "fused_rope_cross_attention": 16 * N_BATCHES}
+    (outs, elapsed), launches = run_counted(serve, want)
     fps = BATCH * N_BATCHES / elapsed
     log(f"engine: {N_BATCHES} batches of {BATCH} raw frames {RAW_HW} in {elapsed:.4f} s: "
         f"{fps:.2f} frames/s; launches {launches}")
-    want = {"percentile_enhance": N_BATCHES, "fused_rope_attention": 40 * N_BATCHES,
-            "fused_rope_cross_attention": 16 * N_BATCHES}
-    if launches != want:
-        raise AssertionError(f"the serving path did not run through the kernels: "
-                             f"launches {launches}, want {want}")
     for out in outs:
         check_outputs(out, np)
 
@@ -359,6 +464,206 @@ def phase_engine(torch, np):
                 bf16_plain_vs_f32=noise, bf16_kernels_vs_f32=kern_err, f32_rel_err=errs32)
 
 
+def rgb_pairs(np, seed: int):
+    """A batch of synthetic RGB pairs [PAIR_BATCH, 512, 512, 3] in [0, 1]:
+    smooth colour ramps plus noise, view 2 a shifted copy of view 1."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, 512), np.linspace(0, 1, 512), indexing="ij")
+    base = np.stack([yy, xx, 0.5 * (yy + xx)], axis=-1)[None]
+    rgb1 = 0.7 * base + 0.3 * rng.uniform(size=(PAIR_BATCH, 512, 512, 3))
+    rgb2 = np.roll(rgb1, 8, axis=2) * 0.95 + 0.05 * rng.uniform(size=rgb1.shape)
+    return rgb1.astype(np.float32), rgb2.astype(np.float32)
+
+
+def check_pgt_outputs(out, np):
+    shapes = {"pointmap1": (PAIR_BATCH, 512, 512, 3), "pointmap2": (PAIR_BATCH, 512, 512, 3),
+              "confidence1": (PAIR_BATCH, 512, 512), "confidence2": (PAIR_BATCH, 512, 512),
+              "depth1": (PAIR_BATCH, 512, 512), "depth2": (PAIR_BATCH, 512, 512),
+              "intrinsics": (PAIR_BATCH, 3, 3), "poses": (PAIR_BATCH, 4, 4)}
+    if sorted(out) != sorted(shapes):
+        raise AssertionError(f"pseudo-GT keys {sorted(out)}")
+    for k, shp in shapes.items():
+        # a focal median is NaN where a view has no pixel with Z > 0 (as in
+        # the JAX generator); every other value must be finite
+        vals = out[k] if k != "intrinsics" else np.nan_to_num(out[k], nan=0.0)
+        if out[k].shape != shp or out[k].dtype != np.float32 or not np.isfinite(vals).all():
+            raise AssertionError(f"pseudo-GT output {k}: shape {out[k].shape} (want {shp}), "
+                                 f"dtype {out[k].dtype} or non-finite values")
+
+
+def geometry_f64(pm1, pm2, np):
+    """Intrinsics and relative pose of one pair, restated in float64 numpy
+    from the same float32 pointmaps: (fx, fy, R, t, ok, x, y) with x, y the
+    valid source/target points [N, 3]."""
+    h, w = pm1.shape[:2]
+    p1, p2 = pm1.astype(np.float64), pm2.astype(np.float64)
+    z = p1[..., 2]
+    v, u = np.mgrid[0:h, 0:w]
+    mask = z > 0
+    with np.errstate(divide="ignore", invalid="ignore"):
+        fx = np.nanmedian(np.where(mask, (u - w / 2) / (p1[..., 0] / np.where(mask, z, 1)), np.nan))
+        fy = np.nanmedian(np.where(mask, (v - h / 2) / (p1[..., 1] / np.where(mask, z, 1)), np.nan))
+    valid = ((p1[..., 2] > 0) & (p2[..., 2] > 0) & np.isfinite(p1).all(-1)
+             & np.isfinite(p2).all(-1))
+    x, y = p1[valid], p2[valid]
+    mx, my = x.mean(0), y.mean(0)
+    cov = (y - my).T @ (x - mx) / len(x) if len(x) else np.zeros((3, 3))
+    uu, d, vt = np.linalg.svd(cov)
+    s = np.ones(3)
+    s[-1] = -1.0 if np.linalg.det(uu) * np.linalg.det(vt) < 0 else 1.0
+    r = uu @ np.diag(s) @ vt
+    t = my - r @ mx
+    ok = len(x) >= 10 and int((d > np.finfo(np.float32).eps).sum()) >= 2
+    return fx, fy, r, t, ok, x, y
+
+
+def check_geometry(out, np):
+    """The generator's intrinsics and poses against geometry_f64 on its own
+    pointmaps. Focal lengths to GEOM_FOCAL_RTOL; a pose must be a rotation
+    and fit the valid points as well as the float64 pose (its residual within
+    GEOM_RESIDUAL_RTOL), or be the identity where the float64 pose is not ok."""
+    report = []
+    for i in range(out["pointmap1"].shape[0]):
+        fx, fy, r64, t64, ok, x, y = geometry_f64(out["pointmap1"][i], out["pointmap2"][i], np)
+        k = out["intrinsics"][i].astype(np.float64)
+        pose = out["poses"][i].astype(np.float64)
+        for got, want, name in ((k[0, 0], fx, "fx"), (k[1, 1], fy, "fy")):
+            if not (np.isnan(got) and np.isnan(want)) and \
+                    abs(got - want) > GEOM_FOCAL_RTOL * abs(want):
+                raise AssertionError(f"pair {i}: {name} {got} vs float64 {want}")
+        r, t = pose[:3, :3], pose[:3, 3]
+        if not ok:
+            if not np.array_equal(pose, np.eye(4)):
+                raise AssertionError(f"pair {i}: float64 finds no pose, the card's is {pose}")
+            report.append(dict(pair=i, identity=True))
+            continue
+        ortho = np.abs(r.T @ r - np.eye(3)).max()
+        res = float(((y - x @ r.T - t) ** 2).sum(1).mean())
+        res64 = float(((y - x @ r64.T - t64) ** 2).sum(1).mean())
+        report.append(dict(pair=i, focal_rel=[float(abs(k[0, 0] / fx - 1)),
+                                              float(abs(k[1, 1] / fy - 1))],
+                           ortho=float(ortho), det=float(np.linalg.det(r)),
+                           residual=res, residual_f64=res64,
+                           r_diff=float(np.abs(r - r64).max()),
+                           t_diff=float(np.abs(t - t64).max())))
+        if ortho > GEOM_ORTHO_ATOL or np.linalg.det(r) < 0 or \
+                res > res64 * (1 + GEOM_RESIDUAL_RTOL) + 1e-12:
+            raise AssertionError(f"pair {i}: pose disagrees with float64: {report[-1]}")
+    log(f"pseudo-GT geometry vs float64: {json.dumps(report)}")
+    return report
+
+
+def phase_pseudo_gt(torch, np):
+    from thermal3d_torch.core.config import MASTR_512_CATMLPDPT
+    from thermal3d_torch.pseudo_gt.generator import PseudoGTGenerator
+
+    cfg = dataclasses.replace(MASTR_512_CATMLPDPT, compute_dtype="bfloat16")
+    t0 = time.perf_counter()
+    gen = PseudoGTGenerator(cfg, params_dtype="bfloat16", seed=0)
+    log(f"pseudo-GT: full-width bf16 MASt3R-512 generator built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    weights = gen.model.state_dict()
+    pairs = [rgb_pairs(np, seed) for seed in range(N_PAIR_BATCHES)]
+    n = N_PAIR_BATCHES
+
+    def drive(g):
+        t0 = time.perf_counter()
+        outs = [g.run_pairs(*p) for p in pairs]  # numpy results: waits for the card
+        return outs, time.perf_counter() - t0
+
+    check_pgt_outputs(gen.run_pairs(*pairs[0]), np)  # warm-up
+    torch.cuda.synchronize()
+    (outs, elapsed), launches = run_counted(
+        lambda: drive(gen),
+        {"fused_rope_attention": 48 * n, "fused_rope_cross_attention": 24 * n})
+    pps = PAIR_BATCH * n / elapsed
+    log(f"pseudo-GT: {n} steps of {PAIR_BATCH} pairs in {elapsed:.4f} s: {pps:.3f} pairs/s "
+        f"(run_pairs, host copies included); launches {launches}")
+    for out in outs:
+        check_pgt_outputs(out, np)
+    t0 = time.perf_counter()
+    for p in pairs:
+        dev_out = gen.run_pairs_async(*p)
+    torch.cuda.synchronize()
+    pps_device = PAIR_BATCH * n / (time.perf_counter() - t0)
+    del dev_out
+    log(f"pseudo-GT: run_pairs_async (no host copies) {pps_device:.3f} pairs/s")
+    breakdown = profile_batch(torch, lambda: gen.run_pairs(*pairs[0]),
+                              f"one run_pairs() of {PAIR_BATCH} pairs")
+    geometry = check_geometry(outs[0], np)
+
+    def rel(a, b):
+        return {k: rel_err(a[k], b[k], np) for k in b}
+
+    def hold(out, twin, gold, what):
+        """out (a kernel route) against its bf16 plain twin and its float32
+        twin; see BF16_NOISE_FACTOR above."""
+        errs, noise, vs_f32 = rel(out, twin), rel(twin, gold), rel(out, gold)
+        f = BF16_NOISE_FACTOR
+        log(f"pseudo-GT {what}, max|Δ|/max|ref| (gated on {', '.join(PGT_KEYS)}; "
+            f"intrinsics/poses printed only):\n  vs bf16 plain twin {json.dumps(errs)}"
+            f"\n  plain twin vs f32 {json.dumps(noise)}\n  vs f32 {json.dumps(vs_f32)}")
+        bad = [k for k in PGT_KEYS if vs_f32[k] > f * noise[k] + 1e-3
+               or errs[k] > (1 + f) * noise[k] + 1e-3]
+        if bad:
+            raise AssertionError(f"pseudo-GT {what}: outside the bf16 noise on {bad}")
+        return dict(vs_plain_twin=errs, plain_twin_vs_f32=noise, vs_f32=vs_f32)
+
+    def twins(config, state):
+        """Outputs of the bf16 plain twin and the float32 plain twin on pairs[0]."""
+        outs_ = []
+        for dt in ("bfloat16", None):
+            c = dataclasses.replace(config, attention_impl="torch",
+                                    compute_dtype=dt or "float32")
+            g = PseudoGTGenerator(c, state_dict=state, params_dtype=dt)
+            outs_.append(g.run_pairs(*pairs[0]))
+            del g
+            torch.cuda.empty_cache()
+        return outs_
+
+    ref, gold = twins(cfg, weights)
+    held = hold(outs[0], ref, gold, "bf16 'auto' (K2/K3)")
+    del gen
+    torch.cuda.empty_cache()
+
+    # attention_impl='pallas': RoPE on the heads, then K4, at full depth
+    gen_p = PseudoGTGenerator(dataclasses.replace(cfg, attention_impl="pallas"),
+                              state_dict=weights, params_dtype="bfloat16")
+    gen_p.run_pairs(*pairs[0])  # warm-up
+    torch.cuda.synchronize()
+    (outs_p, elapsed_p), launches_p = run_counted(lambda: drive(gen_p),
+                                                  {"flash_attention_pallas": 72 * n})
+    pps_pallas = PAIR_BATCH * n / elapsed_p
+    log(f"pseudo-GT 'pallas': {pps_pallas:.3f} pairs/s (run_pairs); launches {launches_p}")
+    for out in outs_p:
+        check_pgt_outputs(out, np)
+    held_p = hold(outs_p[0], ref, gold, "bf16 'pallas' (K4)")
+    del gen_p, outs_p
+    torch.cuda.empty_cache()
+
+    # K5 and K6 at encoder and decoder depth 2: 2 + 4·2 launches a step
+    small = dataclasses.replace(cfg, enc_depth=2, dec_depth=2)
+    small_weights = PseudoGTGenerator(small, params_dtype="bfloat16",
+                                      seed=1).model.state_dict()
+    ref_small, gold_small = twins(small, small_weights)
+    reduced = {}
+    for impl, counter in (("pallas_grouped4", "flash_attention_grouped"),
+                          ("pallas_multihead", "flash_attention_multihead")):
+        g = PseudoGTGenerator(dataclasses.replace(small, attention_impl=impl),
+                              state_dict=small_weights, params_dtype="bfloat16")
+        (out_s,), launches_s = run_counted(lambda: [g.run_pairs(*pairs[0])], {counter: 10})
+        log(f"pseudo-GT {impl!r} at depth 2: launches {launches_s}")
+        check_pgt_outputs(out_s, np)
+        reduced[impl] = dict(launches=launches_s,
+                             **hold(out_s, ref_small, gold_small, f"bf16 {impl!r} at depth 2"))
+        del g
+    return dict(pairs_per_s=pps, pairs_per_s_device=pps_device, batch_pairs=PAIR_BATCH,
+                n_steps=n, launches=launches, breakdown=breakdown, geometry=geometry,
+                rel_err=held, pallas=dict(pairs_per_s=pps_pallas, launches=launches_p,
+                                          rel_err=held_p),
+                reduced_depth=reduced)
+
+
 def main() -> int:
     import torch
 
@@ -378,26 +683,56 @@ def main() -> int:
     k1 = k1_cases(torch)
     k2 = attention_cases(torch, cross=False)
     k3 = attention_cases(torch, cross=True)
+    log("kernels vs plain versions at the MASt3R-512 shapes (S=1024):")
+    mastr = dict(grid=(32, 32), reps=10)
+    k2 += attention_cases(torch, cross=False, batch=2 * PAIR_BATCH, widths=[(1024, 16)], **mastr)
+    k2 += attention_cases(torch, cross=False, batch=PAIR_BATCH, widths=[(768, 12)], **mastr)
+    k3 += attention_cases(torch, cross=True, batch=PAIR_BATCH, **mastr)
+    k456 = {name: plain_attention_cases(torch, name) for name in
+            ("flash_attention_pallas", "flash_attention_grouped", "flash_attention_multihead")}
     engine = phase_engine(torch, np)
+    pseudo_gt = phase_pseudo_gt(torch, np)
 
-    def entry(name, source, replaces, cases, main_case):
+    # launches on each path's own run; `launches` is this slice's main path
+    # (pseudo-GT) for K2-K6, the serving path for K1
+    by_path = {}
+    for path, counts in (("serving", engine["launches"]),
+                         ("pseudo_gt_auto", pseudo_gt["launches"]),
+                         ("pseudo_gt_pallas", pseudo_gt["pallas"]["launches"]),
+                         *((f"pseudo_gt_{impl}_depth2", r["launches"])
+                           for impl, r in pseudo_gt["reduced_depth"].items())):
+        for name, count in counts.items():
+            by_path.setdefault(name, {})[path] = count
+
+    def entry(name, source, replaces, cases, main_case, main_path):
         m = cases[main_case]
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=engine["launches"][name],
+                    launches=by_path[name][main_path], launches_by_path=by_path[name],
                     max_abs_err=max(c["max_abs_err"] for c in cases), ms=m["ms"],
                     plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
                     library_ms=m["library_ms"], main_case=m, cases=cases)
 
+    fa_src = "thermal3d/kernels/flash_attention.py"
+    attn_src = "thermal3d_torch/kernels/csrc/attention.cu"
     kernels = [
         entry("percentile_enhance", "thermal3d_torch/kernels/csrc/percentile_enhance.cu",
-              "thermal3d/kernels/image_ops.py:44", k1, 0),
+              "thermal3d/kernels/image_ops.py:44", k1, 0, "serving"),
+        # main case: the S=1024 encoder call in bf16 (index 4: after the
+        # four S=196 cases)
         entry("fused_rope_attention", "thermal3d_torch/kernels/csrc/rope_attention.cu",
-              "thermal3d/kernels/flash_attention.py:310", k2, 0),
+              f"{fa_src}:310", k2, 4, "pseudo_gt_auto"),
         entry("fused_rope_cross_attention", "thermal3d_torch/kernels/csrc/rope_attention.cu",
-              "thermal3d/kernels/flash_attention.py:415", k3, 0),
+              f"{fa_src}:415", k3, 2, "pseudo_gt_auto"),
+        entry("flash_attention_pallas", attn_src, f"{fa_src}:91",
+              k456["flash_attention_pallas"], 0, "pseudo_gt_pallas"),
+        entry("flash_attention_grouped", attn_src, f"{fa_src}:227",
+              k456["flash_attention_grouped"], 0, "pseudo_gt_pallas_grouped4_depth2"),
+        entry("flash_attention_multihead", attn_src, f"{fa_src}:164",
+              k456["flash_attention_multihead"], 0, "pseudo_gt_pallas_multihead_depth2"),
     ]
     print(card, flush=True)
     print(json.dumps({"engine": engine}), flush=True)
+    print(json.dumps({"pseudo_gt": pseudo_gt}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

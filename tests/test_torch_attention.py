@@ -1,0 +1,178 @@
+"""K4/K5/K6 (softmax attention on roped q/k) and K2/K3 at S=1024: the plain
+PyTorch versions of the port against the JAX Pallas kernels they replace, in
+interpret mode on the CPU, and the port's flash_attention / attention_bshd
+routes. The CUDA kernels are held against these plain versions on the card
+by chip_smoke.py."""
+
+import importlib
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import tests.test_torch_common  # noqa: F401  (torch thread count)
+from thermal3d.models.rope import make_grid_positions as jax_grid
+from thermal3d.models.rope import rope_tables as jax_rope_tables
+from thermal3d_torch.kernels import flash_attention as tfa
+
+# the module (thermal3d.kernels re-exports its flash_attention function)
+jfa = importlib.import_module("thermal3d.kernels.flash_attention")
+
+# f32 against the plain softmax reference (division before PV, one-shot):
+# the same products, other summation orders and one division moved
+REF_ATOL = 1e-5
+# against interpret mode: the JAX suite's own bound for the Pallas attention
+# kernels on the CPU (tests/test_flash_attention.py: interpret mode models
+# the MXU's operand precision)
+INTERPRET_ATOL = 5e-3
+# the fused RoPE kernels in interpret mode, as tests/test_torch_kernels.py
+FUSED_ATOL = 1e-4
+
+
+def _qkv(shape_q, shape_kv, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape_q).astype(np.float32),
+            rng.standard_normal(shape_kv).astype(np.float32),
+            rng.standard_normal(shape_kv).astype(np.float32))
+
+
+@pytest.mark.parametrize("n,sq,sk,d", [
+    (3, 196, 196, 64),   # the serving S, D: neither a multiple of 128 in S
+    (2, 100, 100, 32),
+    (2, 100, 300, 16),   # Sq != Sk
+    (2, 256, 64, 32),
+])
+def test_k4_plain_matches_pallas_interpret(n, sq, sk, d):
+    q, k, v = _qkv((n, sq, d), (n, sk, d), seed=sq + sk)
+    scale = 1.0 / math.sqrt(d)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    interp = np.asarray(jfa._flash_attention_fwd_pallas(jq, jk, jv, scale=scale, interpret=True))
+    ref = np.asarray(jfa._attention_reference(jq, jk, jv, scale))
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    out = tfa.attention_plain(*t, scale).numpy()
+    assert out.shape == (n, sq, d)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=REF_ATOL)
+    np.testing.assert_allclose(out, interp, rtol=0, atol=INTERPRET_ATOL)
+    # the K4 wrapper takes the plain version for CPU tensors and counts nothing
+    before = tfa.flash_attention_pallas.launches
+    np.testing.assert_array_equal(tfa.flash_attention_pallas(*t, scale).numpy(), out)
+    assert tfa.flash_attention_pallas.launches == before
+
+
+@pytest.mark.parametrize("impl,wrapper", [
+    ("pallas_grouped2", "flash_attention_grouped"),
+    ("pallas_grouped", "flash_attention_grouped"),
+    ("pallas_multihead", "flash_attention_multihead"),
+    ("pallas", "flash_attention_pallas"),
+])
+@pytest.mark.parametrize("s", [100, 196])
+def test_k5_k6_plain_match_pallas_interpret(impl, wrapper, s):
+    """flash_attention on [B,H,S,D] per impl name: the plain version against
+    the JAX kernel of that name in interpret mode, and against the reference."""
+    b, h, d = 2, 4, 16
+    q, k, v = _qkv((b, h, s, d), (b, h, s, d), seed=s)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    interp = np.asarray(jfa.flash_attention(jq, jk, jv, impl=impl, interpret=True))
+    ref = np.asarray(jfa.flash_attention(jq, jk, jv, impl="xla"))
+    fn = getattr(tfa, wrapper)
+    before = fn.launches
+    out = tfa.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)), impl=impl).numpy()
+    assert fn.launches == before
+    np.testing.assert_allclose(out, ref, rtol=0, atol=REF_ATOL)
+    np.testing.assert_allclose(out, interp, rtol=0, atol=INTERPRET_ATOL)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "pallas_grouped4", "pallas_multihead", "torch"])
+def test_attention_bshd_matches_jax(impl):
+    """[B,S,H,D] in and out, q/k as a view of one packed projection (the
+    layer's layout): the JAX attention_bshd (its f32 XLA path) gives the
+    same function; the output is contiguous."""
+    b, s, h, d = 2, 24, 3, 16
+    rng = np.random.default_rng(5)
+    qkv = rng.standard_normal((b, s, 3 * h * d)).astype(np.float32)
+    c = h * d
+    q, k, v = (qkv[..., i * c:(i + 1) * c].reshape(b, s, h, d) for i in range(3))
+    ref = np.asarray(jfa.attention_bshd(*(jnp.asarray(a) for a in (q, k, v)), impl="xla"))
+    t = torch.from_numpy(qkv)
+    tq, tk, tv = (t[..., i * c:(i + 1) * c].reshape(b, s, h, d) for i in range(3))
+    out = tfa.attention_bshd(tq, tk, tv, impl=impl)
+    assert out.shape == (b, s, h, d) and out.is_contiguous()
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=REF_ATOL)
+
+
+@pytest.mark.parametrize("impl", ["auto", "xla", "pallas_grouped0", "pallas_fused4", "flash"])
+def test_flash_attention_rejects_unknown_impl(impl):
+    x = torch.zeros((1, 1, 4, 4))
+    with pytest.raises(ValueError, match="attention impl"):
+        tfa.flash_attention(x, x, x, impl=impl)
+
+
+def _rope_inputs(b, hg, wg, nh, d, n_tensors, seed):
+    rng = np.random.default_rng(seed)
+    s, c = hg * wg, nh * d
+    cos, sin = (np.array(t) for t in jax_rope_tables(jax_grid(hg, wg), d, 100.0))
+    xs = [rng.standard_normal((b, s, c * (3 if n_tensors == 1 else 1))).astype(np.float32)
+          for _ in range(n_tensors)]
+    return xs, cos, sin
+
+
+def test_k2_plain_matches_pallas_interpret_s1024():
+    """MASt3R-512's S=1024 (a 32×32 grid) at a narrow width: the plain K2
+    against the fused Pallas kernel in interpret mode."""
+    (qkv,), cos, sin = _rope_inputs(1, 32, 32, 2, 16, 1, seed=1)
+    scale = 1.0 / math.sqrt(16)
+    ref = np.asarray(jfa.fused_rope_attention(jnp.asarray(qkv), jnp.asarray(cos),
+                                              jnp.asarray(sin), 2, scale, 4, True))
+    t = [torch.from_numpy(a) for a in (qkv, cos, sin)]
+    out = tfa.fused_rope_attention_plain(*t, 2, scale).numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=FUSED_ATOL)
+    np.testing.assert_array_equal(tfa.fused_rope_attention(*t, 2, scale).numpy(), out)
+
+
+def test_k3_plain_matches_pallas_interpret_s1024():
+    (q, k, v), cos, sin = _rope_inputs(1, 32, 32, 2, 16, 3, seed=2)
+    scale = 1.0 / math.sqrt(16)
+    ref = np.asarray(jfa.fused_rope_cross_attention(
+        *(jnp.asarray(a) for a in (q, k, v, cos, sin)), 2, scale, 4, True))
+    t = [torch.from_numpy(a) for a in (q, k, v, cos, sin)]
+    out = tfa.rope_attention_plain(*t, 2, scale).numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=FUSED_ATOL)
+    np.testing.assert_array_equal(tfa.fused_rope_cross_attention(*t, 2, scale).numpy(), out)
+
+
+def _online_softmax_recipe(q, k, v, scale, tile):
+    """The key-tile kernels' arithmetic (csrc/attention_common.cuh) restated
+    in PyTorch: per tile, p = exp(s - running max) rounded to the storage
+    type before PV; the f32 sum and accumulator rescaled when the max moves;
+    the division after PV."""
+    dt = q.dtype
+    qf, kf, vf = (t.to(torch.float32) for t in (q, k, v))
+    m = torch.full(q.shape[:-1] + (1,), -math.inf)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(qf.shape)
+    for j0 in range(0, k.shape[-2], tile):
+        s = qf @ kf[..., j0:j0 + tile, :].transpose(-1, -2) * scale
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        e = torch.exp(s - m_new)
+        l = l * alpha + e.sum(-1, keepdim=True)
+        acc = acc * alpha + e.to(dt).to(torch.float32) @ vf[..., j0:j0 + tile, :]
+        m = m_new
+    return (acc / l).to(dt)
+
+
+@pytest.mark.parametrize("dtype,limit", [(torch.float32, 2e-5), (torch.bfloat16, 2.0 ** -6)])
+def test_key_tile_recipe_within_kernel_limits(dtype, limit):
+    """The online softmax rounds p against a running max, so in bf16 it is
+    not bit-equal to the one-shot plain version; at S=1024 with 128-key
+    tiles it stays within the limits chip_smoke.py holds the tiled kernels
+    to (2e-5 f32: summation order; 2^-6 bf16: an output ulp plus a flipped
+    rounding of p)."""
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv((2, 2, 1024, 64), (2, 2, 1024, 64), 9))
+    scale = 1.0 / 8.0
+    out = _online_softmax_recipe(q, k, v, scale, tile=128)
+    ref = tfa.attention_plain(q, k, v, scale)
+    err = (out.to(torch.float32) - ref.to(torch.float32)).abs().max().item()
+    assert err <= limit, err

@@ -109,10 +109,17 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     ("head", "catmlpdpt"),
 ])
 def test_unported_config_raises(field, value):
+    """scan_layers/branch_batch are not ported (NotImplementedError); a
+    DPT-family head with an unknown dpt_dtype, or an unknown head_type, is
+    refused (ValueError), as the JAX model refuses them."""
     from thermal3d_torch.core.config import TINY, HeadConfig
 
     if field == "head":
-        value = HeadConfig(head_type=value)
+        for head in (HeadConfig(head_type=value, dpt_dtype="float16"),
+                     HeadConfig(head_type=value + "_v2")):
+            with pytest.raises(ValueError):
+                InferenceEngine(dataclasses.replace(TINY, head=head), device="cpu")
+        return
     cfg = dataclasses.replace(TINY, **{field: value})
     with pytest.raises(NotImplementedError):
         InferenceEngine(cfg, device="cpu")

@@ -158,5 +158,18 @@ def test_from_jax_wrapper_layout_matches_export():
 
 
 def test_from_jax_rejects_unported_params():
-    with pytest.raises(KeyError):
-        state_dict_from_jax({"downstream_head1": {"dpt": {"head0": {"kernel": np.zeros(1)}}}})
+    """A path that no module of the port has (here an unknown DPT head
+    submodule) is refused, not dropped."""
+    with pytest.raises(KeyError, match="no module of the port"):
+        state_dict_from_jax({"downstream_head1": {"dpt": {"head9": {"kernel": np.zeros(1)}}}})
+
+
+@pytest.mark.parametrize("tree", [
+    {"downstream_head2": {"dpt_head": {"dpt": {"refinenet5": {"out_conv": {"bias": np.zeros(1)}}}}}},
+    {"downstream_head1": {"dpt": {"refinenet1": {"resConfUnit3": {"conv1": {"bias": np.zeros(1)}}}}}},
+    {"downstream_head1": {"mlp_fc3": {"kernel": np.zeros((1, 1))}}},
+    {"enc_norm2": {"scale": np.zeros(1)}},
+], ids=["refinenet5", "resConfUnit3", "mlp_fc3", "enc_norm2"])
+def test_from_jax_rejects_unknown_paths(tree):
+    with pytest.raises(KeyError, match="no module of the port"):
+        state_dict_from_jax(tree)

@@ -2,9 +2,10 @@
 
 Field names and defaults mirror the JAX `DustrModelConfig`/`HeadConfig`, so a
 JAX config and a port config built from the same keywords describe the same
-network. Only what the DUSt3R-224 serving path reads is kept; the layouts the
-port does not run yet (`scan_layers`, `branch_batch`, DPT/catmlpdpt heads) are
-fields so that asking for them raises instead of being ignored.
+network. Only what the DUSt3R-224 serving path and the MASt3R-512 pseudo-GT
+path read is kept; the layouts the port does not run yet (`scan_layers`,
+`branch_batch`) are fields so that asking for them raises instead of being
+ignored.
 """
 
 from __future__ import annotations
@@ -17,12 +18,27 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class HeadConfig:
-    """Downstream head. Only 'linear' (dust3r LinearPts3d) is ported."""
+    """Downstream head: 'linear' (dust3r LinearPts3d), 'dpt' (DPT regression
+    head) or 'catmlpdpt' (MASt3R: DPT pts3d/conf + an MLP local-feature
+    branch on cat(encoder, decoder) tokens)."""
 
-    head_type: str = "linear"
+    head_type: str = "linear"  # 'linear' | 'dpt' | 'catmlpdpt'
     # pts3d = unit(x) * expm1(|x|); conf = 1 + exp(c)  (dust3r postprocess)
     depth_mode: Tuple[str, float, float] = ("exp", float("-inf"), float("inf"))
     conf_mode: Tuple[str, float, float] = ("exp", 1.0, float("inf"))
+    # DPT
+    feature_dim: int = 256
+    last_dim: int = 128
+    dpt_layer_dims: Tuple[int, int, int, int] = (96, 192, 384, 768)
+    # catmlpdpt
+    local_feat_dim: int = 24
+    desc_conf_mode: Tuple[str, float, float] = ("exp", 0.0, float("inf"))
+    two_confs: bool = True
+    desc_hidden_dim_factor: float = 4.0
+    # DPT/catmlpdpt compute dtype: 'compute' follows the model's compute
+    # dtype, 'float32' pins the head to float32; the regression activations
+    # are float32 either way
+    dpt_dtype: str = "compute"  # 'compute' | 'float32'
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,9 +58,14 @@ class DustrModelConfig:
     rope_base: float = 100.0  # croco 'RoPE100'
     head: HeadConfig = dataclasses.field(default_factory=HeadConfig)
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
-    # 'auto': the CUDA kernels for CUDA tensors, their plain versions for CPU
-    # tensors; 'torch': the plain versions everywhere (the reference run that
-    # chip_smoke.py holds the kernels against).
+    # Attention route (models/layers.py), each a kernel for CUDA tensors and
+    # its plain version for CPU tensors:
+    #   'auto'                                  fused RoPE attention K2/K3
+    #   'pallas'                                RoPE, then attention K4
+    #   'pallas_grouped', 'pallas_groupedN'     RoPE, then K5
+    #   'pallas_multihead'                      RoPE, then K6
+    #   'torch'   the plain versions everywhere (the reference run that
+    #             chip_smoke.py holds the kernels against)
     attention_impl: str = "auto"
     scan_layers: bool = False  # not ported: raises
     branch_batch: bool = False  # not ported: raises
@@ -67,6 +88,22 @@ class DustrModelConfig:
 # The model the reference fine-tunes: ViT-L/16 encoder, 8-block base decoder
 # (the reference loads the 12-block checkpoint into 8 blocks), linear head.
 DUSTR_224_LINEAR = DustrModelConfig()
+
+# The frozen pseudo-GT model: MASt3R_ViTLarge_BaseDecoder_512_catmlpdpt_metric
+# (ViT-L encoder, 12-block base decoder, 512² input, catmlpdpt metric head
+# with two confidences).
+MASTR_512_CATMLPDPT = DustrModelConfig(
+    img_size=(512, 512),
+    dec_depth=12,
+    head=HeadConfig(head_type="catmlpdpt", local_feat_dim=24, two_confs=True),
+)
+
+# The released DUSt3R-512 DPT variant: the same trunk with a plain DPT head.
+DUSTR_512_DPT = DustrModelConfig(
+    img_size=(512, 512),
+    dec_depth=12,
+    head=HeadConfig(head_type="dpt"),
+)
 
 # CPU test preset: the JAX suite's tiny model (tests/conftest.py TINY_KW and
 # the CLI's --model_preset tiny).

@@ -17,12 +17,10 @@ import torch
 
 from thermal3d_torch.core.config import DUSTR_224_LINEAR, DustrModelConfig
 from thermal3d_torch.core.device import resolve_device
-from thermal3d_torch.models.dustr import AsymmetricCroCo3DStereo
+from thermal3d_torch.models.dustr import frozen_model
 from thermal3d_torch.models.thermal_wrap import ThermalPreprocessHead
 from thermal3d_torch.preprocess.enhance import ENHANCE_IMPLS, enhance_thermal_contrast
 from thermal3d_torch.preprocess.resize import resize_bilinear_hw
-
-_PARAMS_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class InferenceEngine:
@@ -46,8 +44,6 @@ class InferenceEngine:
             raise NotImplementedError("int8 serving is not ported")
         if mesh is not None:
             raise NotImplementedError("mesh (data-parallel) serving is not ported")
-        if params_dtype is not None and params_dtype not in _PARAMS_DTYPES:
-            raise ValueError(f"params_dtype {params_dtype!r} not in {tuple(_PARAMS_DTYPES)}")
         if enhance_impl not in ENHANCE_IMPLS:
             raise ValueError(f"enhance_impl {enhance_impl!r} not in {ENHANCE_IMPLS}")
         self.device = resolve_device(device)
@@ -55,16 +51,7 @@ class InferenceEngine:
         self.enhance_impl = enhance_impl
         self.use_thermal_head = use_thermal_head
 
-        model = AsymmetricCroCo3DStereo(config).to(self.device)
-        if state_dict is None:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(seed)
-            model.init_weights(gen)
-        else:
-            model.load_state_dict(state_dict, strict=True)
-        if params_dtype is not None:
-            model.to(_PARAMS_DTYPES[params_dtype])
-        self.model = model.eval().requires_grad_(False)
+        self.model = frozen_model(config, self.device, state_dict, seed, params_dtype)
 
         self.thermal_head = ThermalPreprocessHead().to(self.device)
         if thermal_head_state is not None:

@@ -3,8 +3,8 @@
 Each `csrc/<name>.cu` is compiled by nvcc for sm_90a into its own shared
 library with a plain C interface, loaded with ctypes (no PyTorch headers, so a
 build takes seconds). The libraries go to `thermal3d_torch/_build/`, named by
-a hash of the sources and flags, so an edited source rebuilds and an unchanged
-one is reused. All sources build at once, one nvcc process each, at the first
+a hash of the source, the shared headers (`csrc/*.cuh`) and the flags, so an
+edited source rebuilds and an unchanged one is reused. All sources build at once, one nvcc process each, at the first
 call that needs any of them.
 
 No `--use_fast_math`: the percentile kernel's `floor(x * 65535)` bins and its
@@ -28,7 +28,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("percentile_enhance", "rope_attention")
+SOURCES = ("percentile_enhance", "rope_attention", "attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -58,6 +58,8 @@ def find_nvcc() -> str:
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

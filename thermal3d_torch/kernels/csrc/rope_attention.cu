@@ -34,59 +34,16 @@
 // load (K rows padded so that the 32 lanes, each on its own key, hit distinct
 // banks), 4 probabilities and 2 elements of a V row per load. Each row's sums
 // run in the same order as with one row a warp.
-// This first version uses CUDA cores, not tensor cores (wgmma), and holds all
-// of K/V at once: S is bounded by shared memory (S=196 fits; S=1024 needs a
-// key-tile loop with an online softmax, which is not written yet).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+// This kernel uses CUDA cores, not tensor cores (wgmma), and holds all of
+// K/V at once, so S is bounded by shared memory (S=196 fits). Longer
+// sequences (MASt3R-512's S=1024) go to rope_attention_tiled_kernel, the
+// key-tile loop with an online softmax of attention_common.cuh; the wrapper
+// picks it when K/V of one head do not fit (t3d_rope_attention_smem_bytes).
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerBlock = 64;
-
-// query rows a warp scores together, by element size (see the note above)
-__host__ __device__ constexpr int rows_per_warp(size_t elem) { return elem == 4 ? 1 : 4; }
-constexpr int kMaxPairSlices = 4;  // head_dim <= 256: a lane owns <= 4 dim pairs
-// K rows are D+4 elements apart: with D % 4 == 0 every row starts 16-byte
-// (float) or 8-byte (bf16) aligned, and lane l's vector load starts at bank
-// 4l (float, 8 lanes a phase) or 2l (bf16, 16 lanes a phase): no conflicts.
-constexpr int kPad = 4;
-
-template <typename T>
-struct Elem;
-
-template <>
-struct Elem<float> {
-  static __device__ __forceinline__ float load(float v) { return v; }
-  static __device__ __forceinline__ float store(float v) { return v; }
-  static __device__ __forceinline__ float4 load4(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-  }
-  static __device__ __forceinline__ float2 load2(const float* p) {
-    return *reinterpret_cast<const float2*>(p);
-  }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(__nv_bfloat16 v) { return __bfloat162float(v); }
-  static __device__ __forceinline__ __nv_bfloat16 store(float v) { return __float2bfloat16_rn(v); }
-  static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  static __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  }
-};
-
-__host__ __device__ inline size_t align16(size_t b) { return (b + 15) & ~size_t(15); }
-__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
 // Shared memory layout: K [S][D+4] T | V [S4][D] T (S4 = S rounded up to 4,
 // pad rows zero) | (16-B aligned) q rows [warps][R][D] f32 |
@@ -98,27 +55,6 @@ __host__ __device__ inline size_t kv_bytes(int seq, int head_dim, size_t elem) {
 __host__ __device__ inline size_t smem_bytes(int seq, int head_dim, size_t elem) {
   return kv_bytes(seq, head_dim, elem) +
          (size_t)kWarps * rows_per_warp(elem) * (head_dim + round4(seq)) * sizeof(float);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// RoPE'd value of element d of one head's row, in float32.
-template <typename T>
-__device__ __forceinline__ float rope_at(const T* row, const float* cos_row,
-                                         const float* sin_row, int d, int d4) {
-  const bool even_quarter = ((d / d4) & 1) == 0;
-  const float t = Elem<T>::load(row[d]);
-  const float partner = Elem<T>::load(row[even_quarter ? d + d4 : d - d4]);
-  const float r = even_quarter ? -partner : partner;
-  return __fadd_rn(__fmul_rn(t, cos_row[d]), __fmul_rn(r, sin_row[d]));
 }
 
 template <typename T>
@@ -293,6 +229,29 @@ int launch(const void* q, const void* k, const void* v, long long row_stride,
   return (int)cudaGetLastError();
 }
 
+// K2/K3 for long sequences: the key-tile loop with RoPE on q and k.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rope_attention_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, T* __restrict__ out, Strides qs,
+                            Strides ks, Strides vs, Strides os, const float* __restrict__ cos_t,
+                            const float* __restrict__ sin_t, int sq, int sk, int head_dim,
+                            int tile, float scale) {
+  attend_tiles<T, true>(q, k, v, out, qs, ks, vs, os, cos_t, sin_t, sq, sk, head_dim, tile,
+                        scale);
+}
+
+template <typename T>
+int launch_long(const void* q, const void* k, const void* v, long long row_stride,
+                const float* cos_t, const float* sin_t, void* out, int batch, int seq,
+                int num_heads, int head_dim, float scale, cudaStream_t stream) {
+  const Strides in{(long long)seq * row_stride, head_dim, row_stride};
+  const long long c = (long long)num_heads * head_dim;
+  const Strides o{seq * c, head_dim, c};
+  return launch_tiled<T>(rope_attention_tiled_kernel<T>, q, k, v, out, in, in, in, o, cos_t,
+                         sin_t, batch, num_heads, seq, seq, head_dim, scale, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -317,6 +276,22 @@ int t3d_rope_attention(int dtype, const void* q, const void* k, const void* v,
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, row_stride, cos_t, sin_t, out, batch, seq,
                                  num_heads, head_dim, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The same function for sequences whose K/V do not fit in one block's
+// shared memory: the key-tile loop. Same arguments and return.
+int t3d_rope_attention_tiled(int dtype, const void* q, const void* k, const void* v,
+                             long long row_stride, const float* cos_t, const float* sin_t,
+                             void* out, int batch, int seq, int num_heads, int head_dim,
+                             float scale, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch_long<float>(q, k, v, row_stride, cos_t, sin_t, out, batch, seq, num_heads,
+                              head_dim, scale, s);
+  if (dtype == 1)
+    return launch_long<__nv_bfloat16>(q, k, v, row_stride, cos_t, sin_t, out, batch, seq,
+                                      num_heads, head_dim, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,18 +1,30 @@
-"""K2 + K3: fused 2-D RoPE + attention (counterpart of the fused kernels in
-thermal3d/kernels/flash_attention.py).
+"""Attention kernels (counterpart of thermal3d/kernels/flash_attention.py).
 
-`fused_rope_attention` (K2, self-attention on the packed [B,S,3C] qkv
-projection) and `fused_rope_cross_attention` (K3, separate [B,S,C] q/k/v
-projections sharing one position grid) launch the CUDA kernel in
-csrc/rope_attention.cu for CUDA tensors and run the plain PyTorch version of
-the same arithmetic for CPU tensors. Both return [B,S,C]. Forward only: a
-CUDA input that requires grad raises (the backward kernel comes with
+K2 + K3, fused 2-D RoPE + attention: `fused_rope_attention` (K2,
+self-attention on the packed [B,S,3C] qkv projection) and
+`fused_rope_cross_attention` (K3, separate [B,S,C] q/k/v projections sharing
+one position grid) launch csrc/rope_attention.cu and return [B,S,C].
+
+K4 + K5 + K6, softmax attention on q/k that are already roped:
+`flash_attention_pallas` (K4, [N,S,D] or [B,H,S,D]),
+`flash_attention_grouped` (K5) and `flash_attention_multihead` (K6, both
+[B,H,S,D]) launch csrc/attention.cu, one kernel for the three functions the
+TPU tiled three ways; each keeps its own entry and launch count.
+`flash_attention` ([B,H,S,D]) and `attention_bshd` ([B,S,H,D]) pick one of
+them by `impl` name, as the JAX functions do.
+
+Every wrapper launches its CUDA kernel for CUDA tensors and runs the plain
+PyTorch version of the same arithmetic for CPU tensors. Forward only: a
+CUDA input that requires grad raises (the backward kernels come with
 training).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+import re
+from typing import Optional
 
 import torch
 
@@ -44,13 +56,9 @@ def rope_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return t.reshape(b, s, num_heads, d).transpose(1, 2).to(torch.float32)
 
     def rope(t):
-        return (t * cos + rot_lanes(t) * sin).to(dt).to(torch.float32)
+        return (t * cos + rot_lanes(t) * sin).to(dt)
 
-    qr, kr, vf = rope(heads(q)), rope(heads(k)), heads(v)
-    scores = torch.matmul(qr, kr.transpose(-1, -2)) * scale
-    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
-    denom = p.sum(dim=-1, keepdim=True)
-    out = torch.matmul(p.to(dt).to(torch.float32), vf) / denom
+    out = attention_plain(rope(heads(q)), rope(heads(k)), heads(v).to(dt), scale)
     return out.to(dt).transpose(1, 2).reshape(b, s, c)
 
 
@@ -104,8 +112,8 @@ fused_rope_cross_attention.launches = 0
 
 
 def smem_bytes(seq: int, head_dim: int, dtype: torch.dtype) -> int:
-    """Shared memory one block of the kernel needs (K/V of one head, whole
-    sequence). Needs the built library."""
+    """Shared memory one block of the one-shot K2/K3 kernel needs (K/V of one
+    head, whole sequence). Needs the built library."""
     fn = _lib().t3d_rope_attention_smem_bytes
     return int(fn(seq, head_dim, torch.tensor([], dtype=dtype).element_size()))
 
@@ -132,11 +140,6 @@ def _check(what, tensors, cos, sin, num_heads, c, s):
                 or not t.is_contiguous()):
             raise ValueError(f"{what}: cos/sin must be contiguous float32 [{s}, {d}] "
                              f"on {x.device}")
-    need = smem_bytes(s, d, x.dtype)
-    if need > SMEM_LIMIT:
-        raise ValueError(f"{what}: S={s}, head_dim={d} needs {need} B of shared "
-                         f"memory for K/V, over the {SMEM_LIMIT} B a block has "
-                         "(longer sequences need the key-tile loop)")
 
 
 def _launch(x, q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale, what):
@@ -144,7 +147,13 @@ def _launch(x, q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale,
     if b == 0 or s == 0:
         return
     lib = _lib()
-    rc = lib.t3d_rope_attention(
+    # The switch between the two K2/K3 kernels: the one-shot kernel holds
+    # K/V of a head in shared memory (S=196, the serving path, keeps it and
+    # its outputs to the bit); where they do not fit (bf16 D=64 from S of
+    # about 560 on; MASt3R-512's S=1024) the key-tile loop runs instead.
+    one_shot = smem_bytes(s, c // num_heads, x.dtype) <= SMEM_LIMIT
+    fn = lib.t3d_rope_attention if one_shot else lib.t3d_rope_attention_tiled
+    rc = fn(
         _DTYPE_CODE[x.dtype], q_ptr, k_ptr, v_ptr, row_stride, cos.data_ptr(),
         sin.data_ptr(), out.data_ptr(), b, s, num_heads, c // num_heads, float(scale),
         torch.cuda.current_stream(x.device).cuda_stream)
@@ -153,13 +162,166 @@ def _launch(x, q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale,
 
 def _lib() -> ctypes.CDLL:
     lib = _build.library("rope_attention")
-    fn = lib.t3d_rope_attention
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fn in (lib.t3d_rope_attention, lib.t3d_rope_attention_tiled):
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     sm = lib.t3d_rope_attention_smem_bytes
     sm.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     sm.restype = ctypes.c_ulonglong
+    return lib
+
+
+# --------------------------------------------------------------------------
+# K4 / K5 / K6: softmax attention on q/k that are already roped
+# --------------------------------------------------------------------------
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """q: [..., Sq, D], k/v: [..., Sk, D] → [..., Sq, D] in q's dtype, the
+    arithmetic of the Pallas `_attention_kernel`: QK on the storage-type
+    values accumulated in f32, times scale; f32 exp and sum; p rounded to
+    the storage type before PV; the division after PV."""
+    dt = q.dtype
+    scores = torch.matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2)) * scale
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    denom = p.sum(dim=-1, keepdim=True)
+    out = torch.matmul(p.to(dt).to(torch.float32), v.to(torch.float32)) / denom
+    return out.to(dt)
+
+
+def flash_attention_pallas(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           scale: float) -> torch.Tensor:
+    """K4 (`_flash_attention_fwd_pallas`): q [N, Sq, D], k/v [N, Sk, D], or
+    the same with a [B, H] lead (what `flash_attention` hands it, so the
+    head split needs no copy). Sq and Sk may differ."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, scale)
+    if q.dim() == 3:
+        return flash_attention_pallas(q[None], k[None], v[None], scale)[0]
+    out = _attend("flash_attention_pallas", q, k, v, scale)
+    flash_attention_pallas.launches += 1
+    return out
+
+
+flash_attention_pallas.launches = 0
+
+
+def flash_attention_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            scale: float) -> torch.Tensor:
+    """K5 (`_flash_attention_fwd_grouped`): q [B, H, Sq, D], k/v
+    [B, H, Sk, D]. The TPU kernel ran G heads a program; on the card every
+    head gets its own blocks, so G shapes nothing here."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, scale)
+    out = _attend("flash_attention_grouped", q, k, v, scale)
+    flash_attention_grouped.launches += 1
+    return out
+
+
+flash_attention_grouped.launches = 0
+
+
+def flash_attention_multihead(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              scale: float) -> torch.Tensor:
+    """K6 (`_flash_attention_fwd_multihead`): q [B, H, Sq, D], k/v
+    [B, H, Sk, D]; the TPU kernel ran all heads of a batch item in one
+    program."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, scale)
+    out = _attend("flash_attention_multihead", q, k, v, scale)
+    flash_attention_multihead.launches += 1
+    return out
+
+
+flash_attention_multihead.launches = 0
+
+_GROUPED = re.compile(r"pallas_grouped([1-9][0-9]*)?")
+ATTENTION_IMPLS = ("pallas", "pallas_grouped", "pallas_groupedN", "pallas_multihead", "torch")
+
+
+def check_attention_impl(impl: str) -> None:
+    """Raise ValueError for an `impl` that flash_attention does not know."""
+    if impl not in ("pallas", "pallas_multihead", "torch") and not _GROUPED.fullmatch(impl):
+        raise ValueError(f"attention impl {impl!r} not in {ATTENTION_IMPLS} "
+                         "(N a positive head-group size)")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: Optional[float] = None, impl: str = "pallas") -> torch.Tensor:
+    """Multi-head attention, q [B, H, Sq, D], k/v [B, H, Sk, D] → [B, H, Sq, D].
+
+    impl: 'pallas' (K4), 'pallas_grouped' / 'pallas_groupedN' (K5),
+    'pallas_multihead' (K6) or 'torch' (the plain version). The JAX
+    function's 'auto' and 'xla' are TPU dispatch policy and are not taken:
+    the port's 'auto' attention is the fused K2/K3 of models/layers.py."""
+    check_attention_impl(impl)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if impl == "torch":
+        return attention_plain(q, k, v, scale)
+    if impl.startswith("pallas_grouped"):
+        return flash_attention_grouped(q, k, v, scale)
+    if impl == "pallas_multihead":
+        return flash_attention_multihead(q, k, v, scale)
+    return flash_attention_pallas(q, k, v, scale)
+
+
+def attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   scale: Optional[float] = None, impl: str = "pallas") -> torch.Tensor:
+    """Attention in the [B, S, H, D] layout of the projections: q
+    [B, Sq, H, D], k/v [B, Sk, H, D] → [B, Sq, H, D], contiguous, so the
+    caller's reshape to [B, Sq, H*D] is free. The head axes are swapped as
+    views; the kernels read the strides and write their output in q's
+    layout, so on the card `.contiguous()` copies nothing."""
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                          scale=scale, impl=impl)
+    return out.transpose(1, 2).contiguous()
+
+
+def _attend(what, q, k, v, scale):
+    """Check [B, H, S, D] operands and launch csrc/attention.cu. The output
+    is laid out as q is (so a [B, S, H, D] view in gives one out)."""
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{what}: dtype {q.dtype} not supported (float32, bfloat16)")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or q.shape[:2] != k.shape[:2] \
+            or q.shape[3] != k.shape[3]:
+        raise ValueError(f"{what}: want q [B,H,Sq,D] and k, v [B,H,Sk,D], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    for t in (q, k, v):
+        if t.device != q.device or t.dtype != q.dtype or t.stride(-1) != 1:
+            raise ValueError(f"{what}: q, k, v must be of one dtype, on one device, "
+                             "with a contiguous last axis")
+        if t.requires_grad and torch.is_grad_enabled():
+            raise RuntimeError(f"{what}: the CUDA kernel is forward only")
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if d % 4 or d > 256:
+        raise ValueError(f"{what}: head_dim {d} must be a multiple of 4 and <= 256")
+    if sk == 0:
+        raise ValueError(f"{what}: no keys")
+    order = sorted(range(4), key=lambda i: q.stride(i), reverse=True)
+    out = torch.empty([q.shape[i] for i in order], dtype=q.dtype, device=q.device)
+    out = out.permute([order.index(i) for i in range(4)])
+    if out.numel() == 0:
+        return out
+    strides = (ctypes.c_longlong * 12)(*(t.stride(i) for t in (q, k, v, out) for i in range(3)))
+    lib = _attention_lib()
+    rc = lib.t3d_attention(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           out.data_ptr(), strides, b, h, sq, sk, d, float(scale),
+                           torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, rc, f"{what} launch")
+    return out
+
+
+def _attention_lib() -> ctypes.CDLL:
+    lib = _build.library("attention")
+    fn = lib.t3d_attention
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib

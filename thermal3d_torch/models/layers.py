@@ -10,26 +10,37 @@ with strict=True.
 Parameters are stored in whatever dtype the engine gives them (float32, or
 bfloat16 for `params_dtype='bfloat16'`) and cast to the compute dtype where
 they are used, as the JAX modules do. GEMMs, LayerNorm, GELU and the patch
-conv are plain PyTorch; attention goes through kernels K2/K3
-(kernels/flash_attention.py).
+conv are plain PyTorch; attention goes through the kernels of
+kernels/flash_attention.py, by `attention_impl`: 'auto' the fused RoPE
+kernels K2/K3; 'pallas' / 'pallas_grouped[N]' / 'pallas_multihead' RoPE on
+the [B,S,H,D] heads (apply_rope_2d_bshd), then K4 / K5 / K6; 'torch' the
+plain version of K2/K3.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from thermal3d_torch.kernels.flash_attention import (
-    fused_rope_attention, fused_rope_attention_plain, fused_rope_cross_attention,
-    rope_attention_plain)
+    attention_bshd, check_attention_impl, fused_rope_attention, fused_rope_attention_plain,
+    fused_rope_cross_attention, rope_attention_plain)
+from thermal3d_torch.models.rope import apply_rope_2d_bshd
 
-Rope = Tuple[torch.Tensor, torch.Tensor]  # (cos, sin) tables [S, head_dim]
 
-ATTENTION_IMPLS = ("auto", "torch")
+class Rope(NamedTuple):
+    """The position encoding of one patch grid: (cos, sin) tables [S, head_dim]
+    for the fused kernels, and the (y, x) positions [S, 2] with the base
+    frequency for apply_rope_2d_bshd (the 'pallas*' routes)."""
+
+    cos: torch.Tensor
+    sin: torch.Tensor
+    positions: Optional[torch.Tensor] = None
+    base: float = 100.0
 
 
 class Dense(nn.Module):
@@ -75,8 +86,21 @@ class Mlp(nn.Module):
 
 
 def _check_impl(impl: str) -> None:
-    if impl not in ATTENTION_IMPLS:
-        raise ValueError(f"attention_impl {impl!r} not in {ATTENTION_IMPLS}")
+    if impl != "auto":
+        check_attention_impl(impl)
+
+
+def _split_attention(q, k, v, num_heads, rope: Rope, impl):
+    """The 'pallas*' routes: [B, S, C] projections → heads [B, S, H, D], RoPE
+    on q and k in their dtype, attention through K4/K5/K6 → [B, S, C]."""
+    b, s, c = q.shape
+
+    def heads(t):
+        return t.reshape(b, t.shape[1], num_heads, c // num_heads)
+
+    qh = apply_rope_2d_bshd(heads(q), rope.positions, rope.base)
+    kh = apply_rope_2d_bshd(heads(k), rope.positions, rope.base)
+    return attention_bshd(qh, kh, heads(v), impl=impl).reshape(b, s, c)
 
 
 class Attention(nn.Module):
@@ -94,8 +118,13 @@ class Attention(nn.Module):
 
     def forward(self, x, rope: Rope):
         qkv = self.qkv(x)
-        attend = (fused_rope_attention if self.attention_impl == "auto"
-                  else fused_rope_attention_plain)
+        impl = self.attention_impl
+        if impl.startswith("pallas"):
+            c = qkv.shape[-1] // 3
+            out = _split_attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
+                                   self.num_heads, rope, impl)
+            return self.proj(out)
+        attend = fused_rope_attention if impl == "auto" else fused_rope_attention_plain
         return self.proj(attend(qkv, rope[0], rope[1], self.num_heads, self.scale))
 
 
@@ -117,8 +146,10 @@ class CrossAttention(nn.Module):
 
     def forward(self, x, y, rope: Rope):
         q, k, v = self.projq(x), self.projk(y), self.projv(y)
-        attend = (fused_rope_cross_attention if self.attention_impl == "auto"
-                  else rope_attention_plain)
+        impl = self.attention_impl
+        if impl.startswith("pallas"):
+            return self.proj(_split_attention(q, k, v, self.num_heads, rope, impl))
+        attend = fused_rope_cross_attention if impl == "auto" else rope_attention_plain
         return self.proj(attend(q, k, v, rope[0], rope[1], self.num_heads, self.scale))
 
 

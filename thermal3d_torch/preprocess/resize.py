@@ -1,4 +1,5 @@
-"""Matmul bilinear resize (counterpart of thermal3d/preprocess/resize.py).
+"""Matmul bilinear resize (counterpart of thermal3d/preprocess/resize.py):
+`resize_bilinear_hw` on [..., H, W] and `resize_bilinear_hwc` on [..., H, W, C].
 
 Bilinear resampling is linear and separable, so resizing each spatial axis is
 a product with a fixed [n_in, n_out] matrix. The half-pixel matrix is derived
@@ -66,4 +67,20 @@ def resize_bilinear_hw(x: torch.Tensor, out_hw: Tuple[int, int],
         y = torch.einsum("...yx,yh->...hx", y, mh)
     if mw is not None:
         y = torch.matmul(y, mw)
+    return y.to(x.dtype)
+
+
+def resize_bilinear_hwc(x: torch.Tensor, out_hw: Tuple[int, int],
+                        align_corners: bool = False) -> torch.Tensor:
+    """Resize the two axes before a trailing channel axis in float32:
+    [..., H, W, C] → [..., H', W', C], cast back to x's dtype (the DPT
+    head's upsamples use align_corners=True)."""
+    h, w = x.shape[-3:-1]
+    mh = _device_matrix(h, out_hw[0], align_corners, str(x.device))
+    mw = _device_matrix(w, out_hw[1], align_corners, str(x.device))
+    y = x.to(torch.float32)
+    if mh is not None:
+        y = torch.einsum("...yxc,yh->...hxc", y, mh)
+    if mw is not None:
+        y = torch.einsum("...hxc,xw->...hwc", y, mw)
     return y.to(x.dtype)
