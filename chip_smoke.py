@@ -10,19 +10,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
   3. hold each kernel against its plain PyTorch version on the card, in bf16
      and f32, and time kernel, plain version, the PyTorch library yardstick
      and the card's bound: K1 and K2/K3 at the serving shapes (S=196); K2/K3
-     (the key-tile loop) and K4/K5/K6 at the MASt3R-512 shapes (S=1024);
+     and K4/K5/K6 at the MASt3R-512 shapes (S=1024). Each K2/K3 case records
+     the kernel that served it: bf16 (head_dim 64) the tensor-core kernel,
+     float32, and bf16 at head_dim 32, the CUDA-core one-shot (S=196) or
+     key-tile (S=1024) kernel;
   4. drive the serving path: a full-width bf16 DUSt3R-224 InferenceEngine
      (seeded random weights) answers batches of synthetic raw thermal frames
      [32, 320, 416]; its depth is held against the same engine run with the
      plain versions (attention_impl='torch', enhance_impl='plain'), and the
      kernels' launch counts over those batches must be K1 = n, K2 = 40·n,
-     K3 = 16·n; one more batch runs under torch.profiler for the device
-     time by layer and the device's idle share; then a float32 engine is
-     held against its plain twin;
+     K3 = 16·n, and the tensor-core kernel's own count K2 + K3; one more
+     batch runs under torch.profiler for the device time by layer and the
+     device's idle share; then a float32 engine is held against its plain
+     twin, with the tensor-core count 0 there;
   5. drive the pseudo-GT path: a full-width, full-depth bf16
      MASt3R-512 PseudoGTGenerator (seeded random weights) turns batches of 4
      synthetic RGB pairs [4, 512, 512, 3] into the eight pseudo-GT arrays,
-     with launch counts K2 = 48·n, K3 = 24·n; pairs/s with and without the
+     with launch counts K2 = 48·n, K3 = 24·n (all on the tensor-core
+     kernel: its count 72·n); pairs/s with and without the
      host copies; the outputs against a plain twin (attention_impl='torch')
      and a float32 twin; the geometry against float64 numpy; one step under
      torch.profiler; then attention_impl='pallas' (K4 = 72·n) at full depth,
@@ -171,27 +176,32 @@ def k1_cases(torch):
 
 
 def attention_cases(torch, cross: bool, batch: int = BATCH, grid=(14, 14), widths=None,
-                    reps: int = 20):
-    """K2 (K3 with cross=True) at D=64 on a grid×grid patch grid: the
-    serving shapes (S=196) by default, MASt3R-512's (S=1024) with grid
-    (32, 32). Sequences whose K/V do not fit in shared memory run the
-    key-tile kernel."""
+                    reps: int = 20, dtypes=("bfloat16", "float32")):
+    """K2 (K3 with cross=True) on a grid×grid patch grid: the serving
+    shapes (S=196) by default, MASt3R-512's (S=1024) with grid (32, 32);
+    `widths` are (C, heads), D=64 by default. bf16 with D=64 runs the
+    tensor-core kernel; float32 and other head dims the CUDA-core one-shot
+    kernel, or the key-tile kernel where K/V of a head do not fit in shared
+    memory. Each case records the kernel that served it."""
     import torch.nn.functional as F
 
+    from thermal3d_torch.kernels import flash_attention as fa
     from thermal3d_torch.kernels.flash_attention import (fused_rope_attention,
                                                          fused_rope_attention_plain,
                                                          fused_rope_cross_attention,
                                                          rope_attention_plain, rot_lanes)
     from thermal3d_torch.models.rope import make_grid_positions, rope_tables
 
-    s, d = grid[0] * grid[1], 64
-    cos, sin = rope_tables(make_grid_positions(*grid, device="cuda"), d)
+    s = grid[0] * grid[1]
+    positions = make_grid_positions(*grid, device="cuda")
     if widths is None:
         widths = [(768, 12)] if cross else [(1024, 16), (768, 12)]
     cases = []
     for c, nh in widths:
-        for dt in (torch.bfloat16, torch.float32):
-            dname = "bfloat16" if dt == torch.bfloat16 else "float32"
+        d = c // nh
+        cos, sin = rope_tables(positions, d)
+        for dname in dtypes:
+            dt = getattr(torch, dname)
             gen = torch.Generator(device="cuda").manual_seed(c)
             scale = 1.0 / math.sqrt(d)
             if cross:
@@ -217,7 +227,17 @@ def attention_cases(torch, cross: bool, batch: int = BATCH, grid=(14, 14), width
 
             qr, kr, vh = roped(q), roped(k), heads(v).contiguous()
             library = lambda: F.scaled_dot_product_attention(qr, kr, vh)  # noqa: E731
+            on_tc = dt == torch.bfloat16 and d == 64
+            route = fa.rope_attention_route(dt, d)
+            if (route == fa.TENSOR_CORE) != on_tc:
+                raise AssertionError(f"K2/K3 {dname} D={d}: routed to {route}")
+            tc_before = fa.rope_attention_tc.launches
             out = kern()
+            if (fa.rope_attention_tc.launches > tc_before) != on_tc:
+                raise AssertionError(f"K2/K3 {dname} S={s} D={d}: tensor-core kernel "
+                                     f"{'not ' if on_tc else ''}launched")
+            served = (fa.TENSOR_CORE if on_tc else "one_shot"
+                      if fa.smem_bytes(s, d, dt) <= fa.SMEM_LIMIT else "key_tile")
             ref = plain()
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
@@ -227,17 +247,21 @@ def attention_cases(torch, cross: bool, batch: int = BATCH, grid=(14, 14), width
             # more (the key-tile loop rounds p against a running max)
             limit = 2e-5 if dt == torch.float32 else 2.0 ** -6
             name = ("K3 fused_rope_cross_attention" if cross else "K2 fused_rope_attention")
-            check(f"{name} [{batch},{s},{c}] H={nh} {dname}", err, limit)
+            check(f"{name} [{batch},{s},{c}] H={nh} D={d} {dname}", err, limit)
             ms = cuda_ms(kern, reps=reps)
             plain_ms = cuda_ms(plain, reps=reps)
             library_ms = cuda_ms(library, reps=reps)
             flops = 4 * batch * nh * s * s * d
             bnd, by = bound_ms(nbytes, flops, dname)
-            log(f"    ms {ms:.4f} plain {plain_ms:.4f} library(sdpa) {library_ms:.4f} "
-                f"bound {bnd:.4f} ({by})")
-            cases.append(dict(shape=[batch, s, c], heads=nh, dtype=dname, max_abs_err=err,
-                              limit=limit, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                              bound_ms=bnd, bound_by=by))
+            tflops = flops / ms / 1e9
+            log(f"    {served}: ms {ms:.4f} plain {plain_ms:.4f} library(sdpa) "
+                f"{library_ms:.4f} bound {bnd:.4f} ({by}); {tflops:.1f} TFLOP/s, "
+                f"{ms / bnd:.2f}x bound, {ms / library_ms:.2f}x sdpa")
+            cases.append(dict(shape=[batch, s, c], heads=nh, head_dim=d, dtype=dname,
+                              kernel=served, max_abs_err=err, limit=limit, ms=ms,
+                              plain_ms=plain_ms, library_ms=library_ms, bound_ms=bnd, bound_by=by,
+                              tflops=tflops, ms_over_bound=ms / bnd,
+                              ms_over_library=ms / library_ms))
             del qr, kr, vh, q, k, v
             torch.cuda.empty_cache()
     return cases
@@ -366,13 +390,14 @@ def profile_batch(torch, fn, what: str = f"one infer() of {BATCH} frames"):
 
 
 def kernel_counters():
-    """The launch counters of K1-K6, in order."""
+    """The launch counters of K1-K6, in order, then the tensor-core K2/K3
+    kernel's own (every bf16 K2/K3 launch goes through it)."""
     from thermal3d_torch.kernels import flash_attention as fa
     from thermal3d_torch.kernels.image_ops import percentile_enhance
 
     return (percentile_enhance, fa.fused_rope_attention, fa.fused_rope_cross_attention,
             fa.flash_attention_pallas, fa.flash_attention_grouped,
-            fa.flash_attention_multihead)
+            fa.flash_attention_multihead, fa.rope_attention_tc)
 
 
 def run_counted(fn, want_by_name):
@@ -410,7 +435,7 @@ def phase_engine(torch, np):
         return outs, time.perf_counter() - t0
 
     want = {"percentile_enhance": N_BATCHES, "fused_rope_attention": 40 * N_BATCHES,
-            "fused_rope_cross_attention": 16 * N_BATCHES}
+            "fused_rope_cross_attention": 16 * N_BATCHES, "rope_attention_tc": 56 * N_BATCHES}
     (outs, elapsed), launches = run_counted(serve, want)
     fps = BATCH * N_BATCHES / elapsed
     log(f"engine: {N_BATCHES} batches of {BATCH} raw frames {RAW_HW} in {elapsed:.4f} s: "
@@ -453,13 +478,18 @@ def phase_engine(torch, np):
     f32_ref = InferenceEngine(dataclasses.replace(DUSTR_224_LINEAR, attention_impl="torch"),
                               state_dict=f32.model.state_dict(), enhance_impl="plain")
     small = frames[1][:4]
-    a, b = f32.infer(small), f32_ref.infer(small)
+    # the float32 engine runs the CUDA-core K2/K3 kernels, none on tensor cores
+    a, f32_launches = run_counted(lambda: f32.infer(small), {
+        "percentile_enhance": 1, "fused_rope_attention": 40, "fused_rope_cross_attention": 16})
+    log(f"engine f32: launches {f32_launches}")
+    b = f32_ref.infer(small)
     errs32 = {k: rel_err(a[k], b[k], np) for k in b}
     log(f"engine f32 vs plain twin, max|Δ|/max|ref|: {errs32} (limit {F32_ENGINE_REL_LIMIT})")
     if max(errs32.values()) > F32_ENGINE_REL_LIMIT:
         raise AssertionError(f"f32 engine disagrees with its plain twin: {errs32}")
     return dict(fps=fps, fps_device=fps_device, batch=BATCH, raw_hw=list(RAW_HW),
-                n_batches=N_BATCHES, launches=launches, breakdown=breakdown,
+                n_batches=N_BATCHES, launches=launches, f32_launches=f32_launches,
+                breakdown=breakdown,
                 bf16_rel_err=errs,
                 bf16_plain_vs_f32=noise, bf16_kernels_vs_f32=kern_err, f32_rel_err=errs32)
 
@@ -575,7 +605,8 @@ def phase_pseudo_gt(torch, np):
     torch.cuda.synchronize()
     (outs, elapsed), launches = run_counted(
         lambda: drive(gen),
-        {"fused_rope_attention": 48 * n, "fused_rope_cross_attention": 24 * n})
+        {"fused_rope_attention": 48 * n, "fused_rope_cross_attention": 24 * n,
+         "rope_attention_tc": 72 * n})
     pps = PAIR_BATCH * n / elapsed
     log(f"pseudo-GT: {n} steps of {PAIR_BATCH} pairs in {elapsed:.4f} s: {pps:.3f} pairs/s "
         f"(run_pairs, host copies included); launches {launches}")
@@ -616,7 +647,7 @@ def phase_pseudo_gt(torch, np):
             c = dataclasses.replace(config, attention_impl="torch",
                                     compute_dtype=dt or "float32")
             g = PseudoGTGenerator(c, state_dict=state, params_dtype=dt)
-            outs_.append(g.run_pairs(*pairs[0]))
+            outs_.append(run_counted(lambda: g.run_pairs(*pairs[0]), {})[0])  # no kernel
             del g
             torch.cuda.empty_cache()
         return outs_
@@ -688,6 +719,11 @@ def main() -> int:
     k2 += attention_cases(torch, cross=False, batch=2 * PAIR_BATCH, widths=[(1024, 16)], **mastr)
     k2 += attention_cases(torch, cross=False, batch=PAIR_BATCH, widths=[(768, 12)], **mastr)
     k3 += attention_cases(torch, cross=True, batch=PAIR_BATCH, **mastr)
+    log("K2/K3 bf16 at head_dim 32 (the CUDA-core one-shot and key-tile kernels):")
+    d32 = dict(widths=[(512, 16)], dtypes=("bfloat16",))
+    for kw in (dict(), dict(batch=PAIR_BATCH, **mastr)):
+        k2 += attention_cases(torch, cross=False, **d32, **kw)
+        k3 += attention_cases(torch, cross=True, **d32, **kw)
     k456 = {name: plain_attention_cases(torch, name) for name in
             ("flash_attention_pallas", "flash_attention_grouped", "flash_attention_multihead")}
     engine = phase_engine(torch, np)
@@ -696,7 +732,7 @@ def main() -> int:
     # launches on each path's own run; `launches` is this slice's main path
     # (pseudo-GT) for K2-K6, the serving path for K1
     by_path = {}
-    for path, counts in (("serving", engine["launches"]),
+    for path, counts in (("serving", engine["launches"]), ("serving_f32", engine["f32_launches"]),
                          ("pseudo_gt_auto", pseudo_gt["launches"]),
                          ("pseudo_gt_pallas", pseudo_gt["pallas"]["launches"]),
                          *((f"pseudo_gt_{impl}_depth2", r["launches"])
@@ -706,8 +742,12 @@ def main() -> int:
 
     def entry(name, source, replaces, cases, main_case, main_path):
         m = cases[main_case]
+        extra = {}
+        if name.startswith("fused_rope"):  # K2/K3: bf16 on tensor cores, f32 on CUDA cores
+            extra = dict(source_cuda_core="thermal3d_torch/kernels/csrc/rope_attention.cu",
+                         tensor_core_launches_by_path=by_path["rope_attention_tc"])
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=by_path[name][main_path], launches_by_path=by_path[name],
+                    **extra, launches=by_path[name][main_path], launches_by_path=by_path[name],
                     max_abs_err=max(c["max_abs_err"] for c in cases), ms=m["ms"],
                     plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
                     library_ms=m["library_ms"], main_case=m, cases=cases)
@@ -719,9 +759,9 @@ def main() -> int:
               "thermal3d/kernels/image_ops.py:44", k1, 0, "serving"),
         # main case: the S=1024 encoder call in bf16 (index 4: after the
         # four S=196 cases)
-        entry("fused_rope_attention", "thermal3d_torch/kernels/csrc/rope_attention.cu",
+        entry("fused_rope_attention", "thermal3d_torch/kernels/csrc/rope_attention_tc.cu",
               f"{fa_src}:310", k2, 4, "pseudo_gt_auto"),
-        entry("fused_rope_cross_attention", "thermal3d_torch/kernels/csrc/rope_attention.cu",
+        entry("fused_rope_cross_attention", "thermal3d_torch/kernels/csrc/rope_attention_tc.cu",
               f"{fa_src}:415", k3, 2, "pseudo_gt_auto"),
         entry("flash_attention_pallas", attn_src, f"{fa_src}:91",
               k456["flash_attention_pallas"], 0, "pseudo_gt_pallas"),

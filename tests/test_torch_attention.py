@@ -1,7 +1,8 @@
 """K4/K5/K6 (softmax attention on roped q/k) and K2/K3 at S=1024: the plain
 PyTorch versions of the port against the JAX Pallas kernels they replace, in
 interpret mode on the CPU, and the port's flash_attention / attention_bshd
-routes. The CUDA kernels are held against these plain versions on the card
+routes; the key-tile recipe of the tiled kernels, and the K2/K3 kernel
+route. The CUDA kernels are held against these plain versions on the card
 by chip_smoke.py."""
 
 import importlib
@@ -143,17 +144,23 @@ def test_k3_plain_matches_pallas_interpret_s1024():
 
 
 def _online_softmax_recipe(q, k, v, scale, tile):
-    """The key-tile kernels' arithmetic (csrc/attention_common.cuh) restated
-    in PyTorch: per tile, p = exp(s - running max) rounded to the storage
-    type before PV; the f32 sum and accumulator rescaled when the max moves;
-    the division after PV."""
+    """The key-tile kernels' arithmetic (csrc/attention_common.cuh, and the
+    tensor-core csrc/rope_attention_tc.cu) restated in PyTorch: K/V padded
+    with zero rows to whole tiles, score columns past the sequence masked
+    to -inf; per tile, p = exp(s - running max) rounded to the storage type
+    before PV; the f32 sum and accumulator rescaled when the max moves; the
+    division after PV."""
     dt = q.dtype
+    sk = k.shape[-2]
+    pad = -sk % tile
     qf, kf, vf = (t.to(torch.float32) for t in (q, k, v))
+    kf, vf = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (kf, vf))
     m = torch.full(q.shape[:-1] + (1,), -math.inf)
     l = torch.zeros_like(m)
     acc = torch.zeros(qf.shape)
-    for j0 in range(0, k.shape[-2], tile):
+    for j0 in range(0, sk + pad, tile):
         s = qf @ kf[..., j0:j0 + tile, :].transpose(-1, -2) * scale
+        s = s.masked_fill(torch.arange(j0, j0 + tile) >= sk, -math.inf)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         e = torch.exp(s - m_new)
@@ -164,15 +171,58 @@ def _online_softmax_recipe(q, k, v, scale, tile):
 
 
 @pytest.mark.parametrize("dtype,limit", [(torch.float32, 2e-5), (torch.bfloat16, 2.0 ** -6)])
-def test_key_tile_recipe_within_kernel_limits(dtype, limit):
+@pytest.mark.parametrize("tile,seq", [
+    (128, 1024),  # the CUDA-core key-tile loop at MASt3R-512's S
+    (64, 1024),   # the tensor-core kernel's 64-key tiles
+    (64, 196),    # ... at the serving S (14×14): the last tile holds 4 keys
+])
+def test_key_tile_recipe_within_kernel_limits(dtype, limit, tile, seq):
     """The online softmax rounds p against a running max, so in bf16 it is
-    not bit-equal to the one-shot plain version; at S=1024 with 128-key
-    tiles it stays within the limits chip_smoke.py holds the tiled kernels
-    to (2e-5 f32: summation order; 2^-6 bf16: an output ulp plus a flipped
-    rounding of p)."""
-    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv((2, 2, 1024, 64), (2, 2, 1024, 64), 9))
+    not bit-equal to the one-shot plain version; with each kernel's key
+    tile, at S=1024 and at a ragged S=196, it stays within the limits
+    chip_smoke.py holds the tiled kernels to (2e-5 f32: summation order;
+    2^-6 bf16: an output ulp plus a flipped rounding of p)."""
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv((2, 2, seq, 64), (2, 2, seq, 64), 9))
     scale = 1.0 / 8.0
-    out = _online_softmax_recipe(q, k, v, scale, tile=128)
+    out = _online_softmax_recipe(q, k, v, scale, tile=tile)
     ref = tfa.attention_plain(q, k, v, scale)
     err = (out.to(torch.float32) - ref.to(torch.float32)).abs().max().item()
     assert err <= limit, err
+
+
+@pytest.mark.parametrize("dtype,seq,head_dim,want", [
+    (torch.bfloat16, 196, 64, tfa.TENSOR_CORE),   # serving
+    (torch.bfloat16, 1024, 64, tfa.TENSOR_CORE),  # pseudo-GT
+    (torch.bfloat16, 4096, 64, tfa.TENSOR_CORE),  # any S
+    (torch.float32, 196, 64, tfa.CUDA_CORE),      # float32: CUDA cores
+    (torch.float32, 1024, 64, tfa.CUDA_CORE),
+    (torch.bfloat16, 196, 32, tfa.CUDA_CORE),     # another head_dim: CUDA cores
+    (torch.bfloat16, 1024, 32, tfa.CUDA_CORE),
+])
+def test_rope_attention_route(dtype, seq, head_dim, want):
+    """The K2/K3 kernel family by shape, decided without the library: bf16
+    with head_dim 64 on tensor cores at every S, the rest on CUDA cores."""
+    assert tfa.rope_attention_route(dtype, head_dim) == want
+
+
+@pytest.mark.parametrize("pointers,row_stride_bytes", [
+    ((0x1000, 0x1008, 0x2000), 6144),  # a base pointer 8 bytes off
+    ((0x1000, 0x1010, 0x2000), 6152),  # a row stride of 3076 bf16
+])
+def test_tensor_core_alignment_check_raises(pointers, row_stride_bytes):
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.check_alignment("fused_rope_attention", pointers, row_stride_bytes)
+    tfa.check_alignment("fused_rope_attention", (0x1000, 0x1010, 0x2000), 6144)
+
+
+def test_cpu_bf16_k2_k3_do_not_count_tensor_core_launches():
+    """On CPU tensors K2/K3 run the plain version even where the route is
+    the tensor-core kernel, and no kernel count moves."""
+    (q, k, v), cos, sin = _rope_inputs(1, 14, 14, 2, 64, 3, seed=4)
+    t = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    tc = [torch.from_numpy(a) for a in (cos, sin)]
+    counts = (tfa.rope_attention_tc.launches, tfa.fused_rope_cross_attention.launches)
+    out = tfa.fused_rope_cross_attention(*t, *tc, 2, 0.125)
+    assert out.dtype == torch.bfloat16 and out.shape == (1, 196, 128)
+    assert torch.equal(out, tfa.rope_attention_plain(*t, *tc, 2, 0.125))
+    assert (tfa.rope_attention_tc.launches, tfa.fused_rope_cross_attention.launches) == counts

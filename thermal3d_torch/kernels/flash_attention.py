@@ -3,7 +3,10 @@
 K2 + K3, fused 2-D RoPE + attention: `fused_rope_attention` (K2,
 self-attention on the packed [B,S,3C] qkv projection) and
 `fused_rope_cross_attention` (K3, separate [B,S,C] q/k/v projections sharing
-one position grid) launch csrc/rope_attention.cu and return [B,S,C].
+one position grid) return [B,S,C]. `rope_attention_route` picks their CUDA
+kernel by shape: bf16 with head_dim 64 runs on the tensor cores
+(csrc/rope_attention_tc.cu, counted by `rope_attention_tc.launches`); other
+dtypes and head dims run the CUDA-core kernels of csrc/rope_attention.cu.
 
 K4 + K5 + K6, softmax attention on q/k that are already roped:
 `flash_attention_pallas` (K4, [N,S,D] or [B,H,S,D]),
@@ -32,6 +35,8 @@ from thermal3d_torch.kernels import _build
 
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the K2/K3 kernel families, by the name rope_attention_route gives them
+TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
 
 
 def rot_lanes(t: torch.Tensor) -> torch.Tensor:
@@ -118,6 +123,27 @@ def smem_bytes(seq: int, head_dim: int, dtype: torch.dtype) -> int:
     return int(fn(seq, head_dim, torch.tensor([], dtype=dtype).element_size()))
 
 
+def rope_attention_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The K2/K3 kernel family for a call, by dtype and head dim:
+    TENSOR_CORE (csrc/rope_attention_tc.cu, wgmma) for bf16 with head_dim
+    64 at any S, which is every K2/K3 call of the configured models
+    (DUSt3R-224, MASt3R-512); otherwise CUDA_CORE, the kernels of
+    csrc/rope_attention.cu (`_launch` picks one-shot or key-tile there). A
+    dispatch by shape: a kernel that fails to build or launch raises."""
+    return TENSOR_CORE if dtype == torch.bfloat16 and head_dim == 64 else CUDA_CORE
+
+
+def check_alignment(what: str, pointers, row_stride_bytes: int) -> None:
+    """Raise ValueError unless every base pointer and the row stride are
+    multiples of 16 bytes (the tensor-core kernel reads rows in 16-byte
+    vectors and copies)."""
+    bad = [hex(p) for p in pointers if p % 16]
+    if bad or row_stride_bytes % 16:
+        raise ValueError(f"{what}: the tensor-core kernel needs 16-byte aligned base "
+                         f"pointers and row stride (misaligned: {bad}, row stride "
+                         f"{row_stride_bytes} B)")
+
+
 def _check(what, tensors, cos, sin, num_heads, c, s):
     x = tensors[0]
     if x.device.type != "cuda":
@@ -146,18 +172,55 @@ def _launch(x, q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale,
     b, s, c = out.shape
     if b == 0 or s == 0:
         return
+    d = c // num_heads
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if rope_attention_route(x.dtype, d) == TENSOR_CORE:
+        rope_attention_tc(q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale,
+                          stream, what)
+        return
     lib = _lib()
-    # The switch between the two K2/K3 kernels: the one-shot kernel holds
-    # K/V of a head in shared memory (S=196, the serving path, keeps it and
-    # its outputs to the bit); where they do not fit (bf16 D=64 from S of
-    # about 560 on; MASt3R-512's S=1024) the key-tile loop runs instead.
-    one_shot = smem_bytes(s, c // num_heads, x.dtype) <= SMEM_LIMIT
+    # The switch between the two CUDA-core kernels: the one-shot kernel
+    # holds K/V of a head in shared memory; where they do not fit (float32
+    # D=64 past S=411, bf16 D=32 past S=865; so MASt3R-512's S=1024) the
+    # key-tile loop runs instead.
+    one_shot = smem_bytes(s, d, x.dtype) <= SMEM_LIMIT
     fn = lib.t3d_rope_attention if one_shot else lib.t3d_rope_attention_tiled
-    rc = fn(
-        _DTYPE_CODE[x.dtype], q_ptr, k_ptr, v_ptr, row_stride, cos.data_ptr(),
-        sin.data_ptr(), out.data_ptr(), b, s, num_heads, c // num_heads, float(scale),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    rc = fn(_DTYPE_CODE[x.dtype], q_ptr, k_ptr, v_ptr, row_stride, cos.data_ptr(),
+            sin.data_ptr(), out.data_ptr(), b, s, num_heads, d, float(scale), stream)
     _build.check(lib, rc, f"{what} launch")
+
+
+def rope_attention_tc(q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale,
+                      stream, what="rope_attention_tc"):
+    """Launch the tensor-core K2/K3 kernel (bf16, head_dim 64) on base
+    pointers with a common row stride in elements; out [B, S, C] bf16. The
+    library call launches the RoPE prologue of K into a [B, H, S, 64] bf16
+    scratch, then the attention kernel, on `stream`. Counts its own calls
+    in `rope_attention_tc.launches`."""
+    b, s, c = out.shape
+    k_roped = torch.empty((b, num_heads, s, c // num_heads), dtype=out.dtype, device=out.device)
+    ptrs = (q_ptr, k_ptr, v_ptr, cos.data_ptr(), sin.data_ptr(), k_roped.data_ptr(),
+            out.data_ptr())
+    check_alignment(what, ptrs, row_stride * out.element_size())
+    lib = _tc_lib()
+    rc = lib.t3d_rope_attention_tc(*ptrs[:3], row_stride, *ptrs[3:], b, s, num_heads,
+                                   c // num_heads, float(scale), stream)
+    _build.check(lib, rc, f"{what} launch")
+    rope_attention_tc.launches += 1
+
+
+rope_attention_tc.launches = 0
+
+
+def _tc_lib() -> ctypes.CDLL:
+    lib = _build.library("rope_attention_tc")
+    fn = lib.t3d_rope_attention_tc
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
 
 
 def _lib() -> ctypes.CDLL:
