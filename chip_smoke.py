@@ -9,11 +9,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
      nvcc process per source, all at once);
   3. hold each kernel against its plain PyTorch version on the card, in bf16
      and f32, and time kernel, plain version, the PyTorch library yardstick
-     and the card's bound: K1 and K2/K3 at the serving shapes (S=196); K2/K3
-     and K4/K5/K6 at the MASt3R-512 shapes (S=1024). Each K2/K3 case records
-     the kernel that served it: bf16 (head_dim 64) the tensor-core kernel,
-     float32, and bf16 at head_dim 32, the CUDA-core one-shot (S=196) or
-     key-tile (S=1024) kernel;
+     and the card's bound: K1 at the serving shape [32,224,224], at full
+     Freiburg frames [4,512,640] and at [1,16,16]; K2/K3 at the serving
+     shapes (S=196) and the MASt3R-512 shapes (S=1024); K4/K5/K6 at both,
+     and with Sq=196 against Sk=1024; K2-K6 also in bf16 at head_dim 32,
+     both S. Each K2-K6 case records the kernel
+     that served it: bf16 with head_dim 64 the tensor-core kernel (its own
+     count moves), float32, and bf16 at head_dim 32, a CUDA-core kernel (K2/K3:
+     one-shot at S=196, key-tile at S=1024);
   4. drive the serving path: a full-width bf16 DUSt3R-224 InferenceEngine
      (seeded random weights) answers batches of synthetic raw thermal frames
      [32, 320, 416]; its depth is held against the same engine run with the
@@ -31,11 +34,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
      host copies; the outputs against a plain twin (attention_impl='torch')
      and a float32 twin; the geometry against float64 numpy; one step under
      torch.profiler; then attention_impl='pallas' (K4 = 72·n) at full depth,
+     with one step under torch.profiler,
      and 'pallas_grouped4' (K5) and 'pallas_multihead' (K6) at encoder and
-     decoder depth 2 (10·n each), each against its plain twin;
+     decoder depth 2 (10·n each), each against its plain twin, all on the
+     tensor-core K4-K6 kernel (its count equal to theirs);
   6. print JSON lines of the two paths and of the kernels and, last, the
      device line.
 Without CUDA it exits non-zero before printing any result.
+
+    python3 chip_smoke.py --compare-k2k3 OTHER_CSRC_DIR
+
+holds this checkout's tensor-core K2/K3 kernel against a build of another
+checkout's csrc/rope_attention_tc.cu instead (torch.equal on the bf16 K2/K3
+shapes of both paths, times in turns) and exits non-zero if any differs.
 """
 
 from __future__ import annotations
@@ -86,22 +97,33 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds of fn() on the card, by CUDA events over `reps`
-    calls after `warmup` calls."""
+def cuda_ms(fn, reps: int = 20, warmup: int = 3, replays: int = 3) -> float:
+    """Mean device milliseconds of one fn() call: after `warmup` eager
+    calls, `reps` calls are captured in one CUDA graph, which is replayed
+    `replays` times between CUDA events. A replay needs no host work per
+    launch, so the time is the card's, not the launch rate of the Python
+    wrappers (which bounds an eager loop of calls shorter than ~0.1 ms)."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()  # warm
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    for _ in range(replays):
+        graph.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps
+    ms = start.elapsed_time(end) / (replays * reps)
+    del graph
+    return ms
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -137,42 +159,54 @@ def phase_build():
                 log(f"  {name}: {line.strip()}")
 
 
+# K1 shapes: the serving batch, full 640x512 Freiburg frames (over the
+# one-block kernel's old limit of 116,096 pixels an image) and one small image
+K1_SHAPES = ((BATCH, 224, 224), (4, 512, 640), (1, 16, 16))
+
+
 def k1_cases(torch):
-    """K1 at [32, 224, 224], inputs as the serving path hands them over
-    (per-image min/max normalised), with a flat and a bimodal frame."""
+    """K1 at K1_SHAPES, inputs as the serving path hands them over (per-image
+    min/max normalised), with a flat and a bimodal frame where the batch has
+    room for them."""
     from thermal3d_torch.kernels.image_ops import (GRID, percentile_enhance,
                                                    percentile_enhance_plain, search_target)
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    x = torch.rand((BATCH, 224, 224), generator=gen, device="cuda")
-    x[0] = 0.0  # a flat frame normalises to zeros
-    half = torch.rand((224, 224), generator=gen, device="cuda") < 0.5
-    x[1] = torch.where(half, 0.2, 0.8) + 0.01 * torch.randn((224, 224), generator=gen,
-                                                             device="cuda")
-    x = (x - x.amin(dim=(1, 2), keepdim=True)) / (
-        x.amax(dim=(1, 2), keepdim=True) - x.amin(dim=(1, 2), keepdim=True)).clamp(min=1e-30)
-    x = x.contiguous()
-    out = percentile_enhance(x)
-    ref = percentile_enhance_plain(x)
-    torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    # the same arithmetic step for step: expected bit-identical; 1 ulp at 1.0
-    check("K1 percentile_enhance [32,224,224] f32", err, 1.2e-7)
-    b, n = x.shape[0], x.shape[1] * x.shape[2]
-    q = torch.floor(x.reshape(b, n) * GRID)
-    k_lo = math.ceil(search_target(2.0, n))
-    k_hi = math.ceil(search_target(98.0, n))
-    ms = cuda_ms(lambda: percentile_enhance(x))
-    plain_ms = cuda_ms(lambda: percentile_enhance_plain(x), reps=5)
-    library_ms = cuda_ms(lambda: (torch.kthvalue(q, k_lo, dim=1), torch.kthvalue(q, k_hi, dim=1)))
-    nbytes = 2 * b * n * 4
-    ops = (2 * 16 + 4) * b * n  # 16 search passes of 2 compares + the rescale
-    bnd, by = bound_ms(nbytes, ops, "float32")
-    case = dict(shape=[b, 224, 224], dtype="float32", max_abs_err=err, limit=1.2e-7,
-                ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bnd, bound_by=by)
-    log(f"  K1 ms {ms:.4f} plain {plain_ms:.4f} library(kthvalue x2) {library_ms:.4f} "
-        f"bound {bnd:.4f} ({by})")
-    return [case]
+    cases = []
+    for b, h, w in K1_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        x = torch.rand((b, h, w), generator=gen, device="cuda")
+        if b > 2:
+            x[0] = 0.0  # a flat frame normalises to zeros
+            half = torch.rand((h, w), generator=gen, device="cuda") < 0.5
+            x[1] = torch.where(half, 0.2, 0.8) + 0.01 * torch.randn((h, w), generator=gen,
+                                                                     device="cuda")
+        x = (x - x.amin(dim=(1, 2), keepdim=True)) / (
+            x.amax(dim=(1, 2), keepdim=True) - x.amin(dim=(1, 2), keepdim=True)).clamp(min=1e-30)
+        x = x.contiguous()
+        out = percentile_enhance(x)
+        ref = percentile_enhance_plain(x)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        # the same order statistics and rescale: expected bit-identical; 1 ulp at 1.0
+        check(f"K1 percentile_enhance [{b},{h},{w}] f32", err, 1.2e-7)
+        n = h * w
+        q = torch.floor(x.reshape(b, n) * GRID)
+        k_lo = math.ceil(search_target(2.0, n))
+        k_hi = math.ceil(search_target(98.0, n))
+        ms = cuda_ms(lambda: percentile_enhance(x))
+        plain_ms = cuda_ms(lambda: percentile_enhance_plain(x), reps=5)
+        library_ms = cuda_ms(lambda: (torch.kthvalue(q, k_lo, dim=1),
+                                      torch.kthvalue(q, k_hi, dim=1)))
+        nbytes = 2 * b * n * 4
+        ops = (3 * 4 + 4) * b * n  # 3 quantisations of 4 ops a pixel + the rescale
+        bnd, by = bound_ms(nbytes, ops, "float32")
+        cases.append(dict(shape=[b, h, w], dtype="float32", max_abs_err=err, limit=1.2e-7,
+                          ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bnd,
+                          bound_by=by))
+        log(f"    ms {ms:.4f} plain {plain_ms:.4f} library(kthvalue x2) {library_ms:.4f} "
+            f"bound {bnd:.4f} ({by}); {ms / bnd:.2f}x bound")
+        del x, q, out, ref
+    return cases
 
 
 def attention_cases(torch, cross: bool, batch: int = BATCH, grid=(14, 14), widths=None,
@@ -228,7 +262,7 @@ def attention_cases(torch, cross: bool, batch: int = BATCH, grid=(14, 14), width
             qr, kr, vh = roped(q), roped(k), heads(v).contiguous()
             library = lambda: F.scaled_dot_product_attention(qr, kr, vh)  # noqa: E731
             on_tc = dt == torch.bfloat16 and d == 64
-            route = fa.rope_attention_route(dt, d)
+            route = fa.attention_route(dt, d)
             if (route == fa.TENSOR_CORE) != on_tc:
                 raise AssertionError(f"K2/K3 {dname} D={d}: routed to {route}")
             tc_before = fa.rope_attention_tc.launches
@@ -267,48 +301,70 @@ def attention_cases(torch, cross: bool, batch: int = BATCH, grid=(14, 14), width
     return cases
 
 
-# K4/K5/K6 at the MASt3R-512 shapes [B, H, S, D]: encoder (8 = 4 pairs × 2
-# views, 16 heads) and decoder (4 pairs, 12 heads), S=1024, D=64
-PLAIN_ATTENTION_SHAPES = ((8, 16, 1024, 64), (4, 12, 1024, 64))
+# K4/K5/K6 shapes [B, H, Sq, Sk, D]: MASt3R-512's encoder (8 = 4 pairs × 2
+# views, 16 heads) and decoder (4 pairs, 12 heads) at S=1024, DUSt3R-224's
+# at the serving S=196 (a ragged last tile of 4 keys and 68 query rows),
+# and Sq=196 against Sk=1024
+PLAIN_ATTENTION_SHAPES = ((8, 16, 1024, 1024, 64), (4, 12, 1024, 1024, 64),
+                          (BATCH, 16, 196, 196, 64), (BATCH, 12, 196, 196, 64),
+                          (4, 12, 196, 1024, 64))
+# bf16 at head_dim 32 (no configured model): the CUDA-core kernel in bf16
+PLAIN_ATTENTION_D32 = ((BATCH, 16, 196, 196, 32), (PAIR_BATCH, 16, 1024, 1024, 32))
 
 
-def plain_attention_cases(torch, name: str, reps: int = 10):
+def plain_attention_cases(torch, name: str, shapes=PLAIN_ATTENTION_SHAPES,
+                          dtypes=("bfloat16", "float32"), reps: int = 10):
     """One of K4 (flash_attention_pallas), K5 (flash_attention_grouped) or K6
     (flash_attention_multihead) on [B,S,H,D] q/k/v handed over as
-    [B,H,S,D] views, as attention_bshd hands them on the main path."""
+    [B,H,S,D] views, as attention_bshd hands them on the main path. bf16
+    with D=64 runs the tensor-core kernel, float32 and other head dims the
+    CUDA-core one; each case records the kernel that served it."""
     import torch.nn.functional as F
 
     from thermal3d_torch.kernels import flash_attention as fa
 
     kern_fn = getattr(fa, name)
     cases = []
-    for b, h, s, d in PLAIN_ATTENTION_SHAPES:
-        for dt in (torch.bfloat16, torch.float32):
-            dname = "bfloat16" if dt == torch.bfloat16 else "float32"
-            gen = torch.Generator(device="cuda").manual_seed(h)
-            q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(dt)
-                       .transpose(1, 2) for _ in range(3))
+    for b, h, sq, sk, d in shapes:
+        for dname in dtypes:
+            dt = getattr(torch, dname)
+            gen = torch.Generator(device="cuda").manual_seed(h + sq)
+            q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dt).transpose(1, 2)
+            k, v = (torch.randn((b, sk, h, d), generator=gen, device="cuda").to(dt)
+                    .transpose(1, 2) for _ in range(2))
             scale = 1.0 / math.sqrt(d)
             kern = lambda: kern_fn(q, k, v, scale)  # noqa: E731
             plain = lambda: fa.attention_plain(q, k, v, scale)  # noqa: E731
             library = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)  # noqa: E731
+            served = fa.attention_route(dt, d)
+            if (served == fa.TENSOR_CORE) != (dt == torch.bfloat16 and d == 64):
+                raise AssertionError(f"{name} {dname} D={d}: routed to {served}")
+            tc_before, fn_before = fa.softmax_attention_tc.launches, kern_fn.launches
             out = kern()
+            if kern_fn.launches != fn_before + 1 or \
+                    fa.softmax_attention_tc.launches - tc_before != (served == fa.TENSOR_CORE):
+                raise AssertionError(f"{name} {dname} D={d}: launches {kern_fn.launches - fn_before}"
+                                     f", tensor-core {fa.softmax_attention_tc.launches - tc_before}")
             ref = plain()
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             del out, ref
             limit = 2e-5 if dt == torch.float32 else 2.0 ** -6  # as for K2/K3
-            check(f"{name} [{b},{h},{s},{d}] {dname}", err, limit)
+            check(f"{name} [{b},{h},{sq},{d}] Sk={sk} {dname}", err, limit)
             ms = cuda_ms(kern, reps=reps)
             plain_ms = cuda_ms(plain, reps=reps)
             library_ms = cuda_ms(library, reps=reps)
-            nbytes = 4 * b * h * s * d * q.element_size()
-            bnd, by = bound_ms(nbytes, 4 * b * h * s * s * d, dname)
-            log(f"    ms {ms:.4f} plain {plain_ms:.4f} library(sdpa) {library_ms:.4f} "
-                f"bound {bnd:.4f} ({by})")
-            cases.append(dict(shape=[b, h, s, d], dtype=dname, max_abs_err=err, limit=limit,
-                              ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bnd,
-                              bound_by=by))
+            nbytes = 2 * b * h * (sq + sk) * d * q.element_size()
+            flops = 4 * b * h * sq * sk * d
+            bnd, by = bound_ms(nbytes, flops, dname)
+            tflops = flops / ms / 1e9
+            log(f"    {served}: ms {ms:.4f} plain {plain_ms:.4f} library(sdpa) "
+                f"{library_ms:.4f} bound {bnd:.4f} ({by}); {tflops:.1f} TFLOP/s, "
+                f"{ms / bnd:.2f}x bound, {ms / library_ms:.2f}x sdpa")
+            cases.append(dict(shape=[b, h, sq, d], sk=sk, dtype=dname, kernel=served,
+                              max_abs_err=err, limit=limit, ms=ms, plain_ms=plain_ms,
+                              library_ms=library_ms, bound_ms=bnd, bound_by=by, tflops=tflops,
+                              ms_over_bound=ms / bnd, ms_over_library=ms / library_ms))
             del q, k, v
             torch.cuda.empty_cache()
     return cases
@@ -391,13 +447,14 @@ def profile_batch(torch, fn, what: str = f"one infer() of {BATCH} frames"):
 
 def kernel_counters():
     """The launch counters of K1-K6, in order, then the tensor-core K2/K3
-    kernel's own (every bf16 K2/K3 launch goes through it)."""
+    kernel's own and the tensor-core K4-K6 kernel's own (every bf16 launch
+    with head_dim 64 goes through them)."""
     from thermal3d_torch.kernels import flash_attention as fa
     from thermal3d_torch.kernels.image_ops import percentile_enhance
 
     return (percentile_enhance, fa.fused_rope_attention, fa.fused_rope_cross_attention,
             fa.flash_attention_pallas, fa.flash_attention_grouped,
-            fa.flash_attention_multihead, fa.rope_attention_tc)
+            fa.flash_attention_multihead, fa.rope_attention_tc, fa.softmax_attention_tc)
 
 
 def run_counted(fn, want_by_name):
@@ -662,12 +719,14 @@ def phase_pseudo_gt(torch, np):
                               state_dict=weights, params_dtype="bfloat16")
     gen_p.run_pairs(*pairs[0])  # warm-up
     torch.cuda.synchronize()
-    (outs_p, elapsed_p), launches_p = run_counted(lambda: drive(gen_p),
-                                                  {"flash_attention_pallas": 72 * n})
+    (outs_p, elapsed_p), launches_p = run_counted(
+        lambda: drive(gen_p), {"flash_attention_pallas": 72 * n, "softmax_attention_tc": 72 * n})
     pps_pallas = PAIR_BATCH * n / elapsed_p
     log(f"pseudo-GT 'pallas': {pps_pallas:.3f} pairs/s (run_pairs); launches {launches_p}")
     for out in outs_p:
         check_pgt_outputs(out, np)
+    breakdown_p = profile_batch(torch, lambda: gen_p.run_pairs(*pairs[0]),
+                                f"one 'pallas' run_pairs() of {PAIR_BATCH} pairs")
     held_p = hold(outs_p[0], ref, gold, "bf16 'pallas' (K4)")
     del gen_p, outs_p
     torch.cuda.empty_cache()
@@ -682,7 +741,8 @@ def phase_pseudo_gt(torch, np):
                           ("pallas_multihead", "flash_attention_multihead")):
         g = PseudoGTGenerator(dataclasses.replace(small, attention_impl=impl),
                               state_dict=small_weights, params_dtype="bfloat16")
-        (out_s,), launches_s = run_counted(lambda: [g.run_pairs(*pairs[0])], {counter: 10})
+        (out_s,), launches_s = run_counted(lambda: [g.run_pairs(*pairs[0])],
+                                           {counter: 10, "softmax_attention_tc": 10})
         log(f"pseudo-GT {impl!r} at depth 2: launches {launches_s}")
         check_pgt_outputs(out_s, np)
         reduced[impl] = dict(launches=launches_s,
@@ -691,22 +751,92 @@ def phase_pseudo_gt(torch, np):
     return dict(pairs_per_s=pps, pairs_per_s_device=pps_device, batch_pairs=PAIR_BATCH,
                 n_steps=n, launches=launches, breakdown=breakdown, geometry=geometry,
                 rel_err=held, pallas=dict(pairs_per_s=pps_pallas, launches=launches_p,
-                                          rel_err=held_p),
+                                          breakdown=breakdown_p, rel_err=held_p),
                 reduced_depth=reduced)
 
 
-def main() -> int:
+# --compare-k2k3: (K2 or K3, batch, grid side, width C, heads), the bf16
+# K2/K3 calls of the serving path (DUSt3R-224) and the pseudo-GT path
+# (MASt3R-512)
+COMPARE_CASES = (("K2", BATCH, 14, 1024, 16), ("K2", BATCH, 14, 768, 12),
+                 ("K3", BATCH, 14, 768, 12), ("K2", 2 * PAIR_BATCH, 32, 1024, 16),
+                 ("K2", PAIR_BATCH, 32, 768, 12), ("K3", PAIR_BATCH, 32, 768, 12))
+
+
+def compare_k2k3(torch, other_csrc: str) -> bool:
+    """Build OTHER_CSRC/rope_attention_tc.cu with this checkout's nvcc flags
+    and launch it and this checkout's build through the same wrapper on the
+    same seeded inputs: torch.equal on each of COMPARE_CASES, and both timed
+    as in phase 3, in turns (other, this, this, other). Prints one JSON
+    line; returns whether every output was equal."""
+    from pathlib import Path
+
+    from thermal3d_torch.kernels import _build
+    from thermal3d_torch.kernels import flash_attention as fa
+    from thermal3d_torch.models.rope import make_grid_positions, rope_tables
+
+    lib_path = _build.BUILD_DIR / "libother_rope_attention_tc.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path),
+                    str(Path(other_csrc) / "rope_attention_tc.cu")],
+                   check=True, capture_output=True, text=True)
+    libs = {"this": None, "other": fa.bind_tc_lib(_build.load(lib_path))}
+    results = []
+    for kind, batch, side, c, heads in COMPARE_CASES:
+        s = side * side
+        cos, sin = rope_tables(make_grid_positions(side, side, device="cuda"), c // heads)
+        gen = torch.Generator(device="cuda").manual_seed(c + s)
+        if kind == "K2":
+            qkv = torch.randn((batch, s, 3 * c), generator=gen, device="cuda").to(torch.bfloat16)
+            base, es = qkv.data_ptr(), qkv.element_size()
+            ptrs, row_stride = (base, base + c * es, base + 2 * c * es), 3 * c
+        else:
+            qkv = [torch.randn((batch, s, c), generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3)]
+            ptrs, row_stride = tuple(t.data_ptr() for t in qkv), c
+        outs = {w: torch.empty((batch, s, c), dtype=torch.bfloat16, device="cuda")
+                for w in libs}
+
+        def run(which):
+            fa.rope_attention_tc(*ptrs, row_stride, cos, sin, outs[which], heads,
+                                 1.0 / math.sqrt(c // heads),
+                                 torch.cuda.current_stream().cuda_stream, lib=libs[which])
+
+        run("this")
+        run("other")
+        torch.cuda.synchronize()
+        equal = torch.equal(outs["this"], outs["other"])
+        ms = {w: [] for w in libs}
+        for which in ("other", "this", "this", "other"):
+            ms[which].append(cuda_ms(lambda w=which: run(w)))
+        results.append(dict(kernel=kind, shape=[batch, s, c], heads=heads, equal=equal,
+                            this_ms=ms["this"], other_ms=ms["other"]))
+        log(f"{kind} [{batch},{s},{c}] H={heads}: torch.equal {equal}; ms this {ms['this']} "
+            f"other {ms['other']}")
+        del qkv, outs
+    all_equal = all(r["equal"] for r in results)
+    print(json.dumps({"compare_k2k3": results, "all_equal": all_equal}), flush=True)
+    return all_equal
+
+
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card only",
               file=sys.stderr)
         return 1
+    if argv and (len(argv) != 2 or argv[0] != "--compare-k2k3"):
+        print(__doc__, file=sys.stderr)
+        return 2
     import numpy as np
 
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 means float32 here
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
+    if argv:
+        log(card)
+        return 0 if compare_k2k3(torch, argv[1]) else 1
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     phase_build()
 
@@ -724,8 +854,11 @@ def main() -> int:
     for kw in (dict(), dict(batch=PAIR_BATCH, **mastr)):
         k2 += attention_cases(torch, cross=False, **d32, **kw)
         k3 += attention_cases(torch, cross=True, **d32, **kw)
-    k456 = {name: plain_attention_cases(torch, name) for name in
-            ("flash_attention_pallas", "flash_attention_grouped", "flash_attention_multihead")}
+    log("K4-K6 (bf16 also at head_dim 32, on the CUDA-core kernel):")
+    k456 = {name: plain_attention_cases(torch, name)
+            + plain_attention_cases(torch, name, PLAIN_ATTENTION_D32, ("bfloat16",))
+            for name in ("flash_attention_pallas", "flash_attention_grouped",
+                         "flash_attention_multihead")}
     engine = phase_engine(torch, np)
     pseudo_gt = phase_pseudo_gt(torch, np)
 
@@ -746,6 +879,9 @@ def main() -> int:
         if name.startswith("fused_rope"):  # K2/K3: bf16 on tensor cores, f32 on CUDA cores
             extra = dict(source_cuda_core="thermal3d_torch/kernels/csrc/rope_attention.cu",
                          tensor_core_launches_by_path=by_path["rope_attention_tc"])
+        elif name.startswith("flash_attention"):  # K4-K6: the same split
+            extra = dict(source_cuda_core="thermal3d_torch/kernels/csrc/attention.cu",
+                         tensor_core_launches_by_path=by_path["softmax_attention_tc"])
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     **extra, launches=by_path[name][main_path], launches_by_path=by_path[name],
                     max_abs_err=max(c["max_abs_err"] for c in cases), ms=m["ms"],
@@ -753,7 +889,7 @@ def main() -> int:
                     library_ms=m["library_ms"], main_case=m, cases=cases)
 
     fa_src = "thermal3d/kernels/flash_attention.py"
-    attn_src = "thermal3d_torch/kernels/csrc/attention.cu"
+    attn_src = "thermal3d_torch/kernels/csrc/attention_tc.cu"
     kernels = [
         entry("percentile_enhance", "thermal3d_torch/kernels/csrc/percentile_enhance.cu",
               "thermal3d/kernels/image_ops.py:44", k1, 0, "serving"),
@@ -781,4 +917,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -202,7 +202,7 @@ def test_key_tile_recipe_within_kernel_limits(dtype, limit, tile, seq):
 def test_rope_attention_route(dtype, seq, head_dim, want):
     """The K2/K3 kernel family by shape, decided without the library: bf16
     with head_dim 64 on tensor cores at every S, the rest on CUDA cores."""
-    assert tfa.rope_attention_route(dtype, head_dim) == want
+    assert tfa.attention_route(dtype, head_dim) == want
 
 
 @pytest.mark.parametrize("pointers,row_stride_bytes", [
@@ -226,3 +226,125 @@ def test_cpu_bf16_k2_k3_do_not_count_tensor_core_launches():
     assert out.dtype == torch.bfloat16 and out.shape == (1, 196, 128)
     assert torch.equal(out, tfa.rope_attention_plain(*t, *tc, 2, 0.125))
     assert (tfa.rope_attention_tc.launches, tfa.fused_rope_cross_attention.launches) == counts
+
+
+def _jax_softmax_attention(impl, q, k, v, scale):
+    """The JAX K4/K5/K6 kernels in interpret mode on [B, H, S, D] arrays."""
+    if impl == "pallas":  # K4 works on [BH, S, D]
+        b, h, sq, d = q.shape
+        out = jfa._flash_attention_fwd_pallas(
+            q.reshape(b * h, sq, d), k.reshape(b * h, -1, d), v.reshape(b * h, -1, d),
+            scale=scale, interpret=True)
+        return out.reshape(b, h, sq, d)
+    return jfa.flash_attention(q, k, v, scale=scale, impl=impl, interpret=True)
+
+
+@pytest.mark.parametrize("dtype,limit", [(torch.float32, 2e-5), (torch.bfloat16, 2.0 ** -6)])
+@pytest.mark.parametrize("sq,sk", [
+    (196, 1024),  # Sq != Sk, both ragged against the 64-key tile and 128-row block
+    (1024, 196),
+    (196, 196),   # the serving S
+])
+@pytest.mark.parametrize("impl", ["pallas", "pallas_grouped4", "pallas_multihead"])
+def test_key_tile_recipe_matches_k4_k5_k6_interpret(impl, sq, sk, dtype, limit):
+    """The tensor-core K4-K6 kernel's arithmetic (the 64-key online softmax,
+    csrc/attention_tc.cu) against the JAX kernels it replaces, in interpret
+    mode, on the same rounded inputs in the same dtype: within the limits
+    chip_smoke.py holds the kernel to (2e-5 f32: summation order; 2^-6
+    bf16: an output ulp plus a flipped rounding of p)."""
+    q, k, v = _qkv((1, 2, sq, 64), (1, 2, sk, 64), seed=sq + 3 * sk)
+    t = [torch.from_numpy(a).to(dtype) for a in (q, k, v)]
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    ref = _jax_softmax_attention(impl, *(jnp.asarray(a).astype(jdt) for a in (q, k, v)), 0.125)
+    out = _online_softmax_recipe(*t, 0.125, tile=64)
+    assert out.shape == (1, 2, sq, 64)
+    err = np.abs(out.to(torch.float32).numpy() - np.asarray(ref.astype(jnp.float32))).max()
+    assert err <= limit, err
+
+
+@pytest.mark.parametrize("dtype,head_dim,want", [
+    (torch.bfloat16, 64, tfa.TENSOR_CORE),  # every 'pallas*' call of DUSt3R / MASt3R
+    (torch.float32, 64, tfa.CUDA_CORE),     # float32: CUDA cores
+    (torch.bfloat16, 32, tfa.CUDA_CORE),    # another head_dim: CUDA cores
+    (torch.bfloat16, 128, tfa.CUDA_CORE),
+    (torch.float32, 16, tfa.CUDA_CORE),
+])
+def test_attention_route(dtype, head_dim, want):
+    """The K4/K5/K6 kernel family by shape, decided without the library."""
+    assert tfa.attention_route(dtype, head_dim) == want
+
+
+def _strided_operands(sq=8, sk=8):
+    """bf16 [B=2, H=2, S, 64] q/k/v/out with 16-byte aligned strides, as
+    attention_bshd hands them over: views of [B, S, H, D] buffers."""
+    def bshd(s):
+        return torch.zeros((2, s, 2, 64), dtype=torch.bfloat16).transpose(1, 2)
+    return bshd(sq), bshd(sk), bshd(sk), bshd(sq)
+
+
+def _misaligned(t, axis):
+    """t with the stride of `axis` (0 batch, 1 head, 2 row) one element
+    longer: the same shape, read from a larger buffer."""
+    strides = list(t.stride())
+    strides[axis] += 1
+    size = 1 + sum((n - 1) * st for n, st in zip(t.shape, strides))
+    return torch.zeros(size, dtype=t.dtype).as_strided(t.shape, strides)
+
+
+@pytest.mark.parametrize("operand", range(4))  # q, k, v, out
+@pytest.mark.parametrize("what", ["pointer", "batch", "head", "row"])
+def test_tensor_core_attention_alignment_check_raises(operand, what):
+    """The tensor-core K4-K6 wrapper raises ValueError (before it needs the
+    library) on a base pointer or any batch/head/row stride that is not a
+    multiple of 16 bytes; it never falls back to the CUDA-core kernel."""
+    ops = list(_strided_operands())
+    if what == "pointer":
+        ops[operand] = torch.zeros(ops[operand].numel() + 1,
+                                   dtype=torch.bfloat16)[1:].view(ops[operand].shape)
+    else:
+        ops[operand] = _misaligned(ops[operand], ["batch", "head", "row"].index(what))
+    before = tfa.softmax_attention_tc.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.softmax_attention_tc(*ops, 0.125, stream=0)
+    assert tfa.softmax_attention_tc.launches == before
+
+
+def test_tensor_core_attention_launch_arguments(monkeypatch):
+    """What the tensor-core K4-K6 launcher hands the library, checked with
+    a stand-in for it: the (batch, head, row) strides of q, k, v, out in
+    elements, 0 for an axis of size 1 (never stepped along, so never
+    checked: here q's batch and row axes have odd strides), Sq and Sk apart,
+    and one count per launch."""
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def t3d_softmax_attention_tc(*args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(tfa, "_attention_tc_lib", lambda: Lib)
+    q = torch.zeros(2 * 64 + 7, dtype=torch.bfloat16).as_strided((1, 2, 1, 64), (3, 64, 5, 1))
+    _, k, v, _ = _strided_operands(sk=40)
+    out = torch.zeros((1, 2, 1, 64), dtype=torch.bfloat16)
+    before = tfa.softmax_attention_tc.launches
+    tfa.softmax_attention_tc(q, k[:1], v[:1], out, 0.125, stream=0)
+    assert tfa.softmax_attention_tc.launches == before + 1
+    (args,) = calls
+    assert list(args[4]) == [0, 64, 0, 0, 64, 128, 0, 64, 128, 0, 64, 0]
+    assert args[5:11] == (1, 2, 1, 40, 64, 0.125)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "pallas_grouped4", "pallas_multihead"])
+def test_cpu_bf16_k4_k6_do_not_count_tensor_core_launches(impl):
+    """On CPU tensors K4-K6 run the plain version even where the route is
+    the tensor-core kernel, and no kernel count moves."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv((1, 2, 196, 64), (1, 2, 100, 64), seed=6))
+    counters = (tfa.softmax_attention_tc, tfa.flash_attention_pallas,
+                tfa.flash_attention_grouped, tfa.flash_attention_multihead)
+    counts = [c.launches for c in counters]
+    out = tfa.flash_attention(q, k, v, impl=impl)
+    assert out.dtype == torch.bfloat16 and out.shape == (1, 2, 196, 64)
+    assert torch.equal(out, tfa.attention_plain(q, k, v, 0.125))
+    assert [c.launches for c in counters] == counts

@@ -21,7 +21,8 @@ from thermal3d_torch.kernels.flash_attention import (fused_rope_attention,
                                                      fused_rope_cross_attention,
                                                      rope_attention_plain)
 from thermal3d_torch.kernels.image_ops import (GRID, percentile_enhance,
-                                               percentile_enhance_plain, search_target)
+                                               percentile_enhance_plain, percentile_radix_plain,
+                                               search_target)
 
 
 def _frames(kind, shape, seed=0):
@@ -77,6 +78,38 @@ def test_k1_wrapper_uses_plain_version_on_cpu():
     torch.testing.assert_close(percentile_enhance(x), percentile_enhance_plain(x),
                                rtol=0, atol=0)
     assert percentile_enhance.launches == before  # only kernel launches count
+
+
+@pytest.mark.parametrize("kind", ["random", "flat", "bimodal"])
+@pytest.mark.parametrize("shape", [
+    (2, 512, 640),  # a full Freiburg frame, over the one-block kernel's old limit
+    (3, 37, 53),    # odd sizes: ragged tiles
+    (1, 1, 1),
+])
+def test_k1_radix_select_equals_search(kind, shape):
+    """The CUDA kernel's two-level radix select, restated in PyTorch, gives
+    the binary search's order statistics: its output is bit-equal to the
+    plain search. Against the Pallas kernel in interpret mode, whose
+    clip-rescale XLA's CPU arithmetic rounds differently (up to 3 float32
+    ulps on the [2,512,640] bimodal frame, for the plain search as well),
+    it is within 2.4e-7, while a percentile one grid step off would move
+    every unclipped output by at least 1/65535 (1.5e-5)."""
+    x = _frames(kind, shape, seed=sum(shape))
+    out = percentile_radix_plain(torch.from_numpy(x))
+    assert out.shape == shape and out.dtype == torch.float32
+    torch.testing.assert_close(out, percentile_enhance_plain(torch.from_numpy(x)),
+                               rtol=0, atol=0)
+    ref = np.asarray(percentile_enhance_pallas(jnp.asarray(x), interpret=True))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=2.4e-7)
+
+
+@pytest.mark.parametrize("lo,hi", [(0.0, 100.0), (50.0, 50.0), (99.99, 1e-3)])
+def test_k1_radix_select_equals_search_at_edge_ranks(lo, hi):
+    """Ranks at the ends of the grid and equal ranks, on an image with ties:
+    the radix select and the search agree bit for bit."""
+    x = torch.from_numpy(np.random.default_rng(8).integers(0, 5, (2, 30, 30)) / 4.0).float()
+    torch.testing.assert_close(percentile_radix_plain(x, lo, hi),
+                               percentile_enhance_plain(x, lo, hi), rtol=0, atol=0)
 
 
 def _attn_inputs(b, hg, wg, nh, d, n_tensors, seed):

@@ -28,7 +28,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("percentile_enhance", "rope_attention", "rope_attention_tc", "attention")
+SOURCES = ("percentile_enhance", "rope_attention", "rope_attention_tc", "attention",
+           "attention_tc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -112,12 +113,17 @@ def library(name: str) -> ctypes.CDLL:
             paths = build_all()
             for n, p in paths.items():
                 if n not in _libs:
-                    loaded = ctypes.CDLL(str(p))
-                    loaded.t3d_error_string.argtypes = [ctypes.c_int]
-                    loaded.t3d_error_string.restype = ctypes.c_char_p
-                    _libs[n] = loaded
+                    _libs[n] = load(p)
             lib = _libs[name]
         return lib
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """Load a built library and declare its `t3d_error_string`."""
+    lib = ctypes.CDLL(str(path))
+    lib.t3d_error_string.argtypes = [ctypes.c_int]
+    lib.t3d_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -20,8 +20,10 @@
 // The keys are walked in tiles with an online softmax (attention_common.cuh):
 // at S=1024 the K/V of one head are 256 KB in bf16, over the 227 KB a block
 // may use. What bounds it on an H100, and the design, are in the note at the
-// top of attention_common.cuh: operations bound the function; this first
-// version runs on CUDA cores.
+// top of attention_common.cuh: operations bound the function; this kernel
+// runs on CUDA cores. It serves float32 and head dims other than 64; bf16
+// with head_dim 64 runs the tensor-core kernel of attention_tc.cu (the
+// wrapper's attention_route).
 //
 // Any layout with a unit innermost stride is taken: the caller passes the
 // batch, head and row strides of q, k, v and out, so [B,H,S,D] tensors and

@@ -3,7 +3,7 @@
 K2 + K3, fused 2-D RoPE + attention: `fused_rope_attention` (K2,
 self-attention on the packed [B,S,3C] qkv projection) and
 `fused_rope_cross_attention` (K3, separate [B,S,C] q/k/v projections sharing
-one position grid) return [B,S,C]. `rope_attention_route` picks their CUDA
+one position grid) return [B,S,C]. `attention_route` picks their CUDA
 kernel by shape: bf16 with head_dim 64 runs on the tensor cores
 (csrc/rope_attention_tc.cu, counted by `rope_attention_tc.launches`); other
 dtypes and head dims run the CUDA-core kernels of csrc/rope_attention.cu.
@@ -11,8 +11,11 @@ dtypes and head dims run the CUDA-core kernels of csrc/rope_attention.cu.
 K4 + K5 + K6, softmax attention on q/k that are already roped:
 `flash_attention_pallas` (K4, [N,S,D] or [B,H,S,D]),
 `flash_attention_grouped` (K5) and `flash_attention_multihead` (K6, both
-[B,H,S,D]) launch csrc/attention.cu, one kernel for the three functions the
-TPU tiled three ways; each keeps its own entry and launch count.
+[B,H,S,D]) launch one kernel for the three functions the TPU tiled three
+ways; each keeps its own entry and launch count. `attention_route` picks
+the kernel by shape as for K2/K3: bf16 with head_dim 64 runs on the tensor
+cores (csrc/attention_tc.cu, counted by `softmax_attention_tc.launches`),
+other dtypes and head dims on the CUDA cores (csrc/attention.cu).
 `flash_attention` ([B,H,S,D]) and `attention_bshd` ([B,S,H,D]) pick one of
 them by `impl` name, as the JAX functions do.
 
@@ -35,7 +38,7 @@ from thermal3d_torch.kernels import _build
 
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the K2/K3 kernel families, by the name rope_attention_route gives them
+# the kernel families, by the name attention_route gives them
 TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
 
 
@@ -123,25 +126,27 @@ def smem_bytes(seq: int, head_dim: int, dtype: torch.dtype) -> int:
     return int(fn(seq, head_dim, torch.tensor([], dtype=dtype).element_size()))
 
 
-def rope_attention_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The K2/K3 kernel family for a call, by dtype and head dim:
-    TENSOR_CORE (csrc/rope_attention_tc.cu, wgmma) for bf16 with head_dim
-    64 at any S, which is every K2/K3 call of the configured models
-    (DUSt3R-224, MASt3R-512); otherwise CUDA_CORE, the kernels of
-    csrc/rope_attention.cu (`_launch` picks one-shot or key-tile there). A
-    dispatch by shape: a kernel that fails to build or launch raises."""
+def attention_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel family of an attention call (K2-K6), by dtype and head
+    dim: TENSOR_CORE (wgmma: csrc/rope_attention_tc.cu for K2/K3,
+    csrc/attention_tc.cu for K4-K6) for bf16 with head_dim 64 at any S,
+    which is every call of the configured models (DUSt3R-224, MASt3R-512);
+    otherwise CUDA_CORE (csrc/rope_attention.cu, where `_launch` picks
+    one-shot or key-tile, and csrc/attention.cu). A dispatch by shape: a
+    kernel that fails to build or launch raises."""
     return TENSOR_CORE if dtype == torch.bfloat16 and head_dim == 64 else CUDA_CORE
 
 
-def check_alignment(what: str, pointers, row_stride_bytes: int) -> None:
-    """Raise ValueError unless every base pointer and the row stride are
-    multiples of 16 bytes (the tensor-core kernel reads rows in 16-byte
+def check_alignment(what: str, pointers, *stride_bytes: int) -> None:
+    """Raise ValueError unless every base pointer and every stride (in
+    bytes) is a multiple of 16 (the tensor-core kernels read rows in 16-byte
     vectors and copies)."""
     bad = [hex(p) for p in pointers if p % 16]
-    if bad or row_stride_bytes % 16:
+    bad_strides = [st for st in stride_bytes if st % 16]
+    if bad or bad_strides:
         raise ValueError(f"{what}: the tensor-core kernel needs 16-byte aligned base "
-                         f"pointers and row stride (misaligned: {bad}, row stride "
-                         f"{row_stride_bytes} B)")
+                         f"pointers and strides (misaligned pointers: {bad}, strides in "
+                         f"bytes: {bad_strides})")
 
 
 def _check(what, tensors, cos, sin, num_heads, c, s):
@@ -174,7 +179,7 @@ def _launch(x, q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale,
         return
     d = c // num_heads
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if rope_attention_route(x.dtype, d) == TENSOR_CORE:
+    if attention_route(x.dtype, d) == TENSOR_CORE:
         rope_attention_tc(q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale,
                           stream, what)
         return
@@ -191,18 +196,19 @@ def _launch(x, q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale,
 
 
 def rope_attention_tc(q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale,
-                      stream, what="rope_attention_tc"):
+                      stream, what="rope_attention_tc", lib=None):
     """Launch the tensor-core K2/K3 kernel (bf16, head_dim 64) on base
     pointers with a common row stride in elements; out [B, S, C] bf16. The
     library call launches the RoPE prologue of K into a [B, H, S, 64] bf16
-    scratch, then the attention kernel, on `stream`. Counts its own calls
-    in `rope_attention_tc.launches`."""
+    scratch, then the attention kernel, on `stream`. `lib`: another build
+    of csrc/rope_attention_tc.cu, loaded by `bind_tc_lib` (this checkout's
+    by default). Counts its own calls in `rope_attention_tc.launches`."""
     b, s, c = out.shape
     k_roped = torch.empty((b, num_heads, s, c // num_heads), dtype=out.dtype, device=out.device)
     ptrs = (q_ptr, k_ptr, v_ptr, cos.data_ptr(), sin.data_ptr(), k_roped.data_ptr(),
             out.data_ptr())
     check_alignment(what, ptrs, row_stride * out.element_size())
-    lib = _tc_lib()
+    lib = lib or _tc_lib()
     rc = lib.t3d_rope_attention_tc(*ptrs[:3], row_stride, *ptrs[3:], b, s, num_heads,
                                    c // num_heads, float(scale), stream)
     _build.check(lib, rc, f"{what} launch")
@@ -213,7 +219,11 @@ rope_attention_tc.launches = 0
 
 
 def _tc_lib() -> ctypes.CDLL:
-    lib = _build.library("rope_attention_tc")
+    return bind_tc_lib(_build.library("rope_attention_tc"))
+
+
+def bind_tc_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signature of a rope_attention_tc library's entry."""
     fn = lib.t3d_rope_attention_tc
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -345,8 +355,9 @@ def attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _attend(what, q, k, v, scale):
-    """Check [B, H, S, D] operands and launch csrc/attention.cu. The output
-    is laid out as q is (so a [B, S, H, D] view in gives one out)."""
+    """Check [B, H, S, D] operands and launch the K4-K6 kernel that
+    attention_route names. The output is laid out as q is (so a
+    [B, S, H, D] view in gives one out)."""
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"{what}: dtype {q.dtype} not supported (float32, bfloat16)")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or q.shape[:2] != k.shape[:2] \
@@ -370,13 +381,47 @@ def _attend(what, q, k, v, scale):
     out = out.permute([order.index(i) for i in range(4)])
     if out.numel() == 0:
         return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if attention_route(q.dtype, d) == TENSOR_CORE:
+        softmax_attention_tc(q, k, v, out, scale, stream, what)
+        return out
     strides = (ctypes.c_longlong * 12)(*(t.stride(i) for t in (q, k, v, out) for i in range(3)))
     lib = _attention_lib()
     rc = lib.t3d_attention(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           out.data_ptr(), strides, b, h, sq, sk, d, float(scale),
-                           torch.cuda.current_stream(q.device).cuda_stream)
+                           out.data_ptr(), strides, b, h, sq, sk, d, float(scale), stream)
     _build.check(lib, rc, f"{what} launch")
     return out
+
+
+def softmax_attention_tc(q, k, v, out, scale, stream, what="softmax_attention_tc"):
+    """Launch the tensor-core K4-K6 kernel (bf16, head_dim 64) on checked
+    [B, H, S, D] operands and out. Strides of axes of size 1 are never
+    read and go to the kernel as 0; every other batch, head and row stride,
+    and every base pointer, must be a multiple of 16 bytes. Counts its own
+    calls in `softmax_attention_tc.launches`."""
+    b, h, sq, d = q.shape
+    strides = [t.stride(i) if t.shape[i] > 1 else 0 for t in (q, k, v, out) for i in range(3)]
+    es = q.element_size()
+    check_alignment(what, [t.data_ptr() for t in (q, k, v, out)], *(st * es for st in strides))
+    lib = _attention_tc_lib()
+    rc = lib.t3d_softmax_attention_tc(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                      (ctypes.c_longlong * 12)(*strides), b, h, sq, k.shape[2],
+                                      d, float(scale), stream)
+    _build.check(lib, rc, f"{what} launch")
+    softmax_attention_tc.launches += 1
+
+
+softmax_attention_tc.launches = 0
+
+
+def _attention_tc_lib() -> ctypes.CDLL:
+    lib = _build.library("attention_tc")
+    fn = lib.t3d_softmax_attention_tc
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
 
 
 def _attention_lib() -> ctypes.CDLL:

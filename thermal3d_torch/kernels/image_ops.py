@@ -2,10 +2,13 @@
 thermal3d/kernels/image_ops.py).
 
 `percentile_enhance` launches the CUDA kernel in csrc/percentile_enhance.cu
-for a CUDA tensor and runs `percentile_enhance_plain`, the same binary search
-written in PyTorch, for a CPU tensor. Both return, for each image, the single
-order statistics p_lo/p_hi found on the 65535-step grid (not np.percentile's
-interpolation), then clip-rescale the image to [0, 1].
+for a CUDA tensor and runs `percentile_enhance_plain`, the binary search of
+the Pallas kernel written in PyTorch, for a CPU tensor. All return, for each
+image, the single order statistics p_lo/p_hi found on the 65535-step grid
+(not np.percentile's interpolation), then clip-rescale the image to [0, 1].
+The CUDA kernel finds the same order statistics by a two-level radix select
+over many blocks an image; `percentile_radix_plain` restates that algorithm
+in PyTorch, so the CPU tests can hold it to the search bit for bit.
 """
 
 from __future__ import annotations
@@ -19,8 +22,10 @@ from thermal3d_torch.kernels import _build
 
 GRID = 65535.0  # 16-bit quantisation grid for values in [0, 1]
 SEARCH_STEPS = 16  # ceil(log2(65536))
-SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
-_STATIC_SMEM = 256  # the kernel's per-warp partial sums
+# pixels an image the kernel takes: its int32 counts, compared as float32,
+# are exact up to 2^24
+MAX_PIXELS = 1 << 24
+_SCRATCH_INTS = 256 + 2 * 256 + 4  # an image's hist_hi, hist_lo and selection
 
 
 def search_target(frac: float, n: int) -> float:
@@ -49,10 +54,51 @@ def percentile_enhance_plain(gray: torch.Tensor, lo: float = 2.0,
             lo_v, hi_v = torch.where(ok, lo_v, mid + 1.0), torch.where(ok, mid, hi_v)
         return lo_v / GRID
 
-    p_lo = percentile(lo)[:, None]
-    p_hi = percentile(hi)[:, None]
+    return _rescale(x, percentile(lo), percentile(hi)).reshape(b, h, w)
+
+
+def _rescale(x: torch.Tensor, p_lo: torch.Tensor, p_hi: torch.Tensor) -> torch.Tensor:
+    """Clip-rescale [B, N] images by their per-image [B] percentiles."""
+    p_lo, p_hi = p_lo[:, None], p_hi[:, None]
     scale = 1.0 / torch.clamp(p_hi - p_lo, min=1e-12)
-    return torch.clamp((x - p_lo) * scale, 0.0, 1.0).reshape(b, h, w)
+    return torch.clamp((x - p_lo) * scale, 0.0, 1.0)
+
+
+def percentile_radix_plain(gray: torch.Tensor, lo: float = 2.0,
+                           hi: float = 98.0) -> torch.Tensor:
+    """The CUDA kernel's algorithm in PyTorch: a two-level radix select (256
+    bins of the high byte of q = clamp(floor(x * 65535), 0, 65535), then 256
+    of the low byte within the selected bin) for the smallest v with
+    count(q <= v) >= target; then the same clip-rescale. Equal, bit for bit,
+    to percentile_enhance_plain."""
+    b, h, w = gray.shape
+    n = h * w
+    x = gray.reshape(b, n)
+    q = torch.clamp(torch.floor(x * GRID), 0.0, GRID).to(torch.int64)
+    image = torch.arange(b, device=gray.device)[:, None]
+
+    def select(counts, below, target):
+        """Per image: the first bin where below + the cumulative count
+        reaches target (255 if none), and below + the count before it."""
+        cum = below[:, None] + torch.cumsum(counts, dim=1)
+        bins = torch.clamp((cum.to(torch.float32) < target).sum(dim=1), max=255)
+        before = torch.where(bins > 0, cum.gather(1, (bins - 1).clamp(min=0)[:, None])[:, 0],
+                             below)
+        return bins, before
+
+    hist_hi = torch.bincount((image * 256 + (q >> 8)).reshape(-1),
+                             minlength=b * 256).reshape(b, 256)
+    zero = torch.zeros(b, dtype=torch.int64, device=gray.device)
+    ps = []
+    for frac in (lo, hi):
+        target = search_target(frac, n)
+        high, below = select(hist_hi, zero, target)
+        in_bin = (q >> 8) == high[:, None]
+        hist_lo = torch.bincount((image * 256 + (q & 255))[in_bin],
+                                 minlength=b * 256).reshape(b, 256)
+        low, _ = select(hist_lo, below, target)
+        ps.append((high * 256 + low).to(torch.float32) / GRID)
+    return _rescale(x, *ps).reshape(b, h, w)
 
 
 def percentile_enhance(gray: torch.Tensor, lo: float = 2.0,
@@ -72,15 +118,16 @@ def percentile_enhance(gray: torch.Tensor, lo: float = 2.0,
         raise RuntimeError("percentile_enhance: the CUDA kernel is forward only")
     b, h, w = gray.shape
     n = h * w
-    if 2 * n + _STATIC_SMEM > SMEM_LIMIT:
-        raise ValueError(f"percentile_enhance: a {h}x{w} image does not fit in "
-                         "one block's shared memory")
+    if n > MAX_PIXELS or b > 65535:
+        raise ValueError(f"percentile_enhance: at most {MAX_PIXELS} pixels an image and "
+                         f"65535 images (got {b} of {h}x{w})")
     out = torch.empty_like(gray)
-    if b == 0:
+    if out.numel() == 0:
         return out
+    scratch = torch.zeros(b * _SCRATCH_INTS, dtype=torch.int32, device=gray.device)
     lib = _lib()
     rc = lib.t3d_percentile_enhance(
-        gray.data_ptr(), out.data_ptr(), b, n, search_target(lo, n),
+        gray.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, n, search_target(lo, n),
         search_target(hi, n), torch.cuda.current_stream(gray.device).cuda_stream)
     _build.check(lib, rc, "percentile_enhance launch")
     percentile_enhance.launches += 1
@@ -93,7 +140,7 @@ percentile_enhance.launches = 0
 def _lib() -> ctypes.CDLL:
     lib = _build.library("percentile_enhance")
     fn = lib.t3d_percentile_enhance
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
