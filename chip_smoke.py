@@ -38,8 +38,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
      and 'pallas_grouped4' (K5) and 'pallas_multihead' (K6) at encoder and
      decoder depth 2 (10·n each), each against its plain twin, all on the
      tensor-core K4-K6 kernel (its count equal to theirs);
-  6. print JSON lines of the two paths and of the kernels and, last, the
-     device line.
+  6. drive the file-driven entry points on a synthetic Freiburg tree written
+     with the script's own PNG encoder (every row filter type): the port's
+     decoder alone (frames/s on 1 and 8 threads); InferenceEngine.infer_paths
+     over 100 uint16 640x512 frames and a corrupt file, in batches of 32
+     (the 4th padded), depth only and all outputs, bit-equal to engine.infer
+     on the same decoded batches (K1 = 4, K2 = 160, K3 = 64), one call of
+     each under torch.profiler; cli.infer --no_vis (100 depth files);
+     cli.evaluate against pseudo-GT depths at 640x512, its per-image metrics
+     held against a float64 numpy restatement; generate_pseudo_gt on 9 RGB
+     pairs with the full-depth bf16 MASt3R-512 (steps of 4, 4 and a padded
+     1: K2 = 144, K3 = 72), every file equal to run_pairs on the same
+     decoded pairs; cli.pseudo_gt --test_set on 10 frames;
+  7. print JSON lines of the paths (engine, pseudo_gt, files) and of the
+     kernels and, last, the device line.
 Without CUDA it exits non-zero before printing any result.
 
     python3 chip_smoke.py --compare-k2k3 OTHER_CSRC_DIR
@@ -52,6 +64,7 @@ shapes of both paths, times in turns) and exits non-zero if any differs.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -755,6 +768,350 @@ def phase_pseudo_gt(torch, np):
                 reduced_depth=reduced)
 
 
+# the file-driven phase: N_FRAMES decodable Freiburg-size thermal frames (3
+# full serving batches and a padded 4th) plus one corrupt file; N_RGB RGB
+# frames give N_RGB - 1 pairs at frame_skip 1 (pseudo-GT steps of 4, 4 and a
+# padded 1)
+N_FRAMES = 100
+CORRUPT_AT = 37
+FRAME_HW = (512, 640)
+N_RGB = 10
+# per-image metrics on the card against a float64 numpy restatement: the
+# error metrics to 1e-5 relative; an accuracy is a count over n valid pixels,
+# where a ratio within f32 rounding of a threshold may fall the other way, so
+# it may also differ by one pixel (1/n)
+METRIC_RTOL = 1e-5
+
+
+def png_bytes(np, arr) -> bytes:
+    """A PNG of uint8 gray/RGB or uint16 gray samples, written with the stdlib
+    zlib; row y uses filter type y % 5 (None, Sub, Up, Average, Paeth), so
+    every unfilter branch of the decoder runs."""
+    import struct
+    import zlib
+
+    h, w = arr.shape[:2]
+    c = 1 if arr.ndim == 2 else arr.shape[2]
+    depth = 16 if arr.dtype == np.uint16 else 8
+    raw = (arr.astype(">u2").view(np.uint8) if depth == 16 else arr).reshape(h, -1)
+    raw = raw.astype(np.int32)
+    bpp = c * depth // 8
+    up = np.vstack([np.zeros((1, raw.shape[1]), np.int32), raw[:-1]])
+    left = np.hstack([np.zeros((h, bpp), np.int32), raw[:, :-bpp]])
+    upleft = np.hstack([np.zeros((h, bpp), np.int32), up[:, :-bpp]])
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    kind = (np.arange(h) % 5)[:, None]
+    pred = np.select([kind == k for k in range(5)],
+                     [np.zeros_like(raw), left, up, (left + up) >> 1, paeth])
+    rows = np.hstack([kind.astype(np.uint8), ((raw - pred) & 0xFF).astype(np.uint8)])
+
+    def chunk(tag: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + tag + body + struct.pack(
+            ">I", zlib.crc32(tag + body))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, 0 if c == 1 else 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def write_tree(np, root: str):
+    """The phase's files: `thermal/` (N_FRAMES uint16 frames, raw counts
+    21000-26000 with structure, and one corrupt file) and a Freiburg tree
+    `ds/train/seq_00_day/00/{fl_rgb,fl_ir_aligned}` of N_RGB RGB8 frames and
+    their thermal twins. Returns the sorted thermal paths."""
+    import os
+
+    h, w = FRAME_HW
+    rng = np.random.default_rng(5)
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w), indexing="ij")
+    thermal_dir = os.path.join(root, "thermal")
+    seq = os.path.join(root, "ds", "train", "seq_00_day", "00")
+    for d in (thermal_dir, os.path.join(seq, "fl_rgb"), os.path.join(seq, "fl_ir_aligned")):
+        os.makedirs(d)
+    thermal = []
+    for i in range(N_FRAMES + 1):
+        path = os.path.join(thermal_dir, f"fl_ir_aligned_{1580000 + i}_{i:03d}.png")
+        thermal.append(path)
+        if i == CORRUPT_AT:
+            with open(path, "wb") as f:
+                f.write(b"\x89PNG\r\n\x1a\n not a png")
+            continue
+        blob = 0.5 + 0.5 * np.sin(6 * xx + 0.2 * i) * np.cos(4 * yy)
+        frame = 0.5 * xx + 0.3 * blob + 0.2 * rng.uniform(size=(h, w))
+        with open(path, "wb") as f:
+            f.write(png_bytes(np, (21000 + 5000 * frame).astype(np.uint16)))
+    base = np.stack([yy, xx, 0.5 * (yy + xx)], axis=-1)
+    for i in range(N_RGB):
+        stamp = f"{1590000 + i}_{i:03d}"
+        rgb = np.roll(0.7 * base, 8 * i, axis=1) + 0.3 * rng.uniform(size=base.shape)
+        with open(os.path.join(seq, "fl_rgb", f"fl_rgb_{stamp}.png"), "wb") as f:
+            f.write(png_bytes(np, (255 * rgb).astype(np.uint8)))
+        with open(os.path.join(seq, "fl_ir_aligned", f"fl_ir_aligned_{stamp}.png"), "wb") as f:
+            f.write(open(thermal[i], "rb").read())
+    return sorted(thermal)
+
+
+def metrics_f64(np, pred, gt):
+    """The evaluation metrics of one frame restated in float64 numpy: mask
+    gt > 0 and finite, median scaling (numpy's median averages the two
+    middle values), AbsRel, RMSE and the accuracies."""
+    mask = (gt > 0) & np.isfinite(gt)
+    p, g = pred.astype(np.float64)[mask], gt.astype(np.float64)[mask]
+    p = p * (np.median(g) / np.median(p))
+    thresh = np.maximum(g / p, p / g)
+    return dict(abs_rel=float(np.mean(np.abs(g - p) / g)),
+                rmse=float(np.sqrt(np.mean((g - p) ** 2))),
+                acc_1=float(np.mean(thresh < 1.25)), acc_2=float(np.mean(thresh < 1.25 ** 2)),
+                n_valid=int(mask.sum()))
+
+
+def hold_metrics(np, got, want, what):
+    """got (float32, from the card) against want (metrics_f64)."""
+    for k in ("abs_rel", "rmse", "acc_1", "acc_2"):
+        limit = METRIC_RTOL * abs(want[k])
+        if k.startswith("acc"):
+            limit = max(METRIC_RTOL, 1.0 / want["n_valid"])
+        if not abs(got[k] - want[k]) <= limit:
+            raise AssertionError(f"{what}: {k} {got[k]} vs float64 {want[k]} (limit {limit:.2e})")
+
+
+def phase_files(torch, np, card: str, engine_result: dict, pseudo_gt_result: dict):
+    """The file-driven entry points at full width on synthetic Freiburg files:
+    the decoder's rate, InferenceEngine.infer_paths (depth only and all
+    outputs, bit-equal to engine.infer on the same decoded batches),
+    cli.infer, generate_pseudo_gt (every file equal to run_pairs on the same
+    decoded pairs), cli.pseudo_gt --test_set and cli.evaluate (per-image
+    metrics against float64 numpy), each with its launch counts."""
+    import glob
+    import os
+    import tempfile
+
+    from thermal3d_torch import native
+    from thermal3d_torch.cli import evaluate as cli_evaluate
+    from thermal3d_torch.cli import infer as cli_infer
+    from thermal3d_torch.cli import pseudo_gt as cli_pseudo_gt
+    from thermal3d_torch.core.config import DUSTR_224_LINEAR, MASTR_512_CATMLPDPT
+    from thermal3d_torch.data.freiburg import build_rgb_pair_index
+    from thermal3d_torch.evaluation.evaluator import _resize_nearest
+    from thermal3d_torch.evaluation.metrics import batched_depth_metrics
+    from thermal3d_torch.infer.engine import OUTPUT_KEYS, InferenceEngine
+    from thermal3d_torch.preprocess.io import load_thermal_images_batch
+    from thermal3d_torch.pseudo_gt.generator import (OUTPUT_DIRS, PseudoGTGenerator,
+                                                     decode_rgb_pairs, generate_pseudo_gt,
+                                                     pad_batch)
+
+    serving = {"percentile_enhance": 4, "fused_rope_attention": 160,
+               "fused_rope_cross_attention": 64, "rope_attention_tc": 224}
+    n_steps = -(-(N_RGB - 1) // PAIR_BATCH)
+    stepping = {"fused_rope_attention": 48 * n_steps, "fused_rope_cross_attention": 24 * n_steps,
+                "rope_attention_tc": 72 * n_steps}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_files_")
+    root = tmp.name
+    t0 = time.perf_counter()
+    paths = write_tree(np, root)
+    survivors = [p for i, p in enumerate(paths) if i != CORRUPT_AT]
+    log(f"files: wrote {len(paths)} thermal and {N_RGB} RGB PNGs {FRAME_HW} in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the decoder alone: one batch of every decodable frame, resized to 224²
+    decode = {"default_threads": native.DEFAULT_THREADS, "frame_hw": list(FRAME_HW),
+              "frames_per_s_by_threads": {}}
+    native.load_thermal_batch(survivors[:8], (224, 224))  # build and warm up
+    for threads in sorted({1, native.DEFAULT_THREADS, 8}):
+        t0 = time.perf_counter()
+        _, ok = native.load_thermal_batch(survivors, (224, 224), n_threads=threads)
+        decode["frames_per_s_by_threads"][threads] = len(survivors) / (time.perf_counter() - t0)
+        if not ok.all():
+            raise AssertionError("decoder: a valid frame failed to decode")
+    log(f"decode: {json.dumps(decode)}")
+
+    cfg = dataclasses.replace(DUSTR_224_LINEAR, compute_dtype="bfloat16")
+    eng = InferenceEngine(cfg, params_dtype="bfloat16", seed=0)
+    eng.infer_paths(survivors[:BATCH], batch_size=BATCH)  # warm-up
+    torch.cuda.synchronize()
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    (depth_only, el_d), launches_d = run_counted(
+        lambda: timed(lambda: eng.infer_paths(paths, batch_size=BATCH, outputs=("depth",))),
+        serving)
+    (full, el_f), launches_f = run_counted(
+        lambda: timed(lambda: eng.infer_paths(paths, batch_size=BATCH)), serving)
+    # once more each, for the spread between calls
+    el_d2 = timed(lambda: eng.infer_paths(paths, batch_size=BATCH, outputs=("depth",)))[1]
+    el_f2 = timed(lambda: eng.infer_paths(paths, batch_size=BATCH))[1]
+    # the decoder's default thread count (one core left to the launching
+    # thread) against all 8 threads, the JAX loader's count, in turns
+    fps_by_threads = {native.DEFAULT_THREADS: [], 8: []}
+    default_batch = native.load_thermal_batch
+    try:
+        for threads in (8, native.DEFAULT_THREADS, native.DEFAULT_THREADS, 8):
+            native.load_thermal_batch = functools.partial(default_batch, n_threads=threads)
+            el = timed(lambda: eng.infer_paths(paths, batch_size=BATCH, outputs=("depth",)))[1]
+            fps_by_threads[threads].append(N_FRAMES / el)
+    finally:
+        native.load_thermal_batch = default_batch
+    log(f"infer_paths depth only, frames/s by decode threads: {fps_by_threads}")
+    if depth_only["paths"] != survivors or full["paths"] != survivors:
+        raise AssertionError("infer_paths: the surviving paths are wrong")
+    # the serial loop on the same decoded batches: bit-equal
+    serial = {k: [] for k in OUTPUT_KEYS}
+    for i in range(0, len(paths), BATCH):
+        grays, _ = load_thermal_images_batch(paths[i:i + BATCH], out_hw=(224, 224))
+        real = len(grays)
+        out = eng.infer(np.stack(grays + [grays[-1]] * (BATCH - real)))
+        for k in OUTPUT_KEYS:
+            serial[k].append(out[k][:real])
+    for k in OUTPUT_KEYS:
+        if not np.array_equal(full[k], np.concatenate(serial[k])):
+            raise AssertionError(f"infer_paths {k} differs from the serial decode -> infer loop")
+    if not np.array_equal(depth_only["depth"], full["depth"]):
+        raise AssertionError("infer_paths: the depth-only fetch differs from the full one")
+    check_outputs({k: v[:BATCH] for k, v in full.items() if k != "paths"}, np)
+    fps_d, fps_f = N_FRAMES / el_d, N_FRAMES / el_f
+    log(f"infer_paths: {N_FRAMES} of {len(paths)} frames in batches of {BATCH}: depth only "
+        f"{fps_d:.2f} frames/s, all outputs {fps_f:.2f} (infer(): fps "
+        f"{engine_result['fps']:.2f}, fps_device {engine_result['fps_device']:.2f}); "
+        f"launches {launches_d}; bit-equal to the serial loop")
+    # where an infer_paths batch goes: the host's launch time of one batch,
+    # then its device time, and one whole call under the profiler
+    batch = np.stack(load_thermal_images_batch(survivors[:BATCH], out_hw=(224, 224))[0])
+    launch_ms, device_ms = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev = eng.infer_async(batch)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        launch_ms.append((t1 - t0) * 1e3)
+        device_ms.append((time.perf_counter() - t1) * 1e3)
+        del dev
+    breakdown_d = profile_batch(torch, lambda: eng.infer_paths(paths, batch_size=BATCH,
+                                                               outputs=("depth",)),
+                                f"one infer_paths() of {len(paths)} frames, depth only")
+    breakdown_f = profile_batch(torch, lambda: eng.infer_paths(paths, batch_size=BATCH),
+                                f"one infer_paths() of {len(paths)} frames, all outputs")
+    infer_paths = dict(frames=N_FRAMES, files=len(paths), batch=BATCH,
+                       fps_depth_only=fps_d, fps_all_outputs=fps_f,
+                       fps_depth_only_again=N_FRAMES / el_d2,
+                       fps_all_outputs_again=N_FRAMES / el_f2,
+                       fps_depth_only_by_decode_threads=fps_by_threads, launches=launches_d,
+                       launches_all_outputs=launches_f, bit_equal_to_serial=True,
+                       depth_only_equal_to_full=True, host_launch_ms_per_batch=launch_ms,
+                       wait_after_launch_ms_per_batch=device_ms,
+                       breakdown_depth_only=breakdown_d, breakdown_all_outputs=breakdown_f)
+    del eng, depth_only, full, serial
+    torch.cuda.empty_cache()
+
+    # cli.infer --no_vis on the directory: N_FRAMES depth files
+    inf_dir = os.path.join(root, "infer")
+    _, launches_ci = run_counted(lambda: cli_infer.main([
+        "--img_path", os.path.join(root, "thermal"), "--output_dir", inf_dir, "--no_vis",
+        "--batch_size", str(BATCH)]), serving)
+    want_files = sorted(os.path.basename(p)[:-4] + "_depth.npy" for p in survivors)
+    if sorted(os.listdir(inf_dir)) != want_files:
+        raise AssertionError("cli.infer: the depth files are not the surviving frames'")
+    preds = [np.load(os.path.join(inf_dir, f)) for f in want_files]
+    if any(p.shape != (224, 224) or not np.isfinite(p).all() for p in preds):
+        raise AssertionError("cli.infer: a depth map has the wrong shape or non-finite values")
+    log(f"cli.infer: {len(want_files)} depth files; launches {launches_ci}")
+
+    # cli.evaluate against pseudo-GT depths at the frames' own size (nearest
+    # resize to 224²), made from the cli.infer depths; the same engine
+    # (seed, config) predicts the same depths
+    gt_dir = os.path.join(root, "gt")
+    os.makedirs(gt_dir)
+    rng = np.random.default_rng(9)
+    gts = []
+    for name, pred in zip(want_files, preds):
+        up = _resize_nearest(np.abs(pred), FRAME_HW)
+        gt = (up * rng.uniform(0.8, 1.25, FRAME_HW) + 0.05).astype(np.float32)
+        gt[:40] = 0.0  # outside the mask
+        np.save(os.path.join(gt_dir, name), gt)
+        gts.append(_resize_nearest(gt, (224, 224)))
+    ev_dir = os.path.join(root, "evaluation")
+    summary, launches_ce = run_counted(lambda: cli_evaluate.main([
+        "--thermal_dir", os.path.join(root, "thermal"), "--pseudo_gt_dir", gt_dir,
+        "--output_dir", ev_dir, "--no_vis", "--batch_size", str(BATCH)]), serving)
+    on_card = batched_depth_metrics(np.stack(preds), np.stack(gts), device="cuda")
+    f64 = [metrics_f64(np, p, g) for p, g in zip(preds, gts)]
+    worst = {k: 0.0 for k in ("abs_rel", "rmse", "acc_1", "acc_2")}
+    for i, want in enumerate(f64):
+        got = {k: float(v[i]) for k, v in on_card.items()}
+        hold_metrics(np, got, want, f"evaluation, frame {i}")
+        for k in worst:
+            worst[k] = max(worst[k], abs(got[k] - want[k]) / max(abs(want[k]), 1e-30))
+    mean64 = {k: float(np.mean([m[k] for m in f64])) for k in worst}
+    hold_metrics(np, summary, dict(mean64, n_valid=min(m["n_valid"] for m in f64)),
+                 "cli.evaluate summary")
+    n_txt = len(glob.glob(os.path.join(ev_dir, "*_metrics.txt")))
+    if summary["n_images"] != N_FRAMES or n_txt != N_FRAMES or not os.path.exists(
+            os.path.join(ev_dir, "metrics_summary.txt")):
+        raise AssertionError(f"cli.evaluate: {summary['n_images']} images, {n_txt} files")
+    log(f"cli.evaluate: {summary}; per-image vs float64, worst relative {worst}; "
+        f"launches {launches_ce}")
+
+    # generate_pseudo_gt: MASt3R-512 at full depth, every file against run_pairs
+    pcfg = dataclasses.replace(MASTR_512_CATMLPDPT, compute_dtype="bfloat16")
+    gen = PseudoGTGenerator(pcfg, params_dtype="bfloat16", seed=0)
+    ds = os.path.join(root, "ds")
+    pairs = build_rgb_pair_index(ds, frame_skip=1)
+    if len(pairs) != N_RGB - 1:
+        raise AssertionError(f"pair index: {len(pairs)} pairs")
+    gen.run_pairs(*rgb_pairs(np, 0))  # warm-up
+    torch.cuda.synchronize()
+    pgt_dir = os.path.join(root, "pseudo_gt")
+    (n_written, el_p), launches_p = run_counted(
+        lambda: timed(lambda: generate_pseudo_gt(pairs, pgt_dir, gen)), stepping)
+    pps = n_written / el_p
+    for i in range(0, len(pairs), PAIR_BATCH):
+        rgb1, rgb2, kept = decode_rgb_pairs(pairs[i:i + PAIR_BATCH], pcfg.img_size)
+        ref = gen.run_pairs(pad_batch(rgb1, PAIR_BATCH), pad_batch(rgb2, PAIR_BATCH))
+        for j, pr in enumerate(kept):
+            b1, b2 = (os.path.basename(pr[k])[:-4] for k in ("rgb_path1", "rgb_path2"))
+            for d in OUTPUT_DIRS:
+                name = {"depth1": b1, "depth2": b2}.get(d, f"{b1}_{b2}")
+                got = np.load(os.path.join(pgt_dir, d, f"{name}.npy"))
+                if not np.array_equal(got, ref[d][j], equal_nan=True):
+                    raise AssertionError(f"generate_pseudo_gt {d}/{name} differs from run_pairs")
+    log(f"generate_pseudo_gt: {n_written} pairs in {n_steps} steps, {pps:.3f} pairs/s "
+        f"(decode, compute and npy writes; run_pairs: {pseudo_gt_result['pairs_per_s']:.3f}, "
+        f"run_pairs_async {pseudo_gt_result['pairs_per_s_device']:.3f}); every file equal to "
+        f"run_pairs; launches {launches_p}")
+    del gen
+    torch.cuda.empty_cache()
+
+    # cli.pseudo_gt --test_set: N_RGB frames, monocular
+    ts_dir = os.path.join(root, "test_set")
+    n_ts, launches_ts = run_counted(lambda: cli_pseudo_gt.main([
+        "--dataset_dir", ds, "--output_dir", ts_dir, "--test_set",
+        "--batch_size", str(PAIR_BATCH)]), stepping)
+    depth_files = sorted(glob.glob(os.path.join(ts_dir, "depth", "*_depth.npy")))
+    txt = sorted(glob.glob(os.path.join(ts_dir, "depth", "*_thermal_path.txt")))
+    if n_ts != N_RGB or len(depth_files) != N_RGB or len(txt) != N_RGB or any(
+            np.load(f).shape != (512, 512) or not np.isfinite(np.load(f)).all()
+            for f in depth_files) or not all(os.path.exists(open(t).read()) for t in txt):
+        raise AssertionError(f"cli.pseudo_gt --test_set: {n_ts} frames, {len(depth_files)} "
+                             f"depth and {len(txt)} path files")
+    log(f"cli.pseudo_gt --test_set: {n_ts} frames; launches {launches_ts}")
+    tmp.cleanup()
+    return dict(card=card, decode=decode, infer_paths=infer_paths,
+                engine_fps=engine_result["fps"], engine_fps_device=engine_result["fps_device"],
+                cli_infer=dict(files=len(want_files), launches=launches_ci),
+                cli_evaluate=dict(summary=summary, launches=launches_ce,
+                                  worst_rel_vs_f64=worst),
+                generate_pseudo_gt=dict(pairs=n_written, steps=n_steps, pairs_per_s=pps,
+                                        launches=launches_p, files_equal_to_run_pairs=True),
+                pseudo_gt_pairs_per_s=pseudo_gt_result["pairs_per_s"],
+                pseudo_gt_pairs_per_s_device=pseudo_gt_result["pairs_per_s_device"],
+                test_set=dict(frames=n_ts, launches=launches_ts))
+
+
 # --compare-k2k3: (K2 or K3, batch, grid side, width C, heads), the bf16
 # K2/K3 calls of the serving path (DUSt3R-224) and the pseudo-GT path
 # (MASt3R-512)
@@ -861,6 +1218,7 @@ def main(argv) -> int:
                          "flash_attention_multihead")}
     engine = phase_engine(torch, np)
     pseudo_gt = phase_pseudo_gt(torch, np)
+    files = phase_files(torch, np, card, engine, pseudo_gt)
 
     # launches on each path's own run; `launches` is this slice's main path
     # (pseudo-GT) for K2-K6, the serving path for K1
@@ -869,7 +1227,12 @@ def main(argv) -> int:
                          ("pseudo_gt_auto", pseudo_gt["launches"]),
                          ("pseudo_gt_pallas", pseudo_gt["pallas"]["launches"]),
                          *((f"pseudo_gt_{impl}_depth2", r["launches"])
-                           for impl, r in pseudo_gt["reduced_depth"].items())):
+                           for impl, r in pseudo_gt["reduced_depth"].items()),
+                         ("files_infer_paths", files["infer_paths"]["launches"]),
+                         ("files_cli_infer", files["cli_infer"]["launches"]),
+                         ("files_cli_evaluate", files["cli_evaluate"]["launches"]),
+                         ("files_generate_pseudo_gt", files["generate_pseudo_gt"]["launches"]),
+                         ("files_test_set", files["test_set"]["launches"])):
         for name, count in counts.items():
             by_path.setdefault(name, {})[path] = count
 
@@ -909,6 +1272,7 @@ def main(argv) -> int:
     print(card, flush=True)
     print(json.dumps({"engine": engine}), flush=True)
     print(json.dumps({"pseudo_gt": pseudo_gt}), flush=True)
+    print(json.dumps({"files": files}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -65,6 +65,32 @@ def jax_model_params(jax_cfg, seed: int = 0):
     return jax.tree_util.tree_map(np.asarray, params)
 
 
+def drawn_params(jax_cfg, seed: int = 0):
+    """A Flax param tree for jax_cfg drawn with numpy, without an XLA compile:
+    shapes from jax.eval_shape of the init; kernels normal with std
+    1/sqrt(fan_in); biases and LayerNorm scales 0 and 1 plus 0.02 noise."""
+    import jax
+    import jax.numpy as jnp
+
+    from thermal3d.models.dustr import AsymmetricCroCo3DStereo
+
+    h, w = jax_cfg.img_size
+    dummy = jnp.zeros((1, h, w, 3), jnp.float32)
+    shapes = jax.eval_shape(
+        lambda: AsymmetricCroCo3DStereo(jax_cfg).init(jax.random.key(0), dummy, dummy))
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        name = path[-1].key
+        if name == "kernel":
+            fan_in = int(np.prod(leaf.shape[:-1]))
+            return (rng.standard_normal(leaf.shape) / np.sqrt(fan_in)).astype(np.float32)
+        base = 1.0 if name == "scale" else 0.0
+        return (base + 0.02 * rng.standard_normal(leaf.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes["params"])
+
+
 def thermal_head_params(edge_weight: float = 0.37, temp_scale: float = 1.1):
     """Thermal-head params away from their init values, so both are exercised."""
     return {"edge_weight": np.float32(edge_weight), "temp_scale": np.float32(temp_scale)}
@@ -78,3 +104,87 @@ def torch_state(params):
 
 def to_np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
+
+
+# --- a small PNG encoder, to write files that use every filter type -------
+
+PNG_COLOR_TYPES = {"gray": 0, "rgb": 2, "palette": 3, "gray_alpha": 4, "rgba": 6}
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _pack_rows(arr: np.ndarray, depth: int) -> np.ndarray:
+    """[H, W, C] samples → [H, row bytes] uint8 at bit depth `depth`."""
+    h = arr.shape[0]
+    if depth == 16:
+        return arr.astype(">u2").reshape(h, -1).view(np.uint8)
+    if depth == 8:
+        return arr.astype(np.uint8).reshape(h, -1)
+    per = 8 // depth
+    flat = arr.reshape(h, -1).astype(np.uint8)
+    pad = (-flat.shape[1]) % per
+    flat = np.pad(flat, ((0, 0), (0, pad))).reshape(h, -1, per)
+    shifts = np.array([8 - depth * (k + 1) for k in range(per)], np.uint8)
+    return (flat << shifts).sum(axis=-1).astype(np.uint8)
+
+
+def _filter_rows(raw: np.ndarray, bpp: int, filters) -> bytes:
+    """Filter each row with filters[row % len(filters)] (0 None, 1 Sub, 2 Up,
+    3 Average, 4 Paeth); → the bytes zlib compresses."""
+    out = bytearray()
+    prev = np.zeros(raw.shape[1], np.int32)
+    for y, row in enumerate(raw.astype(np.int32)):
+        left = np.concatenate([np.zeros(bpp, np.int32), row[:-bpp]])
+        upleft = np.concatenate([np.zeros(bpp, np.int32), prev[:-bpp]])
+        f = filters[y % len(filters)]
+        if f == 0:
+            res = row
+        elif f == 1:
+            res = row - left
+        elif f == 2:
+            res = row - prev
+        elif f == 3:
+            res = row - ((left + prev) >> 1)
+        else:
+            p = left + prev - upleft
+            pa, pb, pc = np.abs(p - left), np.abs(p - prev), np.abs(p - upleft)
+            pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, upleft))
+            res = row - pred
+        out.append(f)
+        out += (res & 0xFF).astype(np.uint8).tobytes()
+        prev = row
+    return bytes(out)
+
+
+def png_chunk(kind: bytes, body: bytes) -> bytes:
+    import struct
+    import zlib
+
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(
+        ">I", zlib.crc32(kind + body))
+
+
+def encode_png(arr: np.ndarray, color: str = "gray", depth: int = 8, filters=(0, 1, 2, 3, 4),
+               palette: np.ndarray = None, interlace: bool = False) -> bytes:
+    """A PNG of `arr` ([H, W] or [H, W, C] samples; palette indices for
+    'palette', with `palette` [N, 3] uint8). Rows are filtered in turn by
+    `filters`; the image data is split over two IDAT chunks. interlace=True
+    writes Adam7 passes (filter 0)."""
+    import struct
+    import zlib
+
+    arr = arr.reshape(arr.shape[0], arr.shape[1], -1)
+    h, w, c = arr.shape
+    bpp = max(1, c * depth // 8)
+    if interlace:
+        data = b"".join(_filter_rows(_pack_rows(arr[y0::dy, x0::dx], depth), bpp, (0,))
+                        for x0, y0, dx, dy in _ADAM7 if x0 < w and y0 < h)
+    else:
+        data = _filter_rows(_pack_rows(arr, depth), bpp, filters)
+    z = zlib.compress(data, 6)
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, PNG_COLOR_TYPES[color], 0, 0, int(interlace))
+    out = b"\x89PNG\r\n\x1a\n" + png_chunk(b"IHDR", ihdr)
+    if palette is not None:
+        out += png_chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    half = len(z) // 2
+    return out + png_chunk(b"IDAT", z[:half]) + png_chunk(b"IDAT", z[half:]) + png_chunk(b"IEND", b"")

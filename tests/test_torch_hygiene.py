@@ -1,6 +1,6 @@
 """The port stands alone: thermal3d_torch and chip_smoke.py import nothing of
 JAX, Flax or the JAX package (not even its JAX-free modules), nor the test
-oracle."""
+oracle, nor cv2, PIL or matplotlib (the card's machine has none of them)."""
 
 import re
 import subprocess
@@ -9,7 +9,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|flax)\b|from\s+(jax|flax)\b"
+    r"^\s*(import\s+(jax|flax|cv2|PIL|matplotlib)\b|from\s+(jax|flax|cv2|PIL|matplotlib)\b"
     r"|import\s+thermal3d(?!_torch)\b|from\s+thermal3d(?!_torch)\b)"
     r"|torch_oracle", re.MULTILINE)
 
@@ -29,7 +29,8 @@ def test_port_sources_import_no_jax_or_reference():
 def test_pattern_catches_what_it_must():
     for bad in ("import jax", "from jax import numpy", "import flax.linen as nn",
                 "from thermal3d.core import config", "import thermal3d",
-                "    from thermal3d.models import rope", "from tests import torch_oracle"):
+                "    from thermal3d.models import rope", "from tests import torch_oracle",
+                "import cv2", "from PIL import Image", "    import matplotlib.pyplot as plt"):
         assert FORBIDDEN.search(bad), bad
     for ok in ("from thermal3d_torch.models import rope", "import thermal3d_torch",
                "import torch", "jaxlike = 1"):
@@ -38,12 +39,12 @@ def test_pattern_catches_what_it_must():
 
 def test_importing_the_port_loads_no_jax():
     """Every port module imports in a fresh interpreter without loading jax,
-    flax or thermal3d."""
+    flax, thermal3d, cv2, PIL or matplotlib."""
     mods = sorted(".".join(f.relative_to(ROOT).with_suffix("").parts)
                   for f in ROOT.glob("thermal3d_torch/**/*.py"))
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
-              "('jax', 'flax', 'thermal3d')]\nassert not bad, bad\n")
+              "('jax', 'flax', 'thermal3d', 'cv2', 'PIL', 'matplotlib')]\nassert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr

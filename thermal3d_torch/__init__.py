@@ -7,5 +7,10 @@ Pallas kernels of the reference are hand-written CUDA C++ for sm_90a under
 `kernels/csrc/`, built with nvcc at first use; each has a plain PyTorch
 version beside it that runs on CPU tensors.
 
-Supported so far: DUSt3R-224 monocular serving (`infer.engine.InferenceEngine`).
+Supported so far: DUSt3R-224 monocular serving (`infer.engine.InferenceEngine`,
+`infer` on arrays and `infer_paths` on PNG files), MASt3R-512 pseudo-GT
+(`pseudo_gt.generator`, `pseudo_gt.test_set`), evaluation against pseudo-GT
+depths (`evaluation`), and the infer / pseudo_gt / evaluate CLIs (`cli`).
+PNG files are decoded by the port's own decoder (`native`), without cv2,
+PIL or libpng.
 """

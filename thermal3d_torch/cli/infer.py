@@ -1,0 +1,121 @@
+"""Thermal depth inference — `python -m thermal3d_torch.cli.infer`
+(counterpart of thermal3d/cli/infer.py, thermal_dustr_inference.py:297-376).
+
+A directory of thermal PNGs (or one frame) → `{base}_depth.npy` per frame,
+through InferenceEngine.infer_paths with the depth-only fetch; --img_path2
+runs one stereo pair. The flags are the JAX CLI's. Not ported yet, and so
+parser errors naming their ROADMAP item: the depth visualisation (pass
+--no_vis), --fire_scene / --advanced_fire / --refine_depth, the int8 modes,
+--scan_layers and --ndev > 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import glob
+import os
+
+import numpy as np
+
+from thermal3d_torch.cli.common import add_preset_flag, apply_preset, refuse_unported
+
+VIZ_ITEM = "ROADMAP Queue 1 item 12, viz/"
+FIRE_ITEM = "ROADMAP Queue 1 item 9, fire-scene and refinement"
+INT8_ITEM = "ROADMAP Queue 1 item 10, int8 serving"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Thermal DUSt3R depth inference (PyTorch/CUDA)")
+    p.add_argument("--weights", type=str, default=None,
+                   help=".pth checkpoint (dust3r or ThermalDUSt3R layout); random "
+                        "init if omitted")
+    p.add_argument("--img_path", type=str, required=True,
+                   help="thermal PNG or directory of .png frames")
+    p.add_argument("--img_path2", type=str, default=None, help="second view (stereo)")
+    p.add_argument("--img_size", type=int, nargs=2, default=None,
+                   help="defaults to the model variant's native resolution")
+    p.add_argument("--output_dir", type=str, default="inference_results")
+    p.add_argument("--batch_size", type=int, default=36,
+                   help="frames a batch; the final partial batch is padded")
+    p.add_argument("--no_thermal_model", action="store_true",
+                   help="skip the ThermalDUSt3R preprocessing head")
+    p.add_argument("--fire_scene", action="store_true", help=f"not ported ({FIRE_ITEM})")
+    p.add_argument("--advanced_fire", action="store_true", help=f"not ported ({FIRE_ITEM})")
+    p.add_argument("--refine_depth", action="store_true", help=f"not ported ({FIRE_ITEM})")
+    p.add_argument("--no_vis", action="store_true",
+                   help=f"required: the depth visualisation is not ported ({VIZ_ITEM})")
+    p.add_argument("--compute_dtype", type=str, default="bfloat16")
+    p.add_argument("--int8_scope", type=str, default="all", choices=["all", "mlp", "fc1"],
+                   help=f"int8 only ({INT8_ITEM})")
+    p.add_argument("--int8_group_size", type=int, default=None,
+                   help=f"not ported ({INT8_ITEM})")
+    p.add_argument("--int8", action="store_true", help=f"not ported ({INT8_ITEM})")
+    p.add_argument("--int8_equalize", action="store_true", help=f"not ported ({INT8_ITEM})")
+    p.add_argument("--int8_static_acts", action="store_true", help=f"not ported ({INT8_ITEM})")
+    p.add_argument("--model_variant", type=str, default="dustr224_linear",
+                   choices=["dustr224_linear", "dustr512_dpt", "mastr512_catmlpdpt"],
+                   help="model family member (checkpoint architecture)")
+    p.add_argument("--dpt_f32", action="store_true",
+                   help="pin the DPT/catmlpdpt head in float32 (no effect on the linear "
+                        "head, which is always float32)")
+    return add_preset_flag(p)
+
+
+def main(argv=None):
+    from thermal3d_torch.convert.from_pth import load_pth
+    from thermal3d_torch.core.config import (DUSTR_224_LINEAR, DUSTR_512_DPT,
+                                             MASTR_512_CATMLPDPT)
+    from thermal3d_torch.infer.engine import InferenceEngine
+    from thermal3d_torch.preprocess.io import load_thermal_image
+
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    refuse_unported(parser, args, {
+        "int8": INT8_ITEM, "int8_group_size": INT8_ITEM, "int8_equalize": INT8_ITEM,
+        "int8_static_acts": INT8_ITEM, "fire_scene": FIRE_ITEM, "advanced_fire": FIRE_ITEM,
+        "refine_depth": FIRE_ITEM})
+    if not args.no_vis:
+        parser.error(f"the depth visualisation is not ported to thermal3d_torch yet "
+                     f"({VIZ_ITEM}): pass --no_vis")
+    base = {"dustr224_linear": DUSTR_224_LINEAR, "dustr512_dpt": DUSTR_512_DPT,
+            "mastr512_catmlpdpt": MASTR_512_CATMLPDPT}[args.model_variant]
+    if args.img_size is None:
+        args.img_size = list(base.img_size)  # the variant's native resolution
+    config = apply_preset(base, args.model_preset, args.img_size, args.compute_dtype)
+    if args.dpt_f32:
+        config = dataclasses.replace(
+            config, head=dataclasses.replace(config.head, dpt_dtype="float32"))
+    state, head_state = (None, None) if args.weights is None else load_pth(args.weights,
+                                                                          config)
+    engine = InferenceEngine(config, state_dict=state, thermal_head_state=head_state,
+                             use_thermal_head=not args.no_thermal_model, device=args.device)
+    os.makedirs(args.output_dir, exist_ok=True)
+
+    if args.img_path2:  # stereo pair mode
+        grays = [load_thermal_image(p, normalize=True) for p in (args.img_path, args.img_path2)]
+        if any(g is None for g in grays):
+            parser.error("--img_path/--img_path2: a frame is missing or does not decode")
+        out = engine.infer(grays[0][None], grays[1][None])
+        _save_depth(args.output_dir, args.img_path, out["depth"][0])
+        return
+
+    if os.path.isdir(args.img_path):
+        paths = sorted(glob.glob(os.path.join(args.img_path, "*.png")))
+    else:
+        paths = [args.img_path]
+    out = engine.infer_paths(paths, batch_size=args.batch_size, outputs=("depth",))
+    # zip against the SURVIVING paths: failed decodes are dropped
+    survivors = out.get("paths", [])
+    for i, path in enumerate(survivors):
+        _save_depth(args.output_dir, path, out["depth"][i])
+    print(f"Processed {len(survivors)}/{len(paths)} frames -> {args.output_dir}")
+
+
+def _save_depth(output_dir: str, path: str, depth: np.ndarray) -> None:
+    base = os.path.splitext(os.path.basename(path))[0]
+    np.save(os.path.join(output_dir, f"{base}_depth.npy"), depth)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,99 @@
+"""Generate pseudo-GT with a frozen MASt3R — `python -m thermal3d_torch.cli.pseudo_gt`
+(counterpart of thermal3d/cli/pseudo_gt.py, scripts/pseudo_gt.py:613-661,
+and scripts/test_pseudo_gt.py through --test_set).
+
+The flags are the JAX CLI's. Not ported yet, and so parser errors naming
+their ROADMAP item: --visualize, the int8 modes, --scan_layers and
+--ndev > 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+from thermal3d_torch.cli.common import add_preset_flag, apply_preset, refuse_unported
+
+VIZ_ITEM = "ROADMAP Queue 1 item 12, viz/"
+INT8_ITEM = "ROADMAP Queue 1 item 10, int8"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Generate pseudo-GT from RGB pairs with MASt3R (PyTorch/CUDA)")
+    p.add_argument("--dataset_dir", type=str, required=True)
+    p.add_argument("--output_dir", type=str, required=True)
+    p.add_argument("--weights", type=str, default=None,
+                   help="MASt3R .pth checkpoint; random init if omitted")
+    p.add_argument("--img_size", type=int, nargs=2, default=[512, 512])
+    p.add_argument("--frame_skip", type=int, default=5)
+    p.add_argument("--batch_size", type=int, default=4)
+    p.add_argument("--visualize", action="store_true", help=f"not ported ({VIZ_ITEM})")
+    p.add_argument("--calib_file", type=str, default=None)
+    p.add_argument("--max_pairs", type=int, default=None)
+    p.add_argument("--test_set", action="store_true",
+                   help="monocular test-set mode (test_pseudo_gt.py layout)")
+    p.add_argument("--compute_dtype", type=str, default="bfloat16")
+    p.add_argument("--int8", action="store_true", help=f"not ported ({INT8_ITEM})")
+    p.add_argument("--int8_scope", type=str, default="all", help=f"int8 only ({INT8_ITEM})")
+    p.add_argument("--int8_equalize", action="store_true", help=f"not ported ({INT8_ITEM})")
+    p.add_argument("--int8_static_acts", action="store_true", help=f"not ported ({INT8_ITEM})")
+    p.add_argument("--dpt_f32", action="store_true",
+                   help="pin the DPT/catmlpdpt head in float32")
+    p.add_argument("--num_shards", type=int, default=1,
+                   help="split the pair/frame index into N deterministic shards "
+                        "(index[i::N]); pair filenames are disjoint, so shards can "
+                        "share one --output_dir")
+    p.add_argument("--shard_id", type=int, default=0,
+                   help="which shard this process generates (0..N-1)")
+    return add_preset_flag(p)
+
+
+def main(argv=None):
+    from thermal3d_torch.convert.from_pth import load_pth
+    from thermal3d_torch.core.config import MASTR_512_CATMLPDPT
+    from thermal3d_torch.data.freiburg import build_rgb_pair_index, build_rgb_thermal_index
+    from thermal3d_torch.pseudo_gt.generator import PseudoGTGenerator, generate_pseudo_gt
+    from thermal3d_torch.pseudo_gt.test_set import generate_test_set_pseudo_gt
+
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    refuse_unported(parser, args, {
+        "visualize": VIZ_ITEM, "int8": INT8_ITEM, "int8_equalize": INT8_ITEM,
+        "int8_static_acts": INT8_ITEM})
+    if not 0 <= args.shard_id < args.num_shards:
+        parser.error(f"--shard_id {args.shard_id} out of range for "
+                     f"--num_shards {args.num_shards}")
+    config = apply_preset(MASTR_512_CATMLPDPT, args.model_preset, args.img_size,
+                          args.compute_dtype)
+    if args.dpt_f32:
+        config = dataclasses.replace(
+            config, head=dataclasses.replace(config.head, dpt_dtype="float32"))
+    state = None
+    if args.weights:
+        state, _ = load_pth(args.weights, config)
+        print(f"Loaded MASt3R checkpoint: {len(state)} tensors")
+
+    if args.test_set:
+        items = build_rgb_thermal_index(args.dataset_dir)
+    else:
+        items = build_rgb_pair_index(args.dataset_dir, frame_skip=args.frame_skip)
+        print(f"Created {len(items)} RGB pairs")
+    if args.num_shards > 1:
+        # strided: deterministic and balanced across day/night sequences
+        items = items[args.shard_id::args.num_shards]
+        print(f"Shard {args.shard_id}/{args.num_shards}: {len(items)} "
+              f"{'frames' if args.test_set else 'pairs'}")
+
+    gen = PseudoGTGenerator(config, state_dict=state, batch_size=args.batch_size,
+                            calib_file=args.calib_file, device=args.device)
+    if args.test_set:
+        n = generate_test_set_pseudo_gt(items, args.output_dir, gen, max_frames=args.max_pairs)
+    else:
+        n = generate_pseudo_gt(items, args.output_dir, gen, max_pairs=args.max_pairs)
+    print(f"Pseudo-GT generation complete: {n} items -> {args.output_dir}")
+    return n
+
+
+if __name__ == "__main__":
+    main()

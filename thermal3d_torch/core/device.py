@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -21,3 +22,11 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def to_device(x, device: torch.device) -> torch.Tensor:
+    """A float32 tensor on `device`: numpy input is copied there, a tensor
+    moved (a no-op for one already there)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device, torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32)).to(device)

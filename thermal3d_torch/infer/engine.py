@@ -10,17 +10,21 @@ CUDA unless the caller names the CPU.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from thermal3d_torch.core.config import DUSTR_224_LINEAR, DustrModelConfig
-from thermal3d_torch.core.device import resolve_device
+from thermal3d_torch.core.device import resolve_device, to_device
+from thermal3d_torch.data.pipeline import PinnedFetch, PinnedStage, pipelined_batches
 from thermal3d_torch.models.dustr import frozen_model
 from thermal3d_torch.models.thermal_wrap import ThermalPreprocessHead
 from thermal3d_torch.preprocess.enhance import ENHANCE_IMPLS, enhance_thermal_contrast
+from thermal3d_torch.preprocess.io import load_thermal_images_batch
 from thermal3d_torch.preprocess.resize import resize_bilinear_hw
+
+OUTPUT_KEYS = ("pointmap1", "pointmap2", "confidence1", "confidence2", "depth")
 
 
 class InferenceEngine:
@@ -58,9 +62,6 @@ class InferenceEngine:
             self.thermal_head.load_state_dict(thermal_head_state, strict=True)
         self.thermal_head.eval().requires_grad_(False)
 
-    def _input(self, img: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(img, np.float32)).to(self.device)
-
     def preprocess(self, grays: torch.Tensor) -> torch.Tensor:
         """[B, h, w] decoded grayscale (any scale) → enhanced [B, H, W, 3]."""
         resized = resize_bilinear_hw(grays, self.config.img_size)
@@ -73,12 +74,13 @@ class InferenceEngine:
         out = self.infer_async(img1, img2, preprocessed)
         return {k: v.cpu().numpy() for k, v in out.items()}
 
-    def infer_async(self, img1: np.ndarray, img2: Optional[np.ndarray] = None,
-                    preprocessed: bool = False) -> Dict[str, torch.Tensor]:
-        """Like infer() but returns device tensors without waiting for them."""
+    def infer_async(self, img1, img2=None, preprocessed: bool = False
+                    ) -> Dict[str, torch.Tensor]:
+        """Like infer() but returns device tensors without waiting for them;
+        img* may also be float32 tensors on the engine's device."""
         with torch.inference_mode():
-            x1 = self._input(img1)
-            x2 = None if img2 is None else self._input(img2)
+            x1 = to_device(img1, self.device)
+            x2 = None if img2 is None else to_device(img2, self.device)
             if x1.shape[0] == 0:
                 raise ValueError("infer: empty batch")
             if not preprocessed:
@@ -95,3 +97,61 @@ class InferenceEngine:
                 "confidence2": pred2["conf"],
                 "depth": pred1["pts3d"][..., 2],
             }
+
+    def infer_paths(self, paths: List[str], batch_size: int = 36, pad_final: bool = True,
+                    outputs: Optional[Sequence[str]] = None, prefetch: int = 2
+                    ) -> Dict[str, Any]:
+        """Monocular depth over a list of thermal PNGs, pipelined: a
+        background thread decodes batches i+1..i+prefetch (the port's
+        decoder, resized to the model size) while the card computes batch i;
+        batch i's frames reach the card through pinned memory without
+        waiting for batch i-1's compute (data.pipeline.PinnedStage); its
+        results are copied into pinned host memory on a copy stream as soon
+        as its own work ends, and read after batch i+1 has been dispatched
+        (PinnedFetch). Results are bit-equal to a serial decode → infer →
+        fetch loop.
+
+        outputs: the keys to fetch, e.g. ("depth",), a seventh of the bytes
+        of all five. A short last batch is padded with its last frame
+        (pad_final), so every batch has one shape. The result has a "paths"
+        list of the frames that decoded, row-aligned with every array:
+        failed decodes are dropped, so callers zip against it, not `paths`."""
+        keys = tuple(OUTPUT_KEYS if outputs is None else outputs)
+        unknown = set(keys) - set(OUTPUT_KEYS)
+        if unknown:
+            raise ValueError(f"infer_paths: unknown outputs {sorted(unknown)}")
+        chunks = [paths[i:i + batch_size] for i in range(0, len(paths), batch_size)]
+        stage, fetch = PinnedStage(self.device), PinnedFetch(self.device)
+        result: Dict[str, np.ndarray] = {}  # room for every path, filled in order
+        ok_paths: List[str] = []
+
+        def decode(chunk):
+            return load_thermal_images_batch(chunk, normalize=True, out_hw=self.config.img_size)
+
+        def dispatch(decoded):
+            grays, survivors = decoded
+            if not grays:
+                return None
+            real = len(grays)
+            ok_paths.extend(survivors)
+            if pad_final and real < batch_size:
+                grays = list(grays) + [grays[-1]] * (batch_size - real)
+            out = self.infer_async(stage.put({"frames": np.stack(grays)})["frames"])
+            return fetch.start({k: out[k] for k in keys}), real
+
+        n_out = 0
+
+        def consume(token):
+            nonlocal n_out
+            started, real = token
+            if not result:
+                result.update(PinnedFetch.empty_like(started, len(paths)))
+            fetch.finish(started, real, into={k: v[n_out:n_out + real] for k, v in result.items()})
+            n_out += real
+
+        pipelined_batches(chunks, decode, dispatch, consume, prefetch=prefetch)
+        if not result:
+            return {}
+        out: Dict[str, Any] = {k: v[:n_out] for k, v in result.items()}
+        out["paths"] = ok_paths
+        return out

@@ -13,6 +13,11 @@ reference arithmetic.
 
 Failures raise: no nvcc, a compile error (with nvcc's stderr), a library that
 will not load. There is no fallback to the plain PyTorch versions here.
+
+`build_host` builds a host C++ library (the PNG decoder's
+`native/png_decode.cpp`, not a kernel and not in SOURCES) with g++ into the
+same directory, named by a hash of the source, the flags and the CPU's
+feature flags (it is built with -march=native).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -34,6 +40,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
+# host libraries (native/png_decode.cpp): the flags of the JAX package's
+# loader, so that its resize rounds (and contracts) as that loader's does
+HOST_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -96,6 +105,44 @@ def build_all() -> Dict[str, Path]:
     if errors:
         raise RuntimeError("\n".join(errors))
     return paths
+
+
+def _cpu_flags() -> bytes:
+    """The CPU's feature flags: a host library built with -march=native may
+    not run on another CPU, so they are part of its name."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith(("flags", "Features")):
+                    return " ".join(sorted(line.split(":", 1)[1].split())).encode()
+    except OSError:
+        pass
+    return platform.processor().encode()
+
+
+def build_host(src: Path) -> Path:
+    """Compile a host C++ source (no device code, not in SOURCES) with g++
+    and HOST_FLAGS into BUILD_DIR, named by a hash of the source, the flags,
+    the machine and its CPU flags; reuse it when it exists. Raises
+    RuntimeError without g++ or on a compile error."""
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode() + platform.machine().encode() + _cpu_flags())
+    path = BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
+    if path.exists():
+        return path
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(f"g++ not found on PATH: {src.name} cannot be built")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".tmp{os.getpid()}-{threading.get_ident()}")
+    proc = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed for {src.name} (exit {proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, path)  # atomic: a concurrent builder sees all or nothing
+    return path
 
 
 def build_log(name: str) -> str:

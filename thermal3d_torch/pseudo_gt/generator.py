@@ -9,24 +9,28 @@ intrinsics (median focal fit) and the Umeyama relative pose of each pair.
     gen = PseudoGTGenerator(MASTR_512_CATMLPDPT, params_dtype="bfloat16")
     out = gen.run_pairs(rgb1, rgb2)   # [B,512,512,3] in [0,1] → numpy dict
 
-The file-driven generate_pseudo_gt (image decode, pipelined batches, the npy
-writer) is not ported yet.
+generate_pseudo_gt runs it over RGB pairs on disk: the port's PNG decoder
+(resize to the model size), pipelined batches, the eight-directory npy
+writer.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
 
 from thermal3d_torch.core.config import MASTR_512_CATMLPDPT, DustrModelConfig
-from thermal3d_torch.core.device import resolve_device
+from thermal3d_torch.core.device import resolve_device, to_device
+from thermal3d_torch.data.pipeline import PinnedFetch, PinnedStage, pipelined_batches
 from thermal3d_torch.geometry.calibration import load_thermal_calibration
 from thermal3d_torch.geometry.intrinsics import estimate_camera_intrinsics
 from thermal3d_torch.geometry.umeyama import extract_relative_pose
 from thermal3d_torch.models.dustr import frozen_model
+from thermal3d_torch.native import load_rgb_batch
+from thermal3d_torch.preprocess.io import require_png
 
 OUTPUT_DIRS = ("pointmap1", "pointmap2", "confidence1", "confidence2",
                "depth1", "depth2", "intrinsics", "poses")
@@ -76,9 +80,6 @@ class PseudoGTGenerator:
             except (OSError, ValueError, KeyError, TypeError):
                 self.calib_k = None  # fall back to estimation, as the reference does
 
-    def _input(self, rgb: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(rgb, np.float32)).to(self.device)
-
     @staticmethod
     def _geometry(pred1: Dict[str, torch.Tensor], pred2: Dict[str, torch.Tensor]
                   ) -> Dict[str, torch.Tensor]:
@@ -93,11 +94,12 @@ class PseudoGTGenerator:
                 "intrinsics": estimate_camera_intrinsics(pm1, d1),
                 "poses": extract_relative_pose(pm1, pm2)}
 
-    def run_pairs_async(self, rgb1: np.ndarray, rgb2: np.ndarray) -> Dict[str, torch.Tensor]:
-        """rgb*: [B, H, W, 3] in [0, 1] → the eight pseudo-GT tensors on the
-        device, without waiting for them."""
+    def run_pairs_async(self, rgb1, rgb2) -> Dict[str, torch.Tensor]:
+        """rgb*: [B, H, W, 3] in [0, 1] (numpy, or float32 tensors on the
+        generator's device) → the eight pseudo-GT tensors on the device,
+        without waiting for them."""
         with torch.inference_mode():
-            x1, x2 = self._input(rgb1), self._input(rgb2)
+            x1, x2 = to_device(rgb1, self.device), to_device(rgb2, self.device)
             if x1.shape[0] == 0 or x1.shape != x2.shape:
                 raise ValueError(f"run_pairs: want two equal non-empty [B,H,W,3] batches, "
                                  f"got {tuple(x1.shape)} and {tuple(x2.shape)}")
@@ -108,3 +110,76 @@ class PseudoGTGenerator:
         out = self.run_pairs_async(rgb1, rgb2)
         return {k: v.cpu().numpy() for k, v in out.items()}
 
+
+
+def decode_rgb_pairs(chunk: List[Dict[str, str]], hw, keys=("rgb_path1", "rgb_path2")):
+    """Decode and resize the two RGB frames of each pair of `chunk` →
+    (rgb1 [n,H,W,3], rgb2 [n,H,W,3], the n pairs whose frames both decoded)."""
+    paths = [pr[k] for pr in chunk for k in keys]
+    require_png(*paths)
+    rgb, ok = load_rgb_batch(paths, tuple(hw))
+    rgb, ok = rgb.reshape(len(chunk), len(keys), *rgb.shape[1:]), ok.reshape(len(chunk), -1)
+    keep = ok.all(axis=1)
+    return rgb[keep, 0], rgb[keep, -1], [pr for pr, k in zip(chunk, keep) if k]
+
+
+def pad_batch(x: np.ndarray, size: int) -> np.ndarray:
+    """Repeat the last row until x has `size` rows (one static batch shape)."""
+    if len(x) >= size:
+        return x
+    return np.concatenate([x, np.repeat(x[-1:], size - len(x), axis=0)])
+
+
+def generate_pseudo_gt(pairs: List[Dict[str, str]], output_dir: str,
+                       generator: Optional[PseudoGTGenerator] = None,
+                       batch_size: int = 4, visualize: bool = False,
+                       calib_file: Optional[str] = None,
+                       max_pairs: Optional[int] = None) -> int:
+    """pairs: entries of data.freiburg.build_rgb_pair_index. Writes, per
+    pair, output_dir/{pointmap1,pointmap2,confidence1,confidence2,
+    intrinsics,poses}/{b1}_{b2}.npy and depth1/{b1}.npy, depth2/{b2}.npy (b1,
+    b2 the two RGB base names); intrinsics are the calibration's K when the
+    generator has one. Pipelined as InferenceEngine.infer_paths; short
+    batches are padded to the generator's batch. Returns the number of pairs
+    written. visualize=True raises NotImplementedError (viz is not ported)."""
+    if visualize:
+        raise NotImplementedError("pseudo-GT visualizations are not ported "
+                                  "(ROADMAP Queue 1 item 12, viz/)")
+    if generator is None:
+        generator = PseudoGTGenerator(batch_size=batch_size, calib_file=calib_file)
+    for d in OUTPUT_DIRS:
+        os.makedirs(os.path.join(output_dir, d), exist_ok=True)
+    if max_pairs is not None:
+        pairs = pairs[:max_pairs]
+    bs = generator.batch_size
+    hw = generator.config.img_size
+    stage, fetch = PinnedStage(generator.device), PinnedFetch(generator.device)
+    n_written = 0
+
+    def dispatch(decoded):
+        rgb1, rgb2, kept = decoded
+        if not kept:
+            return None
+        x = stage.put({"rgb1": pad_batch(rgb1, bs), "rgb2": pad_batch(rgb2, bs)})
+        out = generator.run_pairs_async(x["rgb1"], x["rgb2"])
+        return fetch.start(out), kept
+
+    def write(token):
+        nonlocal n_written
+        started, kept = token
+        out = fetch.finish(started, len(kept))
+        if generator.calib_k is not None:
+            out["intrinsics"] = np.tile(generator.calib_k[None], (len(kept), 1, 1)
+                                        ).astype(np.float32)
+        for j, pr in enumerate(kept):
+            b1 = os.path.splitext(os.path.basename(pr["rgb_path1"]))[0]
+            b2 = os.path.splitext(os.path.basename(pr["rgb_path2"]))[0]
+            names = dict.fromkeys(OUTPUT_DIRS, f"{b1}_{b2}")
+            names.update(depth1=b1, depth2=b2)
+            for d in OUTPUT_DIRS:
+                np.save(os.path.join(output_dir, d, f"{names[d]}.npy"), out[d][j])
+            n_written += 1
+
+    chunks = [pairs[i:i + bs] for i in range(0, len(pairs), bs)]
+    pipelined_batches(chunks, lambda c: decode_rgb_pairs(c, hw), dispatch, write)
+    return n_written
