@@ -84,12 +84,22 @@ def split_checkpoint(state: Mapping[str, torch.Tensor], config: DustrModelConfig
 
 def load_pth(path: str, config: DustrModelConfig
              ) -> Tuple[Dict[str, torch.Tensor], Optional[Dict[str, torch.Tensor]]]:
-    """The --weights / --model loader of the CLIs: a .pth file → split_checkpoint.
-    An orbax checkpoint directory raises NotImplementedError (training
-    checkpoints come with the training slice); anything else ValueError."""
+    """The --weights / --model loader of the CLIs: a .pth file, or a
+    checkpoint directory of the port's training (train/checkpoint.py: its
+    newest best checkpoint, else its last) → split_checkpoint. Any other
+    directory is taken for an orbax checkpoint and raises
+    NotImplementedError (reading orbax needs jax: export the JAX params to a
+    .pth instead); anything else ValueError."""
     if os.path.isdir(path):
-        raise NotImplementedError(f"{path}: orbax checkpoint directories are not ported "
-                                  "(ROADMAP Queue 1 item 8, training)")
+        from thermal3d_torch.train.checkpoint import (is_checkpoint_dir,
+                                                      load_params_from_checkpoint_dir)
+
+        if is_checkpoint_dir(path):
+            return split_checkpoint(load_params_from_checkpoint_dir(path)[0], config)
+        raise NotImplementedError(
+            f"{path}: not a thermal3d_torch checkpoint directory; orbax directories are "
+            "not read (they need jax): export the JAX params with "
+            "thermal3d.convert.flax_to_torch.export_state_dict to a .pth and pass that")
     if not path.endswith(".pth"):
         raise ValueError(f"unsupported weights format: {path}")
     return split_checkpoint(load_torch_checkpoint(path), config)

@@ -1,17 +1,17 @@
-"""Model configuration for the port (counterpart of thermal3d/core/config.py).
+"""Configuration for the port (counterpart of thermal3d/core/config.py).
 
-Field names and defaults mirror the JAX `DustrModelConfig`/`HeadConfig`, so a
-JAX config and a port config built from the same keywords describe the same
-network. Only what the DUSt3R-224 serving path and the MASt3R-512 pseudo-GT
-path read is kept; the layouts the port does not run yet (`scan_layers`,
-`branch_batch`) are fields so that asking for them raises instead of being
-ignored.
+Field names and defaults mirror the JAX dataclasses, so a JAX config and a
+port config built from the same keywords describe the same network, loss and
+training run. Only fields that the port reads are kept. The layouts the
+port does not run yet (`scan_layers`, `branch_batch`) are fields so that
+asking for them raises instead of being ignored; so are the TPU mesh options
+of `TrainConfig`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -60,13 +60,18 @@ class DustrModelConfig:
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
     # Attention route (models/layers.py), each a kernel for CUDA tensors and
     # its plain version for CPU tensors:
-    #   'auto'                                  fused RoPE attention K2/K3
+    #   'auto', 'pallas_fused', 'pallas_fusedN'  fused RoPE attention K2/K3
+    #                                            (N, the TPU's head group,
+    #                                            shapes nothing on the card)
     #   'pallas'                                RoPE, then attention K4
     #   'pallas_grouped', 'pallas_groupedN'     RoPE, then K5
     #   'pallas_multihead'                      RoPE, then K6
     #   'torch'   the plain versions everywhere (the reference run that
     #             chip_smoke.py holds the kernels against)
     attention_impl: str = "auto"
+    # recompute each encoder and decoder block in the backward pass
+    # (torch.utils.checkpoint): activation memory for compute
+    remat: bool = False
     scan_layers: bool = False  # not ported: raises
     branch_batch: bool = False  # not ported: raises
 
@@ -116,3 +121,52 @@ TINY = DustrModelConfig(
     dec_depth=2,
     dec_num_heads=2,
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Thermal-aware loss constants (the reference's utils/loss.py)."""
+
+    alpha: float = 0.2  # log-conf regulariser (confidences clamped to [1e-5, 10])
+    edge_weight: float = 0.5
+    smoothness_weight: float = 0.3
+    detail_weight: float = 0.3
+    multi_scale: bool = True
+    scales: Tuple[int, ...] = (1, 2)
+    thermal_factor: float = 8.0
+    grad_clamp_view1: float = 0.4  # asymmetric clamps
+    grad_clamp_view2: float = 0.5
+    huber_delta: float = 0.1
+    grad_norm_eps: float = 1e-5
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (the reference's train_thermal_dustr.py)."""
+
+    lr: float = 5e-4
+    weight_decay: float = 1e-4
+    epochs: int = 50
+    batch_size: int = 4
+    warmup_frac: float = 0.1  # LinearLR over 10% of the epochs
+    warmup_start_factor: float = 0.1
+    eta_min: float = 1e-7  # cosine floor
+    grad_clip_norm: float = 1.0
+    early_stop_patience: int = 10
+    accumulation_steps: int = 1
+    # one flat-vector optimizer on the TPU: launch policy there, the same
+    # numbers as the per-tensor update; accepted and ignored (train/state.py)
+    flatten_optimizer: bool = False
+    # AdamW first-moment dtype: 'bfloat16' stores m in bf16 (the second
+    # moment stays float32); None keeps the parameters' dtype
+    mu_dtype: Optional[str] = None
+    use_enhanced_loss: bool = True
+    loss: LossConfig = dataclasses.field(default_factory=LossConfig)
+    seed: int = 0
+    val_fraction: float = 0.2  # 0.8/0.2 random split
+    log_interval: int = 100
+    max_batches: Optional[int] = None  # quick-test cap
+    # sharding: only the one-device mesh is ported (ROADMAP Queue 1 item 11)
+    mesh_shape: Tuple[int, ...] = (-1,)
+    zero1: bool = False
+

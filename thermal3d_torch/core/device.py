@@ -6,6 +6,7 @@ as the tests do; a missing card is an error, never a silent move to the CPU.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import numpy as np
@@ -30,3 +31,21 @@ def to_device(x, device: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device, torch.float32)
     return torch.as_tensor(np.asarray(x, np.float32)).to(device)
+
+
+@contextlib.contextmanager
+def exact_float32_convs(dtype: torch.dtype):
+    """While `dtype` is float32, cuDNN convs compute in IEEE float32, not in
+    TF32 (torch's default for convs: a 10-bit mantissa, which neither the
+    JAX reference nor the port's plain twins compute with); restored after.
+    Does nothing for other dtypes. Sets no global outside its block."""
+    if dtype != torch.float32:
+        yield
+        return
+    cudnn = torch.backends.cudnn
+    previous = cudnn.allow_tf32
+    cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = previous

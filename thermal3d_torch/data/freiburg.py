@@ -1,17 +1,31 @@
-"""Freiburg Thermal dataset indexing (the index half of
-thermal3d/data/freiburg.py; the datasets come with the training slice).
+"""Freiburg Thermal dataset indexing and sample loading (counterpart of
+thermal3d/data/freiburg.py).
 
 The reference's directory walk and path rules, unchanged:
 train/<seq>/<drive>/fl_ir_aligned/*.png, the fl_ir_aligned → fl_rgb
 substitution, temporal pairs with frame_skip, the pseudo-GT glob matching,
 and eager validation that drops incomplete pairs up front.
+
+Samples are float32 numpy; the frames ship as resized raw counts and the
+percentile enhancement runs on the device inside the train step. The port
+has one decoder (thermal3d_torch.native), which decodes and resizes in one
+call: `FreiburgPairDataset.get_batch` is bit-equal to the JAX one (same
+decoder arithmetic), and `__getitem__`, where the JAX dataset resizes
+full-size frames with cv2, differs from it by the two resizes' rounding
+(held to 1e-3 relative of the raw counts in the tests).
 """
 
 from __future__ import annotations
 
 import glob
 import os
-from typing import Dict, List, Optional, Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from thermal3d_torch.native import load_rgb_batch
+from thermal3d_torch.preprocess.io import decode_thermal_batch, require_png
 
 
 def _list_dirs(path: str) -> List[str]:
@@ -181,3 +195,149 @@ def validate_pair_index(pairs: List[Dict[str, str]], pseudo_gt_dir: Optional[str
             entry["gt"] = gt
         valid.append(entry)
     return valid
+
+
+class FreiburgRGBThermalDataset:
+    """Per-frame RGB + thermal dataset: RGB↔thermal matched per frame, with
+    the FLAT pseudo-GT layout (depth/, intrinsics/, poses/ by the frame's
+    base name) attached when use_pseudo_gt."""
+
+    def __init__(self, root_dir: str, sequences=None, img_size=(224, 224),
+                 use_pseudo_gt: bool = False, pseudo_gt_dir: Optional[str] = None):
+        self.img_size = tuple(img_size)
+        self.pseudo_gt_dir = pseudo_gt_dir if use_pseudo_gt else None
+        self.pairs = build_rgb_thermal_index(root_dir, sequences)
+
+    def __len__(self):
+        return len(self.pairs)
+
+    def __getitem__(self, idx: int) -> Optional[Dict[str, np.ndarray]]:
+        pair = self.pairs[idx]
+        require_png(pair["rgb"], pair["thermal"])
+        rgb, ok_rgb = load_rgb_batch([pair["rgb"]], self.img_size)
+        thermal, ok_t = decode_thermal_batch([pair["thermal"]], self.img_size)
+        if not (ok_rgb[0] and ok_t[0]):
+            return None
+        sample: Dict[str, np.ndarray] = {
+            "rgb": rgb[0].astype(np.float32),
+            "thermal": np.repeat(thermal[0][..., None], 3, axis=-1).astype(np.float32),
+        }
+        if self.pseudo_gt_dir:
+            base = os.path.splitext(os.path.basename(pair["rgb"]))[0]
+            for sub, key in (("depth", "depth"), ("intrinsics", "intrinsics"),
+                             ("poses", "pose")):
+                p = os.path.join(self.pseudo_gt_dir, sub, f"{base}.npy")
+                if os.path.exists(p):
+                    sample[key] = np.load(p).astype(np.float32)
+        return sample
+
+
+def create_freiburg_dataloaders(root_dir: str, batch_size: int = 8, img_size=(224, 224),
+                                split: float = 0.8, pseudo_gt_dir: Optional[str] = None,
+                                day_only: bool = False, night_only: bool = False,
+                                seed: int = 0):
+    """Loader factory: day/night filter, random 0.8 split, a shuffled train
+    loader and an ordered val loader that keeps its last partial batch."""
+    from thermal3d_torch.data.pipeline import BatchLoader, split_index
+
+    train_dir = os.path.join(root_dir, "train")
+    sequences = day_night_filter(_list_dirs(train_dir), day_only, night_only)
+    dataset = FreiburgRGBThermalDataset(
+        root_dir, sequences=sequences, img_size=img_size,
+        use_pseudo_gt=pseudo_gt_dir is not None, pseudo_gt_dir=pseudo_gt_dir)
+    train_idx, val_idx = split_index(len(dataset), 1.0 - split, seed)
+    train_loader = BatchLoader(dataset, train_idx, batch_size, shuffle=True, seed=seed)
+    val_loader = BatchLoader(dataset, val_idx, batch_size, shuffle=False, drop_last=False)
+    return train_loader, val_loader
+
+
+class FreiburgPairDataset:
+    """Thermal pairs with pseudo-GT, numpy samples (all float32):
+      thermal1/2     [H, W, 3]  raw-count frames resized (the step enhances)
+      pointmap1/2    [Hg, Wg, 3]
+      confidence1/2  [Hg, Wg]   (ones when absent)
+      pose           [4, 4]     (identity when absent)
+    """
+
+    def __init__(self, root_dir: str, sequences=None, img_size=(224, 224),
+                 use_pseudo_gt: bool = True, pseudo_gt_dir: Optional[str] = None,
+                 frame_skip: int = 1, gt_size: Optional[Tuple[int, int]] = None):
+        self.img_size = tuple(img_size)
+        self.gt_size = gt_size
+        pairs = build_pair_index(root_dir, sequences, frame_skip)
+        self.pairs = validate_pair_index(
+            pairs, pseudo_gt_dir if use_pseudo_gt else None,
+            require_pointmaps=use_pseudo_gt and pseudo_gt_dir is not None)
+
+    def __len__(self):
+        return len(self.pairs)
+
+    def __getitem__(self, idx: int) -> Optional[Dict[str, np.ndarray]]:
+        samples = self.get_batch([idx])
+        return samples[0] if samples else None
+
+    def _attach_gt(self, sample: Dict[str, np.ndarray], pair: Dict) -> None:
+        gt = pair.get("gt")
+        if not gt:
+            return
+        pm1 = np.load(gt["pointmap1"]).astype(np.float32)
+        sample["pointmap1"] = pm1
+        sample["pointmap2"] = np.load(gt["pointmap2"]).astype(np.float32)
+        for key in ("confidence1", "confidence2"):
+            sample[key] = (np.load(gt[key]).astype(np.float32) if gt.get(key)
+                           else np.ones(pm1.shape[:2], dtype=np.float32))
+        sample["pose"] = (np.load(gt["pose"]).astype(np.float32) if gt.get("pose")
+                          else np.eye(4, dtype=np.float32))
+
+    def debug_loading(self, idx: int = 0) -> Dict:
+        """Print which files sample `idx` resolves to, whether each exists,
+        and the loaded shapes; return the same as a dict."""
+        if not self.pairs:
+            print("debug_loading: index is EMPTY (0 validated pairs) — check "
+                  "root_dir layout (train/<seq>/<drive>/fl_ir_aligned/*.png) "
+                  "and pseudo_gt_dir contents")
+            return {"pairs": 0}
+        idx = int(idx) % len(self.pairs)
+        pair = self.pairs[idx]
+        info: Dict = {"idx": idx}
+        print(f"Loading sample {idx} of {len(self.pairs)}:")
+        for key in ("thermal1", "thermal2", "rgb1", "rgb2"):
+            path = pair.get(key)
+            if path:
+                exists = os.path.exists(path)
+                info[key] = {"path": path, "exists": exists}
+                print(f"  {key}: {path}  [exists: {exists}]")
+        for key, path in (pair.get("gt") or {}).items():
+            exists = bool(path) and os.path.exists(path)
+            info[f"gt.{key}"] = {"path": path, "exists": exists}
+            print(f"  gt.{key}: {path}  [exists: {exists}]")
+        sample = self[idx]
+        if sample is None:
+            print("  -> sample FAILED to load (decode error)")
+            info["loaded"] = None
+        else:
+            shapes = {k: tuple(v.shape) for k, v in sample.items()}
+            info["loaded"] = shapes
+            print("  -> loaded OK: " + ", ".join(f"{k}{s}" for k, s in shapes.items()))
+        return info
+
+    def get_batch(self, idxs) -> List[Dict[str, np.ndarray]]:
+        """One decode + resize call for all 2B thermal frames of the batch,
+        then the pseudo-GT npy loads on threads. A sample whose frames do not
+        both decode is dropped."""
+        pairs = [self.pairs[i] for i in idxs]
+        paths = [p["thermal1"] for p in pairs] + [p["thermal2"] for p in pairs]
+        frames, ok = decode_thermal_batch(paths, self.img_size, normalize=False)
+        b = len(pairs)
+        samples: List[Dict[str, np.ndarray]] = []
+        kept: List[int] = []
+        for i in range(b):
+            if ok[i] and ok[b + i]:
+                samples.append({"thermal1": np.repeat(frames[i][..., None], 3, axis=-1),
+                                "thermal2": np.repeat(frames[b + i][..., None], 3, axis=-1)})
+                kept.append(i)
+        if kept:
+            with ThreadPoolExecutor(max_workers=min(8, len(kept))) as ex:
+                list(ex.map(lambda si: self._attach_gt(samples[si[0]], pairs[si[1]]),
+                            enumerate(kept)))
+        return samples

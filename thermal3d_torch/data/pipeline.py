@@ -1,15 +1,15 @@
 """Input pipeline (counterpart of thermal3d/data/pipeline.py): the
 decode / dispatch / consume overlap shared by `InferenceEngine.infer_paths`
 and `pseudo_gt.generate_pseudo_gt`, the staging of their inputs and the
-event-ordered fetch of their results through pinned host memory.
-`BatchLoader` comes with the training slice.
+event-ordered fetch of their results through pinned host memory, and the
+training loop's prefetching `BatchLoader`.
 """
 
 from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Dict, Iterator, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -169,3 +169,77 @@ class PinnedFetch:
         """Uninitialised numpy arrays of `rows` rows, shaped and typed as the
         token's results, for finish(..., into=)."""
         return {k: np.empty((rows, *v.shape[1:]), v.numpy().dtype) for k, v in token[1].items()}
+
+
+class BatchLoader:
+    """Iterable over stacked numpy batches, loaded ahead on a thread pool.
+
+    Epoch e visits `indices` in the order default_rng(seed + e).permutation
+    (shuffle) or as given; batches of batch_size, the final partial one
+    dropped with drop_last. A dataset with `get_batch(idxs)` loads a batch in
+    one call (one decode of all its frames); otherwise samples come from
+    __getitem__ on the pool. Samples that fail to load (None) are dropped,
+    and with drop_last a batch left short is skipped. Single process only:
+    the multi-process slicing of the JAX loader (process_count > 1) waits
+    for ROADMAP Queue 1 item 11 (multi-GPU).
+    """
+
+    def __init__(self, dataset, indices: Optional[Sequence[int]] = None,
+                 batch_size: int = 4, shuffle: bool = True, seed: int = 0,
+                 num_workers: int = 4, prefetch: int = 2, drop_last: bool = True,
+                 process_id: int = 0, process_count: int = 1):
+        if process_count != 1 or process_id != 0:
+            raise NotImplementedError("BatchLoader over several processes is not ported "
+                                      "(ROADMAP Queue 1 item 11, multi-GPU)")
+        self.dataset = dataset
+        self.indices = np.asarray(indices if indices is not None else np.arange(len(dataset)))
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.num_workers = max(1, num_workers)
+        self.prefetch = prefetch
+        self.drop_last = drop_last
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        n = len(self.indices)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def local_real_count(self, bi: int) -> int:
+        """The number of real samples in batch bi (the last may be short)."""
+        return int(np.clip(len(self.indices) - bi * self.batch_size, 0, self.batch_size))
+
+    def _epoch_order(self) -> np.ndarray:
+        if not self.shuffle:
+            return self.indices
+        return np.random.default_rng(self.seed + self._epoch).permutation(self.indices)
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        order = self._epoch_order()
+        self._epoch += 1
+        bs = self.batch_size
+        n_batches = len(self)
+        get_batch = getattr(self.dataset, "get_batch", None)
+        with cf.ThreadPoolExecutor(self.num_workers) as pool:
+            pending: collections.deque = collections.deque()
+
+            def submit(bi):
+                idxs = order[bi * bs:(bi + 1) * bs]
+                if get_batch is not None:
+                    pending.append(pool.submit(get_batch, idxs))
+                else:
+                    pending.append(pool.map(self.dataset.__getitem__, idxs))
+
+            for bi in range(min(self.prefetch + 1, n_batches)):
+                submit(bi)
+            next_submit = min(self.prefetch + 1, n_batches)
+            for _ in range(n_batches):
+                head = pending.popleft()
+                raw = head.result() if get_batch is not None else head
+                samples = [s for s in raw if s is not None]
+                if next_submit < n_batches:
+                    submit(next_submit)
+                    next_submit += 1
+                if not samples or (self.drop_last and len(samples) < bs):
+                    continue
+                yield {k: np.stack([s[k] for s in samples]) for k in samples[0]}

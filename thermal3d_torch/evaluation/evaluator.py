@@ -7,8 +7,8 @@ fuzzy scan); inference runs through InferenceEngine.infer_paths (depth
 only); the metrics of all frames are one batched call on the engine's
 device; the per-image `_metrics.txt` and `metrics_summary.txt` layouts are
 the reference's. The comparison panels wait for the port of viz/ (ROADMAP
-Queue 1 item 12), and the model-level `evaluate_thermal_depth` for the
-datasets of the training slice.
+Queue 1 item 12). `evaluate_thermal_depth` is the model-level evaluator over
+a dataset's samples.
 """
 
 from __future__ import annotations
@@ -18,9 +18,11 @@ import os
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
-from thermal3d_torch.evaluation.metrics import batched_depth_metrics
+from thermal3d_torch.evaluation.metrics import METRICS, batched_depth_metrics, compute_depth_metrics
 from thermal3d_torch.infer.engine import InferenceEngine
+from thermal3d_torch.preprocess.enhance import enhance_thermal_contrast, rgb_to_gray
 
 
 def find_matching_depth_file(thermal_path: str, depth_dir: str) -> Optional[str]:
@@ -124,3 +126,36 @@ def evaluate_test_set(engine: InferenceEngine, thermal_paths: List[str],
             f.write(f"Average Acc[<1.25]: {avg['acc_1']:.4f}\n")
             f.write(f"Average Acc[<1.25^2]: {avg['acc_2']:.4f}\n")
     return avg
+
+
+def evaluate_thermal_depth(engine: InferenceEngine, dataset, indices=None,
+                           batch_size: int = 8) -> Dict[str, float]:
+    """Model-level evaluator (the reference's utils/metrics.py:72-137): for
+    each sample with GT (depth1, else pointmap1's z), enhance thermal1 on the
+    engine's device, run the engine monocular on it (preprocessed), resize
+    the GT to the prediction (nearest) and take the median-scaled metrics;
+    each metric averages its finite values over the evaluated samples.
+    batch_size is the JAX signature's and changes nothing (one sample a
+    call, as there)."""
+    del batch_size
+    sums = {k: 0.0 for k in METRICS}
+    count = 0
+    for i in (indices if indices is not None else range(len(dataset))):
+        sample = dataset[i]
+        if sample is None or "depth1" not in sample and "pointmap1" not in sample:
+            continue
+        gt_depth = sample.get("depth1")
+        if gt_depth is None:
+            gt_depth = sample["pointmap1"][..., 2]
+        thermal = torch.as_tensor(sample["thermal1"], dtype=torch.float32).to(engine.device)
+        with torch.inference_mode():
+            enhanced = enhance_thermal_contrast(rgb_to_gray(thermal), impl=engine.enhance_impl)
+        pred = engine.infer(enhanced[None], preprocessed=True)["depth"][0]
+        if gt_depth.shape != pred.shape:
+            gt_depth = _resize_nearest(gt_depth, pred.shape)
+        m = compute_depth_metrics(pred, gt_depth, median_scaling=True, device=engine.device)
+        for k in METRICS:
+            if np.isfinite(m[k]):
+                sums[k] += m[k]
+        count += 1
+    return {k: (v / count if count else float("nan")) for k, v in sums.items()}

@@ -20,9 +20,15 @@ other dtypes and head dims on the CUDA cores (csrc/attention.cu).
 them by `impl` name, as the JAX functions do.
 
 Every wrapper launches its CUDA kernel for CUDA tensors and runs the plain
-PyTorch version of the same arithmetic for CPU tensors. Forward only: a
-CUDA input that requires grad raises (the backward kernels come with
-training).
+PyTorch version of the same arithmetic for CPU tensors. Where autograd needs
+a gradient (grad mode on and an input that requires grad), the wrapper runs
+through a torch.autograd.Function: its forward is the same kernel launch
+(or the plain version on the CPU) and saves what the JAX custom_vjp
+residuals hold; its backward restates the JAX backward, which is plain jnp
+there (no Pallas kernel), in plain PyTorch: `rope_attention_bwd` for K2/K3
+(`_rope_attn_bwd_core`), `attention_bwd` for K4-K6 (`_core_bwd`). The CPU
+runs the same Function, so the CPU tests hold the backward the card runs.
+Under torch.no_grad the wrappers launch exactly as without autograd.
 """
 
 from __future__ import annotations
@@ -79,7 +85,14 @@ def fused_rope_attention_plain(qkv, cos, sin, num_heads, scale):
 
 def fused_rope_attention(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                          num_heads: int, scale: float) -> torch.Tensor:
-    """K2: RoPE + self-attention on the packed [B, S, 3C] qkv projection."""
+    """K2: RoPE + self-attention on the packed [B, S, 3C] qkv projection;
+    differentiable in qkv (no gradient for the tables, as in JAX)."""
+    if _needs_grad(qkv):
+        return _FusedRopeAttention.apply(qkv, cos, sin, num_heads, scale)
+    return _fused_rope_attention_fwd(qkv, cos, sin, num_heads, scale)
+
+
+def _fused_rope_attention_fwd(qkv, cos, sin, num_heads, scale):
     if qkv.device.type == "cpu":
         return fused_rope_attention_plain(qkv, cos, sin, num_heads, scale)
     b, s, three_c = qkv.shape
@@ -101,7 +114,14 @@ def fused_rope_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                                cos: torch.Tensor, sin: torch.Tensor, num_heads: int,
                                scale: float) -> torch.Tensor:
     """K3: RoPE + cross-attention on separate [B, S, C] projections. Needs
-    Sq == Sk and one shared position grid (DUSt3R's dual decoder)."""
+    Sq == Sk and one shared position grid (DUSt3R's dual decoder).
+    Differentiable in q, k and v."""
+    if _needs_grad(q, k, v):
+        return _FusedRopeCrossAttention.apply(q, k, v, cos, sin, num_heads, scale)
+    return _fused_rope_cross_attention_fwd(q, k, v, cos, sin, num_heads, scale)
+
+
+def _fused_rope_cross_attention_fwd(q, k, v, cos, sin, num_heads, scale):
     if q.shape != k.shape or q.shape != v.shape:
         raise ValueError("fused_rope_cross_attention needs q, k, v of one shape "
                          f"(got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)})")
@@ -159,8 +179,6 @@ def _check(what, tensors, cos, sin, num_heads, c, s):
         if t.device != x.device or t.dtype != x.dtype or not t.is_contiguous():
             raise ValueError(f"{what}: inputs must be contiguous, of one dtype, "
                              "on one device")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise RuntimeError(f"{what}: the CUDA kernel is forward only")
     if c % num_heads:
         raise ValueError(f"{what}: width {c} not divisible by {num_heads} heads")
     d = c // num_heads
@@ -270,13 +288,7 @@ def flash_attention_pallas(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K4 (`_flash_attention_fwd_pallas`): q [N, Sq, D], k/v [N, Sk, D], or
     the same with a [B, H] lead (what `flash_attention` hands it, so the
     head split needs no copy). Sq and Sk may differ."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale)
-    if q.dim() == 3:
-        return flash_attention_pallas(q[None], k[None], v[None], scale)[0]
-    out = _attend("flash_attention_pallas", q, k, v, scale)
-    flash_attention_pallas.launches += 1
-    return out
+    return _softmax_attention(flash_attention_pallas, q, k, v, scale)
 
 
 flash_attention_pallas.launches = 0
@@ -287,11 +299,7 @@ def flash_attention_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K5 (`_flash_attention_fwd_grouped`): q [B, H, Sq, D], k/v
     [B, H, Sk, D]. The TPU kernel ran G heads a program; on the card every
     head gets its own blocks, so G shapes nothing here."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale)
-    out = _attend("flash_attention_grouped", q, k, v, scale)
-    flash_attention_grouped.launches += 1
-    return out
+    return _softmax_attention(flash_attention_grouped, q, k, v, scale)
 
 
 flash_attention_grouped.launches = 0
@@ -302,17 +310,163 @@ def flash_attention_multihead(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K6 (`_flash_attention_fwd_multihead`): q [B, H, Sq, D], k/v
     [B, H, Sk, D]; the TPU kernel ran all heads of a batch item in one
     program."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale)
-    out = _attend("flash_attention_multihead", q, k, v, scale)
-    flash_attention_multihead.launches += 1
-    return out
+    return _softmax_attention(flash_attention_multihead, q, k, v, scale)
 
 
 flash_attention_multihead.launches = 0
 
+
+def _softmax_attention(entry, q, k, v, scale):
+    """K4/K5/K6 by their entry (whose launch count moves): through the
+    autograd Function where a gradient is needed, else straight to the
+    kernel (the plain version on the CPU)."""
+    if _needs_grad(q, k, v):
+        return _SoftmaxAttention.apply(q, k, v, scale, entry)
+    return _softmax_attention_fwd(entry, q, k, v, scale)
+
+
+def _softmax_attention_fwd(entry, q, k, v, scale):
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, scale)
+    if q.dim() == 3:
+        return _softmax_attention_fwd(entry, q[None], k[None], v[None], scale)[0]
+    out = _attend(entry.__name__, q, k, v, scale)
+    entry.launches += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# gradients: torch.autograd.Functions whose backwards restate the JAX ones
+# --------------------------------------------------------------------------
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def rope_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                       cos: torch.Tensor, sin: torch.Tensor, scale: float):
+    """The VJP of RoPE + attention (JAX `_rope_attn_bwd_core`): q, k, v (the
+    projections before RoPE) and the output gradient g [B, S, H, D] →
+    (dq, dk, dv) float32 [B, S, H, D]. The roped q and k are recomputed;
+    every operand of a product is rounded to the storage dtype (bf16 for bf16
+    inputs, else float32) and every product accumulates in float32 (the
+    operands are up-cast, so the sums are float32 sums of exact products);
+    the probabilities, dP and dS are stored in the storage dtype, the scores,
+    the softmax and rowsum(dP∘P) stay float32; then the RoPE transpose,
+    Rᵀ = −R."""
+    sdtype = torch.bfloat16 if q.dtype == torch.bfloat16 else torch.float32
+
+    def stored(t):  # rounded to the storage dtype, held in float32 for the products
+        return t.to(sdtype).to(torch.float32)
+
+    def bh(t):  # [B, S, H, D] → [B, H, S, D]
+        return t.transpose(1, 2)
+
+    qf, kf, vf, gf = (t.to(torch.float32) for t in (q, k, v, g))
+    cb, sb = cos[None, :, None, :], sin[None, :, None, :]
+    qr = stored(bh(qf * cb + rot_lanes(qf) * sb))
+    kr = stored(bh(kf * cb + rot_lanes(kf) * sb))
+    gs, vs = stored(bh(gf)), stored(bh(vf))
+    scores = torch.matmul(qr, kr.transpose(-1, -2)) * scale
+    p = stored(torch.softmax(scores, dim=-1))
+    dv = torch.matmul(p.transpose(-1, -2), gs)
+    dp = stored(torch.matmul(gs, vs.transpose(-1, -2)))
+    rowcorr = (dp * p).sum(dim=-1, keepdim=True)
+    ds = stored(p * (dp - rowcorr))
+    dqr = bh(torch.matmul(ds, kr) * scale)
+    dkr = bh(torch.matmul(ds.transpose(-1, -2), qr) * scale)
+    # qr = q cos + R(q) sin  ⇒  dq = dqr cos + Rᵀ(dqr sin), Rᵀ = −R
+    dq = dqr * cb - rot_lanes(dqr * sb)
+    dk = dkr * cb - rot_lanes(dkr * sb)
+    return dq, dk, bh(dv)
+
+
+class _FusedRopeAttention(torch.autograd.Function):
+    """K2 with a gradient; residuals (qkv, cos, sin) as in JAX `_fused_fwd`."""
+
+    @staticmethod
+    def forward(ctx, qkv, cos, sin, num_heads, scale):
+        ctx.save_for_backward(qkv, cos, sin)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return _fused_rope_attention_fwd(qkv, cos, sin, num_heads, scale)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        qkv, cos, sin = ctx.saved_tensors
+        b, s, three_c = qkv.shape
+        c = three_c // 3
+        h = ctx.num_heads
+        grads = rope_attention_bwd(*(qkv[..., i * c:(i + 1) * c].reshape(b, s, h, c // h)
+                                     for i in range(3)),
+                                   g.reshape(b, s, h, c // h), cos, sin, ctx.scale)
+        dqkv = torch.cat([t.reshape(b, s, c) for t in grads], dim=-1).to(qkv.dtype)
+        return dqkv, None, None, None, None
+
+
+class _FusedRopeCrossAttention(torch.autograd.Function):
+    """K3 with a gradient; residuals (q, k, v, cos, sin) as in JAX `_xattn_fwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cos, sin, num_heads, scale):
+        ctx.save_for_backward(q, k, v, cos, sin)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return _fused_rope_cross_attention_fwd(q, k, v, cos, sin, num_heads, scale)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v, cos, sin = ctx.saved_tensors
+        b, s, c = q.shape
+        h = ctx.num_heads
+        grads = rope_attention_bwd(*(t.reshape(b, s, h, c // h) for t in (q, k, v, g)),
+                                   cos, sin, ctx.scale)
+        dq, dk, dv = (t.reshape(b, s, c).to(q.dtype) for t in grads)
+        return dq, dk, dv, None, None, None, None
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                  scale: float):
+    """The VJP of softmax attention (JAX `_core_bwd`): q [..., Sq, D], k/v
+    [..., Sk, D] and g [..., Sq, D] → (dq, dk, dv) in the inputs' dtype, the
+    attention recomputed and differentiated in float32."""
+    qf, kf, vf, gf = (t.to(torch.float32) for t in (q, k, v, g))
+    p = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * scale, dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _SoftmaxAttention(torch.autograd.Function):
+    """K4/K5/K6 with a gradient; residuals (q, k, v) as in JAX `_core_fwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, entry):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _softmax_attention_fwd(entry, q, k, v, scale)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*attention_bwd(q, k, v, g, ctx.scale), None, None)
+
+
 _GROUPED = re.compile(r"pallas_grouped([1-9][0-9]*)?")
+_FUSED = re.compile(r"pallas_fused([1-9][0-9]*)?")
 ATTENTION_IMPLS = ("pallas", "pallas_grouped", "pallas_groupedN", "pallas_multihead", "torch")
+
+
+def is_fused_impl(impl: str) -> bool:
+    """The model-level names of the fused K2/K3 route: 'auto' and the JAX
+    model's explicit 'pallas_fused' / 'pallas_fusedN' (N, the TPU's head
+    group, shapes nothing on the card). The JAX 'xla' / 'xla_*' names are
+    TPU policy and are not taken."""
+    return impl == "auto" or _FUSED.fullmatch(impl) is not None
 
 
 def check_attention_impl(impl: str) -> None:
@@ -368,8 +522,6 @@ def _attend(what, q, k, v, scale):
         if t.device != q.device or t.dtype != q.dtype or t.stride(-1) != 1:
             raise ValueError(f"{what}: q, k, v must be of one dtype, on one device, "
                              "with a contiguous last axis")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise RuntimeError(f"{what}: the CUDA kernel is forward only")
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if d % 4 or d > 256:

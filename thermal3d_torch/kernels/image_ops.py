@@ -52,9 +52,17 @@ def percentile_enhance_plain(gray: torch.Tensor, lo: float = 2.0,
             count = (q <= mid[:, None]).to(torch.float32).sum(dim=1)
             ok = count >= target
             lo_v, hi_v = torch.where(ok, lo_v, mid + 1.0), torch.where(ok, mid, hi_v)
-        return lo_v / GRID
+        return grid_value(lo_v)
 
     return _rescale(x, percentile(lo), percentile(hi)).reshape(b, h, w)
+
+
+def grid_value(v: torch.Tensor) -> torch.Tensor:
+    """v / 65535 in IEEE float32, as the kernels divide. The divisor is a
+    tensor: torch's CUDA division by a Python scalar multiplies by the
+    scalar's float32 reciprocal instead, which is 1 ulp off for some v (the
+    plain version on the card then missed the kernel by up to 2.98e-8)."""
+    return v / torch.full_like(v, GRID)
 
 
 def _rescale(x: torch.Tensor, p_lo: torch.Tensor, p_hi: torch.Tensor) -> torch.Tensor:
@@ -97,7 +105,7 @@ def percentile_radix_plain(gray: torch.Tensor, lo: float = 2.0,
         hist_lo = torch.bincount((image * 256 + (q & 255))[in_bin],
                                  minlength=b * 256).reshape(b, 256)
         low, _ = select(hist_lo, below, target)
-        ps.append((high * 256 + low).to(torch.float32) / GRID)
+        ps.append(grid_value((high * 256 + low).to(torch.float32)))
     return _rescale(x, *ps).reshape(b, h, w)
 
 

@@ -8,6 +8,8 @@ I/O contract:
   pred2 = {"pts3d_in_other_view": [B,H,W,3], "conf": [B,H,W]}
 catmlpdpt adds "desc" [B,H,W,local_feat_dim] and "desc_conf" [B,H,W] to both.
 img2=None is the monocular mode: view 2 is view 1, so the encoder runs once.
+With config.remat each encoder and decoder block is recomputed in the
+backward pass (torch.utils.checkpoint), so its kernels launch twice a step.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from thermal3d_torch.core.config import DustrModelConfig
 from thermal3d_torch.models.heads import (CatMLPDPTHead, DPTPts3dHead, LinearPts3dHead,
@@ -111,8 +114,14 @@ class AsymmetricCroCo3DStereo(nn.Module):
         x, grid = self.patch_embed(img)
         rope = self._rope(grid, cfg.enc_embed_dim // cfg.enc_num_heads, x.device)
         for blk in self.enc_blocks:
-            x = blk(x, rope)
+            x = self._block(blk, x, rope)
         return self.enc_norm(x), grid
+
+    def _block(self, blk, *args):
+        """blk(*args), recomputed in the backward pass under config.remat."""
+        if self.config.remat and torch.is_grad_enabled():
+            return checkpoint(blk, *args, use_reentrant=False)
+        return blk(*args)
 
     def decode(self, f1: torch.Tensor, f2: torch.Tensor, grid
                ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
@@ -125,7 +134,7 @@ class AsymmetricCroCo3DStereo(nn.Module):
         x1 = self.decoder_embed(f1)
         x2 = self.decoder_embed(f2)
         for blk1, blk2 in zip(self.dec_blocks, self.dec_blocks2):
-            x1, x2 = blk1(x1, x2, rope), blk2(x2, x1, rope)
+            x1, x2 = self._block(blk1, x1, x2, rope), self._block(blk2, x2, x1, rope)
             outs1.append(x1)
             outs2.append(x2)
         outs1[-1] = self.dec_norm(outs1[-1])
@@ -184,3 +193,19 @@ def frozen_model(config: DustrModelConfig, device: torch.device,
     if params_dtype is not None:
         model.to(PARAMS_DTYPES[params_dtype])
     return model.eval().requires_grad_(False)
+
+
+def trainable_model(config: DustrModelConfig, device: torch.device,
+                    state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+                    seed: int = 0) -> AsymmetricCroCo3DStereo:
+    """The model on `device` for training: float32 master weights that
+    require grad, computing in config.compute_dtype; `state_dict` loaded
+    strictly or, without one, seeded random weights."""
+    model = AsymmetricCroCo3DStereo(config).to(device)
+    if state_dict is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        model.init_weights(gen)
+    else:
+        model.load_state_dict(state_dict, strict=True)
+    return model.to(torch.float32).train().requires_grad_(True)

@@ -10,8 +10,8 @@ The DPT heads take and return NHWC maps ([B,H,W,C]), as the JAX heads do.
 Inside, the pyramid runs as NCHW tensors in channels-last memory (a token
 map [B,h,w,C] permuted to NCHW is already that layout), which cuDNN's convs
 take without a copy. The convs are nn.Conv2d / nn.ConvTranspose2d (cuDNN on
-the card), computing in the head dtype from weights stored in any dtype.
-Module names follow the torch/dust3r checkpoint layout (`dpt.act_postprocess`,
+the card), computing in the head dtype from weights stored in any dtype, in
+IEEE float32 (no TF32) when that dtype is float32. Module names follow the torch/dust3r checkpoint layout (`dpt.act_postprocess`,
 `dpt.scratch.layer*_rn`, `dpt.scratch.refinenet*`, `dpt.head`,
 `head_local_features.fc1/fc2`), so a converted state dict loads strictly.
 """
@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from thermal3d_torch.core.config import HeadConfig
+from thermal3d_torch.core.device import exact_float32_convs
 from thermal3d_torch.models.layers import Dense
 from thermal3d_torch.preprocess.resize import resize_bilinear_hwc
 
@@ -103,7 +104,8 @@ class _Conv(nn.Conv2d):
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(self.dtype)
-        return self._conv_forward(x.to(self.dtype), self.weight.to(self.dtype), bias)
+        with exact_float32_convs(self.dtype):
+            return self._conv_forward(x.to(self.dtype), self.weight.to(self.dtype), bias)
 
 
 class _ConvT(nn.ConvTranspose2d):
@@ -114,8 +116,9 @@ class _ConvT(nn.ConvTranspose2d):
         self.dtype = dtype
 
     def forward(self, x):
-        return F.conv_transpose2d(x.to(self.dtype), self.weight.to(self.dtype),
-                                  self.bias.to(self.dtype), stride=self.stride)
+        with exact_float32_convs(self.dtype):
+            return F.conv_transpose2d(x.to(self.dtype), self.weight.to(self.dtype),
+                                      self.bias.to(self.dtype), stride=self.stride)
 
 
 def _upsample2x(x: torch.Tensor) -> torch.Tensor:

@@ -10,11 +10,12 @@ with strict=True.
 Parameters are stored in whatever dtype the engine gives them (float32, or
 bfloat16 for `params_dtype='bfloat16'`) and cast to the compute dtype where
 they are used, as the JAX modules do. GEMMs, LayerNorm, GELU and the patch
-conv are plain PyTorch; attention goes through the kernels of
-kernels/flash_attention.py, by `attention_impl`: 'auto' the fused RoPE
-kernels K2/K3; 'pallas' / 'pallas_grouped[N]' / 'pallas_multihead' RoPE on
-the [B,S,H,D] heads (apply_rope_2d_bshd), then K4 / K5 / K6; 'torch' the
-plain version of K2/K3.
+conv are plain PyTorch (the conv in IEEE float32 when it computes in
+float32: no TF32); attention goes through the kernels of
+kernels/flash_attention.py, by `attention_impl`: 'auto' or 'pallas_fused[N]'
+the fused RoPE kernels K2/K3; 'pallas' / 'pallas_grouped[N]' /
+'pallas_multihead' RoPE on the [B,S,H,D] heads (apply_rope_2d_bshd), then K4
+/ K5 / K6; 'torch' the plain version of K2/K3.
 """
 
 from __future__ import annotations
@@ -26,9 +27,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from thermal3d_torch.core.device import exact_float32_convs
 from thermal3d_torch.kernels.flash_attention import (
     attention_bshd, check_attention_impl, fused_rope_attention, fused_rope_attention_plain,
-    fused_rope_cross_attention, rope_attention_plain)
+    fused_rope_cross_attention, is_fused_impl, rope_attention_plain)
 from thermal3d_torch.models.rope import apply_rope_2d_bshd
 
 
@@ -86,7 +88,7 @@ class Mlp(nn.Module):
 
 
 def _check_impl(impl: str) -> None:
-    if impl != "auto":
+    if not is_fused_impl(impl):
         check_attention_impl(impl)
 
 
@@ -119,13 +121,13 @@ class Attention(nn.Module):
     def forward(self, x, rope: Rope):
         qkv = self.qkv(x)
         impl = self.attention_impl
-        if impl.startswith("pallas"):
-            c = qkv.shape[-1] // 3
-            out = _split_attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
-                                   self.num_heads, rope, impl)
-            return self.proj(out)
-        attend = fused_rope_attention if impl == "auto" else fused_rope_attention_plain
-        return self.proj(attend(qkv, rope[0], rope[1], self.num_heads, self.scale))
+        if impl == "torch" or is_fused_impl(impl):
+            attend = fused_rope_attention_plain if impl == "torch" else fused_rope_attention
+            return self.proj(attend(qkv, rope[0], rope[1], self.num_heads, self.scale))
+        c = qkv.shape[-1] // 3
+        out = _split_attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
+                               self.num_heads, rope, impl)
+        return self.proj(out)
 
 
 class CrossAttention(nn.Module):
@@ -147,10 +149,10 @@ class CrossAttention(nn.Module):
     def forward(self, x, y, rope: Rope):
         q, k, v = self.projq(x), self.projk(y), self.projv(y)
         impl = self.attention_impl
-        if impl.startswith("pallas"):
-            return self.proj(_split_attention(q, k, v, self.num_heads, rope, impl))
-        attend = fused_rope_cross_attention if impl == "auto" else rope_attention_plain
-        return self.proj(attend(q, k, v, rope[0], rope[1], self.num_heads, self.scale))
+        if impl == "torch" or is_fused_impl(impl):
+            attend = rope_attention_plain if impl == "torch" else fused_rope_cross_attention
+            return self.proj(attend(q, k, v, rope[0], rope[1], self.num_heads, self.scale))
+        return self.proj(_split_attention(q, k, v, self.num_heads, rope, impl))
 
 
 class EncoderBlock(nn.Module):
@@ -201,8 +203,9 @@ class PatchEmbed(nn.Module):
         self.dtype = dtype
 
     def forward(self, img):
-        x = F.conv2d(img.to(self.dtype).permute(0, 3, 1, 2),
-                     self.proj.weight.to(self.dtype), self.proj.bias.to(self.dtype),
-                     stride=self.proj.stride)
+        with exact_float32_convs(self.dtype):
+            x = F.conv2d(img.to(self.dtype).permute(0, 3, 1, 2),
+                         self.proj.weight.to(self.dtype), self.proj.bias.to(self.dtype),
+                         stride=self.proj.stride)
         b, c, h, w = x.shape
         return x.flatten(2).transpose(1, 2), (h, w)
