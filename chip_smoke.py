@@ -1549,6 +1549,303 @@ def phase_training(torch, np, root: str):
                 seconds=time.perf_counter() - t_phase)
 
 
+# phase 8: fire-scene preprocessing, depth refinement and the entry points'
+# figures, on phase 6's tree. Each filter runs on the card and on the CPU at
+# both shapes, held to the limits of tests/test_torch_filters.py (there: the
+# CPU against the JAX package):
+FILTER_SHAPES = ((224, 224), FRAME_HW)
+SMOOTH_REL = 1e-6  # max|Δ|/max|ref|: CLAHE, Sobel, bilateral, outlier median
+EDGE_FRAC = 1e-3  # Canny: the share of pixels that may differ (a flipped sector)
+FIRE_ATOL, FIRE_FRAC = 1e-5, 1e-3  # fire variants: the share of values beyond FIRE_ATOL
+# the guided filter's integral images cancel (the port sums them in float64,
+# so both devices round one sum): the card may differ from the CPU by twice
+# the CPU's own float32 error against float64 (refine_depth: that of its
+# guided stage, plus SMOOTH_REL)
+GUIDED_FACTOR = 2.0
+N_FIRE = 16  # frames of each fire-scene and refinement mode
+N_AIS = 8  # frames of cli.ais_investigate (4 stages)
+
+
+def filter_cases(torch, np, gray_full):
+    """Every filter of kernels/filters.py, refine_depth and both fire-scene
+    variants on the card against the CPU, at FILTER_SHAPES; the card's host
+    time of each at 224² (one call, synchronised)."""
+    from thermal3d_torch.kernels import filters as flt
+    from thermal3d_torch.preprocess.fire_scene import (advanced_fire_scene_processing,
+                                                       preprocess_fire_scene_thermal)
+    from thermal3d_torch.preprocess.refine import refine_depth
+    from thermal3d_torch.preprocess.resize import resize_bilinear_hw
+
+    cases = []
+    for hw in FILTER_SHAPES:
+        g = resize_bilinear_hw(torch.from_numpy(gray_full), hw) if hw != FRAME_HW \
+            else torch.from_numpy(gray_full)
+        norm = (g - g.min()) / (g.max() - g.min())
+        rgb = torch.stack([norm, norm.flip(0), norm.flip(1)], dim=-1)
+        depth = 2.0 + 12.0 * norm.flip(1)
+        depth[5, 7], depth[hw[0] // 2, hw[1] // 3] = 80.0, -40.0  # outliers
+        cleaned = flt.remove_depth_outliers(depth)
+        g64 = flt.guided_filter(norm.double(), cleaned.double())
+        guided_err = float((flt.guided_filter(norm, cleaned) - g64).abs().max())
+        g64 = flt.guided_filter(norm.double(), depth.double())
+        guided_err_raw = float((flt.guided_filter(norm, depth) - g64).abs().max())
+        fns = {
+            "clahe": (lambda x, d, c: flt.clahe(x), "smooth"),
+            "clahe_2.5": (lambda x, d, c: flt.clahe(1.0 - x, clip_limit=2.5), "smooth"),
+            "sobel_xy": (lambda x, d, c: torch.stack(flt.sobel_xy(x)), "smooth"),
+            "sobel_magnitude_normalized": (lambda x, d, c: flt.sobel_magnitude_normalized(x),
+                                           "smooth"),
+            "canny_edges": (lambda x, d, c: flt.canny_edges(x), "edges"),
+            "canny_edges_30": (lambda x, d, c: flt.canny_edges(x, low=30.0), "edges"),
+            "bilateral_rgb": (lambda x, d, c: flt.bilateral_filter(c, 9, 75.0 / 255.0, 75.0),
+                              "smooth"),
+            "bilateral_depth": (lambda x, d, c: flt.bilateral_filter(d, 5, 50.0, 50.0), "smooth"),
+            "remove_depth_outliers": (lambda x, d, c: flt.remove_depth_outliers(d), "smooth"),
+            "guided_filter": (lambda x, d, c: flt.guided_filter(x, d), "guided"),
+            "refine_depth": (lambda x, d, c: refine_depth(d, x), "refine"),
+            "preprocess_fire_scene_thermal": (lambda x, d, c: preprocess_fire_scene_thermal(x),
+                                              "fire"),
+            "advanced_fire_scene_processing": (lambda x, d, c: advanced_fire_scene_processing(x),
+                                               "fire"),
+        }
+        on_card = norm.cuda(), depth.cuda(), rgb.cuda()
+        for name, (fn, kind) in fns.items():
+            ref = fn(norm, depth, rgb).float()
+            fn(*on_card)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn(*on_card)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            diff = (got.cpu().float() - ref).abs()
+            scale = float(ref.abs().max())
+            entry = dict(name=name, shape=list(hw), max_abs_err=float(diff.max()),
+                         card_ms=host_ms)
+            if kind == "smooth":
+                entry.update(rel_err=float(diff.max()) / scale, limit=SMOOTH_REL)
+                ok = entry["rel_err"] <= SMOOTH_REL
+            elif kind == "edges":
+                entry.update(frac_differ=float((diff > 0).float().mean()), limit=EDGE_FRAC)
+                ok = entry["frac_differ"] <= EDGE_FRAC
+            elif kind == "fire":
+                entry.update(frac_beyond=float((diff > FIRE_ATOL).float().mean()),
+                             limit=FIRE_FRAC)
+                ok = entry["frac_beyond"] <= FIRE_FRAC
+            else:
+                err = guided_err_raw if kind == "guided" else guided_err
+                limit = GUIDED_FACTOR * err + (SMOOTH_REL * scale if kind == "refine" else 0.0)
+                entry.update(cpu_f32_vs_f64=err, limit=limit)
+                ok = entry["max_abs_err"] <= limit
+            shown = {k: v for k, v in entry.items() if k not in ("name", "shape")}
+            log(f"  {name} {list(hw)}: {json.dumps(shown)} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} {hw}: the card disagrees with the CPU: {entry}")
+            cases.append(entry)
+    return cases
+
+
+def check_panel_depth_tile(np, png_path: str, depth, x0: int):
+    """The tile at column x0 of a figure written by viz/panels.py equals the
+    plasma map of `depth` (decoded by the port's PNG decoder)."""
+    from thermal3d_torch import native
+    from thermal3d_torch.viz.colormaps import colormap_rgb
+
+    decoded = native.decode_png(png_path)
+    if decoded is None:
+        raise AssertionError(f"{png_path}: the figure does not decode")
+    img = decoded[0].astype(np.uint8)
+    h, w = depth.shape
+    if not np.array_equal(img[:h, x0:x0 + w], colormap_rgb(depth, "plasma")):
+        raise AssertionError(f"{png_path}: the depth tile is not the plasma map of the depth")
+    return img
+
+
+def phase_fire(torch, np, card: str, root: str):
+    """Phase 8: the filters on the card against the CPU; cli.infer with its
+    default flags (a panel a frame) and in the fire-scene and refinement
+    modes, cli.ais_investigate, cli.evaluate with its comparison panels,
+    each timed and with its launch counts; the port's bench script in a
+    subprocess."""
+    import glob
+    import os
+    import shutil
+
+    from thermal3d_torch.cli import ais_investigate as cli_ais
+    from thermal3d_torch.cli import evaluate as cli_evaluate
+    from thermal3d_torch.cli import infer as cli_infer
+    from thermal3d_torch.cli.common import apply_preset
+    from thermal3d_torch.core.config import DUSTR_224_LINEAR
+    from thermal3d_torch.infer.engine import InferenceEngine
+    from thermal3d_torch.preprocess.fire_scene import (advanced_fire_scene_processing,
+                                                       preprocess_fire_scene_thermal)
+    from thermal3d_torch.preprocess.io import load_thermal_image, preprocess_thermal_for_model
+    from thermal3d_torch.preprocess.refine import refine_depth
+    from thermal3d_torch.preprocess.resize import resize_bilinear_hw
+    from thermal3d_torch.viz import panels
+
+    t_phase = time.perf_counter()
+    thermal_dir = os.path.join(root, "thermal")
+    paths = sorted(glob.glob(os.path.join(thermal_dir, "*.png")))
+    survivors = [p for i, p in enumerate(paths) if i != CORRUPT_AT]
+    log("fire-scene: filters on the card against the CPU:")
+    filters = filter_cases(torch, np, load_thermal_image(survivors[0]))
+
+    # the CLI's engine (seed 0, float32 weights, bf16 compute), built here to
+    # time what each CLI run below pays before its first frame
+    t0 = time.perf_counter()
+    eng = InferenceEngine(apply_preset(DUSTR_224_LINEAR, "full", (224, 224), "bfloat16"))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(f"fire-scene: the CLI's engine builds in {build_s:.3f} s")
+
+    def cli(argv, want, frames):
+        t0 = time.perf_counter()
+        _, launches = run_counted(lambda: cli_infer.main(argv), want)
+        seconds = time.perf_counter() - t0
+        return dict(frames=frames, seconds=seconds, frames_per_s=frames / seconds,
+                    frames_per_s_less_build=frames / max(seconds - build_s, 1e-9),
+                    launches=launches)
+
+    serving = {"percentile_enhance": 4, "fused_rope_attention": 160,
+               "fused_rope_cross_attention": 64, "rope_attention_tc": 224}
+    modes = {}
+    # the default flags: a panel a frame, its input through K1 (one launch a frame)
+    vis_dir, plain_dir = os.path.join(root, "vis"), os.path.join(root, "no_vis")
+    common = ["--img_path", thermal_dir, "--batch_size", str(BATCH)]
+    modes["no_vis"] = cli(common + ["--output_dir", plain_dir, "--no_vis"], serving, N_FRAMES)
+    modes["default_figures"] = cli(common + ["--output_dir", vis_dir],
+                                   dict(serving, percentile_enhance=4 + N_FRAMES), N_FRAMES)
+    figure_ms = 1e3 * (modes["default_figures"]["seconds"] - modes["no_vis"]["seconds"]) / N_FRAMES
+    vis = sorted(glob.glob(os.path.join(vis_dir, "*_depth_vis.png")))
+    if len(vis) != N_FRAMES:
+        raise AssertionError(f"cli.infer: {len(vis)} panels for {N_FRAMES} decodable frames")
+    for p in vis:
+        base = p[:-len("_depth_vis.png")]
+        depth = np.load(base + "_depth.npy")
+        if not np.array_equal(depth, np.load(os.path.join(plain_dir, os.path.basename(base)
+                                                          + "_depth.npy"))):
+            raise AssertionError(f"{base}: the depth differs between --no_vis and figures")
+        img = check_panel_depth_tile(np, p, depth, depth.shape[1] + panels.GAP)
+    first = survivors[0]
+    tile = panels.rgb_tile(preprocess_thermal_for_model(first, (224, 224)))
+    img = check_panel_depth_tile(np, os.path.join(vis_dir, os.path.basename(first)[:-4]
+                                                  + "_depth_vis.png"),
+                                 np.load(os.path.join(vis_dir, os.path.basename(first)[:-4]
+                                                      + "_depth.npy")), 224 + panels.GAP)
+    if not np.array_equal(img[:224, :224], tile):
+        raise AssertionError("cli.infer: the panel's input tile is not the frame as the model "
+                             "sees it")
+    log(f"cli.infer (figures): {len(vis)} panels, each depth tile the plasma map of its "
+        f"depth; {modes['default_figures']['frames_per_s']:.2f} frames/s against "
+        f"{modes['no_vis']['frames_per_s']:.2f} with --no_vis: {figure_ms:.2f} ms a figure; "
+        f"launches {modes['default_figures']['launches']}")
+
+    # the fire-scene and refinement modes on N_FIRE frames, batch 1 a frame
+    fire_dir = os.path.join(root, "fire_frames")
+    os.makedirs(fire_dir)
+    for p in survivors[:N_FIRE]:
+        shutil.copy(p, fire_dir)
+    n = N_FIRE
+    a_frame = {"fused_rope_attention": 40 * n, "fused_rope_cross_attention": 16 * n,
+               "rope_attention_tc": 56 * n}
+    one_batch = {"percentile_enhance": 1, "fused_rope_attention": 40,
+                 "fused_rope_cross_attention": 16, "rope_attention_tc": 56}
+    fire_common = ["--img_path", fire_dir, "--no_vis", "--batch_size", str(N_FIRE)]
+    for name, flags, want in (("fire_scene", ["--fire_scene"], a_frame),
+                              ("advanced_fire_refine", ["--advanced_fire", "--refine_depth"],
+                               a_frame),
+                              ("refine_depth", ["--refine_depth"], one_batch)):
+        out_dir = os.path.join(root, name)
+        modes[name] = cli(fire_common + ["--output_dir", out_dir] + flags, want, n)
+        depths = sorted(glob.glob(os.path.join(out_dir, "*_depth.npy")))
+        if len(depths) != n or any(np.load(d).shape != (224, 224)
+                                   or not np.isfinite(np.load(d)).all() for d in depths):
+            raise AssertionError(f"cli.infer {flags}: {len(depths)} depth files, or a bad one")
+        log(f"cli.infer {' '.join(flags)}: {n} frames, {modes[name]['frames_per_s']:.2f} "
+            f"frames/s ({modes[name]['frames_per_s_less_build']:.2f} less the engine's "
+            f"build); launches {modes[name]['launches']}")
+    # the CLI's files against the public functions on the same frame, in process
+    for name, fn, refine in (("fire_scene", preprocess_fire_scene_thermal, False),
+                             ("advanced_fire_refine", advanced_fire_scene_processing, True)):
+        gray = torch.from_numpy(load_thermal_image(first)).cuda()
+        with torch.inference_mode():
+            resized = resize_bilinear_hw(gray, (224, 224))
+            want = eng.infer(fn(resized)[None], preprocessed=True)["depth"][0]
+            if refine:
+                want = refine_depth(torch.from_numpy(want).cuda(), resized).cpu().numpy()
+        got = np.load(os.path.join(root, name, os.path.basename(first)[:-4] + "_depth.npy"))
+        if not np.array_equal(got, want):
+            raise AssertionError(f"cli.infer {name}: the depth differs from the functions'")
+    log("cli.infer --fire_scene and --advanced_fire --refine_depth: bit-equal to the "
+        "functions on the same frame")
+    del eng
+    torch.cuda.empty_cache()
+
+    # cli.ais_investigate: N_AIS frames, the four stages (figures on)
+    ais_frames, ais_dir = os.path.join(root, "ais_frames"), os.path.join(root, "ais")
+    os.makedirs(ais_frames)
+    for p in survivors[:N_AIS]:
+        shutil.copy(p, ais_frames)
+    t0 = time.perf_counter()
+    rows, ais_launches = run_counted(
+        lambda: cli_ais.main(["--img_path", ais_frames, "--output_dir", ais_dir, "--stages",
+                              *cli_ais.STAGES]),
+        {"percentile_enhance": 1 + 4 * N_AIS, "fused_rope_attention": 40 * (1 + 3 * N_AIS),
+         "fused_rope_cross_attention": 16 * (1 + 3 * N_AIS),
+         "rope_attention_tc": 56 * (1 + 3 * N_AIS)})
+    ais_s = time.perf_counter() - t0
+    report = open(os.path.join(ais_dir, "investigation.md")).read()
+    strips = glob.glob(os.path.join(ais_dir, "*_stages.png"))
+    if rows != 4 * N_AIS or len(strips) != N_AIS:
+        raise AssertionError(f"cli.ais_investigate: {rows} rows, {len(strips)} strips")
+    for p in survivors[:N_AIS]:
+        base = os.path.basename(p)[:-4]
+        for stage in cli_ais.STAGES:
+            s = cli_ais._stage_stats(np.load(os.path.join(ais_dir, stage, f"{base}_depth.npy")))
+            line = (f"| {base} | {stage} | {s['min']:.3f} | {s['max']:.3f} | {s['range']:.3f} | "
+                    f"{s['blockiness']:.2f} |")
+            if line not in report:
+                raise AssertionError(f"investigation.md lacks {line}")
+    log(f"cli.ais_investigate: {N_AIS} frames x 4 stages in {ais_s:.1f} s, investigation.md "
+        f"rows equal to the stats of the saved depths; launches {ais_launches}")
+
+    # cli.evaluate with its comparison panels, on the N_FIRE frames and phase
+    # 6's pseudo-GT depths (one batch, padded to BATCH as the --no_vis run's)
+    ev_dir = os.path.join(root, "evaluation_vis")
+    t0 = time.perf_counter()
+    summary, ev_launches = run_counted(lambda: cli_evaluate.main([
+        "--thermal_dir", fire_dir, "--pseudo_gt_dir", os.path.join(root, "gt"),
+        "--output_dir", ev_dir, "--batch_size", str(BATCH)]), one_batch)
+    ev_s = time.perf_counter() - t0
+    comps = sorted(glob.glob(os.path.join(ev_dir, "*_comparison.png")))
+    if summary["n_images"] != N_FIRE or len(comps) != N_FIRE:
+        raise AssertionError(f"cli.evaluate: {summary['n_images']} images, {len(comps)} panels")
+    depth0 = np.load(os.path.join(plain_dir, os.path.basename(first)[:-4] + "_depth.npy"))
+    comp0 = os.path.join(ev_dir, os.path.basename(first)[:-4] + "_comparison.png")
+    img = check_panel_depth_tile(np, comp0, depth0, FRAME_HW[1] + panels.GAP)
+    if not np.array_equal(img[:FRAME_HW[0], :FRAME_HW[1]], panels.thermal_file_tile(first)):
+        raise AssertionError("cli.evaluate: the thermal tile is not the frame's raw >> 8")
+    log(f"cli.evaluate (panels): {len(comps)} comparison panels in {ev_s:.1f} s; launches "
+        f"{ev_launches}")
+
+    # the port's bench script, as a user runs it
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "thermal3d_torch.bench", "--iters", "12"],
+                         capture_output=True, text=True, timeout=600, check=True,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    bench_line = res.stdout.strip().splitlines()[-1]
+    bench = json.loads(bench_line)
+    if bench["device"]["type"] != "cuda" or not bench["value"] > 0:
+        raise AssertionError(f"bench: {bench_line}")
+    log(f"bench ({time.perf_counter() - t0:.1f} s): {bench_line}")
+    return dict(card=card, filters=filters, engine_build_s=build_s, cli_infer=modes,
+                figure_ms_per_frame=figure_ms,
+                ais_investigate=dict(frames=N_AIS, stages=len(cli_ais.STAGES), seconds=ais_s,
+                                     launches=ais_launches),
+                cli_evaluate=dict(panels=len(comps), seconds=ev_s, launches=ev_launches),
+                bench=bench, bench_line=bench_line, seconds=time.perf_counter() - t_phase)
+
+
 # --compare-k2k3: (K2 or K3, batch, grid side, width C, heads), the bf16
 # K2/K3 calls of the serving path (DUSt3R-224) and the pseudo-GT path
 # (MASt3R-512)
@@ -1658,6 +1955,7 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as root:
         files = phase_files(torch, np, card, engine, pseudo_gt, root)
         training = phase_training(torch, np, root)
+        fire = phase_fire(torch, np, card, root)
 
     # launches on each path's own run; `launches` is this slice's main path
     # (pseudo-GT) for K2-K6, the serving path for K1
@@ -1672,7 +1970,11 @@ def main(argv) -> int:
                          ("files_cli_evaluate", files["cli_evaluate"]["launches"]),
                          ("files_generate_pseudo_gt", files["generate_pseudo_gt"]["launches"]),
                          ("files_test_set", files["test_set"]["launches"]),
-                         ("training", training["launches"])):
+                         ("training", training["launches"]),
+                         *((f"fire_cli_infer_{mode}", r["launches"])
+                           for mode, r in fire["cli_infer"].items()),
+                         ("fire_ais_investigate", fire["ais_investigate"]["launches"]),
+                         ("fire_cli_evaluate_panels", fire["cli_evaluate"]["launches"])):
         for name, count in counts.items():
             by_path.setdefault(name, {})[path] = count
     for counts in by_path.values():  # every kernel names the training path
@@ -1716,6 +2018,8 @@ def main(argv) -> int:
     print(json.dumps({"pseudo_gt": pseudo_gt}), flush=True)
     print(json.dumps({"files": files}), flush=True)
     print(json.dumps({"training": training}), flush=True)
+    print(fire["bench_line"], flush=True)
+    print(json.dumps({"fire": fire}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

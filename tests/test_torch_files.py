@@ -193,6 +193,16 @@ def _compare_trees(out_dir, ref_dir, pattern="**/*.npy"):
     return got
 
 
+def _compare_names(out_dir, ref_dir, pattern):
+    """The same file names under both trees (figures: their pixels are held
+    against matplotlib in test_torch_viz.py and test_torch_fire_cli.py)."""
+    names = [sorted(os.path.relpath(p, d) for p in glob.glob(os.path.join(d, pattern),
+                                                              recursive=True))
+             for d in (out_dir, ref_dir)]
+    assert names[0] == names[1] and names[0]
+    return names[0]
+
+
 def test_generate_pseudo_gt_files_match_jax(data, tmp_path):
     """4 pairs (frame_skip 1) in steps of 3 and a padded 1: all eight
     directories, file for file (the calibration's K in place of the
@@ -205,21 +215,26 @@ def test_generate_pseudo_gt_files_match_jax(data, tmp_path):
     files = _compare_trees(str(tmp_path / "t"), str(tmp_path / "j"))
     assert len(files) == 6 * 4 + 2 * 4  # pair-named dirs + depth1/depth2 by base name
     assert sorted(os.listdir(tmp_path / "t")) == sorted(OUTPUT_DIRS)
-    with pytest.raises(NotImplementedError, match="viz"):
-        generate_pseudo_gt(pairs, str(tmp_path / "v"), tgen, visualize=True)
+    # visualize=True: the same files plus a 2x2 panel a pair, named as JAX names them
+    generate_pseudo_gt(pairs, str(tmp_path / "v"), tgen, visualize=True)
+    jax_generate(pairs, str(tmp_path / "jv"), jgen, visualize=True)
+    _compare_trees(str(tmp_path / "v"), str(tmp_path / "j"))
+    panels = _compare_names(str(tmp_path / "v"), str(tmp_path / "jv"), "visualizations/*.png")
+    assert len(panels) == 4
 
 
 def test_generate_test_set_matches_jax(data, tmp_path):
-    """5 frames monocular in steps of 3: {name}_depth.npy and
-    {name}_thermal_path.txt as the JAX writer makes them (it also writes a
-    matplotlib preview, which the port does not)."""
+    """5 frames monocular in steps of 3: {name}_depth.npy,
+    {name}_thermal_path.txt and the {name}_depth_vis.png preview of every
+    frame as the JAX writer makes them (the preview's pixels are held in
+    test_torch_fire_cli.py)."""
     jgen, tgen = _mastr_generators(data)
     frames = freiburg.build_rgb_thermal_index(data["ds"])
     assert generate_test_set_pseudo_gt(frames, str(tmp_path / "t"), tgen) == 5
     assert jax_test_set(frames, str(tmp_path / "j"), jgen) == 5
     _compare_trees(str(tmp_path / "t"), str(tmp_path / "j"))
     _compare_trees(str(tmp_path / "t"), str(tmp_path / "j"), "**/*.txt")
-    assert not glob.glob(str(tmp_path / "t" / "**" / "*.png"), recursive=True)
+    assert len(_compare_names(str(tmp_path / "t"), str(tmp_path / "j"), "**/*_depth_vis.png")) == 5
 
 
 def _metric_inputs():
@@ -309,8 +324,13 @@ def test_evaluate_test_set_matches_jax(data, tmp_path):
     for k in ref:
         np.testing.assert_allclose(got[k], ref[k], rtol=RTOL, err_msg=k)
     _compare_trees(str(tmp_path / "t"), str(tmp_path / "j"), "*.txt")
-    with pytest.raises(NotImplementedError, match="viz"):
-        evaluator.evaluate_test_set(teng, data["paths"], data["gt"], str(tmp_path / "v"))
+    # the default save_visualizations: a comparison panel a frame, named as JAX names them
+    evaluator.evaluate_test_set(teng, data["paths"], data["gt"], str(tmp_path / "v"),
+                                batch_size=BATCH)
+    jax_evaluator.evaluate_test_set(jeng, data["paths"], data["gt"], str(tmp_path / "jv"),
+                                    batch_size=BATCH)
+    assert len(_compare_names(str(tmp_path / "v"), str(tmp_path / "jv"),
+                              "*_comparison.png")) == 6
 
 
 def test_freiburg_indexes_match_jax(data, tmp_path):
@@ -439,20 +459,22 @@ def test_cli_evaluate_matches_jax(data, tmp_path):
 
 
 @pytest.mark.parametrize("cli,argv", [
-    ("infer", ["--img_path", "x.png"]),  # no --no_vis: the visualisation is not ported
+    ("infer", ["--img_path", "x.png", "--int8_group_size", "64"]),
     ("infer", ["--img_path", "x.png", "--no_vis", "--int8"]),
     ("infer", ["--img_path", "x.png", "--no_vis", "--int8_static_acts"]),
-    ("infer", ["--img_path", "x.png", "--no_vis", "--fire_scene"]),
-    ("infer", ["--img_path", "x.png", "--no_vis", "--advanced_fire"]),
-    ("infer", ["--img_path", "x.png", "--no_vis", "--refine_depth"]),
+    ("infer", ["--img_path", "x.png", "--int8_equalize"]),
+    ("infer", ["--img_path", "x.png", "--advanced_fire", "--ndev", "2"]),
+    ("infer", ["--img_path", "x.png", "--refine_depth", "--scan_layers"]),
     ("infer", ["--img_path", "x.png", "--no_vis", "--ndev", "2"]),
     ("infer", ["--img_path", "x.png", "--no_vis", "--scan_layers"]),
     ("pseudo_gt", ["--dataset_dir", "d", "--output_dir", "o", "--int8"]),
-    ("pseudo_gt", ["--dataset_dir", "d", "--output_dir", "o", "--visualize"]),
+    ("pseudo_gt", ["--dataset_dir", "d", "--output_dir", "o", "--visualize",
+                   "--int8_static_acts"]),
     ("pseudo_gt", ["--dataset_dir", "d", "--output_dir", "o", "--ndev", "4"]),
     ("pseudo_gt", ["--dataset_dir", "d", "--output_dir", "o", "--num_shards", "2",
                    "--shard_id", "2"]),
-    ("evaluate", ["--thermal_dir", "t", "--pseudo_gt_dir", "g", "--output_dir", "o"]),
+    ("evaluate", ["--thermal_dir", "t", "--pseudo_gt_dir", "g", "--output_dir", "o",
+                  "--scan_layers"]),
     ("evaluate", ["--thermal_dir", "t", "--pseudo_gt_dir", "g", "--output_dir", "o",
                   "--no_vis", "--ndev", "2"]),
 ])

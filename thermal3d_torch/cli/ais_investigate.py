@@ -1,0 +1,168 @@
+"""Staged out-of-distribution (AIS drone / fire scene) investigation —
+`python -m thermal3d_torch.cli.ais_investigate` (counterpart of
+thermal3d/cli/ais_investigate.py, notebooks/ais_thermal_image_investigation.ipynb).
+
+Runs the same frames through the stages of the reference's AIS workflow
+(docs/FIRE_WORKFLOW.md), each one `cli.infer` flag set, writes each stage's
+depths and panels under <output_dir>/<stage>/, one strip a frame
+(`{base}_stages.png`: the frame, then every stage's depth on a shared
+scale) and `investigation.md`, the per-stage depth range and patch-grid
+blockiness as numbers.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import os
+
+import numpy as np
+
+from thermal3d_torch.cli.common import add_preset_flag
+
+# stage name -> extra cli.infer flags (ordering = the notebook's progression)
+STAGES = {
+    "original": [],
+    "preprocessed": ["--fire_scene"],
+    "final": ["--fire_scene", "--refine_depth"],
+    "advanced": ["--advanced_fire", "--refine_depth"],
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Staged OOD thermal investigation (AIS workflow, PyTorch/CUDA)")
+    p.add_argument("--img_path", type=str, required=True,
+                   help="OOD thermal frame or directory of .png frames")
+    p.add_argument("--output_dir", type=str, default="ais_investigation")
+    p.add_argument("--weights", type=str, default=None,
+                   help=".pth checkpoint or the port's checkpoint directory; random init "
+                        "if omitted")
+    p.add_argument("--img_size", type=int, nargs=2, default=None)
+    p.add_argument("--stages", type=str, nargs="+",
+                   default=["original", "preprocessed", "final"], choices=list(STAGES),
+                   help="which pipeline stages to run (default: the notebook's three-stage "
+                        "progression)")
+    p.add_argument("--model_variant", type=str, default="dustr224_linear",
+                   choices=["dustr224_linear", "dustr512_dpt", "mastr512_catmlpdpt"])
+    p.add_argument("--compute_dtype", type=str, default="bfloat16")
+    p.add_argument("--no_vis", action="store_true",
+                   help="skip per-stage vis PNGs and the per-frame stage strip (depth .npy "
+                        "+ report only)")
+    return add_preset_flag(p)
+
+
+def _stage_stats(depth: np.ndarray) -> dict:
+    """The notebook's observations as numbers: the finite depth range (OOD
+    saturation compresses it), and blockiness, the mean |∂x depth| across
+    the 16-px ViT patch boundaries over the mean elsewhere (≈1 for smooth
+    output; the refinement should pull it down). NaNs count as 0 in the
+    gradients only."""
+    finite = np.isfinite(depth)
+    fin = depth[finite] if finite.any() else np.zeros(1, depth.dtype)
+    d = np.where(finite, depth, 0.0)
+    gx = np.abs(np.diff(d, axis=1))
+    grid = gx[:, 15::16]  # columns crossing a ViT patch boundary
+    off = np.delete(gx, np.s_[15::16], axis=1)
+    blockiness = float(grid.mean() / max(off.mean(), 1e-12))
+    return {
+        "min": float(fin.min()), "max": float(fin.max()),
+        "mean": float(fin.mean()),
+        "range": float(fin.max() - fin.min()),
+        "finite_frac": float(finite.mean()),
+        "blockiness": blockiness,
+    }
+
+
+def main(argv=None):
+    import torch
+
+    from thermal3d_torch.cli import infer
+    from thermal3d_torch.core.device import resolve_device
+    from thermal3d_torch.preprocess.io import load_thermal_image
+    from thermal3d_torch.preprocess.resize import resize_bilinear_hw
+    from thermal3d_torch.viz.panels import stage_strip
+
+    parser = build_parser()
+    args = parser.parse_args(argv)
+
+    if os.path.isdir(args.img_path):
+        paths = sorted(glob.glob(os.path.join(args.img_path, "*.png")))
+    else:
+        paths = [args.img_path]
+    if not paths:
+        parser.error(f"no .png frames under {args.img_path}")
+
+    common = ["--img_path", args.img_path,
+              "--model_variant", args.model_variant,
+              "--compute_dtype", args.compute_dtype,
+              "--model_preset", args.model_preset]
+    if args.scan_layers:  # forwarded: cli.infer names its ROADMAP item
+        common += ["--scan_layers"]
+    if args.ndev != 1:
+        common += ["--ndev", str(args.ndev)]
+    if args.device:
+        common += ["--device", args.device]
+    if args.weights:
+        common += ["--weights", args.weights]
+    if args.img_size:
+        common += ["--img_size", str(args.img_size[0]), str(args.img_size[1])]
+    if args.no_vis:
+        common += ["--no_vis"]
+
+    for stage in args.stages:
+        stage_dir = os.path.join(args.output_dir, stage)
+        print(f"[ais_investigate] stage '{stage}' -> {stage_dir}")
+        infer.main(common + ["--output_dir", stage_dir] + STAGES[stage])
+
+    # aggregate: per-frame, per-stage depth stats + comparison strip
+    rows = []
+    for path in paths:
+        base = os.path.splitext(os.path.basename(path))[0]
+        depths = {}
+        for stage in args.stages:
+            f = os.path.join(args.output_dir, stage, f"{base}_depth.npy")
+            if os.path.exists(f):
+                depths[stage] = np.load(f)
+        if not depths:
+            continue  # frame failed to decode in every stage
+        for stage, d in depths.items():
+            rows.append({"frame": base, "stage": stage, **_stage_stats(d)})
+        if not args.no_vis:
+            gray = load_thermal_image(path, normalize=True)
+            if gray is not None:
+                shape = next(iter(depths.values())).shape
+                gray = resize_bilinear_hw(torch.from_numpy(gray).to(resolve_device(args.device)),
+                                          shape).cpu().numpy()
+                stage_strip(gray, depths, os.path.join(args.output_dir, f"{base}_stages.png"))
+
+    report = os.path.join(args.output_dir, "investigation.md")
+    with open(report, "w") as f:
+        f.write("# OOD thermal investigation\n\n")
+        f.write(f"frames: {len(paths)}  ·  stages: {', '.join(args.stages)}  "
+                f"·  variant: {args.model_variant}\n\n")
+        f.write("| frame | stage | depth min | max | range | blockiness |\n")
+        f.write("|---|---|---|---|---|---|\n")
+        for r in rows:
+            f.write(f"| {r['frame']} | {r['stage']} | {r['min']:.3f} | "
+                    f"{r['max']:.3f} | {r['range']:.3f} | "
+                    f"{r['blockiness']:.2f} |\n")
+        f.write("\n## Per-stage summary (mean over frames)\n\n")
+        f.write("| stage | depth range | blockiness |\n|---|---|---|\n")
+        for stage in args.stages:
+            sr = [r for r in rows if r["stage"] == stage]
+            if sr:
+                f.write(f"| {stage} | "
+                        f"{np.mean([r['range'] for r in sr]):.3f} | "
+                        f"{np.mean([r['blockiness'] for r in sr]):.2f} |\n")
+        f.write("\nReading guide (mirrors the notebook's findings): a larger "
+                "depth range after `preprocessed` means the enhancement "
+                "recovered dynamic range the OOD sensor saturated away; "
+                "blockiness → 1.0 after `final` means the outlier-removal "
+                "refinement erased the ViT patch-grid artifacts.\n")
+    print(f"[ais_investigate] report -> {report}")
+    return len(rows)
+
+
+if __name__ == "__main__":
+    main()

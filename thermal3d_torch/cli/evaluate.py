@@ -1,9 +1,9 @@
 """Evaluate thermal depth against pseudo-GT — `python -m thermal3d_torch.cli.evaluate`
 (counterpart of thermal3d/cli/evaluate.py, utils/evaluate_depth_metrics.py:247-401).
 
-The flags are the JAX CLI's. Not ported yet, and so parser errors naming
-their ROADMAP item: the comparison panels (pass --no_vis), --scan_layers and
---ndev > 1.
+The flags are the JAX CLI's; unless --no_vis, each frame also gets its
+`{base}_comparison.png` panel. Not ported yet, and so parser errors naming
+their ROADMAP item: --scan_layers and --ndev > 1.
 """
 
 from __future__ import annotations
@@ -13,8 +13,6 @@ import glob
 import os
 
 from thermal3d_torch.cli.common import add_preset_flag, apply_preset, refuse_unported
-
-VIZ_ITEM = "ROADMAP Queue 1 item 12, viz/"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -31,8 +29,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=36,
                    help="frames a batch; the final partial batch is padded")
     p.add_argument("--no_thermal_model", action="store_true")
-    p.add_argument("--no_vis", action="store_true",
-                   help=f"required: the comparison panels are not ported ({VIZ_ITEM})")
+    p.add_argument("--no_vis", action="store_true")
     p.add_argument("--compute_dtype", type=str, default="bfloat16")
     return add_preset_flag(p)
 
@@ -46,9 +43,6 @@ def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
     refuse_unported(parser, args, {})
-    if not args.no_vis:
-        parser.error(f"the comparison panels are not ported to thermal3d_torch yet "
-                     f"({VIZ_ITEM}): pass --no_vis")
     config = apply_preset(DUSTR_224_LINEAR, args.model_preset, args.img_size,
                           args.compute_dtype)
     state, head_state = (None, None) if args.model is None else load_pth(args.model, config)
@@ -59,7 +53,7 @@ def main(argv=None):
     if args.num_samples:
         thermal_paths = thermal_paths[: args.num_samples]
     summary = evaluate_test_set(engine, thermal_paths, args.pseudo_gt_dir,
-                                output_dir=args.output_dir, save_visualizations=False,
+                                output_dir=args.output_dir, save_visualizations=not args.no_vis,
                                 batch_size=args.batch_size)
     if summary:
         print("\nAverage metrics:")

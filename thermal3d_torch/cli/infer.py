@@ -1,12 +1,14 @@
 """Thermal depth inference — `python -m thermal3d_torch.cli.infer`
 (counterpart of thermal3d/cli/infer.py, thermal_dustr_inference.py:297-376).
 
-A directory of thermal PNGs (or one frame) → `{base}_depth.npy` per frame,
-through InferenceEngine.infer_paths with the depth-only fetch; --img_path2
-runs one stereo pair. The flags are the JAX CLI's. Not ported yet, and so
-parser errors naming their ROADMAP item: the depth visualisation (pass
---no_vis), --fire_scene / --advanced_fire / --refine_depth, the int8 modes,
---scan_layers and --ndev > 1.
+A directory of thermal PNGs (or one frame) → `{base}_depth.npy` and, unless
+--no_vis, the `{base}_depth_vis.png` panel (the model's view of the frame,
+depth, confidence) per frame, through InferenceEngine.infer_paths (depth
+only with --no_vis); --img_path2 runs one stereo pair; --fire_scene /
+--advanced_fire preprocess each frame on the card and serve it alone;
+--refine_depth refines every depth map before it is saved. The flags are
+the JAX CLI's. Not ported yet, and so parser errors naming their ROADMAP
+item: the int8 modes, --scan_layers and --ndev > 1.
 """
 
 from __future__ import annotations
@@ -17,11 +19,10 @@ import glob
 import os
 
 import numpy as np
+import torch
 
 from thermal3d_torch.cli.common import add_preset_flag, apply_preset, refuse_unported
 
-VIZ_ITEM = "ROADMAP Queue 1 item 12, viz/"
-FIRE_ITEM = "ROADMAP Queue 1 item 9, fire-scene and refinement"
 INT8_ITEM = "ROADMAP Queue 1 item 10, int8 serving"
 
 
@@ -40,11 +41,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="frames a batch; the final partial batch is padded")
     p.add_argument("--no_thermal_model", action="store_true",
                    help="skip the ThermalDUSt3R preprocessing head")
-    p.add_argument("--fire_scene", action="store_true", help=f"not ported ({FIRE_ITEM})")
-    p.add_argument("--advanced_fire", action="store_true", help=f"not ported ({FIRE_ITEM})")
-    p.add_argument("--refine_depth", action="store_true", help=f"not ported ({FIRE_ITEM})")
-    p.add_argument("--no_vis", action="store_true",
-                   help=f"required: the depth visualisation is not ported ({VIZ_ITEM})")
+    p.add_argument("--fire_scene", action="store_true",
+                   help="fire-scene preprocessing (experiment pipeline)")
+    p.add_argument("--advanced_fire", action="store_true",
+                   help="histogram-peak fire-scene preprocessing (over --fire_scene)")
+    p.add_argument("--refine_depth", action="store_true",
+                   help="outlier-median + guided + bilateral refinement")
+    p.add_argument("--no_vis", action="store_true")
     p.add_argument("--compute_dtype", type=str, default="bfloat16")
     p.add_argument("--int8_scope", type=str, default="all", choices=["all", "mlp", "fc1"],
                    help=f"int8 only ({INT8_ITEM})")
@@ -73,11 +76,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     refuse_unported(parser, args, {
         "int8": INT8_ITEM, "int8_group_size": INT8_ITEM, "int8_equalize": INT8_ITEM,
-        "int8_static_acts": INT8_ITEM, "fire_scene": FIRE_ITEM, "advanced_fire": FIRE_ITEM,
-        "refine_depth": FIRE_ITEM})
-    if not args.no_vis:
-        parser.error(f"the depth visualisation is not ported to thermal3d_torch yet "
-                     f"({VIZ_ITEM}): pass --no_vis")
+        "int8_static_acts": INT8_ITEM})
     base = {"dustr224_linear": DUSTR_224_LINEAR, "dustr512_dpt": DUSTR_512_DPT,
             "mastr512_catmlpdpt": MASTR_512_CATMLPDPT}[args.model_variant]
     if args.img_size is None:
@@ -97,24 +96,74 @@ def main(argv=None):
         if any(g is None for g in grays):
             parser.error("--img_path/--img_path2: a frame is missing or does not decode")
         out = engine.infer(grays[0][None], grays[1][None])
-        _save_depth(args.output_dir, args.img_path, out["depth"][0])
+        _save_one(args, out, 0, args.img_path, engine)
         return
 
     if os.path.isdir(args.img_path):
         paths = sorted(glob.glob(os.path.join(args.img_path, "*.png")))
     else:
         paths = [args.img_path]
-    out = engine.infer_paths(paths, batch_size=args.batch_size, outputs=("depth",))
+
+    if args.fire_scene or args.advanced_fire:
+        from thermal3d_torch.preprocess.fire_scene import (advanced_fire_scene_processing,
+                                                           preprocess_fire_scene_thermal)
+        from thermal3d_torch.preprocess.resize import resize_bilinear_hw
+
+        fn = advanced_fire_scene_processing if args.advanced_fire else \
+            preprocess_fire_scene_thermal
+        for path in paths:  # one frame at a time, as the reference serves them
+            gray = load_thermal_image(path, normalize=True)
+            if gray is None:
+                continue
+            with torch.inference_mode():
+                resized = resize_bilinear_hw(torch.from_numpy(gray).to(engine.device),
+                                             tuple(args.img_size))
+                proc = fn(resized)
+            out = engine.infer(proc[None], preprocessed=True)
+            _save_one(args, out, 0, path, engine)
+        return
+
+    # the confidence is fetched only for the figure
+    outputs = ("depth",) if args.no_vis else ("depth", "confidence1")
+    out = engine.infer_paths(paths, batch_size=args.batch_size, outputs=outputs)
     # zip against the SURVIVING paths: failed decodes are dropped
     survivors = out.get("paths", [])
     for i, path in enumerate(survivors):
-        _save_depth(args.output_dir, path, out["depth"][i])
+        _save_one(args, out, i, path, engine)
     print(f"Processed {len(survivors)}/{len(paths)} frames -> {args.output_dir}")
 
 
-def _save_depth(output_dir: str, path: str, depth: np.ndarray) -> None:
+def _save_one(args, out, i: int, path: str, engine) -> None:
+    """Write frame i's depth (refined with --refine_depth, against the frame
+    decoded again and resized to the depth's size) and, unless --no_vis,
+    its panel."""
     base = os.path.splitext(os.path.basename(path))[0]
-    np.save(os.path.join(output_dir, f"{base}_depth.npy"), depth)
+    depth = out["depth"][i]
+    if args.refine_depth:
+        from thermal3d_torch.preprocess.io import load_thermal_image
+        from thermal3d_torch.preprocess.refine import refine_depth
+        from thermal3d_torch.preprocess.resize import resize_bilinear_hw
+
+        gray = torch.from_numpy(load_thermal_image(path, normalize=True)).to(engine.device)
+        with torch.inference_mode():
+            gray = resize_bilinear_hw(gray, depth.shape)
+            depth = refine_depth(torch.from_numpy(depth).to(engine.device), gray).cpu().numpy()
+    np.save(os.path.join(args.output_dir, f"{base}_depth.npy"), depth)
+    if not args.no_vis:
+        from thermal3d_torch.viz.panels import visualize_depth_result
+
+        visualize_depth_result(
+            _thermal_vis(path, depth, engine.device), depth, out["confidence1"][i],
+            save_path=os.path.join(args.output_dir, f"{base}_depth_vis.png"))
+
+
+def _thermal_vis(path: str, depth: np.ndarray, device) -> np.ndarray:
+    """The panel's input tile: the frame as the model sees it, at the
+    depth's size (zeros if it does not decode)."""
+    from thermal3d_torch.preprocess.io import preprocess_thermal_for_model
+
+    img = preprocess_thermal_for_model(path, depth.shape, device=device)
+    return img if img is not None else np.zeros((*depth.shape, 3), np.float32)
 
 
 if __name__ == "__main__":

@@ -3,8 +3,7 @@
 and scripts/test_pseudo_gt.py through --test_set).
 
 The flags are the JAX CLI's. Not ported yet, and so parser errors naming
-their ROADMAP item: --visualize, the int8 modes, --scan_layers and
---ndev > 1.
+their ROADMAP item: the int8 modes, --scan_layers and --ndev > 1.
 """
 
 from __future__ import annotations
@@ -14,7 +13,6 @@ import dataclasses
 
 from thermal3d_torch.cli.common import add_preset_flag, apply_preset, refuse_unported
 
-VIZ_ITEM = "ROADMAP Queue 1 item 12, viz/"
 INT8_ITEM = "ROADMAP Queue 1 item 10, int8"
 
 
@@ -28,7 +26,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--img_size", type=int, nargs=2, default=[512, 512])
     p.add_argument("--frame_skip", type=int, default=5)
     p.add_argument("--batch_size", type=int, default=4)
-    p.add_argument("--visualize", action="store_true", help=f"not ported ({VIZ_ITEM})")
+    p.add_argument("--visualize", action="store_true",
+                   help="2x2 RGB/depth panels of the first 10 pairs")
     p.add_argument("--calib_file", type=str, default=None)
     p.add_argument("--max_pairs", type=int, default=None)
     p.add_argument("--test_set", action="store_true",
@@ -59,7 +58,7 @@ def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
     refuse_unported(parser, args, {
-        "visualize": VIZ_ITEM, "int8": INT8_ITEM, "int8_equalize": INT8_ITEM,
+        "int8": INT8_ITEM, "int8_equalize": INT8_ITEM,
         "int8_static_acts": INT8_ITEM})
     if not 0 <= args.shard_id < args.num_shards:
         parser.error(f"--shard_id {args.shard_id} out of range for "
@@ -90,7 +89,8 @@ def main(argv=None):
     if args.test_set:
         n = generate_test_set_pseudo_gt(items, args.output_dir, gen, max_frames=args.max_pairs)
     else:
-        n = generate_pseudo_gt(items, args.output_dir, gen, max_pairs=args.max_pairs)
+        n = generate_pseudo_gt(items, args.output_dir, gen, visualize=args.visualize,
+                               max_pairs=args.max_pairs)
     print(f"Pseudo-GT generation complete: {n} items -> {args.output_dir}")
     return n
 

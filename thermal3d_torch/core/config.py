@@ -15,6 +15,13 @@ from typing import Optional, Tuple
 
 import torch
 
+# Freiburg thermal camera raw-count window (utils/preprocessing.py:53-54), read
+# by preprocess.enhance.enhance_thermal_fixed_range; the upper bound of the
+# reference's IR display window (utils/visualize.py:577-596), read by viz/
+FREIBURG_RAW_MIN = 21800
+FREIBURG_RAW_MAX = 25000
+FREIBURG_VIZ_MAX = 23700
+
 
 @dataclasses.dataclass(frozen=True)
 class HeadConfig:

@@ -5,10 +5,9 @@ The filename heuristics are the reference's, unchanged (timestamp
 extraction, the trailing-'0' RGB/IR suffix repair, the glob fallback, the
 fuzzy scan); inference runs through InferenceEngine.infer_paths (depth
 only); the metrics of all frames are one batched call on the engine's
-device; the per-image `_metrics.txt` and `metrics_summary.txt` layouts are
-the reference's. The comparison panels wait for the port of viz/ (ROADMAP
-Queue 1 item 12). `evaluate_thermal_depth` is the model-level evaluator over
-a dataset's samples.
+device; the per-image `_metrics.txt`, `_comparison.png` (viz/panels.py) and
+`metrics_summary.txt` layouts are the reference's. `evaluate_thermal_depth`
+is the model-level evaluator over a dataset's samples.
 """
 
 from __future__ import annotations
@@ -23,6 +22,7 @@ import torch
 from thermal3d_torch.evaluation.metrics import METRICS, batched_depth_metrics, compute_depth_metrics
 from thermal3d_torch.infer.engine import InferenceEngine
 from thermal3d_torch.preprocess.enhance import enhance_thermal_contrast, rgb_to_gray
+from thermal3d_torch.viz.panels import save_comparison_panel
 
 
 def find_matching_depth_file(thermal_path: str, depth_dir: str) -> Optional[str]:
@@ -72,12 +72,9 @@ def evaluate_test_set(engine: InferenceEngine, thermal_paths: List[str],
                       save_visualizations: bool = True,
                       batch_size: int = 16) -> Dict[str, float]:
     """Batched monocular evaluation against pseudo-GT depths: per-image
-    metrics files and metrics_summary.txt when output_dir is given. Returns
-    the averaged metrics. The comparison panels (save_visualizations with an
-    output_dir) raise NotImplementedError until viz/ is ported."""
-    if output_dir and save_visualizations:
-        raise NotImplementedError("comparison panels are not ported (ROADMAP Queue 1 "
-                                  "item 12, viz/): pass save_visualizations=False")
+    metrics files, comparison panels (save_visualizations) and
+    metrics_summary.txt when output_dir is given. Returns the averaged
+    metrics."""
     if output_dir:
         os.makedirs(output_dir, exist_ok=True)
 
@@ -104,12 +101,15 @@ def evaluate_test_set(engine: InferenceEngine, thermal_paths: List[str],
                                     device=engine.device)
     all_metrics = [{k: float(v[i]) for k, v in batched.items()} for i in range(len(gts))]
     if output_dir:
-        for (thermal_path, _), m in zip(matched, all_metrics):
+        for (thermal_path, _), m, pred, gt in zip(matched, all_metrics, pred_depths, gts):
             base = os.path.splitext(os.path.basename(thermal_path))[0]
             with open(os.path.join(output_dir, f"{base}_metrics.txt"), "w") as f:
                 f.write(f"RMSE: {m['rmse']:.4f}\n")
                 f.write(f"Acc[<1.25]: {m['acc_1']:.4f}\n")
                 f.write(f"Acc[<1.25^2]: {m['acc_2']:.4f}\n")
+            if save_visualizations:
+                save_comparison_panel(thermal_path, pred, gt, m["rmse"],
+                                      os.path.join(output_dir, f"{base}_comparison.png"))
 
     avg = {
         "n_images": len(all_metrics),

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from thermal3d_torch.core.config import FREIBURG_RAW_MAX, FREIBURG_RAW_MIN
 from thermal3d_torch.kernels.image_ops import percentile_enhance, percentile_enhance_plain
 
 LUMA = (0.299, 0.587, 0.114)
@@ -72,3 +73,20 @@ def enhance_thermal_contrast(img: torch.Tensor, lo: float = 2.0, hi: float = 98.
     gray = rgb_to_gray(img) if img.dim() >= 3 else img
     enhanced = percentile_rescale(gray, lo, hi, impl=impl)
     return enhanced.unsqueeze(-1).expand(*enhanced.shape, 3)
+
+
+def enhance_thermal_fixed_range(img: torch.Tensor, normalized: bool = True) -> torch.Tensor:
+    """Freiburg fixed-range normalisation (utils/preprocessing.py:32-73):
+    [0, 1] values of a uint16 frame (normalized=True, scaled by 65535) or raw
+    counts are clipped to [21800, 25000] and rescaled to [0, 1]. A trailing
+    channel axis (ndim >= 3) is reduced to luma and repeated back to its
+    channel count."""
+    had_channels = img.dim() >= 3
+    gray = rgb_to_gray(img) if had_channels else img
+    raw = gray * 65535.0 if normalized else gray
+    raw = torch.clamp(raw, float(FREIBURG_RAW_MIN), float(FREIBURG_RAW_MAX))
+    span = torch.full_like(raw, float(FREIBURG_RAW_MAX - FREIBURG_RAW_MIN))
+    out = (raw - FREIBURG_RAW_MIN) / span  # a tensor divisor: IEEE division on CUDA too
+    if had_channels:
+        out = out.unsqueeze(-1).expand(*out.shape, img.shape[-1])
+    return out

@@ -12,8 +12,12 @@ import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from thermal3d_torch import native
+from thermal3d_torch.core.device import resolve_device
+from thermal3d_torch.preprocess.enhance import enhance_thermal_contrast
+from thermal3d_torch.preprocess.resize import resize_bilinear_hw
 
 
 def require_png(*paths: str) -> None:
@@ -73,6 +77,40 @@ def decode_thermal_batch(paths: Sequence[str], out_hw: Tuple[int, int],
     paths = list(paths)
     require_png(*paths)
     return native.load_thermal_batch(paths, tuple(out_hw), normalize=normalize)
+
+
+def preprocess_thermal_for_model(path: str, img_size: Tuple[int, int] = (224, 224),
+                                 device=None) -> Optional[np.ndarray]:
+    """One frame as the model sees it (thermal_dustr_inference.py:25-60):
+    decode, normalise, bilinear resize to img_size and percentile-enhance
+    (K1 on CUDA, the sort path on the CPU) on `device` (None: CUDA) →
+    float32 [H, W, 3] in [0, 1], or None if the frame is missing or does
+    not decode."""
+    gray = load_thermal_image(path, normalize=True)
+    if gray is None:
+        return None
+    return _resize_enhance([gray], img_size, resolve_device(device))[0]
+
+
+def preprocess_thermal_batch(paths: Sequence[str], img_size: Tuple[int, int] = (224, 224),
+                             device=None) -> np.ndarray:
+    """preprocess_thermal_for_model over `paths` in one batch on `device`:
+    frames that fail to decode are dropped; frames whose size differs from
+    the first's are first resized to it. → float32 [N, H, W, 3]."""
+    dev = resolve_device(device)
+    grays = [g for g in (load_thermal_image(p, normalize=True) for p in paths) if g is not None]
+    if not grays:
+        return np.zeros((0, *img_size, 3), dtype=np.float32)
+    return _resize_enhance(grays, img_size, dev)
+
+
+def _resize_enhance(grays: List[np.ndarray], img_size, dev: torch.device) -> np.ndarray:
+    hw = grays[0].shape
+    with torch.inference_mode():
+        frames = [torch.from_numpy(g).to(dev) for g in grays]
+        stack = torch.stack([t if t.shape == hw else resize_bilinear_hw(t, hw) for t in frames])
+        out = enhance_thermal_contrast(resize_bilinear_hw(stack, tuple(img_size)))
+        return out.contiguous().cpu().numpy()
 
 
 def load_rgb_image(path: str) -> Optional[np.ndarray]:

@@ -11,7 +11,7 @@ intrinsics (median focal fit) and the Umeyama relative pose of each pair.
 
 generate_pseudo_gt runs it over RGB pairs on disk: the port's PNG decoder
 (resize to the model size), pipelined batches, the eight-directory npy
-writer.
+writer, and with visualize=True the 2×2 panels of the first 10 pairs.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from thermal3d_torch.geometry.umeyama import extract_relative_pose
 from thermal3d_torch.models.dustr import frozen_model
 from thermal3d_torch.native import load_rgb_batch
 from thermal3d_torch.preprocess.io import require_png
+from thermal3d_torch.viz.panels import visualize_data
 
 OUTPUT_DIRS = ("pointmap1", "pointmap2", "confidence1", "confidence2",
                "depth1", "depth2", "intrinsics", "poses")
@@ -140,15 +141,17 @@ def generate_pseudo_gt(pairs: List[Dict[str, str]], output_dir: str,
     intrinsics,poses}/{b1}_{b2}.npy and depth1/{b1}.npy, depth2/{b2}.npy (b1,
     b2 the two RGB base names); intrinsics are the calibration's K when the
     generator has one. Pipelined as InferenceEngine.infer_paths; short
-    batches are padded to the generator's batch. Returns the number of pairs
-    written. visualize=True raises NotImplementedError (viz is not ported)."""
-    if visualize:
-        raise NotImplementedError("pseudo-GT visualizations are not ported "
-                                  "(ROADMAP Queue 1 item 12, viz/)")
+    batches are padded to the generator's batch. visualize=True also writes
+    visualizations/{b1}_{b2}.png (viz.panels.visualize_data: the RGB pair
+    over the depth pair) for the first 10 pairs written. Returns the number
+    of pairs written."""
     if generator is None:
         generator = PseudoGTGenerator(batch_size=batch_size, calib_file=calib_file)
     for d in OUTPUT_DIRS:
         os.makedirs(os.path.join(output_dir, d), exist_ok=True)
+    vis_dir = os.path.join(output_dir, "visualizations")
+    if visualize:
+        os.makedirs(vis_dir, exist_ok=True)
     if max_pairs is not None:
         pairs = pairs[:max_pairs]
     bs = generator.batch_size
@@ -162,11 +165,11 @@ def generate_pseudo_gt(pairs: List[Dict[str, str]], output_dir: str,
             return None
         x = stage.put({"rgb1": pad_batch(rgb1, bs), "rgb2": pad_batch(rgb2, bs)})
         out = generator.run_pairs_async(x["rgb1"], x["rgb2"])
-        return fetch.start(out), kept
+        return fetch.start(out), kept, rgb1, rgb2
 
     def write(token):
         nonlocal n_written
-        started, kept = token
+        started, kept, rgb1, rgb2 = token
         out = fetch.finish(started, len(kept))
         if generator.calib_k is not None:
             out["intrinsics"] = np.tile(generator.calib_k[None], (len(kept), 1, 1)
@@ -178,6 +181,9 @@ def generate_pseudo_gt(pairs: List[Dict[str, str]], output_dir: str,
             names.update(depth1=b1, depth2=b2)
             for d in OUTPUT_DIRS:
                 np.save(os.path.join(output_dir, d, f"{names[d]}.npy"), out[d][j])
+            if visualize and n_written < 10:
+                visualize_data(rgb1[j], rgb2[j], out["depth1"][j], out["depth2"][j],
+                               save_path=os.path.join(vis_dir, f"{b1}_{b2}.png"))
             n_written += 1
 
     chunks = [pairs[i:i + bs] for i in range(0, len(pairs), bs)]

@@ -5,9 +5,8 @@ Runs MASt3R monocular (view, view) on test RGB frames at the model size and
 writes, per frame, under <output>/depth/:
   {name}_depth.npy           float32 depth of view 1
   {name}_thermal_path.txt    path of the corresponding thermal frame
-The reference also writes {name}_depth_vis.png (a matplotlib plasma
-preview); that waits for the port of viz/ (ROADMAP Queue 1 item 12), so this
-writer makes no PNG.
+  {name}_depth_vis.png       plasma preview with a colorbar (viz/panels.py)
+— the layout of the reference's pseudo_gt_test_set/{day,night}/depth/ fixtures.
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ import numpy as np
 
 from thermal3d_torch.data.pipeline import PinnedFetch, PinnedStage, pipelined_batches
 from thermal3d_torch.pseudo_gt.generator import PseudoGTGenerator, decode_rgb_pairs, pad_batch
+from thermal3d_torch.viz.panels import save_depth_vis
 
 
 def generate_test_set_pseudo_gt(frames: List[Dict[str, str]], output_dir: str,
@@ -55,6 +55,7 @@ def generate_test_set_pseudo_gt(frames: List[Dict[str, str]], output_dir: str,
             np.save(os.path.join(depth_dir, f"{name}_depth.npy"), depth[j])
             with open(os.path.join(depth_dir, f"{name}_thermal_path.txt"), "w") as f:
                 f.write(fr.get("thermal", ""))
+            save_depth_vis(depth[j], os.path.join(depth_dir, f"{name}_depth_vis.png"))
             n += 1
 
     chunks = [frames[i:i + bs] for i in range(0, len(frames), bs)]

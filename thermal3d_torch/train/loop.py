@@ -112,8 +112,8 @@ def train_and_evaluate(model: torch.nn.Module, dataset, cfg: TrainConfig,
                 r, n = flush_logs(pending)
                 running += r
                 nb += n
-                # the sample panels of this window wait for the port of viz/
-                # (ROADMAP Queue 1 item 12a)
+                # no sample panels: the reference's logger drops them
+                # without wandb (ROADMAP: not carried over)
         r, n = flush_logs(pending)
         running += r
         nb += n
