@@ -66,8 +66,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
      phase-6 Freiburg tree and its pseudo-GT (2 epochs), resumed to a third
      epoch, and cli.infer from its checkpoint directory (bit-equal to an
      engine on the checkpoint's weights);
-  8. print JSON lines of the paths (engine, pseudo_gt, files, training) and
-     of the kernels and, last, the device line.
+  8. on phase 6's tree: fire-scene preprocessing, refinement, the entry
+     points' figures and the bench script (see phase_fire);
+  9. int8 serving and the parity gate: torch._int_mm against the exact
+     float64 product at the DUSt3R-224 and MASt3R-512 trunk shapes, flat
+     and a K/128 segment at a time (limit 0), int8_dense and quantize_kernel
+     on the card against the CPU (limit 0), their times beside the bf16
+     F.linear; the full-width, full-depth bf16 DUSt3R-224 engine in five
+     int8 configurations (INT8_CONFIGS: launches K1 n, K2 40n, K3 16n and
+     the int8 GEMMs int8_gemm_launches derives, each against its plain twin
+     within INT8_TWIN_REL_LIMIT, its depth drift against bf16), infer_async
+     frames/s against bf16 and a profile of each; the int8 MASt3R-512
+     generator (K2 48n, K3 24n, _int_mm 290n, pairs/s against bf16, the
+     geometry against float64 numpy); cli.infer --int8 --int8_static_acts;
+     cli.pseudo_gt --int8 --test_set; cli.parity in dir mode, in golden mode
+     with --int8 on phase 6's test set, and --full-gate on a .pth of the
+     port's random-weight DUSt3R-224 (convert and oracle stages pass);
+  10. print JSON lines of the paths (engine, pseudo_gt, files, training,
+     the bench, fire, int8) and of the kernels and, last, the device line.
 Without CUDA it exits non-zero before printing any result.
 
     python3 chip_smoke.py --compare-k2k3 OTHER_CSRC_DIR
@@ -445,7 +461,7 @@ LAYERS = (("K2/K3 rope_attention", ("rope_attention",)),
           ("copies", ("memcpy", "memset")))
 
 
-def profile_batch(torch, fn, what: str = f"one infer() of {BATCH} frames"):
+def profile_batch(torch, fn, what: str = f"one infer() of {BATCH} frames", layers=LAYERS):
     """One warmed-up call of fn under torch.profiler: device time by layer,
     the device's busy time (union of its kernel and copy spans) and the host
     wall time of the call; idle share = 1 - busy / wall."""
@@ -469,7 +485,7 @@ def profile_batch(torch, fn, what: str = f"one infer() of {BATCH} frames"):
     for start, end, name in spans:
         ms = (end - start) / 1e3
         low = name.lower()
-        layer = next((lay for lay, keys in LAYERS if any(k in low for k in keys)), "other")
+        layer = next((lay for lay, keys in layers if any(k in low for k in keys)), "other")
         by_layer[layer] = by_layer.get(layer, 0.0) + ms
         by_kernel[name] = by_kernel.get(name, 0.0) + ms
         busy_us += max(0.0, end - max(start, cur_end))
@@ -488,13 +504,16 @@ def profile_batch(torch, fn, what: str = f"one infer() of {BATCH} frames"):
 def kernel_counters():
     """The launch counters of K1-K6, in order, then the tensor-core K2/K3
     kernel's own and the tensor-core K4-K6 kernel's own (every bf16 launch
-    with head_dim 64 goes through them)."""
+    with head_dim 64 goes through them), then the int8 product's
+    (torch._int_mm: 0 on every path that does not quantize)."""
     from thermal3d_torch.kernels import flash_attention as fa
     from thermal3d_torch.kernels.image_ops import percentile_enhance
+    from thermal3d_torch.kernels.quant import int_mm
 
     return (percentile_enhance, fa.fused_rope_attention, fa.fused_rope_cross_attention,
             fa.flash_attention_pallas, fa.flash_attention_grouped,
-            fa.flash_attention_multihead, fa.rope_attention_tc, fa.softmax_attention_tc)
+            fa.flash_attention_multihead, fa.rope_attention_tc, fa.softmax_attention_tc,
+            int_mm)
 
 
 def run_counted(fn, want_by_name):
@@ -1846,6 +1865,450 @@ def phase_fire(torch, np, card: str, root: str):
                 bench=bench, bench_line=bench_line, seconds=time.perf_counter() - t_phase)
 
 
+# phase 9: int8 serving (kernels/quant.py) and the parity gate (cli.parity).
+# The int8 product's shapes, [M, K, N]: DUSt3R-224's trunk at the serving
+# batch (M = 32·196: qkv, proj, fc1, fc2) and MASt3R-512's (the encoder on
+# both views, M = 8·1024; decoder_embed and the decoder, M = 4·1024); each
+# flat and grouped (K/128 segments) against the plain float64 route
+INT8_TRUNK_SHAPES = ((BATCH * 196, 1024, 3072), (BATCH * 196, 1024, 1024),
+                     (BATCH * 196, 1024, 4096), (BATCH * 196, 4096, 1024))
+INT8_MASTR_SHAPES = ((8 * 1024, 1024, 3072), (8 * 1024, 1024, 1024), (8 * 1024, 1024, 4096),
+                     (8 * 1024, 4096, 1024), (4 * 1024, 1024, 768), (4 * 1024, 768, 2304),
+                     (4 * 1024, 768, 768), (4 * 1024, 768, 3072), (4 * 1024, 3072, 768))
+INT8_PEAK_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
+INT8_CPU_ROWS = 256  # rows of int8_dense held against the CPU (each row is independent)
+# the int8 serving configurations of the DUSt3R-224 engine: name → its
+# int8 options (static: scales calibrated on INT8_CALIB_FRAMES other frames)
+INT8_CONFIGS = (("all", {}), ("fc1_static", dict(int8_only=("fc1",), static=True)),
+                ("all_static", dict(static=True)), ("all_group128", dict(int8_group_size=128)),
+                ("all_equalize", dict(int8_equalize=True)))
+INT8_CALIB_FRAMES = 4
+N_INT8_BATCHES = 2
+# an int8 configuration's outputs against its plain twin (attention
+# 'torch', enhance 'plain', the float64 int8 product), max|Δ|/max|ref|: a
+# bf16 rounding the kernels flip upstream can move an int8 rounding; set on
+# the CPU by scripts/torch_int8_limits.py before the first chip run
+# (PERF.md, PR 8): the same kind of difference moves the int8
+# configurations at most 2.04x as far as the bf16 engine (CPU, full width
+# and depth), so the bf16 limit times 2.1
+INT8_TWIN_REL_LIMIT = 2.1 * BF16_ENGINE_REL_LIMIT
+N_PARITY_FRAMES = 16
+
+
+def int8_gemm_launches(cfg, only=(), group_size=None) -> int:
+    """torch._int_mm launches of one forward of `cfg` with the trunk's Dense
+    modules named in `only` (all when empty) in int8: one a call, K/group
+    a call with grouped scales. The encoder runs once (both views in one
+    batch), decoder_embed once a view, each decoder branch dec_depth blocks."""
+    e, d, r = cfg.enc_embed_dim, cfg.dec_embed_dim, cfg.mlp_ratio
+    enc = (("qkv", e), ("proj", e), ("fc1", e), ("fc2", int(e * r)))
+    dec = (("qkv", d), ("proj", d), ("projq", d), ("projk", d), ("projv", d), ("proj", d),
+           ("fc1", d), ("fc2", int(d * r)))
+
+    def n(name, k):
+        if only and name not in only:
+            return 0
+        return k // group_size if group_size and k % group_size == 0 else 1
+
+    return (cfg.enc_depth * sum(n(*g) for g in enc) + 2 * n("decoder_embed", e)
+            + 2 * cfg.dec_depth * sum(n(*g) for g in dec))
+
+
+def int8_product_cases(torch):
+    """The int8 product on the card: torch._int_mm against the plain float64
+    route at every shape, flat and a segment at a time (limit 0); then, at
+    the trunk shapes, quantize_kernel and int8_dense (dynamic and static in
+    bf16 and float32 out, grouped in bf16) on the card against the same
+    function on the CPU for INT8_CPU_ROWS rows (limit 0); times of _int_mm,
+    the bf16 F.linear it replaces, the quantize and dequant passes and the
+    whole int8 Dense, by graph replay."""
+    import torch.nn.functional as F
+
+    from thermal3d_torch.kernels import quant
+
+    products = []
+    for m, k, n in INT8_TRUNK_SHAPES + INT8_MASTR_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(m + k + n)
+        xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+        wq = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+        equal = torch.equal(quant.int_mm(xq, wq), quant.int_mm_plain(xq, wq))
+        g = k // 128
+        xg = xq.reshape(m, g, 128).transpose(0, 1).contiguous()
+        wg = wq.reshape(n, g, 128).transpose(0, 1).contiguous()
+        equal_g = all(torch.equal(quant.int_mm(xg[i], wg[i]), quant.int_mm_plain(xg[i], wg[i]))
+                      for i in range(g))
+        products.append(dict(shape=[m, k, n], flat_equal=equal, grouped_segments=g,
+                             grouped_equal=equal_g))
+        log(f"  int8 product [{m},{k}]x[{k},{n}]: _int_mm == float64 route: flat {equal}, "
+            f"{g} segments {equal_g}")
+        if not (equal and equal_g):
+            raise AssertionError(f"int8 product [{m},{k},{n}]: torch._int_mm departs from the "
+                                 "exact float64 product")
+        del xq, wq, xg, wg
+    torch.cuda.empty_cache()
+
+    timings = []
+    for m, k, n in INT8_TRUNK_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(k * n)
+        scale = torch.rand((1, k), generator=gen, device="cuda") * 3 + 0.1
+        x = (torch.randn((m, k), generator=gen, device="cuda") * scale).to(torch.bfloat16)
+        w = (torch.randn((n, k), generator=gen, device="cuda") / math.sqrt(k)).to(torch.bfloat16)
+        b = (0.1 * torch.randn((n,), generator=gen, device="cuda")).to(torch.bfloat16)
+        cpu = dict(x=x[:INT8_CPU_ROWS].cpu(), w=w.cpu())
+        errs = {}
+        for group in (None, 128):
+            wq, ws = quant.quantize_kernel(w, group)
+            cwq, cws = quant.quantize_kernel(cpu["w"], group)
+            errs[f"quantize_kernel_g{group}"] = int(not (torch.equal(wq.cpu(), cwq)
+                                                         and torch.equal(ws.cpu(), cws)))
+            variants = [("dynamic", None, torch.bfloat16), ("dynamic", None, torch.float32),
+                        ("static", 2.5, torch.bfloat16), ("static", 2.5, torch.float32)]
+            for name, act, dt in variants if group is None else [("grouped", None,
+                                                                   torch.bfloat16)]:
+                a = None if act is None else torch.tensor(act, device="cuda")
+                got = quant.int8_dense(x, wq, ws, dt, act_scale=a)[:INT8_CPU_ROWS].cpu()
+                want = quant.int8_dense(cpu["x"], cwq, cws, dt, act_scale=None if a is None
+                                        else a.cpu(), impl="plain")
+                errs[f"{name}_{str(dt)[6:]}"] = float((got.float() - want.float()).abs().max())
+        bad = {kk: v for kk, v in errs.items() if v != 0}
+        log(f"  int8 [{m},{k}]x[{k},{n}] card vs CPU: max|Δ| {json.dumps(errs)} (limit 0)")
+        if bad:
+            raise AssertionError(f"int8 [{m},{k},{n}]: the card departs from the CPU: {bad}")
+
+        wq, ws = quant.quantize_kernel(w)
+        xs = quant.dynamic_scale(x.float().abs().amax(dim=-1, keepdim=True))
+        xq = quant.quantize_values(x.float(), xs)
+        acc = quant.int_mm(xq, wq)
+
+        def quantize_pass():
+            xf = x.float()
+            return quant.quantize_values(xf, quant.dynamic_scale(xf.abs().amax(-1, keepdim=True)))
+
+        ms = dict(
+            int_mm=cuda_ms(lambda: torch._int_mm(xq, wq.t())),
+            bf16_linear=cuda_ms(lambda: F.linear(x, w, b)),
+            quantize=cuda_ms(quantize_pass),
+            dequant=cuda_ms(lambda: (acc.float() * (xs * ws)).to(torch.bfloat16) + b),
+            int8_dense=cuda_ms(lambda: quant.int8_dense(x, wq, ws, torch.bfloat16) + b))
+        ops = 2.0 * m * k * n
+        bound, by = max((ops / INT8_PEAK_OPS * 1e3, "operations"),
+                        ((m * k + n * k + 4 * m * n) / HBM_BYTES_PER_S * 1e3, "bytes"))
+        q_bound = (2 * m * k + m * k + 4 * m) / HBM_BYTES_PER_S * 1e3
+        d_bound = (4 * m * n + 2 * m * n + 4 * m + 4 * n + 2 * n) / HBM_BYTES_PER_S * 1e3
+        timings.append(dict(shape=[m, k, n], ms=ms, int_mm_bound_ms=bound, int_mm_bound_by=by,
+                            int_mm_tops=ops / ms["int_mm"] / 1e9,
+                            bf16_linear_tflops=ops / ms["bf16_linear"] / 1e9,
+                            quantize_bound_ms=q_bound, dequant_bound_ms=d_bound,
+                            card_vs_cpu=errs))
+        rounded = {kk: round(v, 4) for kk, v in ms.items()}
+        log(f"  int8 [{m},{k}]x[{k},{n}] ms: {json.dumps(rounded)}; _int_mm bound "
+            f"{bound:.4f} ({by}), {ops / ms['int_mm'] / 1e9:.1f} TOP/s; bf16 F.linear "
+            f"{ops / ms['bf16_linear'] / 1e9:.1f} TFLOP/s; quantize bound {q_bound:.4f}, "
+            f"dequant bound {d_bound:.4f}")
+        del x, w, b, wq, ws, xq, acc
+        torch.cuda.empty_cache()
+    return dict(products=products, timings=timings)
+
+
+# int8 profile layers: the IMMA GEMM before the bf16 ones, and the
+# elementwise passes (quantize, dequant, the casts and the residual adds)
+INT8_LAYERS = ((("int8 GEMM (cuBLASLt)", ("s8", "imma", "i8i8", "int8")),) + LAYERS[:-1]
+               + (("elementwise (quantize/dequant, casts, adds)",
+                   ("elementwise", "abs", "round", "clamp", "reduce_kernel", "copy_kernel")),)
+               + LAYERS[-1:])
+
+
+def int8_drift(np, depth, ref, device="cuda"):
+    """Median-scaled AbsRel of depth against ref (the whole batch as one map,
+    as the bench scores it) and the depth's rel RMS."""
+    from thermal3d_torch.evaluation.metrics import compute_depth_metrics
+
+    w = ref.shape[-1]
+    abs_rel = compute_depth_metrics(depth.reshape(-1, w), ref.reshape(-1, w),
+                                    median_scaling=True, device=device)["abs_rel"]
+    return dict(abs_rel=abs_rel, rel_rms=float(np.linalg.norm(depth.astype(np.float64) - ref)
+                                               / np.linalg.norm(ref.astype(np.float64))))
+
+
+def phase_int8_engine(torch, np):
+    """The full-width, full-depth bf16 DUSt3R-224 engine in each of
+    INT8_CONFIGS: launches (K1 n, K2 40n, K3 16n, _int_mm as derived), the
+    outputs against the configuration's own plain twin, the depth's drift
+    against the bf16 engine; for 'all', infer_async frames/s against bf16 in
+    turns and one batch of each under torch.profiler."""
+    from thermal3d_torch.core.config import DUSTR_224_LINEAR
+    from thermal3d_torch.infer.engine import InferenceEngine
+
+    cfg = dataclasses.replace(DUSTR_224_LINEAR, compute_dtype="bfloat16")
+    plain_cfg = dataclasses.replace(cfg, attention_impl="torch")
+    bf16 = InferenceEngine(cfg, params_dtype="bfloat16", seed=0)
+    weights = bf16.model.state_dict()
+    frames = [raw_frames(np, 20 + i) for i in range(N_INT8_BATCHES)]
+    calib = raw_frames(np, 30)[:INT8_CALIB_FRAMES]
+    ref = bf16.infer(frames[0])
+    n = N_INT8_BATCHES
+    results = {}
+    for name, opts in INT8_CONFIGS:
+        opts = dict(opts)
+        kw = dict(quantize_int8=True, int8_calibration=calib if opts.pop("static", False)
+                  else None, **opts)
+        t0 = time.perf_counter()
+        eng = InferenceEngine(cfg, state_dict=weights, params_dtype="bfloat16", **kw)
+        build_s = time.perf_counter() - t0
+        eng.infer(frames[0])  # warm-up
+        torch.cuda.synchronize()
+        gemms = int8_gemm_launches(cfg, opts.get("int8_only", ()), opts.get("int8_group_size"))
+        outs, launches = run_counted(lambda: [eng.infer(f) for f in frames], {
+            "percentile_enhance": n, "fused_rope_attention": 40 * n,
+            "fused_rope_cross_attention": 16 * n, "rope_attention_tc": 56 * n,
+            "int_mm": gemms * n})
+        for out in outs:
+            check_outputs(out, np)
+        twin = InferenceEngine(plain_cfg, state_dict=weights, params_dtype="bfloat16",
+                               enhance_impl="plain", int8_impl="plain", **kw)
+        twin_out, _ = run_counted(lambda: twin.infer(frames[0]), {})  # no kernel, no _int_mm
+        errs = {k: rel_err(outs[0][k], twin_out[k], np) for k in twin_out}
+        drift = int8_drift(np, outs[0]["depth"], ref["depth"])
+        log(f"int8 engine {name!r} (built in {build_s:.2f} s): launches {launches}; vs its "
+            f"plain twin max|Δ|/max|ref| {json.dumps(errs)} (limit {INT8_TWIN_REL_LIMIT}); "
+            f"depth drift vs bf16 {json.dumps(drift)}")
+        if max(errs.values()) > INT8_TWIN_REL_LIMIT:
+            raise AssertionError(f"int8 engine {name!r} disagrees with its plain twin: {errs}")
+        results[name] = dict(launches=launches, int8_gemms_per_forward=gemms, build_s=build_s,
+                             vs_plain_twin=errs, drift_vs_bf16=drift)
+        del twin
+        if name == "all":
+            fps = {"bf16": [], "int8_all": []}
+            for which, e in (("bf16", bf16), ("int8_all", eng), ("int8_all", eng),
+                             ("bf16", bf16)):
+                t0 = time.perf_counter()
+                for f in frames:
+                    dev_out = e.infer_async(f)
+                torch.cuda.synchronize()
+                fps[which].append(BATCH * n / (time.perf_counter() - t0))
+            del dev_out
+            log(f"int8 engine 'all': infer_async frames/s in turns {json.dumps(fps)}")
+            results["infer_async_fps"] = fps
+            results["profile_bf16"] = profile_batch(torch, lambda: bf16.infer(frames[0]),
+                                                    "one bf16 infer() (int8 layers)",
+                                                    INT8_LAYERS)
+            results["profile_int8_all"] = profile_batch(torch, lambda: eng.infer(frames[0]),
+                                                        "one int8 'all' infer()", INT8_LAYERS)
+        del eng
+        torch.cuda.empty_cache()
+    del bf16
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_int8_generator(torch, np):
+    """The full-width, full-depth bf16 MASt3R-512 generator with every trunk
+    GEMM in int8 (dynamic scales) on N_PAIR_BATCHES steps of PAIR_BATCH
+    pairs: K2 48n, K3 24n, _int_mm 290n; pairs/s of run_pairs_async against
+    the bf16 generator in turns; the geometry against float64 numpy; the
+    depth drift against bf16."""
+    from thermal3d_torch.core.config import MASTR_512_CATMLPDPT
+    from thermal3d_torch.pseudo_gt.generator import PseudoGTGenerator
+
+    cfg = dataclasses.replace(MASTR_512_CATMLPDPT, compute_dtype="bfloat16")
+    bf16 = PseudoGTGenerator(cfg, params_dtype="bfloat16", seed=0)
+    gen = PseudoGTGenerator(cfg, state_dict=bf16.model.state_dict(), params_dtype="bfloat16",
+                            quantize_int8=True)
+    pairs = [rgb_pairs(np, 40 + i) for i in range(N_PAIR_BATCHES)]
+    n = N_PAIR_BATCHES
+    ref = bf16.run_pairs(*pairs[0])
+    gen.run_pairs(*pairs[0])  # warm-up
+    torch.cuda.synchronize()
+    gemms = int8_gemm_launches(cfg)
+    outs, launches = run_counted(lambda: [gen.run_pairs(*p) for p in pairs], {
+        "fused_rope_attention": 48 * n, "fused_rope_cross_attention": 24 * n,
+        "rope_attention_tc": 72 * n, "int_mm": gemms * n})
+    for out in outs:
+        check_pgt_outputs(out, np)
+    geometry = check_geometry(outs[0], np)
+    pps = {"bf16": [], "int8_all": []}
+    for which, g in (("bf16", bf16), ("int8_all", gen), ("int8_all", gen), ("bf16", bf16)):
+        t0 = time.perf_counter()
+        for p in pairs:
+            dev_out = g.run_pairs_async(*p)
+        torch.cuda.synchronize()
+        pps[which].append(PAIR_BATCH * n / (time.perf_counter() - t0))
+    del dev_out
+    drift = int8_drift(np, outs[0]["depth1"], ref["depth1"])
+    log(f"int8 generator 'all': launches {launches} ({gemms} int8 GEMMs a step); "
+        f"run_pairs_async pairs/s in turns {json.dumps(pps)}; depth1 drift vs bf16 "
+        f"{json.dumps(drift)}")
+    del gen, bf16
+    torch.cuda.empty_cache()
+    return dict(launches=launches, int8_gemms_per_step=gemms, pairs_per_s=pps,
+                geometry=geometry, drift_vs_bf16=drift)
+
+
+def _cli_out(fn, argv):
+    """(exit code, report or None, stdout lines) of a CLI main, its output
+    also logged."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            report, code = fn(argv), 0
+        except SystemExit as e:
+            report, code = None, e.code
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"    | {line[:200]}")
+    return code, report, lines
+
+
+def phase_int8_files(torch, np, root: str):
+    """Phase 9's file work on phase 6's tree: cli.infer --int8
+    --int8_static_acts and cli.pseudo_gt --int8 --test_set with their launch
+    counts; cli.parity in dir mode (a copy passes, a perturbed copy exits
+    1), in golden mode with --int8 on phase 6's test set (exit code and
+    verdict line agree with the report's int8 drift against --gate), and
+    --full-gate on a .pth of the port's random-weight DUSt3R-224 (its
+    convert and oracle stages pass, the worst layer within --oracle_tol)."""
+    import glob
+    import os
+    import shutil
+
+    from thermal3d_torch.cli import infer as cli_infer
+    from thermal3d_torch.cli import parity as cli_parity
+    from thermal3d_torch.cli import pseudo_gt as cli_pseudo_gt
+    from thermal3d_torch.core.config import DUSTR_224_LINEAR, MASTR_512_CATMLPDPT
+    from thermal3d_torch.models.dustr import frozen_model
+
+    out = {}
+    fire_dir = os.path.join(root, "fire_frames")  # phase 8's N_FIRE frames
+    inf_dir = os.path.join(root, "int8_infer")
+    t0 = time.perf_counter()
+    gemms = int8_gemm_launches(DUSTR_224_LINEAR)
+    _, launches = run_counted(lambda: cli_infer.main([
+        "--img_path", fire_dir, "--output_dir", inf_dir, "--no_vis", "--batch_size",
+        str(N_FIRE), "--int8", "--int8_static_acts"]), {
+            "percentile_enhance": 2, "fused_rope_attention": 80,
+            "fused_rope_cross_attention": 32, "rope_attention_tc": 112, "int_mm": gemms})
+    depths = sorted(glob.glob(os.path.join(inf_dir, "*_depth.npy")))
+    if len(depths) != N_FIRE or any(not np.isfinite(np.load(d)).all() for d in depths):
+        raise AssertionError(f"cli.infer --int8 --int8_static_acts: {len(depths)} depth files")
+    out["cli_infer_int8_static"] = dict(frames=N_FIRE, seconds=time.perf_counter() - t0,
+                                        launches=launches)
+    log(f"cli.infer --int8 --int8_static_acts: {N_FIRE} frames (calibration forward + one "
+        f"batch) in {out['cli_infer_int8_static']['seconds']:.2f} s; launches {launches}")
+
+    ts_dir = os.path.join(root, "int8_test_set")
+    steps = -(-N_RGB // PAIR_BATCH)
+    t0 = time.perf_counter()
+    n_ts, launches = run_counted(lambda: cli_pseudo_gt.main([
+        "--dataset_dir", os.path.join(root, "ds"), "--output_dir", ts_dir, "--test_set",
+        "--batch_size", str(PAIR_BATCH), "--int8"]), {
+            "fused_rope_attention": 48 * steps, "fused_rope_cross_attention": 24 * steps,
+            "rope_attention_tc": 72 * steps,
+            "int_mm": int8_gemm_launches(MASTR_512_CATMLPDPT) * steps})
+    if n_ts != N_RGB:
+        raise AssertionError(f"cli.pseudo_gt --int8 --test_set: {n_ts} frames")
+    out["cli_pseudo_gt_int8_test_set"] = dict(frames=n_ts, seconds=time.perf_counter() - t0,
+                                              launches=launches)
+    log(f"cli.pseudo_gt --int8 --test_set: {n_ts} frames in "
+        f"{out['cli_pseudo_gt_int8_test_set']['seconds']:.2f} s; launches {launches}")
+
+    # cli.parity, dir mode: phase 6's cli.infer depths against a copy, then
+    # against a copy with every other row of each map scaled by 1.5
+    theirs = os.path.join(root, "parity_theirs")
+    ours_ok, ours_bad = os.path.join(root, "parity_ours"), os.path.join(root, "parity_bad")
+    for d in (theirs, ours_ok, ours_bad):
+        os.makedirs(d)
+    for f in sorted(glob.glob(os.path.join(root, "infer", "*_depth.npy")))[:N_PARITY_FRAMES]:
+        for d in (theirs, ours_ok):
+            shutil.copy(f, d)
+        bad = np.load(f)
+        bad[::2] *= 1.5
+        np.save(os.path.join(ours_bad, os.path.basename(f)), bad)
+    t0 = time.perf_counter()
+    code_ok, rep_ok, _ = _cli_out(cli_parity.main, ["--ours_dir", ours_ok, "--theirs_dir", theirs])
+    code_bad, _, lines_bad = _cli_out(cli_parity.main, ["--ours_dir", ours_bad, "--theirs_dir",
+                                                        theirs])
+    if (code_ok, code_bad) != (0, 1) or not rep_ok["dirs"]["summary"]["all_bit_equal"] or \
+            lines_bad[-1] != "PARITY GATE FAILED: dir-mode AbsRel gate":
+        raise AssertionError(f"cli.parity dir mode: exit {code_ok} on a copy, {code_bad} on a "
+                             "perturbed copy (want 0 and 1)")
+    out["parity_dir"] = dict(frames=N_PARITY_FRAMES, exit_copy=code_ok, exit_perturbed=code_bad,
+                             seconds=time.perf_counter() - t0)
+
+    # golden mode with --int8 on phase 6's cli.pseudo_gt --test_set output,
+    # each depth and path file named after its thermal frame (the evaluator
+    # finds a golden depth by the thermal frame's time stamp, which the
+    # synthetic tree's RGB names do not carry)
+    golden = os.path.join(root, "parity_golden")
+    os.makedirs(golden)
+    for txt in sorted(glob.glob(os.path.join(root, "test_set", "depth", "*_thermal_path.txt"))):
+        thermal = open(txt).read().strip()
+        base = os.path.splitext(os.path.basename(thermal))[0]
+        shutil.copy(txt[:-len("_thermal_path.txt")] + "_depth.npy",
+                    os.path.join(golden, f"{base}_depth.npy"))
+        with open(os.path.join(golden, f"{base}_thermal_path.txt"), "w") as f:
+            f.write(thermal)
+    gate = 0.01
+    t0 = time.perf_counter()
+    rpt = os.path.join(root, "parity_golden.json")
+    code, _, lines = _cli_out(cli_parity.main, [
+        "--golden_dir", golden, "--int8", "--gate", str(gate), "--batch_size", str(N_RGB),
+        "--report", rpt])
+    rep = json.load(open(rpt))
+    drift = rep["int8_abs_rel_drift"]
+    want_code, want_line = ((0, "PARITY GATE PASSED") if drift <= gate
+                            else (1, "PARITY GATE FAILED: int8 drift gate"))
+    if code != want_code or lines[-1] != want_line:
+        raise AssertionError(f"cli.parity golden --int8: exit {code}, {lines[-1]!r} with drift "
+                             f"{drift} against gate {gate}")
+    out["parity_golden_int8"] = dict(frames=N_RGB, exit=code, int8_abs_rel_drift=drift,
+                                     abs_rel_bf16=rep["golden_bf16"]["abs_rel"],
+                                     abs_rel_int8=rep["golden_int8"]["abs_rel"],
+                                     seconds=time.perf_counter() - t0)
+
+    # --full-gate on a .pth of the port's random-weight DUSt3R-224
+    pth = os.path.join(root, "parity_dustr224.pth")
+    model = frozen_model(DUSTR_224_LINEAR, torch.device("cuda"), seed=3)
+    torch.save({"model": {k: v.cpu() for k, v in model.state_dict().items()}}, pth)
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rpt = os.path.join(root, "parity_full_gate.json")
+    code, _, lines = _cli_out(cli_parity.main, [
+        "--full-gate", "--model", pth, "--golden_dir", golden, "--batch_size", str(N_RGB),
+        "--report", rpt])
+    rep = json.load(open(rpt))
+    stages = json.loads([ln for ln in lines if ln.startswith("{")][-1])["stages"]
+    oracle = rep["full_gate_oracle"]
+    log(f"cli.parity --full-gate: exit {code}, stages {stages}; oracle {json.dumps(oracle)}")
+    if stages["convert"] != "pass" or stages["oracle"] != "pass" or \
+            oracle["worst_rel"] > oracle["tol"]:
+        raise AssertionError(f"cli.parity --full-gate: stages {stages}, oracle {oracle}")
+    out["parity_full_gate"] = dict(exit=code, stages=stages, oracle=oracle,
+                                   golden_abs_rel_bf16=rep["golden_bf16"].get("abs_rel"),
+                                   int8_abs_rel_drift=rep.get("int8_abs_rel_drift"),
+                                   seconds=time.perf_counter() - t0)
+    os.remove(pth)
+    return out
+
+
+def phase_int8(torch, np, root: str):
+    """Phase 9: the int8 product, the int8 engine, the int8 generator, the
+    CLIs and the parity gate; returns their results and the phase's time."""
+    t_phase = time.perf_counter()
+    log("int8: the int8 product (torch._int_mm) on the card:")
+    product = int8_product_cases(torch)
+    engine = phase_int8_engine(torch, np)
+    generator = phase_int8_generator(torch, np)
+    files = phase_int8_files(torch, np, root)
+    seconds = time.perf_counter() - t_phase
+    log(f"int8 and parity phase: {seconds:.1f} s")
+    return dict(product=product, engine=engine, generator=generator, files=files,
+                seconds=seconds)
+
+
 # --compare-k2k3: (K2 or K3, batch, grid side, width C, heads), the bf16
 # K2/K3 calls of the serving path (DUSt3R-224) and the pseudo-GT path
 # (MASt3R-512)
@@ -1956,6 +2419,7 @@ def main(argv) -> int:
         files = phase_files(torch, np, card, engine, pseudo_gt, root)
         training = phase_training(torch, np, root)
         fire = phase_fire(torch, np, card, root)
+        int8 = phase_int8(torch, np, root)
 
     # launches on each path's own run; `launches` is this slice's main path
     # (pseudo-GT) for K2-K6, the serving path for K1
@@ -1974,7 +2438,12 @@ def main(argv) -> int:
                          *((f"fire_cli_infer_{mode}", r["launches"])
                            for mode, r in fire["cli_infer"].items()),
                          ("fire_ais_investigate", fire["ais_investigate"]["launches"]),
-                         ("fire_cli_evaluate_panels", fire["cli_evaluate"]["launches"])):
+                         ("fire_cli_evaluate_panels", fire["cli_evaluate"]["launches"]),
+                         *((f"int8_engine_{name}", int8["engine"][name]["launches"])
+                           for name, _ in INT8_CONFIGS),
+                         ("int8_generator", int8["generator"]["launches"]),
+                         *((f"int8_{k}", int8["files"][k]["launches"])
+                           for k in ("cli_infer_int8_static", "cli_pseudo_gt_int8_test_set"))):
         for name, count in counts.items():
             by_path.setdefault(name, {})[path] = count
     for counts in by_path.values():  # every kernel names the training path
@@ -2020,6 +2489,8 @@ def main(argv) -> int:
     print(json.dumps({"training": training}), flush=True)
     print(fire["bench_line"], flush=True)
     print(json.dumps({"fire": fire}), flush=True)
+    print(json.dumps({"int8": dict(int8, int_mm_launches_by_path=by_path["int_mm"])},
+                     default=float), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

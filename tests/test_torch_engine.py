@@ -125,12 +125,28 @@ def test_unported_config_raises(field, value):
         InferenceEngine(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [{"quantize_int8": True}, {"mesh": object()}])
+@pytest.mark.parametrize("kw", [{"mesh": object()}])
 def test_unported_engine_modes_raise(kw):
     from thermal3d_torch.core.config import TINY
 
     with pytest.raises(NotImplementedError):
         InferenceEngine(TINY, device="cpu", **kw)
+
+
+def test_int8_engine_serves_on_cpu():
+    """quantize_int8=True (once refused here) serves: the trunk's Dense
+    modules hold int8 weights, the heads stay float, every product goes
+    through torch._int_mm, and the outputs are finite."""
+    from thermal3d_torch.core.config import TINY
+    from thermal3d_torch.kernels import quant
+
+    eng = InferenceEngine(TINY, device="cpu", quantize_int8=True)
+    n_int8 = sum(t.dtype == torch.int8 for t in eng.model.state_dict().values())
+    assert n_int8 == TINY.enc_depth * 4 + TINY.dec_depth * 2 * 8 + 1
+    quant.int_mm.launches = 0
+    out = eng.infer(_raw_frames((2, 40, 48)))
+    assert quant.int_mm.launches == n_int8 + 1  # decoder_embed runs once a view
+    assert all(np.isfinite(out[k]).all() for k in KEYS)
 
 
 def test_bf16_params_engine_runs_on_cpu():

@@ -204,12 +204,20 @@ def test_bench_json_line_on_cpu(capsys):
     assert line["metric"] == "thermal_frames_per_sec_cpu_check_dustr224"
     assert line["unit"] == "frames/s" and line["value"] > 0 and line["vs_baseline"] is None
     assert [s["batch"] for s in line["sweep"]] == [1]
-    assert [s["config"] for s in line["secondary_metrics"]] == ["train_dustr224_b1",
-                                                                "pseudo_gt_mastr512_b1"]
-    for s in line["secondary_metrics"]:
-        assert "cpu_check" in s["metric"] and s["value"] > 0
+    secondary = line["secondary_metrics"]
+    assert [s["config"] for s in secondary] == [
+        "bf16", "int8_fc1_static_acts", "int8_all_static_acts", "train_dustr224_b1",
+        "pseudo_gt_mastr512_b1"]
+    for s in secondary:
         assert all(np.isfinite(v) for v in s.values() if isinstance(v, float))
-    assert "int8" not in lines[0]  # the int8 secondaries wait for int8 serving
+    for s in secondary[3:]:
+        assert "cpu_check" in s["metric"] and s["value"] > 0
+    # the int8 frontier (bench.py's): fps and two drifts against the headline
+    assert round(secondary[0]["fps"], 2) == line["value"] and secondary[0]["abs_rel_drift"] == 0.0
+    for s in secondary[1:3]:
+        assert s["fps"] > 0 and s["vs_baseline"] is None
+        assert s["abs_rel_drift"] > 0 and s["depth_drift_rel_rms"] > 0
+        assert s["drift_ok"] == (s["abs_rel_drift"] <= 0.01)
 
 
 def test_bench_without_cuda_exits_1(monkeypatch, capsys):

@@ -103,3 +103,16 @@ def test_enhance_plain_matches_jax_pallas_path():
 def test_unknown_enhance_impl_raises():
     with pytest.raises(ValueError):
         percentile_rescale(torch.zeros(1, 4, 4), impl="pallas")
+
+
+def test_resize_matrix_cached_in_inference_mode_serves_autograd():
+    """The resampling matrices are cached by shape; one first made inside
+    torch.inference_mode (a serving call) must not break a later training
+    step's backward through the same resize."""
+    from thermal3d_torch.preprocess.resize import resize_bilinear_hw
+
+    with torch.inference_mode():
+        resize_bilinear_hw(torch.rand(2, 37, 29), (11, 13))
+    x = torch.rand(2, 37, 29, requires_grad=True)
+    resize_bilinear_hw(x, (11, 13)).sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()

@@ -356,12 +356,30 @@ def test_generator_without_cuda_raises(monkeypatch):
         PseudoGTGenerator(cfg)
 
 
-@pytest.mark.parametrize("kw", [{"quantize_int8": True}, {"int8_only": ("fc1",)},
-                                {"mesh": object()}])
+@pytest.mark.parametrize("kw", [{"mesh": object()}])
 def test_generator_jax_only_options_raise(kw):
     cfg = DustrModelConfig(**TINY_TRUNK, head=HeadConfig(**TINY_HEAD))
     with pytest.raises(NotImplementedError):
         PseudoGTGenerator(cfg, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [{"quantize_int8": True}, {"int8_only": ("fc1",)}])
+def test_generator_int8_options(kw):
+    """quantize_int8 (once refused here) quantizes the trunk and serves
+    finite outputs; an int8_* option without it changes nothing, as in the
+    JAX generator."""
+    cfg = DustrModelConfig(**TINY_TRUNK, head=HeadConfig(**TINY_HEAD))
+    gen = PseudoGTGenerator(cfg, device="cpu", seed=4, **kw)
+    ref = PseudoGTGenerator(cfg, device="cpu", seed=4)
+    rgb = _rng(16).uniform(0, 1, (1, 32, 32, 3)).astype(np.float32)
+    rgb2 = np.ascontiguousarray(rgb[:, ::-1])
+    out, want = gen.run_pairs(rgb, rgb2), ref.run_pairs(rgb, rgb2)
+    int8 = [t for t in gen.model.state_dict().values() if t.dtype == torch.int8]
+    assert bool(int8) == bool(kw.get("quantize_int8"))
+    for k in want:
+        assert np.isfinite(out[k]).all(), k
+        if not int8:
+            np.testing.assert_array_equal(out[k], want[k], err_msg=k)
 
 
 def test_generator_split_programs_same_numerics():

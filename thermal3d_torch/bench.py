@@ -7,10 +7,16 @@ encoder, dual decoder through K2/K3, linear head). Steps are serialised on
 the device: each step's depth is mixed back into the next step's raw input,
 as bench.py does, so no step starts before the one before it has ended; the
 clock stops after a synchronize. Decode is excluded. The best of two passes
-is reported. Secondaries: a training step (full-width DUSt3R-224, float32
-master weights, bf16 compute, 512² pseudo-GT resized in the step; steps
-serialise through the weights) and a MASt3R-512 pseudo-GT step (bf16, fed
-back like the headline).
+is reported. Secondaries: the int8 serving frontier of bench.py, the same
+engine with its trunk GEMMs in int8 (kernels/quant.py) at scope 'fc1' and
+'all', each with static activation scales calibrated on 4 frames, with its
+frames/s and two drifts of its depth against the bf16 depth on the same
+unperturbed input (median-scaled AbsRel, the parity protocol; raw depth rel
+RMS) and drift_ok (AbsRel ≤ 1%); a training step (full-width DUSt3R-224,
+float32 master weights, bf16 compute, 512² pseudo-GT resized in the step;
+steps serialise through the weights) and a MASt3R-512 pseudo-GT step (bf16,
+fed back like the headline). `--int8 [--int8_scope S] [--int8_static_acts]`
+serves the headline in int8 instead, with no int8 secondaries.
 
 Prints ONE JSON line in bench.py's shape: metric, value, unit, vs_baseline
 (against the 500 frames/s of BASELINE.json), secondary_metrics, and the
@@ -21,6 +27,7 @@ baseline).
 
     python -m thermal3d_torch.bench                       # on the card
     python -m thermal3d_torch.bench --sweep 16 32 64 128  # headline at each batch
+    python -m thermal3d_torch.bench --int8 --int8_scope fc1 --int8_static_acts
     python -m thermal3d_torch.bench --device cpu --model_preset tiny --iters 2
 """
 
@@ -38,6 +45,8 @@ RAW_HW = (320, 416)
 SERVING_BATCH = 64
 TRAIN_BATCH = 4  # TrainConfig's default
 PAIR_BATCH = 4  # bench.py's MASt3R-512 batch
+CALIB_FRAMES = 4  # bench.py's int8 calibration sample
+DRIFT_GATE = 0.01  # BASELINE.json: AbsRel within 1%
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -49,6 +58,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sweep", type=int, nargs="+", default=None,
                    help="also time the headline at these batches (a 'sweep' field)")
     p.add_argument("--no_secondary", action="store_true", help="headline only")
+    p.add_argument("--int8", action="store_true",
+                   help="serve the headline with the int8 trunk GEMMs (no int8 secondaries)")
+    p.add_argument("--int8_scope", type=str, default="all", choices=["all", "mlp", "fc1"])
+    p.add_argument("--int8_static_acts", action="store_true",
+                   help="static activation scales from one calibration forward")
     p.add_argument("--model_preset", type=str, default="full", choices=["full", "tiny"])
     p.add_argument("--device", type=str, default=None,
                    help="'cuda' (the default) or 'cpu' for a plumbing check")
@@ -86,16 +100,30 @@ def _config(base, preset: str, tiny_hw):
     return dataclasses.replace(base, compute_dtype="bfloat16")
 
 
-def serving_fps(torch, device, preset: str, batch: int, n_iters: int) -> dict:
-    """Headline: device-serialised DUSt3R-224 serving at `batch` frames."""
+def _raw_frames(torch, device, batch: int):
+    """bench.py's raw input: [batch, 320, 416] counts 21000-26000 / 65535."""
+    return (torch.linspace(21000.0, 26000.0, batch * RAW_HW[0] * RAW_HW[1], device=device)
+            .reshape(batch, *RAW_HW) / 65535.0)
+
+
+def serving_fps(torch, device, preset: str, batch: int, n_iters: int, int8_only=None,
+                static_acts: bool = False) -> dict:
+    """Headline: device-serialised DUSt3R-224 serving at `batch` frames; int8
+    trunk GEMMs when int8_only is a SCOPE_TO_ONLY tuple (static activation
+    scales from CALIB_FRAMES frames with static_acts). The result's "depth"
+    is the warm-up step's, on the unperturbed input."""
     from thermal3d_torch.core.config import DUSTR_224_LINEAR
     from thermal3d_torch.infer.engine import InferenceEngine
 
     cfg = _config(DUSTR_224_LINEAR, preset, (64, 64))
+    int8 = {}
+    if int8_only is not None:
+        int8 = dict(quantize_int8=True, int8_only=int8_only,
+                    int8_calibration=_raw_frames(torch, device, CALIB_FRAMES)
+                    if static_acts else None)
     engine = InferenceEngine(cfg, params_dtype=None if preset == "tiny" else "bfloat16",
-                             seed=0, device=device)
-    raw0 = (torch.linspace(21000.0, 26000.0, batch * RAW_HW[0] * RAW_HW[1], device=device)
-            .reshape(batch, *RAW_HW) / 65535.0)
+                             seed=0, device=device, **int8)
+    raw0 = _raw_frames(torch, device, batch)
     state = {"raw": raw0}
 
     def step():
@@ -104,12 +132,40 @@ def serving_fps(torch, device, preset: str, batch: int, n_iters: int) -> dict:
         feedback = torch.tanh(depth.float().mean(dim=(1, 2)))[:, None, None] * 1e-4
         state["raw"], state["depth"] = raw0 * (1.0 + feedback), depth
 
-    step()  # warm-up
-    _sync(torch, device)
+    step()  # warm-up, on raw0
+    depth0 = state["depth"].double().cpu().numpy()
     dt = _best_of_two(torch, device, step, n_iters)
     if not bool(torch.isfinite(state["depth"]).all()):
         raise RuntimeError("serving: non-finite depth")
-    return {"batch": batch, "fps": batch * n_iters / dt, "step_ms": 1e3 * dt / n_iters}
+    return {"batch": batch, "fps": batch * n_iters / dt, "step_ms": 1e3 * dt / n_iters,
+            "depth": depth0}
+
+
+def int8_secondaries(torch, device, preset: str, batch: int, n_iters: int, head: dict) -> list:
+    """bench.py's int8 frontier: bf16 (the headline), then scopes fc1 and
+    all with static activation scales, each with its drift against the
+    headline's depth on the same input."""
+    import numpy as np
+
+    from thermal3d_torch.evaluation.metrics import compute_depth_metrics
+    from thermal3d_torch.kernels.quant import SCOPE_TO_ONLY
+
+    ref = head["depth"]
+    rows = [{"config": "bf16", "fps": head["fps"], "abs_rel_drift": 0.0,
+             "depth_drift_rel_rms": 0.0, "drift_ok": True}]
+    for scope in ("fc1", "all"):
+        run = serving_fps(torch, device, preset, batch, n_iters, SCOPE_TO_ONLY[scope], True)
+        # over the whole batch as one map, as bench.py scores it
+        w = ref.shape[-1]
+        abs_rel = compute_depth_metrics(run["depth"].reshape(-1, w), ref.reshape(-1, w),
+                                        median_scaling=True, device=device)["abs_rel"]
+        rows.append({"config": f"int8_{scope}_static_acts", "fps": run["fps"],
+                     "vs_baseline": run["fps"] / BASELINE_FPS if device.type == "cuda" else None,
+                     "abs_rel_drift": abs_rel,
+                     "depth_drift_rel_rms": float(np.linalg.norm(run["depth"] - ref)
+                                                  / np.linalg.norm(ref)),
+                     "drift_ok": bool(abs_rel <= DRIFT_GATE)})
+    return rows
 
 
 def train_fps(torch, device, preset: str, batch: int, n_iters: int) -> dict:
@@ -181,7 +237,10 @@ def pseudo_gt_pps(torch, device, preset: str, batch: int, n_iters: int) -> dict:
 def main(argv=None) -> int:
     import torch
 
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.int8_static_acts and not args.int8:
+        parser.error("--int8_static_acts requires --int8")
     if args.device is None and not torch.cuda.is_available():
         print("thermal3d_torch.bench: CUDA is not available; pass --device cpu for a CPU "
               "check of the plumbing", file=sys.stderr)
@@ -190,7 +249,11 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    head = serving_fps(torch, device, args.model_preset, args.batch, args.iters)
+    from thermal3d_torch.kernels.quant import SCOPE_TO_ONLY
+
+    int8_only = SCOPE_TO_ONLY[args.int8_scope] if args.int8 else None
+    head = serving_fps(torch, device, args.model_preset, args.batch, args.iters, int8_only,
+                       args.int8_static_acts)
     result = {
         "metric": _metric("thermal_frames_per_sec_per_chip_dustr224", device),
         "value": round(head["fps"], 2),
@@ -200,20 +263,27 @@ def main(argv=None) -> int:
         "model_preset": args.model_preset,
         "device": {"type": device.type, "kind": kind},
     }
+    if args.int8:
+        result.update(int8=True, int8_scope=args.int8_scope,
+                      int8_static_acts=args.int8_static_acts)
     if args.sweep:
         result["sweep"] = [{k: round(v, 3) if isinstance(v, float) else v for k, v in
-                            serving_fps(torch, device, args.model_preset, b, args.iters).items()}
+                            serving_fps(torch, device, args.model_preset, b, args.iters,
+                                        int8_only, args.int8_static_acts).items()
+                            if k != "depth"}
                            for b in args.sweep]
     if not args.no_secondary:
         n = max(1, args.iters // 3)
-        secondary = [
+        secondary = [] if args.int8 else int8_secondaries(
+            torch, device, args.model_preset, args.batch, args.iters, head)
+        secondary += [
             dict(config=f"train_dustr224_b{args.train_batch}",
                  **train_fps(torch, device, args.model_preset, args.train_batch, n)),
             dict(config=f"pseudo_gt_mastr512_b{args.pair_batch}",
                  **pseudo_gt_pps(torch, device, args.model_preset, args.pair_batch, n)),
         ]
         result["secondary_metrics"] = [
-            {k: round(v, 3) if isinstance(v, float) else v for k, v in s.items()}
+            {k: round(v, 5) if isinstance(v, float) else v for k, v in s.items()}
             for s in secondary]
     print(json.dumps(result), flush=True)
     return 0

@@ -6,9 +6,12 @@ A directory of thermal PNGs (or one frame) → `{base}_depth.npy` and, unless
 depth, confidence) per frame, through InferenceEngine.infer_paths (depth
 only with --no_vis); --img_path2 runs one stereo pair; --fire_scene /
 --advanced_fire preprocess each frame on the card and serve it alone;
---refine_depth refines every depth map before it is saved. The flags are
-the JAX CLI's. Not ported yet, and so parser errors naming their ROADMAP
-item: the int8 modes, --scan_layers and --ndev > 1.
+--refine_depth refines every depth map before it is saved; --int8 serves
+with the trunk GEMMs in int8 (kernels/quant.py; --int8_scope,
+--int8_group_size, --int8_equalize, and --int8_static_acts, which calibrates
+static activation scales on the first decodable batch). The flags are the
+JAX CLI's, with its parser errors. Not ported yet, and so parser errors
+naming their ROADMAP item: --scan_layers and --ndev > 1.
 """
 
 from __future__ import annotations
@@ -22,8 +25,6 @@ import numpy as np
 import torch
 
 from thermal3d_torch.cli.common import add_preset_flag, apply_preset, refuse_unported
-
-INT8_ITEM = "ROADMAP Queue 1 item 10, int8 serving"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -50,12 +51,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_vis", action="store_true")
     p.add_argument("--compute_dtype", type=str, default="bfloat16")
     p.add_argument("--int8_scope", type=str, default="all", choices=["all", "mlp", "fc1"],
-                   help=f"int8 only ({INT8_ITEM})")
+                   help="which trunk GEMMs --int8 quantizes: all, mlp (fc1+fc2) or fc1")
     p.add_argument("--int8_group_size", type=int, default=None,
-                   help=f"not ported ({INT8_ITEM})")
-    p.add_argument("--int8", action="store_true", help=f"not ported ({INT8_ITEM})")
-    p.add_argument("--int8_equalize", action="store_true", help=f"not ported ({INT8_ITEM})")
-    p.add_argument("--int8_static_acts", action="store_true", help=f"not ported ({INT8_ITEM})")
+                   help="int8 weight scales per this many input channels (e.g. 128)")
+    p.add_argument("--int8", action="store_true",
+                   help="serve with the trunk GEMMs in int8 (opt-in; gate with cli.parity)")
+    p.add_argument("--int8_equalize", action="store_true",
+                   help="SmoothQuant-style LN-to-GEMM equalization before quantizing")
+    p.add_argument("--int8_static_acts", action="store_true",
+                   help="static per-GEMM activation scales from one float forward over "
+                        "the first decodable batch")
     p.add_argument("--model_variant", type=str, default="dustr224_linear",
                    choices=["dustr224_linear", "dustr512_dpt", "mastr512_catmlpdpt"],
                    help="model family member (checkpoint architecture)")
@@ -70,13 +75,16 @@ def main(argv=None):
     from thermal3d_torch.core.config import (DUSTR_224_LINEAR, DUSTR_512_DPT,
                                              MASTR_512_CATMLPDPT)
     from thermal3d_torch.infer.engine import InferenceEngine
-    from thermal3d_torch.preprocess.io import load_thermal_image
+    from thermal3d_torch.kernels.quant import SCOPE_TO_ONLY
+    from thermal3d_torch.preprocess.io import load_thermal_image, load_thermal_images_batch
 
     parser = build_parser()
     args = parser.parse_args(argv)
-    refuse_unported(parser, args, {
-        "int8": INT8_ITEM, "int8_group_size": INT8_ITEM, "int8_equalize": INT8_ITEM,
-        "int8_static_acts": INT8_ITEM})
+    if (args.int8_equalize or args.int8_static_acts) and not args.int8:
+        parser.error("--int8_equalize/--int8_static_acts require --int8")
+    if args.int8_static_acts and args.int8_group_size:
+        parser.error("--int8_static_acts is incompatible with --int8_group_size")
+    refuse_unported(parser, args, {})
     base = {"dustr224_linear": DUSTR_224_LINEAR, "dustr512_dpt": DUSTR_512_DPT,
             "mastr512_catmlpdpt": MASTR_512_CATMLPDPT}[args.model_variant]
     if args.img_size is None:
@@ -87,8 +95,24 @@ def main(argv=None):
             config, head=dataclasses.replace(config.head, dpt_dtype="float32"))
     state, head_state = (None, None) if args.weights is None else load_pth(args.weights,
                                                                           config)
+    if os.path.isdir(args.img_path):
+        paths = sorted(glob.glob(os.path.join(args.img_path, "*.png")))
+    else:
+        paths = [args.img_path]
+    int8_calibration = None
+    if args.int8_static_acts:
+        # the first batch, decoded here once more than infer_paths decodes it
+        grays, _ = load_thermal_images_batch(paths[:args.batch_size], normalize=True,
+                                             out_hw=tuple(args.img_size))
+        if not grays:
+            parser.error("--int8_static_acts: no decodable frames to calibrate on")
+        int8_calibration = np.stack(grays)
     engine = InferenceEngine(config, state_dict=state, thermal_head_state=head_state,
-                             use_thermal_head=not args.no_thermal_model, device=args.device)
+                             use_thermal_head=not args.no_thermal_model, device=args.device,
+                             quantize_int8=args.int8, int8_group_size=args.int8_group_size,
+                             int8_only=SCOPE_TO_ONLY[args.int8_scope],
+                             int8_equalize=args.int8_equalize,
+                             int8_calibration=int8_calibration)
     os.makedirs(args.output_dir, exist_ok=True)
 
     if args.img_path2:  # stereo pair mode
@@ -98,11 +122,6 @@ def main(argv=None):
         out = engine.infer(grays[0][None], grays[1][None])
         _save_one(args, out, 0, args.img_path, engine)
         return
-
-    if os.path.isdir(args.img_path):
-        paths = sorted(glob.glob(os.path.join(args.img_path, "*.png")))
-    else:
-        paths = [args.img_path]
 
     if args.fire_scene or args.advanced_fire:
         from thermal3d_torch.preprocess.fire_scene import (advanced_fire_scene_processing,

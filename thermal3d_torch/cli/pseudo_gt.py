@@ -2,8 +2,11 @@
 (counterpart of thermal3d/cli/pseudo_gt.py, scripts/pseudo_gt.py:613-661,
 and scripts/test_pseudo_gt.py through --test_set).
 
-The flags are the JAX CLI's. Not ported yet, and so parser errors naming
-their ROADMAP item: the int8 modes, --scan_layers and --ndev > 1.
+The flags are the JAX CLI's, with its parser errors. --int8 runs the trunk
+GEMMs in int8 (kernels/quant.py; --int8_scope, --int8_equalize, and
+--int8_static_acts, which calibrates static activation scales on the first
+batch of pairs that decode). Not ported yet, and so parser errors naming
+their ROADMAP item: --scan_layers and --ndev > 1.
 """
 
 from __future__ import annotations
@@ -11,9 +14,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
-from thermal3d_torch.cli.common import add_preset_flag, apply_preset, refuse_unported
+import numpy as np
 
-INT8_ITEM = "ROADMAP Queue 1 item 10, int8"
+from thermal3d_torch.cli.common import add_preset_flag, apply_preset, refuse_unported
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -33,10 +36,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--test_set", action="store_true",
                    help="monocular test-set mode (test_pseudo_gt.py layout)")
     p.add_argument("--compute_dtype", type=str, default="bfloat16")
-    p.add_argument("--int8", action="store_true", help=f"not ported ({INT8_ITEM})")
-    p.add_argument("--int8_scope", type=str, default="all", help=f"int8 only ({INT8_ITEM})")
-    p.add_argument("--int8_equalize", action="store_true", help=f"not ported ({INT8_ITEM})")
-    p.add_argument("--int8_static_acts", action="store_true", help=f"not ported ({INT8_ITEM})")
+    p.add_argument("--int8", action="store_true",
+                   help="int8 trunk GEMMs (opt-in: gate the outputs with cli.parity)")
+    p.add_argument("--int8_scope", type=str, default="all", choices=["all", "mlp", "fc1"])
+    p.add_argument("--int8_equalize", action="store_true",
+                   help="SmoothQuant-style LN-to-GEMM fold before quantizing")
+    p.add_argument("--int8_static_acts", action="store_true",
+                   help="static per-GEMM activation scales from one float forward over "
+                        "the first pair batch")
     p.add_argument("--dpt_f32", action="store_true",
                    help="pin the DPT/catmlpdpt head in float32")
     p.add_argument("--num_shards", type=int, default=1,
@@ -52,14 +59,15 @@ def main(argv=None):
     from thermal3d_torch.convert.from_pth import load_pth
     from thermal3d_torch.core.config import MASTR_512_CATMLPDPT
     from thermal3d_torch.data.freiburg import build_rgb_pair_index, build_rgb_thermal_index
+    from thermal3d_torch.kernels.quant import SCOPE_TO_ONLY
     from thermal3d_torch.pseudo_gt.generator import PseudoGTGenerator, generate_pseudo_gt
     from thermal3d_torch.pseudo_gt.test_set import generate_test_set_pseudo_gt
 
     parser = build_parser()
     args = parser.parse_args(argv)
-    refuse_unported(parser, args, {
-        "int8": INT8_ITEM, "int8_equalize": INT8_ITEM,
-        "int8_static_acts": INT8_ITEM})
+    if (args.int8_equalize or args.int8_static_acts) and not args.int8:
+        parser.error("--int8_equalize/--int8_static_acts require --int8")
+    refuse_unported(parser, args, {})
     if not 0 <= args.shard_id < args.num_shards:
         parser.error(f"--shard_id {args.shard_id} out of range for "
                      f"--num_shards {args.num_shards}")
@@ -84,8 +92,15 @@ def main(argv=None):
         print(f"Shard {args.shard_id}/{args.num_shards}: {len(items)} "
               f"{'frames' if args.test_set else 'pairs'}")
 
+    int8_kw = {}
+    if args.int8:
+        int8_kw = dict(quantize_int8=True, int8_only=SCOPE_TO_ONLY[args.int8_scope],
+                       int8_equalize=args.int8_equalize)
+        if args.int8_static_acts:
+            int8_kw["int8_calibration"] = _first_pair_batch(
+                items, config.img_size, args.batch_size, args.test_set, parser)
     gen = PseudoGTGenerator(config, state_dict=state, batch_size=args.batch_size,
-                            calib_file=args.calib_file, device=args.device)
+                            calib_file=args.calib_file, device=args.device, **int8_kw)
     if args.test_set:
         n = generate_test_set_pseudo_gt(items, args.output_dir, gen, max_frames=args.max_pairs)
     else:
@@ -93,6 +108,26 @@ def main(argv=None):
                                max_pairs=args.max_pairs)
     print(f"Pseudo-GT generation complete: {n} items -> {args.output_dir}")
     return n
+
+
+def _first_pair_batch(items, hw, batch_size: int, test_set: bool, parser):
+    """The calibration sample of --int8_static_acts: the first batch_size
+    entries whose frames decode, as (rgb1, rgb2); a test-set frame is its
+    own pair."""
+    from thermal3d_torch.pseudo_gt.generator import decode_rgb_pairs
+
+    keys = ("rgb", "rgb") if test_set else ("rgb_path1", "rgb_path2")
+    r1s, r2s, n = [], [], 0
+    for i in range(0, len(items), batch_size):
+        r1, r2, kept = decode_rgb_pairs(items[i:i + batch_size], hw, keys)
+        r1s.append(r1)
+        r2s.append(r2)
+        n += len(kept)
+        if n >= batch_size:
+            break
+    if not n:
+        parser.error("--int8_static_acts: no decodable RGB pairs to calibrate on")
+    return (np.concatenate(r1s)[:batch_size], np.concatenate(r2s)[:batch_size])
 
 
 if __name__ == "__main__":

@@ -121,3 +121,29 @@ def thermal_head_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """ThermalPreprocessHead params {'edge_weight', 'temp_scale'} → state dict."""
     return {k: torch.from_numpy(np.array(params[k], np.float32).reshape(()))
             for k in ("edge_weight", "temp_scale")}
+
+
+def int8_state_dict_from_jax(params_q: Mapping, quant: Mapping,
+                             wrapper: bool = False) -> Dict[str, torch.Tensor]:
+    """A JAX int8 tree (`params_q` and the `quant` collection of
+    thermal3d.kernels.quant.quantize_params_int8) → the port's int8 state
+    dict: int8 kernels [K, N] become int8 weights [N, K]; `kernel_scale`
+    becomes `weight_scale` ([N], or [G, N] transposed to [N, G]) and
+    `act_scale` stays a 0-dim float32. Load it with
+    kernels.quant.load_int8_state_dict."""
+    out = state_dict_from_jax(params_q, wrapper=wrapper)
+    for path, value in _flatten(quant):
+        parts = list(path)
+        prefix = ""
+        if wrapper and parts[0] == "model":
+            prefix, parts = "model.", parts[1:]
+        kv = _key_and_value(parts[:-1], "kernel", value)
+        if kv is None or parts[-1] not in ("kernel_scale", "act_scale"):
+            raise KeyError(f"cannot convert flax quant path {'.'.join(path)}")
+        module = prefix + kv[0][:-len(".weight")]
+        if parts[-1] == "kernel_scale":
+            out[f"{module}.weight_scale"] = torch.from_numpy(
+                np.array(value.T, np.float32, order="C"))
+        else:
+            out[f"{module}.act_scale"] = torch.from_numpy(np.array(value, np.float32).reshape(()))
+    return out

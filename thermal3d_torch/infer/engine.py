@@ -18,7 +18,8 @@ import torch
 from thermal3d_torch.core.config import DUSTR_224_LINEAR, DustrModelConfig
 from thermal3d_torch.core.device import resolve_device, to_device
 from thermal3d_torch.data.pipeline import PinnedFetch, PinnedStage, pipelined_batches
-from thermal3d_torch.models.dustr import frozen_model
+from thermal3d_torch.kernels.quant import quantize_for_serving
+from thermal3d_torch.models.dustr import calibrate_act_absmax, frozen_model
 from thermal3d_torch.models.thermal_wrap import ThermalPreprocessHead
 from thermal3d_torch.preprocess.enhance import ENHANCE_IMPLS, enhance_thermal_contrast
 from thermal3d_torch.preprocess.io import load_thermal_images_batch
@@ -36,6 +37,17 @@ class InferenceEngine:
     'bfloat16' stores every model weight in bf16 (the linear head up-casts the
     rounded weights to f32); None keeps float32. enhance_impl: passed to
     enhance_thermal_contrast ('auto' = K1 on CUDA, sort on CPU).
+
+    quantize_int8: int8 serving of the trunk GEMMs (kernels/quant.py), after
+    the params_dtype cast, as the JAX engine: int8_equalize folds the
+    LN→GEMM pairs first; int8_calibration, a raw frame sample [B, h, w],
+    runs ONE float forward over it (preprocess, thermal head, monocular
+    model) for static per-GEMM activation scales (not with
+    int8_group_size); int8_only / int8_skip scope it (SCOPE_TO_ONLY,
+    top-level JAX names). int8_impl names the int8 product's route:
+    'int_mm' (torch._int_mm) or 'plain' (float64). The JAX engine's
+    pin_attention_for_int8 is TPU policy and not carried over: attention
+    keeps config.attention_impl.
     """
 
     def __init__(self, config: DustrModelConfig = DUSTR_224_LINEAR,
@@ -43,9 +55,9 @@ class InferenceEngine:
                  thermal_head_state: Optional[Mapping[str, torch.Tensor]] = None,
                  use_thermal_head: bool = True, params_dtype: Optional[str] = None,
                  device=None, seed: int = 0, enhance_impl: str = "auto",
-                 quantize_int8: bool = False, mesh=None):
-        if quantize_int8:
-            raise NotImplementedError("int8 serving is not ported")
+                 quantize_int8: bool = False, int8_group_size: Optional[int] = None,
+                 int8_skip: tuple = (), int8_only: tuple = (), int8_equalize: bool = False,
+                 int8_calibration=None, int8_impl: str = "int_mm", mesh=None):
         if mesh is not None:
             raise NotImplementedError("mesh (data-parallel) serving is not ported")
         if enhance_impl not in ENHANCE_IMPLS:
@@ -61,6 +73,18 @@ class InferenceEngine:
         if thermal_head_state is not None:
             self.thermal_head.load_state_dict(thermal_head_state, strict=True)
         self.thermal_head.eval().requires_grad_(False)
+        if quantize_int8:
+            quantize_for_serving(
+                self.model, None if int8_calibration is None
+                else lambda model: calibrate_act_absmax(model, self._model_input(int8_calibration)),
+                group_size=int8_group_size, skip=int8_skip, only=int8_only,
+                equalize=int8_equalize, impl=int8_impl)
+
+    def _model_input(self, grays) -> torch.Tensor:
+        """Raw frames [B, h, w] → the model's input: preprocess, thermal head."""
+        with torch.inference_mode():
+            x = self.preprocess(to_device(grays, self.device))
+            return self.thermal_head(x) if self.use_thermal_head else x
 
     def preprocess(self, grays: torch.Tensor) -> torch.Tensor:
         """[B, h, w] decoded grayscale (any scale) → enhanced [B, H, W, 3]."""

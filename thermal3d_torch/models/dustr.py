@@ -175,6 +175,34 @@ class AsymmetricCroCo3DStereo(nn.Module):
         return self.decode_with_heads(f1, f2, grid, with_desc)
 
 
+@torch.no_grad()
+def calibrate_act_absmax(model: AsymmetricCroCo3DStereo, img1: torch.Tensor,
+                         img2: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """One float forward (monocular when img2 is None) that records, for
+    every Dense of the trunk (kernels.quant.trunk_dense), max|input| as the
+    module is given it, in float32, max-reduced over its calls (the JAX
+    QuantDense's 'calib' collection). Returns {module path: 0-dim tensor},
+    the act_scales of kernels.quant.quantize_model_int8. The catmlpdpt
+    local-feature branch, which reads no trunk GEMM, is not run."""
+    from thermal3d_torch.kernels.quant import trunk_dense
+
+    record: Dict[str, torch.Tensor] = {}
+
+    def hook(path):
+        def fn(_mod, args):
+            v = args[0].abs().amax().to(torch.float32)
+            record[path] = v if path not in record else torch.maximum(record[path], v)
+        return fn
+
+    handles = [dense.register_forward_pre_hook(hook(path)) for path, dense in trunk_dense(model)]
+    try:
+        model(img1, img2, with_desc=False)
+    finally:
+        for h in handles:
+            h.remove()
+    return record
+
+
 def frozen_model(config: DustrModelConfig, device: torch.device,
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None, seed: int = 0,
                  params_dtype: Optional[str] = None) -> AsymmetricCroCo3DStereo:

@@ -31,6 +31,7 @@ from thermal3d_torch.core.device import exact_float32_convs
 from thermal3d_torch.kernels.flash_attention import (
     attention_bshd, check_attention_impl, fused_rope_attention, fused_rope_attention_plain,
     fused_rope_cross_attention, is_fused_impl, rope_attention_plain)
+from thermal3d_torch.kernels.quant import int8_dense
 from thermal3d_torch.models.rope import apply_rope_2d_bshd
 
 
@@ -46,15 +47,43 @@ class Rope(NamedTuple):
 
 
 class Dense(nn.Module):
-    """y = x W^T + b in the compute dtype (the JAX QuantDense's float path)."""
+    """y = x W^T + b in the compute dtype (the JAX QuantDense).
+
+    After kernels.quant.quantize_model_int8 (set_int8) the weight is int8
+    [N, K] beside its float32 `weight_scale` and an optional static
+    `act_scale`, and the product runs through kernels.quant.int8_dense by
+    the route `int8_impl`; the bias is added in the compute dtype after the
+    dequant, as the JAX module adds it. Without scales the buffers are None
+    (and absent from the state dict)."""
 
     def __init__(self, in_dim: int, out_dim: int, dtype: torch.dtype):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_dim, in_dim))
         self.bias = nn.Parameter(torch.empty(out_dim))
+        self.register_buffer("weight_scale", None)
+        self.register_buffer("act_scale", None)
+        self.int8_impl = "int_mm"
         self.dtype = dtype
 
+    def set_int8(self, wq: torch.Tensor, ws: torch.Tensor, act_scale: Optional[torch.Tensor],
+                 impl: str) -> None:
+        """Install the int8 weight, its scales and the product's route."""
+        dev = self.bias.device
+        self.weight = nn.Parameter(wq.to(dev), requires_grad=False)
+        self.weight_scale = ws.to(dev)
+        self.act_scale = None if act_scale is None else act_scale.to(dev)
+        self.int8_impl = impl
+
     def forward(self, x):
+        if self.weight_scale is not None:
+            y = int8_dense(x, self.weight, self.weight_scale, self.dtype,
+                           act_scale=self.act_scale, impl=self.int8_impl)
+            return y + self.bias.to(self.dtype)
+        if self.weight.dtype == torch.int8:
+            raise ValueError("int8-quantized weight applied without its scales: quantize "
+                             "with kernels.quant.quantize_model_int8 or load them with "
+                             "load_int8_state_dict; quantized weights are serving-only and "
+                             "cannot be trained")
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
                         self.bias.to(self.dtype))
 

@@ -52,8 +52,14 @@ def axis_matrix(n_in: int, n_out: int, align_corners: bool = False) -> Optional[
 
 @functools.lru_cache(maxsize=None)
 def _device_matrix(n_in: int, n_out: int, align_corners: bool, device: str):
+    """The cached matrix on `device`, made outside inference mode whoever
+    asks first: a serving call's inference tensor cannot enter a later
+    training step's autograd graph."""
     m = axis_matrix(n_in, n_out, align_corners)
-    return None if m is None else torch.tensor(m, device=device)
+    if m is None:
+        return None
+    with torch.inference_mode(False):
+        return torch.tensor(m, device=device)
 
 
 def resize_bilinear_hw(x: torch.Tensor, out_hw: Tuple[int, int],

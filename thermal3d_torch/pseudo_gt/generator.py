@@ -28,7 +28,8 @@ from thermal3d_torch.data.pipeline import PinnedFetch, PinnedStage, pipelined_ba
 from thermal3d_torch.geometry.calibration import load_thermal_calibration
 from thermal3d_torch.geometry.intrinsics import estimate_camera_intrinsics
 from thermal3d_torch.geometry.umeyama import extract_relative_pose
-from thermal3d_torch.models.dustr import frozen_model
+from thermal3d_torch.kernels.quant import quantize_for_serving
+from thermal3d_torch.models.dustr import calibrate_act_absmax, frozen_model
 from thermal3d_torch.native import load_rgb_batch
 from thermal3d_torch.preprocess.io import require_png
 from thermal3d_torch.viz.panels import visualize_data
@@ -51,8 +52,10 @@ class PseudoGTGenerator:
     split_programs is accepted for call compatibility with the JAX
     generator: there it compiles the encoder and the rest as two XLA
     programs with the same numerics; eager PyTorch runs them as separate
-    launches anyway, so it changes nothing. quantize_int8 / int8_* and mesh
-    are not ported and raise NotImplementedError.
+    launches anyway, so it changes nothing. quantize_int8 / int8_*: int8
+    trunk GEMMs as in the serving engine (kernels/quant.py), the calibration
+    sample an (rgb1, rgb2) pair batch. mesh is not ported and raises
+    NotImplementedError.
     """
 
     def __init__(self, config: DustrModelConfig = MASTR_512_CATMLPDPT,
@@ -62,10 +65,7 @@ class PseudoGTGenerator:
                  split_programs: bool = False, quantize_int8: bool = False,
                  int8_group_size: Optional[int] = None, int8_skip: tuple = (),
                  int8_only: tuple = (), int8_equalize: bool = False,
-                 int8_calibration=None, mesh=None):
-        if (quantize_int8 or int8_group_size is not None or int8_skip or int8_only
-                or int8_equalize or int8_calibration is not None):
-            raise NotImplementedError("int8 pseudo-GT generation is not ported")
+                 int8_calibration=None, int8_impl: str = "int_mm", mesh=None):
         if mesh is not None:
             raise NotImplementedError("mesh (data-parallel) generation is not ported")
         self.device = resolve_device(device)
@@ -73,6 +73,13 @@ class PseudoGTGenerator:
         self.batch_size = batch_size
         self.split_programs = split_programs
         self.model = frozen_model(config, self.device, state_dict, seed, params_dtype)
+        if quantize_int8:
+            quantize_for_serving(
+                self.model, None if int8_calibration is None
+                else lambda model: calibrate_act_absmax(
+                    model, *(to_device(r, self.device) for r in int8_calibration)),
+                group_size=int8_group_size, skip=int8_skip, only=int8_only,
+                equalize=int8_equalize, impl=int8_impl)
 
         self.calib_k = None
         if calib_file and os.path.exists(calib_file):
