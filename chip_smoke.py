@@ -14,7 +14,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      batch [4,224,224]; K2/K3 at the serving
      shapes (S=196) and the MASt3R-512 shapes (S=1024); K4/K5/K6 at both,
      and with Sq=196 against Sk=1024; K2-K6 also in bf16 at head_dim 32,
-     both S. Each K2-K6 case records the kernel
+     both S, and K2/K3 at the shapes a tensor-parallel rank gives them in
+     phase 10 (8 and 6 heads). Each K2-K6 case records the kernel
      that served it: bf16 with head_dim 64 the tensor-core kernel (its own
      count moves), float32, and bf16 at head_dim 32, a CUDA-core kernel (K2/K3:
      one-shot at S=196, key-tile at S=1024);
@@ -82,8 +83,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
      cli.pseudo_gt --int8 --test_set; cli.parity in dir mode, in golden mode
      with --int8 on phase 6's test set, and --full-gate on a .pth of the
      port's random-weight DUSt3R-224 (convert and oracle stages pass);
-  10. print JSON lines of the paths (engine, pseudo_gt, files, training,
-     the bench, fire, int8) and of the kernels and, last, the device line.
+  10. multi-GPU on the one card (every mesh position on cuda:0): the
+     full-width, full-depth bf16 DUSt3R-224 engine over the mesh
+     [cuda:0, cuda:0] (each batch of 32 in two chunks: K1 2n, K2 80n, K3
+     32n) against the one-device engine on the same weights (float32 within
+     1e-3, bf16 within the engine's gates), frames/s beside it; the
+     MASt3R-512 generator on that mesh (4 pairs, K2 96n, K3 48n) against
+     run_pairs, and generate_pseudo_gt on it; cli.infer --ndev 2 (the parser
+     error naming the device count) and --ndev 1 (the plain CLI's files);
+     cli.train --mesh_shape 1 --zero1 in a subprocess with torchrun's
+     variables (an NCCL group of world 1), 2 epochs, resumed to a third,
+     then cli.infer from its checkpoint; and a 2-rank gloo job on cuda:0
+     (DIST_CASES, full width at DIST_DEPTH): DP, ZeRO-1 (each rank's mu + nu
+     bytes half of DP's) and Megatron TP over 2 ranks (8 and 6 heads a
+     rank) in float32, each step's loss and gradients against one
+     single-process step on the global batch, and TP in bf16 recorded;
+  11. print JSON lines of the paths (engine, pseudo_gt, files, training,
+     the bench, fire, int8, multi_gpu) and of the kernels and, last, the
+     device line.
 Without CUDA it exits non-zero before printing any result.
 
     python3 chip_smoke.py --compare-k2k3 OTHER_CSRC_DIR
@@ -91,12 +108,20 @@ Without CUDA it exits non-zero before printing any result.
 holds this checkout's tensor-core K2/K3 kernel against a build of another
 checkout's csrc/rope_attention_tc.cu instead (torch.equal on the bf16 K2/K3
 shapes of both paths, times in turns) and exits non-zero if any differs.
+
+    python3 chip_smoke.py --only-multi-gpu
+
+builds the kernels and runs the tensor-parallel K2/K3 cases and phase 10
+alone, on its own synthetic Freiburg tree (its pseudo-GT from the mesh
+generator), and prints the multi_gpu line. `--dist-worker RANK WORLD PORT
+DIR [DEVICE]` is one rank of phase 10's gloo job (the phase launches it).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import math
 import subprocess
@@ -2317,6 +2342,549 @@ COMPARE_CASES = (("K2", BATCH, 14, 1024, 16), ("K2", BATCH, 14, 768, 12),
                  ("K2", PAIR_BATCH, 32, 768, 12), ("K3", PAIR_BATCH, 32, 768, 12))
 
 
+# phase 10: multi-GPU on one card. The card's machine has one H100, so every
+# mesh position lies on cuda:0: single-controller serving and pseudo-GT over
+# the mesh [cuda:0, cuda:0] (a batch in two chunks, one replica), cli.infer
+# --ndev, cli.train over an NCCL group of world 1 with --zero1, and a 2-rank
+# gloo job on cuda:0 (NCCL refuses two ranks on one card; gloo runs its
+# collectives on host copies of the CUDA tensors, core/collectives.py) whose
+# DP, ZeRO-1 and Megatron TP steps are held against one single-process step.
+# None of it measures N-GPU scaling: that needs a machine with more cards.
+MESH2 = 2
+# the 2-rank training cases: DUSt3R-224 at full width, its depth cut to
+# DIST_DEPTH (a third of the encoder, half the decoder: the ranks stage
+# every gradient through the host), TrainConfig's batch of TRAIN_BATCH pairs
+DIST_DEPTH = dict(enc_depth=8, dec_depth=4)
+# (name, mesh shape, compute dtype, zero1): float32 with TF32 off holds the
+# split exactly up to summation order; bf16 tensor parallelism is recorded
+DIST_CASES = (("dp", (2,), "float32", False), ("zero1", (2,), "float32", True),
+              ("tp", (1, 2), "float32", False), ("tp_bf16", (1, 2), "bfloat16", False))
+# float32 steps against the single-process step on the global batch: the
+# loss, and each gradient tensor's max|Δ|/max|ref| (scripts/
+# torch_multi_gpu_limits.py reads, on the CPU: see PERF.md; the limits
+# leave 10× room over those reads for cuBLAS's other summation orders)
+DIST_F32_LOSS_REL = 1e-5
+DIST_F32_GRAD_REL = 1e-4
+DIST_TIMEOUT = 900  # seconds for the 2-rank job
+
+
+def dist_model_config(dtype: str, depth: dict):
+    from thermal3d_torch.core.config import DUSTR_224_LINEAR
+
+    return dataclasses.replace(DUSTR_224_LINEAR, compute_dtype=dtype, **depth)
+
+
+def dist_inputs(torch, np, out: str, depth: dict = DIST_DEPTH) -> None:
+    """out/depth.json, out/init.pt (seeded float32 weights of
+    dist_model_config at that depth) and out/batch.pt (chip_smoke's
+    training batch), on the host."""
+    import os
+
+    from thermal3d_torch.models.dustr import trainable_model
+
+    with open(os.path.join(out, "depth.json"), "w") as f:
+        json.dump(depth, f)
+    model = trainable_model(dist_model_config("float32", depth), torch.device("cpu"), seed=0)
+    torch.save(model.state_dict(), os.path.join(out, "init.pt"))
+    torch.save(train_batch(torch, np, device="cpu"), os.path.join(out, "batch.pt"))
+
+
+def dist_step(torch, out: str, device: str, dtype: str, mesh=None, zero1: bool = False):
+    """One train step of dist_model_config(dtype, out/depth.json) from out/init.pt on
+    out/batch.pt (on a process mesh: this rank's rows, this rank's share of
+    the model). Returns the loss and grad_norm metrics, the averaged
+    gradient the optimizer received (gathered to full tensors, float32, on
+    the host), the kernels' launches, the attention modules' head counts,
+    the optimizer's mu + nu bytes and the peak device memory."""
+    import os
+
+    from thermal3d_torch.core.config import TrainConfig
+    from thermal3d_torch.core.mesh import (gather_full, param_partition_spec, shard_batch,
+                                           shard_model_)
+    from thermal3d_torch.models.dustr import trainable_model
+    from thermal3d_torch.train.state import create_train_state
+    from thermal3d_torch.train.step import make_train_step
+
+    dev = torch.device(device)
+    with open(os.path.join(out, "depth.json")) as f:
+        depth = json.load(f)
+    model = trainable_model(dist_model_config(dtype, depth), dev,
+                            torch.load(os.path.join(out, "init.pt"), weights_only=True))
+    if mesh is not None:
+        shard_model_(model, mesh)
+    cfg = TrainConfig(batch_size=TRAIN_BATCH, zero1=zero1)
+    state = create_train_state(model, cfg, steps_per_epoch=100, mesh=mesh)
+    train_step = make_train_step(model, cfg, mesh=mesh)
+    received = []
+    inner = state.tx.step
+    state.tx.step = lambda grads: (received.append([g.detach().clone() for g in grads]),
+                                   inner(grads))[1]
+    batch = torch.load(os.path.join(out, "batch.pt"), weights_only=True)
+    if mesh is not None:
+        batch = shard_batch(mesh, batch)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    counters = kernel_counters()
+    for c in counters:
+        c.launches = 0
+    _, metrics = train_step(state, batch)
+    launches = {c.__name__: c.launches for c in counters if c.launches}
+    loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    grads = {}
+    for name, g in zip(names, received[0]):
+        spec = param_partition_spec(name, g.dim(), mesh) if mesh is not None else ()
+        grads[name] = (gather_full(name, g, spec, mesh) if "model" in spec else g).float().cpu()
+    heads = sorted({m.num_heads for m in model.modules() if hasattr(m, "num_heads")})
+    slot_bytes = sum(t.numel() * t.element_size() for t in state.tx.mu + state.tx.nu)
+    del state.tx.step  # the wrapper's closure holds the optimizer: a cycle
+    del state, train_step, model, received, batch
+    gc.collect()  # nothing of this step may count in the next one's peak
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(loss=loss, grad_norm=grad_norm, grads=grads, launches=launches, heads=heads,
+                slot_bytes=slot_bytes, peak_bytes=peak)
+
+
+def dist_worker_main(argv) -> int:
+    """`--dist-worker RANK WORLD PORT OUT [DEVICE]`: one rank of the gloo job
+    (DEVICE cuda:0 by default; the CPU limits script passes cpu). Runs
+    DIST_CASES in order and writes OUT/<case>_<rank>.pt (rank 0 with the
+    gathered gradients)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from thermal3d_torch.core.collectives import STAGED
+    from thermal3d_torch.core.distributed import initialize_multihost
+    from thermal3d_torch.core.mesh import make_mesh
+
+    rank, world, port, out = int(argv[0]), int(argv[1]), int(argv[2]), argv[3]
+    device = argv[4] if len(argv) > 4 else "cuda:0"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_multihost(f"127.0.0.1:{port}", world, rank, device=device, backend="gloo")
+    for name, shape, dtype, zero1 in DIST_CASES:
+        before = dict(STAGED)
+        mesh = make_mesh(shape, ("data", "model")[:len(shape)])
+        res = dist_step(torch, out, device, dtype, mesh, zero1)
+        res["staged"] = {k: STAGED[k] - before[k] for k in STAGED}
+        if rank:
+            res.pop("grads")
+        torch.save(res, os.path.join(out, f"{name}_{rank}.pt"))
+        del res
+    dist.destroy_process_group()
+    return 0
+
+
+def run_dist_job(torch, out: str, device: str = "cuda:0", timeout: int = DIST_TIMEOUT):
+    """Launch the 2 ranks of dist_worker_main (subprocesses of this script),
+    wait for both within `timeout` seconds, kill both on any failure; returns
+    {case: [rank 0 result, rank 1 result]}."""
+    import os
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys, chip_smoke; "
+            "sys.exit(chip_smoke.dist_worker_main(sys.argv[1:]))")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(MESH2), str(port), out,
+                               device], cwd=here, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(MESH2)]
+    try:
+        for r, p in enumerate(procs):
+            _, err = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                raise AssertionError(f"2-rank gloo job: rank {r} exited {p.returncode}:\n"
+                                     f"{err[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return {name: [torch.load(os.path.join(out, f"{name}_{r}.pt"), weights_only=False)
+                   for r in range(MESH2)] for name, *_ in DIST_CASES}
+
+
+def grad_rel_err(got: dict, want: dict) -> float:
+    """The largest max|Δ|/max|ref| over the gradient tensors."""
+    if sorted(got) != sorted(want):
+        raise AssertionError("gradient tensors differ in name")
+    return max(float((got[k] - want[k]).abs().max() / want[k].abs().max().clamp_min(1e-30))
+               for k in want)
+
+
+def dist_errors(refs: dict, ranks: dict) -> dict:
+    """Each case's loss and gradient errors against the single-process step
+    of its dtype, with the ranks' launches, heads, optimizer bytes, peak
+    memory and host-staged collectives."""
+    out = {}
+    for name, _, dtype, _ in DIST_CASES:
+        r0, r1 = ranks[name]
+        ref = refs[dtype]
+        out[name] = dict(
+            dtype=dtype, loss=r0["loss"], loss_ref=ref["loss"],
+            loss_rel=abs(r0["loss"] - ref["loss"]) / abs(ref["loss"]),
+            grad_norm_rel=abs(r0["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"]),
+            grad_rel=grad_rel_err(r0["grads"], ref["grads"]),
+            ranks_agree=r0["loss"] == r1["loss"] and r0["grad_norm"] == r1["grad_norm"],
+            launches=[r0["launches"], r1["launches"]], heads=r0["heads"],
+            slot_bytes=[r0["slot_bytes"], r1["slot_bytes"]], slot_bytes_single=ref["slot_bytes"],
+            peak_bytes=[r0["peak_bytes"], r1["peak_bytes"]], peak_bytes_single=ref["peak_bytes"],
+            staged=[r0["staged"], r1["staged"]])
+    return out
+
+
+def dist_check(torch, np, root: str):
+    """The 2-rank gloo job on cuda:0 against single-process steps."""
+    import os
+
+    out = os.path.join(root, "dist")
+    os.makedirs(out, exist_ok=True)
+    t0 = time.perf_counter()
+    dist_inputs(torch, np, out)
+    refs = {dtype: dist_step(torch, out, "cuda", dtype) for dtype in ("float32", "bfloat16")}
+    ranks = run_dist_job(torch, out)
+    errs = dist_errors(refs, ranks)
+    enc, dec = DIST_DEPTH["enc_depth"], DIST_DEPTH["dec_depth"]
+    fwd = {"percentile_enhance": 2, "fused_rope_attention": enc + 2 * dec,
+           "fused_rope_cross_attention": 2 * dec}
+    for name, shape, dtype, zero1 in DIST_CASES:
+        e = errs[name]
+        log(f"2-rank gloo {name} (mesh {shape}, {dtype}): loss {e['loss']:.6f} "
+            f"(single {e['loss_ref']:.6f}, rel {e['loss_rel']:.3e}); gradients "
+            f"max|Δ|/max|ref| {e['grad_rel']:.3e}; grad_norm rel {e['grad_norm_rel']:.3e}; "
+            f"heads {e['heads']}; mu+nu bytes a rank {e['slot_bytes']} (single "
+            f"{e['slot_bytes_single']}); peak bytes a rank {e['peak_bytes']} (single "
+            f"{e['peak_bytes_single']}); launches {e['launches'][0]}; host-staged "
+            f"{e['staged'][0]}")
+        want = dict(fwd)
+        if dtype == "bfloat16":
+            want["rope_attention_tc"] = fwd["fused_rope_attention"] + \
+                fwd["fused_rope_cross_attention"]
+        if not e["ranks_agree"] or e["launches"] != [want, want]:
+            raise AssertionError(f"{name}: ranks disagree or launches {e['launches']} "
+                                 f"(want {want} on each rank)")
+        if dtype == "float32" and (e["loss_rel"] > DIST_F32_LOSS_REL
+                                   or e["grad_rel"] > DIST_F32_GRAD_REL):
+            raise AssertionError(f"{name}: the step disagrees with the single-process step "
+                                 f"(loss {e['loss_rel']:.3e} > {DIST_F32_LOSS_REL:.0e} or "
+                                 f"gradients {e['grad_rel']:.3e} > {DIST_F32_GRAD_REL:.0e})")
+        if not math.isfinite(e["loss"]) or not math.isfinite(e["grad_rel"]):
+            raise AssertionError(f"{name}: non-finite loss or gradients")
+        if e["heads"] != ([6, 8] if shape == (1, 2) else [12, 16]):
+            raise AssertionError(f"{name}: attention heads a rank {e['heads']}")
+    if errs["zero1"]["slot_bytes"] != [errs["dp"]["slot_bytes"][0] // 2] * 2:
+        raise AssertionError(f"ZeRO-1: mu+nu bytes a rank {errs['zero1']['slot_bytes']}, "
+                             f"want half of DP's {errs['dp']['slot_bytes']}")
+    errs["seconds"] = time.perf_counter() - t0
+    return errs
+
+
+def mesh_engine_check(torch, np):
+    """DUSt3R-224 serving over the mesh [cuda:0, cuda:0] against the
+    one-device engine on the same weights (phase 10)."""
+    from thermal3d_torch.core.config import DUSTR_224_LINEAR
+    from thermal3d_torch.core.mesh import make_mesh
+    from thermal3d_torch.infer.engine import InferenceEngine
+
+    mesh = make_mesh((MESH2,), ("data",), devices=[torch.device("cuda", 0)] * MESH2)
+    cfg = dataclasses.replace(DUSTR_224_LINEAR, compute_dtype="bfloat16")
+    single = InferenceEngine(cfg, params_dtype="bfloat16", seed=0)
+    weights = single.model.state_dict()
+    meshed = InferenceEngine(cfg, state_dict=weights, params_dtype="bfloat16", mesh=mesh)
+    frames = [raw_frames(np, seed) for seed in range(N_BATCHES)]
+    for eng in (single, meshed):
+        check_outputs(eng.infer(frames[0]), np)  # warm-up
+    torch.cuda.synchronize()
+
+    def serve(eng):
+        def run():
+            t0 = time.perf_counter()
+            outs = [eng.infer(f) for f in frames]
+            return outs, time.perf_counter() - t0
+        return run
+
+    def serve_async(eng):
+        t0 = time.perf_counter()
+        for f in frames:
+            eng.infer_async(f)
+        torch.cuda.synchronize()
+        return BATCH * N_BATCHES / (time.perf_counter() - t0)
+
+    n = N_BATCHES
+    per = {"fused_rope_attention": 40, "fused_rope_cross_attention": 16, "rope_attention_tc": 56}
+    fps, fps_dev, launches, outs = {}, {}, {}, {}
+    for name, eng, chunks in (("single", single, 1), ("mesh", meshed, MESH2),
+                              ("mesh_again", meshed, MESH2), ("single_again", single, 1)):
+        want = {k: v * chunks * n for k, v in per.items()}
+        want["percentile_enhance"] = chunks * n
+        (out, el), launches[name] = run_counted(serve(eng), want)
+        fps[name] = BATCH * n / el
+        fps_dev[name] = serve_async(eng)
+        outs.setdefault(name.split("_")[0], out)
+    for out in outs["mesh"]:
+        check_outputs(out, np)
+    gold = InferenceEngine(DUSTR_224_LINEAR, state_dict=weights)  # float32, the same weights
+    gold_mesh = InferenceEngine(DUSTR_224_LINEAR, state_dict=weights, mesh=mesh)
+    want32 = {"percentile_enhance": MESH2, "fused_rope_attention": 40 * MESH2,
+              "fused_rope_cross_attention": 16 * MESH2}
+    f32_mesh, f32_launches = run_counted(lambda: gold_mesh.infer(frames[0]), want32)
+    f32 = gold.infer(frames[0])
+    f32_err = {k: rel_err(f32_mesh[k], f32[k], np) for k in f32}
+    bf16_err = {k: rel_err(outs["mesh"][0][k], outs["single"][0][k], np) for k in f32}
+    noise = {k: rel_err(outs["single"][0][k], f32[k], np) for k in f32}
+    mesh_vs_f32 = {k: rel_err(outs["mesh"][0][k], f32[k], np) for k in f32}
+    log(f"mesh engine (2 positions on cuda:0): infer() {fps['mesh']:.2f} / "
+        f"{fps['mesh_again']:.2f} frames/s, infer_async {fps_dev['mesh']:.2f} / "
+        f"{fps_dev['mesh_again']:.2f}; one-device engine {fps['single']:.2f} / "
+        f"{fps['single_again']:.2f}, infer_async {fps_dev['single']:.2f} / "
+        f"{fps_dev['single_again']:.2f} (in turns); launches {launches['mesh']}")
+    log(f"  float32 mesh vs one device, max|Δ|/max|ref|: {f32_err} (limit "
+        f"{F32_ENGINE_REL_LIMIT}); launches {f32_launches}")
+    log(f"  bf16 mesh vs one device: {bf16_err} (limit {BF16_ENGINE_REL_LIMIT}); vs float32: "
+        f"mesh {mesh_vs_f32}, one device {noise} (limit: mesh <= {BF16_NOISE_FACTOR} x one "
+        f"device + 1e-3)")
+    if max(f32_err.values()) > F32_ENGINE_REL_LIMIT or max(bf16_err.values()) > \
+            BF16_ENGINE_REL_LIMIT or any(mesh_vs_f32[k] > BF16_NOISE_FACTOR * noise[k] + 1e-3
+                                         for k in f32):
+        raise AssertionError("the mesh engine disagrees with the one-device engine")
+    del single, meshed, gold, gold_mesh
+    torch.cuda.empty_cache()
+    return dict(fps=fps, fps_device=fps_dev, launches=launches, f32_launches=f32_launches,
+                f32_rel_err=f32_err, bf16_rel_err=bf16_err, bf16_mesh_vs_f32=mesh_vs_f32,
+                bf16_single_vs_f32=noise, batch=BATCH, n_batches=N_BATCHES, positions=MESH2)
+
+
+def mesh_generator_check(torch, np, root: str):
+    """MASt3R-512 pseudo-GT over the mesh [cuda:0, cuda:0] against run_pairs
+    on one device, and generate_pseudo_gt on the mesh (phase 10)."""
+    import os
+    import shutil
+
+    from thermal3d_torch.core.config import MASTR_512_CATMLPDPT
+    from thermal3d_torch.core.mesh import make_mesh
+    from thermal3d_torch.data.freiburg import build_rgb_pair_index
+    from thermal3d_torch.pseudo_gt.generator import (OUTPUT_DIRS, PseudoGTGenerator,
+                                                     decode_rgb_pairs, generate_pseudo_gt,
+                                                     pad_batch)
+
+    mesh = make_mesh((MESH2,), ("data",), devices=[torch.device("cuda", 0)] * MESH2)
+    pcfg = dataclasses.replace(MASTR_512_CATMLPDPT, compute_dtype="bfloat16")
+    single = PseudoGTGenerator(pcfg, params_dtype="bfloat16", seed=0)
+    weights = single.model.state_dict()
+    meshed = PseudoGTGenerator(pcfg, state_dict=weights, params_dtype="bfloat16", mesh=mesh)
+    rgb1, rgb2 = rgb_pairs(np, 0)
+    for gen in (single, meshed):
+        check_pgt_outputs(gen.run_pairs(rgb1, rgb2), np)  # warm-up
+    torch.cuda.synchronize()
+    n = N_PAIR_BATCHES
+    pps, launches, outs = {}, {}, {}
+    for name, gen, chunks in (("single", single, 1), ("mesh", meshed, MESH2)):
+        def run(gen=gen):
+            t0 = time.perf_counter()
+            out = [gen.run_pairs(rgb1, rgb2) for _ in range(n)]
+            return out, time.perf_counter() - t0
+        (out, el), launches[name] = run_counted(run, {
+            "fused_rope_attention": 48 * chunks * n, "fused_rope_cross_attention": 24 * chunks * n,
+            "rope_attention_tc": 72 * chunks * n})
+        pps[name] = PAIR_BATCH * n / el
+        outs[name] = out[0]
+    check_pgt_outputs(outs["mesh"], np)
+    f32_cfg = MASTR_512_CATMLPDPT
+    gold = PseudoGTGenerator(f32_cfg, state_dict=weights).run_pairs(rgb1, rgb2)
+    gold_mesh = PseudoGTGenerator(f32_cfg, state_dict=weights, mesh=mesh).run_pairs(rgb1, rgb2)
+    f32_err = {k: rel_err(gold_mesh[k], gold[k], np) for k in PGT_KEYS}
+    noise = {k: rel_err(outs["single"][k], gold[k], np) for k in PGT_KEYS}
+    mesh_vs_f32 = {k: rel_err(outs["mesh"][k], gold[k], np) for k in PGT_KEYS}
+    log(f"mesh generator (2 positions on cuda:0): {pps['mesh']:.3f} pairs/s, one device "
+        f"{pps['single']:.3f}; launches {launches['mesh']}")
+    log(f"  float32 mesh vs one device: {f32_err} (limit {F32_ENGINE_REL_LIMIT}); bf16 vs "
+        f"float32: mesh {mesh_vs_f32}, one device {noise} (limit: mesh <= "
+        f"{BF16_NOISE_FACTOR} x one device + 1e-3)")
+    if max(f32_err.values()) > F32_ENGINE_REL_LIMIT or any(
+            mesh_vs_f32[k] > BF16_NOISE_FACTOR * noise[k] + 1e-3 for k in PGT_KEYS):
+        raise AssertionError("the mesh generator disagrees with the one-device generator")
+
+    # generate_pseudo_gt on the mesh: every file equal to the mesh's run_pairs
+    pairs = build_rgb_pair_index(os.path.join(root, "ds"), frame_skip=1)
+    n_steps = -(-len(pairs) // PAIR_BATCH)
+    pgt_dir = os.path.join(root, "pseudo_gt_mesh")
+    written, files_launches = run_counted(lambda: generate_pseudo_gt(pairs, pgt_dir, meshed), {
+        "fused_rope_attention": 48 * MESH2 * n_steps,
+        "fused_rope_cross_attention": 24 * MESH2 * n_steps,
+        "rope_attention_tc": 72 * MESH2 * n_steps})
+    for i in range(0, len(pairs), PAIR_BATCH):
+        r1, r2, kept = decode_rgb_pairs(pairs[i:i + PAIR_BATCH], pcfg.img_size)
+        ref = meshed.run_pairs(pad_batch(r1, PAIR_BATCH), pad_batch(r2, PAIR_BATCH))
+        for j, pr in enumerate(kept):
+            b1, b2 = (os.path.basename(pr[k])[:-4] for k in ("rgb_path1", "rgb_path2"))
+            for d in OUTPUT_DIRS:
+                name = {"depth1": b1, "depth2": b2}.get(d, f"{b1}_{b2}")
+                if not np.array_equal(np.load(os.path.join(pgt_dir, d, f"{name}.npy")),
+                                      ref[d][j], equal_nan=True):
+                    raise AssertionError(f"mesh generate_pseudo_gt {d}/{name} differs")
+    if not os.path.isdir(os.path.join(root, "pseudo_gt")):  # --only-multi-gpu: no phase 6
+        shutil.copytree(pgt_dir, os.path.join(root, "pseudo_gt"))
+    log(f"  mesh generate_pseudo_gt: {written} pairs, every file equal to the mesh's "
+        f"run_pairs; launches {files_launches}")
+    del single, meshed
+    torch.cuda.empty_cache()
+    return dict(pairs_per_s=pps, launches=launches, f32_rel_err=f32_err,
+                bf16_mesh_vs_f32=mesh_vs_f32, bf16_single_vs_f32=noise,
+                generate_pseudo_gt=dict(pairs=written, launches=files_launches))
+
+
+def ndev_cli_check(torch, np, root: str):
+    """cli.infer --ndev 2 on a one-card host is the parser error naming the
+    device count; --ndev 1 writes the plain CLI's files, bit for bit."""
+    import contextlib
+    import glob
+    import io
+    import os
+    import shutil
+
+    from thermal3d_torch.cli import infer as cli_infer
+
+    frames = os.path.join(root, "mg_frames")
+    os.makedirs(frames, exist_ok=True)
+    paths = sorted(glob.glob(os.path.join(root, "thermal", "*.png")))
+    for p in [p for i, p in enumerate(paths) if i != CORRUPT_AT][:N_FIRE]:
+        shutil.copy(p, frames)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        code2, _, _ = _cli_out(cli_infer.main, ["--img_path", frames, "--no_vis", "--ndev", "2",
+                                                "--output_dir", os.path.join(root, "mg_n2")])
+    message = err.getvalue().strip().splitlines()[-1]
+    log(f"cli.infer --ndev 2: exit {code2}, {message}")
+    if code2 != 2 or not message.endswith("--ndev=2 but only 1 devices available"):
+        raise AssertionError("cli.infer --ndev 2 on one card is not the parser error")
+    outs = {}
+    for tag, extra in (("plain", []), ("ndev1", ["--ndev", "1"])):
+        outs[tag] = os.path.join(root, f"mg_{tag}")
+        code, _, _ = _cli_out(cli_infer.main, ["--img_path", frames, "--no_vis", "--output_dir",
+                                               outs[tag], *extra])
+        if code != 0:
+            raise AssertionError(f"cli.infer {extra}: exit {code}")
+    files = sorted(os.listdir(outs["plain"]))
+    if len(files) != N_FIRE or files != sorted(os.listdir(outs["ndev1"])) or not all(
+            np.array_equal(np.load(os.path.join(outs["plain"], f)),
+                           np.load(os.path.join(outs["ndev1"], f))) for f in files):
+        raise AssertionError("cli.infer --ndev 1 differs from the plain CLI")
+    log(f"cli.infer --ndev 1: {len(files)} depth files bit-equal to the plain CLI's")
+    return dict(ndev2_exit=code2, ndev2_error=message, ndev1_files_equal=len(files))
+
+
+def nccl_train_check(torch, np, root: str):
+    """cli.train --mesh_shape 1 --zero1 in a subprocess launched as torchrun
+    launches it (an NCCL group of world 1): 2 epochs on phase 6's tree and
+    its pseudo-GT, resumed to a third, then cli.infer --weights from its
+    checkpoint directory, bit-equal to an engine on the checkpoint's
+    weights."""
+    import os
+    import socket
+
+    from thermal3d_torch.cli import infer as cli_infer
+    from thermal3d_torch.core.config import DUSTR_224_LINEAR
+    from thermal3d_torch.infer.engine import InferenceEngine
+    from thermal3d_torch.models.dustr import trainable_model
+    from thermal3d_torch.train.checkpoint import load_params_from_checkpoint_dir
+
+    weights = os.path.join(root, "mg_init.pth")
+    model = trainable_model(dataclasses.replace(DUSTR_224_LINEAR, compute_dtype="bfloat16"),
+                            torch.device("cpu"), seed=1)
+    torch.save({"state_dict": {k: v.to(torch.bfloat16) for k, v in model.state_dict().items()}},
+               weights)
+    del model
+    ckpt = os.path.join(root, "mg_ckpt")
+    args = ["--dataset_dir", os.path.join(root, "ds"), "--pseudo_gt_dir",
+            os.path.join(root, "pseudo_gt"), "--weights", weights, "--output_model", ckpt,
+            "--max_batches", "2", "--use_thermal_aware_loss", "--multi_scale", "--frame_skip",
+            "1", "--log_interval", "1", "--lr", "5e-5", "--mesh_shape", "1", "--zero1"]
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def run(extra):
+        sock = socket.socket()
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "thermal3d_torch.cli.train", *args, *extra],
+                             cwd=here, env=env, capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"cli.train {extra}: exit {res.returncode}\n{res.stderr[-3000:]}")
+        lines = res.stdout.splitlines()
+        group = [x for x in lines if "process group" in x]
+        done = [x for x in lines if x.startswith("Training done: ")]
+        epochs = sorted({int(json.loads(x)["epoch"]) for x in lines
+                         if x.startswith("{") and "epoch" in json.loads(x)})
+        summary = eval(done[0].split(": ", 1)[1], {"inf": math.inf}) if done else None
+        return group, summary, epochs, time.perf_counter() - t0
+
+    group, first, _, s1 = run(["--epochs", "2"])
+    group2, resumed, epochs, s2 = run(["--epochs", "3", "--resume"])
+    log(f"cli.train --mesh_shape 1 --zero1 (torchrun variables, one process): {group}; "
+        f"2 epochs {first} in {s1:.1f} s; resumed {resumed} in {s2:.1f} s, epochs logged {epochs}")
+    if not group or "nccl, world 1" not in group[0] or first is None or resumed is None or \
+            (first["epochs_run"], first["final_step"]) != (2, 2) or \
+            (resumed["epochs_run"], resumed["final_step"]) != (3, 3) or epochs != [3]:
+        raise AssertionError(f"cli.train over NCCL: {group}, {first}, {resumed}, {epochs}")
+    frames = os.path.join(root, "mg_frames")
+    inf_dir = os.path.join(root, "mg_train_infer")
+    cli_infer.main(["--img_path", frames, "--output_dir", inf_dir, "--no_vis", "--weights", ckpt])
+    state_dict, meta = load_params_from_checkpoint_dir(ckpt)
+    eng = InferenceEngine(dataclasses.replace(DUSTR_224_LINEAR, compute_dtype="bfloat16"),
+                          state_dict=state_dict)
+    paths = sorted(os.path.join(frames, f) for f in os.listdir(frames))
+    ref = eng.infer_paths(paths, batch_size=36, outputs=("depth",))
+    for i, path in enumerate(ref["paths"]):
+        got = np.load(os.path.join(inf_dir, os.path.basename(path)[:-4] + "_depth.npy"))
+        if not np.array_equal(got, ref["depth"][i]):
+            raise AssertionError(f"cli.infer --weights {ckpt}: {path} differs from the engine")
+    log(f"cli.infer --weights <its checkpoint>: {len(ref['paths'])} depth maps bit-equal to an "
+        f"engine on the checkpoint's weights (epoch {meta['epoch']})")
+    del eng
+    torch.cuda.empty_cache()
+    return dict(process_group=group[0], first=first, resumed=resumed, epochs_logged=epochs,
+                seconds=[s1, s2], cli_infer_files=len(ref["paths"]))
+
+
+def phase_multi_gpu(torch, np, root: str):
+    """Phase 10 (see the module docstring and the comment above MESH2)."""
+    from thermal3d_torch.core.collectives import STAGED
+
+    t_phase = time.perf_counter()
+    res = dict(engine=mesh_engine_check(torch, np),
+               generator=mesh_generator_check(torch, np, root),
+               cli_infer_ndev=ndev_cli_check(torch, np, root),
+               cli_train_nccl=nccl_train_check(torch, np, root),
+               gloo_2rank=dist_check(torch, np, root))
+    res["staged_in_this_process"] = dict(STAGED)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"multi-GPU phase: {res['seconds']:.1f} s")
+    return res
+
+
+def tp_attention_cases(torch):
+    """K2/K3 at the shapes a tensor-parallel rank gives them in phase 10
+    (tp=2: 8 of the encoder's 16 heads, 6 of the decoder's 12): K2 packed
+    [2B,196,1536] H8 (the encoder runs both views at once) and [B,196,1152]
+    H6, K3 [B,196,384] H6, B = TRAIN_BATCH."""
+    k2 = attention_cases(torch, cross=False, batch=2 * TRAIN_BATCH, widths=[(512, 8)])
+    k2 += attention_cases(torch, cross=False, batch=TRAIN_BATCH, widths=[(384, 6)])
+    k3 = attention_cases(torch, cross=True, batch=TRAIN_BATCH, widths=[(384, 6)])
+    return k2, k3
+
+
 def compare_k2k3(torch, other_csrc: str) -> bool:
     """Build OTHER_CSRC/rope_attention_tc.cu with this checkout's nvcc flags
     and launch it and this checkout's build through the same wrapper on the
@@ -2380,7 +2948,10 @@ def main(argv) -> int:
         print("chip_smoke: CUDA is not available; this script runs on the card only",
               file=sys.stderr)
         return 1
-    if argv and (len(argv) != 2 or argv[0] != "--compare-k2k3"):
+    if argv and argv[0] == "--dist-worker":
+        return dist_worker_main(argv[1:])
+    if argv and not ((len(argv) == 2 and argv[0] == "--compare-k2k3")
+                     or argv == ["--only-multi-gpu"]):
         print(__doc__, file=sys.stderr)
         return 2
     import numpy as np
@@ -2388,11 +2959,20 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 means float32 here
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    if argv:
+    if argv and argv[0] == "--compare-k2k3":
         log(card)
         return 0 if compare_k2k3(torch, argv[1]) else 1
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     phase_build()
+    if argv:  # --only-multi-gpu
+        log("K2/K3 at the tensor-parallel shapes (tp=2):")
+        tp_attention_cases(torch)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mg_") as root:
+            write_tree(np, root)
+            multi_gpu = phase_multi_gpu(torch, np, root)
+        print(card, flush=True)
+        print(json.dumps({"multi_gpu": multi_gpu}, default=float), flush=True)
+        return 0
 
     log("kernels vs plain versions at the serving shapes:")
     k1 = k1_cases(torch)
@@ -2403,6 +2983,8 @@ def main(argv) -> int:
     k2 += attention_cases(torch, cross=False, batch=2 * PAIR_BATCH, widths=[(1024, 16)], **mastr)
     k2 += attention_cases(torch, cross=False, batch=PAIR_BATCH, widths=[(768, 12)], **mastr)
     k3 += attention_cases(torch, cross=True, batch=PAIR_BATCH, **mastr)
+    log("K2/K3 at the tensor-parallel shapes of phase 10 (tp=2: 8 and 6 heads):")
+    k2_tp, k3_tp = tp_attention_cases(torch)
     log("K2/K3 bf16 at head_dim 32 (the CUDA-core one-shot and key-tile kernels):")
     d32 = dict(widths=[(512, 16)], dtypes=("bfloat16",))
     for kw in (dict(), dict(batch=PAIR_BATCH, **mastr)):
@@ -2420,6 +3002,7 @@ def main(argv) -> int:
         training = phase_training(torch, np, root)
         fire = phase_fire(torch, np, card, root)
         int8 = phase_int8(torch, np, root)
+        multi_gpu = phase_multi_gpu(torch, np, root)
 
     # launches on each path's own run; `launches` is this slice's main path
     # (pseudo-GT) for K2-K6, the serving path for K1
@@ -2442,6 +3025,11 @@ def main(argv) -> int:
                          *((f"int8_engine_{name}", int8["engine"][name]["launches"])
                            for name, _ in INT8_CONFIGS),
                          ("int8_generator", int8["generator"]["launches"]),
+                         ("multi_gpu_engine", multi_gpu["engine"]["launches"]["mesh"]),
+                         ("multi_gpu_generator", multi_gpu["generator"]["launches"]["mesh"]),
+                         *((f"multi_gpu_gloo_{name}_rank0", e["launches"][0])
+                           for name, e in multi_gpu["gloo_2rank"].items()
+                           if isinstance(e, dict)),
                          *((f"int8_{k}", int8["files"][k]["launches"])
                            for k in ("cli_infer_int8_static", "cli_pseudo_gt_int8_test_set"))):
         for name, count in counts.items():
@@ -2464,6 +3052,8 @@ def main(argv) -> int:
                     plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
                     library_ms=m["library_ms"], main_case=m, cases=cases)
 
+    k2 += k2_tp  # after the cases the entries' main_case indices name
+    k3 += k3_tp
     fa_src = "thermal3d/kernels/flash_attention.py"
     attn_src = "thermal3d_torch/kernels/csrc/attention_tc.cu"
     kernels = [
@@ -2491,6 +3081,7 @@ def main(argv) -> int:
     print(json.dumps({"fire": fire}), flush=True)
     print(json.dumps({"int8": dict(int8, int_mm_launches_by_path=by_path["int_mm"])},
                      default=float), flush=True)
+    print(json.dumps({"multi_gpu": multi_gpu}, default=float), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -125,12 +125,24 @@ def test_unported_config_raises(field, value):
         InferenceEngine(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}])
+def _mesh_over_processes():
+    """A one-rank mesh over processes (core.mesh), which serving refuses."""
+    from thermal3d_torch.core.mesh import Mesh
+
+    devices = np.empty(1, dtype=object)
+    devices[0] = torch.device("cpu")
+    return Mesh(devices, ("data",), ranks=np.arange(1))
+
+
+@pytest.mark.parametrize("kw", [{"mesh": "over_processes"}])
 def test_unported_engine_modes_raise(kw):
+    """Data-parallel serving takes a single-controller mesh (one process, a
+    replica a device; tests/test_torch_mesh.py); a mesh over processes, the
+    training kind, is refused (ValueError)."""
     from thermal3d_torch.core.config import TINY
 
-    with pytest.raises(NotImplementedError):
-        InferenceEngine(TINY, device="cpu", **kw)
+    with pytest.raises(ValueError, match="single-controller"):
+        InferenceEngine(TINY, device="cpu", mesh=_mesh_over_processes())
 
 
 def test_int8_engine_serves_on_cpu():

@@ -478,8 +478,10 @@ def test_cli_evaluate_matches_jax(data, tmp_path):
 def test_cli_unported_options_are_parser_errors(cli, argv, capsys):
     """Options the port does not run yet stop at the parser, naming their
     ROADMAP item, before any model is built; so do --int8_static_acts and
-    --int8_equalize without --int8, as in the JAX CLIs (the live --int8
-    modes are held in tests/test_torch_quant.py)."""
+    --int8_equalize without --int8, and --ndev > 1 with the fire modes or
+    more devices than the host has (here the JAX CLIs' texts: the live
+    --ndev runs are in tests/test_torch_mesh.py), as in the JAX CLIs (the
+    live --int8 modes are held in tests/test_torch_quant.py)."""
     import importlib
 
     main = importlib.import_module(f"thermal3d_torch.cli.{cli}").main
@@ -487,7 +489,9 @@ def test_cli_unported_options_are_parser_errors(cli, argv, capsys):
         main(argv)
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert "ROADMAP" in err or "--shard_id" in err or "require --int8" in err
+    assert ("ROADMAP" in err or "--shard_id" in err or "require --int8" in err
+            or "supports only the directory-batch monocular path" in err
+            or "devices available" in err)
 
 
 def test_stereo_cli_matches_engine(data, tmp_path):

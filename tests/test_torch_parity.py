@@ -161,7 +161,8 @@ def test_cli_unported_flags_are_parser_errors(capsys):
                  ["--ours_dir", "o", "--theirs_dir", "o", "--ndev", "2"]):
         with pytest.raises(SystemExit) as e:
             main(argv)
-        assert e.value.code == 2 and "ROADMAP" in capsys.readouterr().err
+        err = capsys.readouterr().err  # --ndev: the JAX parity CLI has none
+        assert e.value.code == 2 and ("ROADMAP" in err or "on one device" in err)
 
 
 @pytest.fixture(scope="module")

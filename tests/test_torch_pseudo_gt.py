@@ -356,11 +356,15 @@ def test_generator_without_cuda_raises(monkeypatch):
         PseudoGTGenerator(cfg)
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}])
+@pytest.mark.parametrize("kw", [{"mesh": "over_processes"}])
 def test_generator_jax_only_options_raise(kw):
+    """Data-parallel generation takes a single-controller mesh
+    (tests/test_torch_mesh.py); a mesh over processes is refused."""
+    from tests.test_torch_engine import _mesh_over_processes
+
     cfg = DustrModelConfig(**TINY_TRUNK, head=HeadConfig(**TINY_HEAD))
-    with pytest.raises(NotImplementedError):
-        PseudoGTGenerator(cfg, device="cpu", **kw)
+    with pytest.raises(ValueError, match="single-controller"):
+        PseudoGTGenerator(cfg, device="cpu", mesh=_mesh_over_processes())
 
 
 @pytest.mark.parametrize("kw", [{"quantize_int8": True}, {"int8_only": ("fc1",)}])

@@ -122,8 +122,12 @@ def test_batch_loader_order_matches_jax(shuffle, drop_last, batched):
 
 
 def test_batch_loader_refuses_several_processes():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        BatchLoader(_Indexed(8, False), batch_size=4, process_id=1, process_count=2)
+    """The process slicing refuses what the JAX loader refuses, with its
+    texts (the slices themselves: tests/test_torch_mesh.py)."""
+    with pytest.raises(ValueError, match="divisible"):
+        BatchLoader(_Indexed(8, False), batch_size=3, process_id=1, process_count=2)
+    with pytest.raises(ValueError, match="out of range"):
+        BatchLoader(_Indexed(8, False), batch_size=4, process_id=2, process_count=2)
 
 
 # --- the Freiburg datasets --------------------------------------------------
@@ -316,7 +320,8 @@ def test_loop_logs_the_reference_metrics(tmp_path):
                              "detail_loss", "learning_rate", "global_step"}
     assert steps[0]["learning_rate"] == pytest.approx(1e-3)  # one epoch: no warmup
     assert any("train_loss" in x for x in lines) and any("val_loss" in x for x in lines)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # a mesh of 2 needs 2 processes (torchrun); this is one
+    with pytest.raises(ValueError, match="torchrun"):
         train_and_evaluate(model, _Samples(4), TrainConfig(mesh_shape=(2,)))
 
 
@@ -368,9 +373,10 @@ def test_cli_train_debug_loading(tree, capsys):
     assert "loaded OK" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flags,item", [(["--mesh_shape", "2"], "item 11"),
-                                        (["--multihost"], "item 11"), (["--zero1"], "item 11"),
-                                        (["--scan_layers"], "item 12"), (["--ndev", "2"], "item 11")])
+@pytest.mark.parametrize("flags,item", [(["--mesh_shape", "2"], "torchrun"),
+                                        (["--multihost"], "THERMAL3D_COORDINATOR"),
+                                        (["--zero1", "--mesh_shape", "1", "2"], "torchrun"),
+                                        (["--scan_layers"], "item 12"), (["--ndev", "2"], "--mesh_shape")])
 def test_cli_train_parser_errors(tree, flags, item, capsys):
     from thermal3d_torch.cli import train as cli_train
 

@@ -12,5 +12,8 @@ Supported so far: DUSt3R-224 monocular serving (`infer.engine.InferenceEngine`,
 (`pseudo_gt.generator`, `pseudo_gt.test_set`), evaluation against pseudo-GT
 depths (`evaluation`), and the infer / pseudo_gt / evaluate CLIs (`cli`).
 PNG files are decoded by the port's own decoder (`native`), without cv2,
-PIL or libpng.
+PIL or libpng. Several cards: serving and pseudo-GT over a device mesh (one
+process, a replica a card) and training over torch.distributed (one process
+a card: data and tensor parallelism, ZeRO-1), in `core/mesh.py` and
+`core/distributed.py`.
 """

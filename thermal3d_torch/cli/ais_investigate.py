@@ -7,7 +7,9 @@ Runs the same frames through the stages of the reference's AIS workflow
 depths and panels under <output_dir>/<stage>/, one strip a frame
 (`{base}_stages.png`: the frame, then every stage's depth on a shared
 scale) and `investigation.md`, the per-stage depth range and patch-grid
-blockiness as numbers.
+blockiness as numbers. --ndev N goes to cli.infer, whose fire-scene stages
+serve one frame a batch: with N > 1 only the 'original' stage may run (a
+parser error otherwise, before any stage runs).
 """
 
 from __future__ import annotations
@@ -85,6 +87,10 @@ def main(argv=None):
 
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.ndev > 1 and any(STAGES[stage] for stage in args.stages):
+        parser.error("--ndev > 1 supports only the directory-batch monocular path "
+                     "(stereo/--fire_scene/--advanced_fire run batch-1 programs): "
+                     "run --stages original")
 
     if os.path.isdir(args.img_path):
         paths = sorted(glob.glob(os.path.join(args.img_path, "*.png")))

@@ -1,6 +1,7 @@
 """Shared CLI helpers (counterpart of thermal3d/cli/common.py): model presets,
-the device flag, and parser errors for the options the port does not run
-yet, each naming its ROADMAP item."""
+the device flag, the --ndev data-parallel mesh (make_dp_mesh), and parser
+errors for the options the port does not run yet, each naming its ROADMAP
+item."""
 
 from __future__ import annotations
 
@@ -34,20 +35,53 @@ def add_preset_flag(parser):
     parser.add_argument("--scan_layers", action="store_true",
                         help="not ported (ROADMAP Queue 1 item 12): a parser error")
     parser.add_argument("--ndev", type=int, default=1,
-                        help="data-parallel devices; only 1 is ported (ROADMAP "
-                             "Queue 1 item 11)")
+                        help="data-parallel serving over N devices: a model replica on "
+                             "each, batches split over a 1-D mesh; batch_size must be a "
+                             "multiple of N (cli.infer, evaluate, pseudo_gt)")
     parser.add_argument("--device", type=str, default=None,
                         help="'cuda' (the default) or 'cpu' for the plain PyTorch path")
     return parser
 
 
 def refuse_unported(parser, args, flags) -> None:
-    """parser.error for each set flag of `flags` ({dest: ROADMAP item}),
-    --scan_layers and --ndev > 1."""
+    """parser.error for each set flag of `flags` ({dest: ROADMAP item}) and
+    --scan_layers."""
     flags = dict(flags, scan_layers="ROADMAP Queue 1 item 12 (scan layouts)")
     for dest, item in flags.items():
         if getattr(args, dest):
             parser.error(f"--{dest} is not ported to thermal3d_torch yet ({item})")
+
+
+def refuse_ndev(parser, args, why: str) -> None:
+    """parser.error for --ndev > 1 on a CLI that serves on one device."""
     if args.ndev > 1:
-        parser.error("--ndev > 1 is not ported to thermal3d_torch yet "
-                     "(ROADMAP Queue 1 item 11, multi-GPU)")
+        parser.error(f"--ndev > 1 does not apply here: {why}")
+
+
+def available_devices(device=None) -> list:
+    """The devices --ndev may take: this host's CUDA cards, or the CPU (one
+    device) when `device` names it."""
+    import torch
+
+    if device is not None and torch.device(device).type == "cpu":
+        return [torch.device("cpu")]
+    if not torch.cuda.is_available():
+        return []
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def make_dp_mesh(ndev: int, batch_size: int, error, device=None):
+    """--ndev for the infer / evaluate / pseudo_gt CLIs: check the batch's
+    divisibility and the device count, then the 1-D 'data' mesh over the
+    first N devices of available_devices(device). None for ndev <= 1.
+    `error` is the parser's .error (exits with usage)."""
+    if ndev <= 1:
+        return None
+    if batch_size % ndev:
+        error(f"--batch_size {batch_size} must be a multiple of --ndev {ndev}")
+    from thermal3d_torch.core.mesh import make_mesh
+
+    devs = available_devices(device)
+    if len(devs) < ndev:
+        error(f"--ndev={ndev} but only {len(devs)} devices available")
+    return make_mesh((ndev,), ("data",), devices=devs[:ndev])

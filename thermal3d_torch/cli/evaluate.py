@@ -2,8 +2,9 @@
 (counterpart of thermal3d/cli/evaluate.py, utils/evaluate_depth_metrics.py:247-401).
 
 The flags are the JAX CLI's; unless --no_vis, each frame also gets its
-`{base}_comparison.png` panel. Not ported yet, and so parser errors naming
-their ROADMAP item: --scan_layers and --ndev > 1.
+`{base}_comparison.png` panel; --ndev N serves over N devices
+(cli/common.py::make_dp_mesh). Not ported yet, and so a parser error naming
+its ROADMAP item: --scan_layers.
 """
 
 from __future__ import annotations
@@ -12,7 +13,8 @@ import argparse
 import glob
 import os
 
-from thermal3d_torch.cli.common import add_preset_flag, apply_preset, refuse_unported
+from thermal3d_torch.cli.common import (add_preset_flag, apply_preset, make_dp_mesh,
+                                        refuse_unported)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -43,11 +45,13 @@ def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
     refuse_unported(parser, args, {})
+    mesh = make_dp_mesh(args.ndev, args.batch_size, parser.error, args.device)
     config = apply_preset(DUSTR_224_LINEAR, args.model_preset, args.img_size,
                           args.compute_dtype)
     state, head_state = (None, None) if args.model is None else load_pth(args.model, config)
     engine = InferenceEngine(config, state_dict=state, thermal_head_state=head_state,
-                             use_thermal_head=not args.no_thermal_model, device=args.device)
+                             use_thermal_head=not args.no_thermal_model, device=args.device,
+                             mesh=mesh)
 
     thermal_paths = sorted(glob.glob(os.path.join(args.thermal_dir, "*.png")))
     if args.num_samples:

@@ -16,7 +16,8 @@ import itertools
 import json
 import os
 
-from thermal3d_torch.cli.common import add_preset_flag, apply_preset, refuse_unported
+from thermal3d_torch.cli.common import (add_preset_flag, apply_preset, refuse_ndev,
+                                        refuse_unported)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -47,6 +48,7 @@ def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
     refuse_unported(parser, args, {})
+    refuse_ndev(parser, args, "its trainings run in this one process, on one device")
     os.makedirs(args.output_dir, exist_ok=True)
     device = resolve_device(args.device)
     model_cfg = apply_preset(DUSTR_224_LINEAR, args.model_preset, args.img_size, "bfloat16")

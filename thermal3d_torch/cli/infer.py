@@ -9,9 +9,12 @@ only with --no_vis); --img_path2 runs one stereo pair; --fire_scene /
 --refine_depth refines every depth map before it is saved; --int8 serves
 with the trunk GEMMs in int8 (kernels/quant.py; --int8_scope,
 --int8_group_size, --int8_equalize, and --int8_static_acts, which calibrates
-static activation scales on the first decodable batch). The flags are the
-JAX CLI's, with its parser errors. Not ported yet, and so parser errors
-naming their ROADMAP item: --scan_layers and --ndev > 1.
+static activation scales on the first decodable batch); --ndev N serves the
+directory batches over N devices (cli/common.py::make_dp_mesh: a model
+replica on each, every batch split over them; the stereo and fire-scene
+modes stay on one device, a parser error as in the JAX CLI). The flags are
+the JAX CLI's, with its parser errors. Not ported yet, and so a parser error
+naming its ROADMAP item: --scan_layers.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ import os
 import numpy as np
 import torch
 
-from thermal3d_torch.cli.common import add_preset_flag, apply_preset, refuse_unported
+from thermal3d_torch.cli.common import (add_preset_flag, apply_preset, make_dp_mesh,
+                                        refuse_unported)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -84,7 +88,12 @@ def main(argv=None):
         parser.error("--int8_equalize/--int8_static_acts require --int8")
     if args.int8_static_acts and args.int8_group_size:
         parser.error("--int8_static_acts is incompatible with --int8_group_size")
+    if args.ndev > 1 and (args.img_path2 or args.fire_scene or args.advanced_fire):
+        # stereo and the fire-scene modes serve one frame a batch
+        parser.error("--ndev > 1 supports only the directory-batch monocular path "
+                     "(stereo/--fire_scene/--advanced_fire run batch-1 programs)")
     refuse_unported(parser, args, {})
+    mesh = make_dp_mesh(args.ndev, args.batch_size, parser.error, args.device)
     base = {"dustr224_linear": DUSTR_224_LINEAR, "dustr512_dpt": DUSTR_512_DPT,
             "mastr512_catmlpdpt": MASTR_512_CATMLPDPT}[args.model_variant]
     if args.img_size is None:
@@ -112,7 +121,7 @@ def main(argv=None):
                              quantize_int8=args.int8, int8_group_size=args.int8_group_size,
                              int8_only=SCOPE_TO_ONLY[args.int8_scope],
                              int8_equalize=args.int8_equalize,
-                             int8_calibration=int8_calibration)
+                             int8_calibration=int8_calibration, mesh=mesh)
     os.makedirs(args.output_dir, exist_ok=True)
 
     if args.img_path2:  # stereo pair mode

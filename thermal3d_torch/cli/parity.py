@@ -20,8 +20,9 @@ Modes (combinable), with the JAX CLI's flags, exit codes and report:
     python -m thermal3d_torch.cli.parity --full-gate --model ckpt.pth \\
         --golden_dir pseudo_gt_test_set/day
 
-Runs on the card unless --device cpu. --scan_layers and --ndev > 1 are
-parser errors (not ported).
+Runs on the card unless --device cpu, on one device: --ndev > 1 is a
+parser error (the JAX CLI has no --ndev), and so is --scan_layers (not
+ported).
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ import argparse
 import dataclasses
 import json
 
-from thermal3d_torch.cli.common import add_preset_flag, apply_preset, refuse_unported
+from thermal3d_torch.cli.common import (add_preset_flag, apply_preset, refuse_ndev,
+                                        refuse_unported)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -267,6 +269,7 @@ def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
     refuse_unported(parser, args, {})
+    refuse_ndev(parser, args, "cli.parity compares on one device")
     # a CI gate must fail loudly on a half-specified comparison: a silently
     # skipped mode would print PASS for a check that never ran
     if bool(args.ours_dir) != bool(args.theirs_dir):

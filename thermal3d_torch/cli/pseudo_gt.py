@@ -5,8 +5,9 @@ and scripts/test_pseudo_gt.py through --test_set).
 The flags are the JAX CLI's, with its parser errors. --int8 runs the trunk
 GEMMs in int8 (kernels/quant.py; --int8_scope, --int8_equalize, and
 --int8_static_acts, which calibrates static activation scales on the first
-batch of pairs that decode). Not ported yet, and so parser errors naming
-their ROADMAP item: --scan_layers and --ndev > 1.
+batch of pairs that decode); --ndev N runs each batch over N devices
+(cli/common.py::make_dp_mesh). Not ported yet, and so a parser error naming
+its ROADMAP item: --scan_layers.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import dataclasses
 
 import numpy as np
 
-from thermal3d_torch.cli.common import add_preset_flag, apply_preset, refuse_unported
+from thermal3d_torch.cli.common import (add_preset_flag, apply_preset, make_dp_mesh,
+                                        refuse_unported)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -71,6 +73,7 @@ def main(argv=None):
     if not 0 <= args.shard_id < args.num_shards:
         parser.error(f"--shard_id {args.shard_id} out of range for "
                      f"--num_shards {args.num_shards}")
+    mesh = make_dp_mesh(args.ndev, args.batch_size, parser.error, args.device)
     config = apply_preset(MASTR_512_CATMLPDPT, args.model_preset, args.img_size,
                           args.compute_dtype)
     if args.dpt_f32:
@@ -100,7 +103,8 @@ def main(argv=None):
             int8_kw["int8_calibration"] = _first_pair_batch(
                 items, config.img_size, args.batch_size, args.test_set, parser)
     gen = PseudoGTGenerator(config, state_dict=state, batch_size=args.batch_size,
-                            calib_file=args.calib_file, device=args.device, **int8_kw)
+                            calib_file=args.calib_file, device=args.device, mesh=mesh,
+                            **int8_kw)
     if args.test_set:
         n = generate_test_set_pseudo_gt(items, args.output_dir, gen, max_frames=args.max_pairs)
     else:

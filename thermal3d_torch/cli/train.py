@@ -1,21 +1,38 @@
 """Fine-tune DUSt3R on thermal pairs — `python -m thermal3d_torch.cli.train`
 (counterpart of thermal3d/cli/train.py, train_thermal_dustr.py:25-58).
 
-The JAX CLI's flags plus --device. --weights takes a .pth or a checkpoint
-directory of this CLI; --output_model is such a directory (best/ and last/,
-train/checkpoint.py). Parser errors naming their ROADMAP item: --mesh_shape
-other than [-1] or [1], --multihost, --zero1 (multi-GPU), --scan_layers and
---ndev > 1. --no_wandb is accepted (the port logs to stdout only).
+The JAX CLI's flags plus --device. --weights takes a
+.pth or a checkpoint directory of this CLI; --output_model is such a
+directory (best/ and last/, train/checkpoint.py). --no_wandb is accepted
+(the port logs to stdout only).
+
+Several devices: one process a device (core/distributed.py), launched by
+torchrun, which the CLI detects and joins itself,
+
+    torchrun --nproc_per_node 4 -m thermal3d_torch.cli.train ... --mesh_shape 4
+
+or by --multihost, one launch a process with --coordinator host:port,
+--num_processes (the job's GPUs, not its hosts) and --process_id (or the
+THERMAL3D_COORDINATOR / _NUM_PROCESSES / _PROCESS_ID variables).
+--mesh_shape D lays the processes out as D data-parallel ranks, --mesh_shape
+D T as D × T with Megatron tensor parallelism over T ('data', 'model'),
+--zero1 shards the AdamW moments over 'data'. A mesh that needs more
+processes than the job has is a parser error naming torchrun. NCCL joins
+the processes on the card, gloo on the CPU (--device cpu). Parser errors naming their
+ROADMAP item: --scan_layers; --ndev > 1 is a parser error too (a serving
+flag: training takes --mesh_shape).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
-from thermal3d_torch.cli.common import add_preset_flag, apply_preset, refuse_unported
+from thermal3d_torch.cli.common import (add_preset_flag, apply_preset, refuse_ndev,
+                                        refuse_unported)
 
-MULTI_GPU = "ROADMAP Queue 1 item 11, multi-GPU"
+MESH_AXES = ("data", "model")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -47,42 +64,98 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["float32", "bfloat16"])
     p.add_argument("--mesh_shape", type=int, nargs="*", default=[-1],
-                   help=f"one device only: [-1] or [1] ({MULTI_GPU})")
+                   help="the processes as a mesh: D (data parallel) or D T (T-way "
+                        "tensor parallel); -1 takes the rest of the job's processes")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--no_wandb", action="store_true",
                    help="accepted; the port never logs to wandb")
-    p.add_argument("--zero1", action="store_true", help=f"not ported ({MULTI_GPU})")
+    p.add_argument("--zero1", action="store_true",
+                   help="ZeRO-1: shard the AdamW moments over the data axis (per-rank "
+                        "optimizer memory / data-parallel size; numerics unchanged)")
     p.add_argument("--mu_bf16", action="store_true",
                    help="store the AdamW first moment in bfloat16")
     p.add_argument("--remat", action="store_true",
                    help="recompute each transformer block in the backward pass")
-    p.add_argument("--multihost", action="store_true", help=f"not ported ({MULTI_GPU})")
-    p.add_argument("--coordinator", type=str, default=None, help="multi-host only")
-    p.add_argument("--num_processes", type=int, default=None, help="multi-host only")
-    p.add_argument("--process_id", type=int, default=None, help="multi-host only")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a job of one process a GPU (torch.distributed); the "
+                        "coordinator and rank come from --coordinator / --num_processes / "
+                        "--process_id or the THERMAL3D_COORDINATOR / _NUM_PROCESSES / "
+                        "_PROCESS_ID variables")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="host:port of process 0 (multi-process only)")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="processes in the job, one a GPU (multi-process only)")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="this process's rank (multi-process only)")
     return add_preset_flag(p)
 
 
+def under_torchrun() -> bool:
+    """True in a process that torchrun started (its rendezvous variables)."""
+    return all(k in os.environ for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR"))
+
+
 def parse_args(parser: argparse.ArgumentParser, argv):
-    """Parse and refuse what is not ported (parser errors)."""
+    """Parse and refuse what does not apply (parser errors)."""
     args = parser.parse_args(argv)
-    refuse_unported(parser, args, {"multihost": MULTI_GPU, "zero1": MULTI_GPU})
-    if list(args.mesh_shape) not in ([-1], [1]):
-        parser.error(f"--mesh_shape {args.mesh_shape} is not ported to thermal3d_torch yet "
-                     f"(one device only: [-1] or [1]; {MULTI_GPU})")
+    refuse_unported(parser, args, {})
+    refuse_ndev(parser, args, "training runs one process per device; give --mesh_shape "
+                              "under torchrun (or --multihost)")
+    if not 1 <= len(args.mesh_shape) <= len(MESH_AXES):
+        parser.error(f"--mesh_shape takes 1 or 2 sizes (data, model), got {args.mesh_shape}")
     return args
 
 
+def join_processes(parser: argparse.ArgumentParser, args):
+    """Join the job's process group (torchrun, or --multihost) unless one is
+    up. Returns (rank, world size, this process's device, whether this call
+    initialised the group)."""
+    import torch.distributed as dist
+
+    from thermal3d_torch.core.device import resolve_device
+    from thermal3d_torch.core.distributed import (initialize_multihost, process_device,
+                                                  process_info)
+
+    joined = False
+    if (args.multihost or under_torchrun()) and not dist.is_initialized():
+        try:
+            initialize_multihost(args.coordinator, args.num_processes, args.process_id,
+                                 device=args.device)
+        except ValueError as e:
+            parser.error(str(e))
+        joined = True
+    rank, world = process_info()
+    device = process_device() if dist.is_initialized() else resolve_device(args.device)
+    return rank, world, device, joined
+
+
 def main(argv=None):
+    import torch.distributed as dist
+
+    parser = build_parser()
+    args = parse_args(parser, argv)
+    rank, world, device, joined = join_processes(parser, args)
+    try:
+        return _train(parser, args, rank, world, device)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _train(parser: argparse.ArgumentParser, args, rank: int, world: int, device):
     from thermal3d_torch.convert.from_pth import load_pth
     from thermal3d_torch.core.config import DUSTR_224_LINEAR, LossConfig, TrainConfig
-    from thermal3d_torch.core.device import resolve_device
     from thermal3d_torch.data.freiburg import FreiburgPairDataset
     from thermal3d_torch.models.dustr import trainable_model
     from thermal3d_torch.train.logging import MetricLogger
-    from thermal3d_torch.train.loop import train_and_evaluate
+    from thermal3d_torch.train.loop import train_and_evaluate, training_mesh
 
-    args = parse_args(build_parser(), argv)
+    import torch.distributed as dist
+
+    say = print if rank == 0 else (lambda *a, **k: None)
+    if dist.is_initialized():
+        say(f"[thermal3d_torch] process group: {dist.get_backend()}, world {world}, "
+            f"mesh_shape {args.mesh_shape}{', zero1' if args.zero1 else ''}")
     model_cfg = apply_preset(DUSTR_224_LINEAR, args.model_preset, args.img_size,
                              args.compute_dtype)
     if args.remat:
@@ -95,25 +168,30 @@ def main(argv=None):
         loss=LossConfig(edge_weight=args.edge_weight,
                         smoothness_weight=args.smoothness_weight,
                         detail_weight=args.detail_weight, multi_scale=args.multi_scale),
-        mesh_shape=tuple(args.mesh_shape),
-        mu_dtype="bfloat16" if args.mu_bf16 else None)
+        mesh_shape=tuple(args.mesh_shape), mesh_axes=MESH_AXES[:len(args.mesh_shape)],
+        zero1=args.zero1, mu_dtype="bfloat16" if args.mu_bf16 else None)
+    try:  # a mesh the job's processes cannot fill is a parser error
+        mesh = training_mesh(cfg, device)
+    except ValueError as e:
+        parser.error(str(e))
 
     dataset = FreiburgPairDataset(args.dataset_dir, img_size=tuple(args.img_size),
                                   pseudo_gt_dir=args.pseudo_gt_dir, frame_skip=args.frame_skip)
-    print(f"Created {len(dataset)} validated thermal pairs")
+    say(f"Created {len(dataset)} validated thermal pairs")
     if args.debug_loading is not None:
-        dataset.debug_loading(args.debug_loading)
+        if rank == 0:
+            dataset.debug_loading(args.debug_loading)
         return None
 
     state, _ = load_pth(args.weights, model_cfg)
-    print(f"Loaded {len(state)} tensors from {args.weights}")
-    model = trainable_model(model_cfg, resolve_device(args.device), state)
+    say(f"Loaded {len(state)} tensors from {args.weights}")
+    model = trainable_model(model_cfg, device, state)
     logger = MetricLogger(
         run_name=f"DUSt3R_thermal_ft_ep{args.epochs}_bs{args.batch_size}_lr{args.lr}",
         config=vars(args), use_wandb=not args.no_wandb)
     summary = train_and_evaluate(model, dataset, cfg, checkpoint_dir=args.output_model,
-                                 logger=logger, resume=args.resume)
-    print(f"Training done: {summary}")
+                                 logger=logger, resume=args.resume, mesh=mesh)
+    say(f"Training done: {summary}")
     logger.finish()
     return summary
 

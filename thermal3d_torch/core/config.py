@@ -4,8 +4,7 @@ Field names and defaults mirror the JAX dataclasses, so a JAX config and a
 port config built from the same keywords describe the same network, loss and
 training run. Only fields that the port reads are kept. The layouts the
 port does not run yet (`scan_layers`, `branch_batch`) are fields so that
-asking for them raises instead of being ignored; so are the TPU mesh options
-of `TrainConfig`.
+asking for them raises instead of being ignored.
 """
 
 from __future__ import annotations
@@ -173,7 +172,10 @@ class TrainConfig:
     val_fraction: float = 0.2  # 0.8/0.2 random split
     log_interval: int = 100
     max_batches: Optional[int] = None  # quick-test cap
-    # sharding: only the one-device mesh is ported (ROADMAP Queue 1 item 11)
+    # the process mesh of training (core/mesh.py, train/loop.py): one
+    # process a device; 'data' is data parallelism, 'model' Megatron tensor
+    # parallelism; zero1 shards the AdamW moments over 'data'
     mesh_shape: Tuple[int, ...] = (-1,)
+    mesh_axes: Tuple[str, ...] = ("data",)
     zero1: bool = False
 

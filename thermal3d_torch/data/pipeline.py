@@ -179,18 +179,23 @@ class BatchLoader:
     dropped with drop_last. A dataset with `get_batch(idxs)` loads a batch in
     one call (one decode of all its frames); otherwise samples come from
     __getitem__ on the pool. Samples that fail to load (None) are dropped,
-    and with drop_last a batch left short is skipped. Single process only:
-    the multi-process slicing of the JAX loader (process_count > 1) waits
-    for ROADMAP Queue 1 item 11 (multi-GPU).
+    and with drop_last a batch left short is skipped.
+
+    batch_size is the GLOBAL batch size. With process_count > 1 (one
+    process a 'data' position, core/distributed.py) every process computes
+    the same global order and process p loads only rows [p·B/P, (p+1)·B/P)
+    of each global batch, so the union over the processes is the
+    single-process stream. With drop_last=False the final global batch may
+    be partial: every process's slice is then padded to B/P rows with a
+    valid index, so all processes yield the same number of batches (their
+    collective steps stay in lockstep); local_real_count(bi) counts the
+    real rows.
     """
 
     def __init__(self, dataset, indices: Optional[Sequence[int]] = None,
                  batch_size: int = 4, shuffle: bool = True, seed: int = 0,
                  num_workers: int = 4, prefetch: int = 2, drop_last: bool = True,
                  process_id: int = 0, process_count: int = 1):
-        if process_count != 1 or process_id != 0:
-            raise NotImplementedError("BatchLoader over several processes is not ported "
-                                      "(ROADMAP Queue 1 item 11, multi-GPU)")
         self.dataset = dataset
         self.indices = np.asarray(indices if indices is not None else np.arange(len(dataset)))
         self.batch_size = batch_size
@@ -200,14 +205,23 @@ class BatchLoader:
         self.prefetch = prefetch
         self.drop_last = drop_last
         self._epoch = 0
+        if batch_size % process_count:
+            raise ValueError(f"global batch size {batch_size} not divisible by "
+                             f"process_count {process_count}")
+        if not 0 <= process_id < process_count:
+            raise ValueError(f"process_id {process_id} out of range [0, {process_count})")
+        self.process_id = process_id
+        self.process_count = process_count
 
     def __len__(self) -> int:
         n = len(self.indices)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def local_real_count(self, bi: int) -> int:
-        """The number of real samples in batch bi (the last may be short)."""
-        return int(np.clip(len(self.indices) - bi * self.batch_size, 0, self.batch_size))
+        """The real (not padded) rows of this process's slice of batch bi."""
+        bs_local = self.batch_size // self.process_count
+        start = bi * self.batch_size + self.process_id * bs_local
+        return int(np.clip(len(self.indices) - start, 0, bs_local))
 
     def _epoch_order(self) -> np.ndarray:
         if not self.shuffle:
@@ -218,13 +232,21 @@ class BatchLoader:
         order = self._epoch_order()
         self._epoch += 1
         bs = self.batch_size
+        bs_local = bs // self.process_count
+        lo = self.process_id * bs_local
         n_batches = len(self)
         get_batch = getattr(self.dataset, "get_batch", None)
         with cf.ThreadPoolExecutor(self.num_workers) as pool:
             pending: collections.deque = collections.deque()
 
             def submit(bi):
-                idxs = order[bi * bs:(bi + 1) * bs]
+                idxs = order[bi * bs + lo:bi * bs + lo + bs_local]
+                if not self.drop_last and self.process_count > 1 and len(idxs) < bs_local:
+                    # a short final global batch: pad this slice (it may
+                    # hold none of the real rows) so every process yields
+                    # a full-shape batch for every global batch
+                    idxs = np.concatenate([idxs, np.broadcast_to(order[0],
+                                                                 (bs_local - len(idxs),))])
                 if get_batch is not None:
                     pending.append(pool.submit(get_batch, idxs))
                 else:
@@ -240,6 +262,6 @@ class BatchLoader:
                 if next_submit < n_batches:
                     submit(next_submit)
                     next_submit += 1
-                if not samples or (self.drop_last and len(samples) < bs):
+                if not samples or (self.drop_last and len(samples) < bs_local):
                     continue
                 yield {k: np.stack([s[k] for s in samples]) for k in samples[0]}

@@ -4,8 +4,16 @@ The serving path: raw frames [B, h, w] → bilinear resize to the model size →
 p2/p98 percentile enhance (kernel K1) → learnable thermal head → DUSt3R
 (encoder once in monocular mode, dual decoder, linear heads; attention
 through kernels K2/K3) → pointmaps, confidences and depth = pts3d[..., 2].
-Everything runs on one device under torch.inference_mode(); the device is
-CUDA unless the caller names the CPU.
+Everything runs under torch.inference_mode(); the device is CUDA unless the
+caller names the CPU.
+
+Data-parallel serving (`mesh=`, a single-controller core.mesh.Mesh): one
+process holds a replica of the model on each distinct device of the mesh's
+'data' axis (positions that repeat a device share its replica), splits each
+batch into one chunk of B/n rows a position, runs each chunk on its
+position's device (a thread per distinct device, so their launches overlap
+when there are several), and gathers the results on the mesh's first
+device. Each row's arithmetic is the single-device engine's.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ import torch
 
 from thermal3d_torch.core.config import DUSTR_224_LINEAR, DustrModelConfig
 from thermal3d_torch.core.device import resolve_device, to_device
+from thermal3d_torch.core.mesh import mesh_positions, replicate, run_on_mesh
 from thermal3d_torch.data.pipeline import PinnedFetch, PinnedStage, pipelined_batches
 from thermal3d_torch.kernels.quant import quantize_for_serving
 from thermal3d_torch.models.dustr import calibrate_act_absmax, frozen_model
@@ -29,7 +38,8 @@ OUTPUT_KEYS = ("pointmap1", "pointmap2", "confidence1", "confidence2", "depth")
 
 
 class InferenceEngine:
-    """Holds the model on one device and serves batches.
+    """Holds the model (on one device, or a replica a mesh device) and serves
+    batches.
 
     state_dict: torch/dust3r-layout weights (e.g. convert.from_jax); None
     makes seeded random weights (`seed`). thermal_head_state: {'edge_weight',
@@ -48,6 +58,10 @@ class InferenceEngine:
     'int_mm' (torch._int_mm) or 'plain' (float64). The JAX engine's
     pin_attention_for_int8 is TPU policy and not carried over: attention
     keeps config.attention_impl.
+
+    mesh: a single-controller core.mesh.Mesh with a 'data' axis (module
+    docstring); the engine's device is then the mesh's first, and a batch
+    must divide into its 'data' size (ValueError).
     """
 
     def __init__(self, config: DustrModelConfig = DUSTR_224_LINEAR,
@@ -58,11 +72,11 @@ class InferenceEngine:
                  quantize_int8: bool = False, int8_group_size: Optional[int] = None,
                  int8_skip: tuple = (), int8_only: tuple = (), int8_equalize: bool = False,
                  int8_calibration=None, int8_impl: str = "int_mm", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("mesh (data-parallel) serving is not ported")
         if enhance_impl not in ENHANCE_IMPLS:
             raise ValueError(f"enhance_impl {enhance_impl!r} not in {ENHANCE_IMPLS}")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._positions = mesh_positions(mesh)
+        self.device = self._positions[0] if mesh is not None else resolve_device(device)
         self.config = config
         self.enhance_impl = enhance_impl
         self.use_thermal_head = use_thermal_head
@@ -79,6 +93,8 @@ class InferenceEngine:
                 else lambda model: calibrate_act_absmax(model, self._model_input(int8_calibration)),
                 group_size=int8_group_size, skip=int8_skip, only=int8_only,
                 equalize=int8_equalize, impl=int8_impl)
+        self._replicas = replicate(self.device, self._positions,
+                                   (self.model, self.thermal_head))
 
     def _model_input(self, grays) -> torch.Tensor:
         """Raw frames [B, h, w] → the model's input: preprocess, thermal head."""
@@ -100,20 +116,34 @@ class InferenceEngine:
 
     def infer_async(self, img1, img2=None, preprocessed: bool = False
                     ) -> Dict[str, torch.Tensor]:
-        """Like infer() but returns device tensors without waiting for them;
-        img* may also be float32 tensors on the engine's device."""
+        """Like infer() but returns device tensors without waiting for them
+        (on the mesh's first device with a mesh); img* may also be float32
+        tensors on the engine's device."""
+        if self.mesh is None:
+            return self._forward((self.model, self.thermal_head), self.device, img1, img2,
+                                 preprocessed)
+
+        def chunk(device, rows):
+            return self._forward(self._replicas[device], device, img1[rows],
+                                 None if img2 is None else img2[rows], preprocessed)
+
+        return run_on_mesh(self._positions, img1.shape[0], chunk)
+
+    def _forward(self, modules, device, img1, img2, preprocessed: bool
+                 ) -> Dict[str, torch.Tensor]:
+        model, head = modules
         with torch.inference_mode():
-            x1 = to_device(img1, self.device)
-            x2 = None if img2 is None else to_device(img2, self.device)
+            x1 = to_device(img1, device)
+            x2 = None if img2 is None else to_device(img2, device)
             if x1.shape[0] == 0:
                 raise ValueError("infer: empty batch")
             if not preprocessed:
                 x1 = self.preprocess(x1)
                 x2 = None if x2 is None else self.preprocess(x2)
             if self.use_thermal_head:
-                x1 = self.thermal_head(x1)
-                x2 = None if x2 is None else self.thermal_head(x2)
-            pred1, pred2 = self.model(x1, x2)
+                x1 = head(x1)
+                x2 = None if x2 is None else head(x2)
+            pred1, pred2 = model(x1, x2)
             return {
                 "pointmap1": pred1["pts3d"],
                 "pointmap2": pred2["pts3d_in_other_view"],

@@ -46,6 +46,14 @@ HOST_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """wrapper.launches += 1 under a lock: a mesh engine launches a card's
+    chunks from that card's thread (core/mesh.py::run_on_mesh)."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def find_nvcc() -> str:

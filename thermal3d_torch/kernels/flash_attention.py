@@ -103,7 +103,7 @@ def _fused_rope_attention_fwd(qkv, cos, sin, num_heads, scale):
     base = qkv.data_ptr()
     _launch(qkv, base, base + c * es, base + 2 * c * es, three_c, cos, sin, out,
             num_heads, scale, "fused_rope_attention")
-    fused_rope_attention.launches += 1
+    _build.count_launch(fused_rope_attention)
     return out
 
 
@@ -132,7 +132,7 @@ def _fused_rope_cross_attention_fwd(q, k, v, cos, sin, num_heads, scale):
     out = torch.empty((b, s, c), dtype=q.dtype, device=q.device)
     _launch(q, q.data_ptr(), k.data_ptr(), v.data_ptr(), c, cos, sin, out,
             num_heads, scale, "fused_rope_cross_attention")
-    fused_rope_cross_attention.launches += 1
+    _build.count_launch(fused_rope_cross_attention)
     return out
 
 
@@ -230,7 +230,7 @@ def rope_attention_tc(q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads,
     rc = lib.t3d_rope_attention_tc(*ptrs[:3], row_stride, *ptrs[3:], b, s, num_heads,
                                    c // num_heads, float(scale), stream)
     _build.check(lib, rc, f"{what} launch")
-    rope_attention_tc.launches += 1
+    _build.count_launch(rope_attention_tc)
 
 
 rope_attention_tc.launches = 0
@@ -331,7 +331,7 @@ def _softmax_attention_fwd(entry, q, k, v, scale):
     if q.dim() == 3:
         return _softmax_attention_fwd(entry, q[None], k[None], v[None], scale)[0]
     out = _attend(entry.__name__, q, k, v, scale)
-    entry.launches += 1
+    _build.count_launch(entry)
     return out
 
 
@@ -560,7 +560,7 @@ def softmax_attention_tc(q, k, v, out, scale, stream, what="softmax_attention_tc
                                       (ctypes.c_longlong * 12)(*strides), b, h, sq, k.shape[2],
                                       d, float(scale), stream)
     _build.check(lib, rc, f"{what} launch")
-    softmax_attention_tc.launches += 1
+    _build.count_launch(softmax_attention_tc)
 
 
 softmax_attention_tc.launches = 0

@@ -138,7 +138,7 @@ def percentile_enhance(gray: torch.Tensor, lo: float = 2.0,
         gray.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, n, search_target(lo, n),
         search_target(hi, n), torch.cuda.current_stream(gray.device).cuda_stream)
     _build.check(lib, rc, "percentile_enhance launch")
-    percentile_enhance.launches += 1
+    _build.count_launch(percentile_enhance)
     return out
 
 

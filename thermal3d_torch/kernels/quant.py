@@ -48,6 +48,8 @@ from typing import Collection, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from thermal3d_torch.kernels import _build
+
 # named --int8_scope presets → quantize_model_int8(only=...) module-name filters
 SCOPE_TO_ONLY = {"all": (), "mlp": ("fc1", "fc2"), "fc1": ("fc1",)}
 INT8_IMPLS = ("int_mm", "plain")
@@ -71,7 +73,7 @@ def int_mm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     m, k = xq.shape
     if xq.is_cuda:
         check_int_mm_shape(m, k, wq.shape[0])
-    int_mm.launches += 1
+    _build.count_launch(int_mm)
     return torch._int_mm(xq, wq.t())
 
 

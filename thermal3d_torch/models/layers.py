@@ -16,6 +16,15 @@ kernels/flash_attention.py, by `attention_impl`: 'auto' or 'pallas_fused[N]'
 the fused RoPE kernels K2/K3; 'pallas' / 'pallas_grouped[N]' /
 'pallas_multihead' RoPE on the [B,S,H,D] heads (apply_rope_2d_bshd), then K4
 / K5 / K6; 'torch' the plain version of K2/K3.
+
+Tensor parallelism (core/mesh.py::shard_model_): once a model is sharded,
+`tp_group` of each Attention, CrossAttention and Mlp is the 'model' process
+group, and the module holds this rank's share: its input passes
+copy_to_model_parallel (identity forward, all-reduce backward), the column-
+split projections give this rank's H/tp heads (the packed qkv split by
+heads) or hidden features, the row-split proj / fc2 multiply without their
+bias, reduce_from_model_parallel sums the parts over the group, and the bias
+is added once after the sum (core/collectives.py, Megatron's recipe).
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from thermal3d_torch.core.collectives import copy_to_model_parallel, reduce_from_model_parallel
 from thermal3d_torch.core.device import exact_float32_convs
 from thermal3d_torch.kernels.flash_attention import (
     attention_bshd, check_attention_impl, fused_rope_attention, fused_rope_attention_plain,
@@ -111,9 +121,22 @@ class Mlp(nn.Module):
         # exact erf GELU in float32; the tanh form in bfloat16, as the JAX
         # model does (its error is below bfloat16's rounding)
         self.approximate = "tanh" if dtype == torch.bfloat16 else "none"
+        self.tp_group = None
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+        x = copy_to_model_parallel(x, self.tp_group)
+        return row_parallel(self.fc2, F.gelu(self.fc1(x), approximate=self.approximate),
+                            self.tp_group)
+
+
+def row_parallel(dense: Dense, x: torch.Tensor, group) -> torch.Tensor:
+    """dense(x) for a row-split Dense: the partial product of this rank's
+    input features, summed over `group`, then the bias (once). Without a
+    group, dense(x)."""
+    if group is None:
+        return dense(x)
+    y = F.linear(x.to(dense.dtype), dense.weight.to(dense.dtype))
+    return reduce_from_model_parallel(y, group) + dense.bias.to(dense.dtype)
 
 
 def _check_impl(impl: str) -> None:
@@ -146,17 +169,19 @@ class Attention(nn.Module):
         self.num_heads = num_heads
         self.scale = 1.0 / math.sqrt(dim // num_heads)
         self.attention_impl = attention_impl
+        self.tp_group = None
 
     def forward(self, x, rope: Rope):
-        qkv = self.qkv(x)
+        qkv = self.qkv(copy_to_model_parallel(x, self.tp_group))
         impl = self.attention_impl
         if impl == "torch" or is_fused_impl(impl):
             attend = fused_rope_attention_plain if impl == "torch" else fused_rope_attention
-            return self.proj(attend(qkv, rope[0], rope[1], self.num_heads, self.scale))
-        c = qkv.shape[-1] // 3
-        out = _split_attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
-                               self.num_heads, rope, impl)
-        return self.proj(out)
+            out = attend(qkv, rope[0], rope[1], self.num_heads, self.scale)
+        else:
+            c = qkv.shape[-1] // 3
+            out = _split_attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
+                                   self.num_heads, rope, impl)
+        return row_parallel(self.proj, out, self.tp_group)
 
 
 class CrossAttention(nn.Module):
@@ -174,14 +199,19 @@ class CrossAttention(nn.Module):
         self.num_heads = num_heads
         self.scale = 1.0 / math.sqrt(dim // num_heads)
         self.attention_impl = attention_impl
+        self.tp_group = None
 
     def forward(self, x, y, rope: Rope):
+        x = copy_to_model_parallel(x, self.tp_group)
+        y = copy_to_model_parallel(y, self.tp_group)
         q, k, v = self.projq(x), self.projk(y), self.projv(y)
         impl = self.attention_impl
         if impl == "torch" or is_fused_impl(impl):
             attend = rope_attention_plain if impl == "torch" else fused_rope_cross_attention
-            return self.proj(attend(q, k, v, rope[0], rope[1], self.num_heads, self.scale))
-        return self.proj(_split_attention(q, k, v, self.num_heads, rope, impl))
+            out = attend(q, k, v, rope[0], rope[1], self.num_heads, self.scale)
+        else:
+            out = _split_attention(q, k, v, self.num_heads, rope, impl)
+        return row_parallel(self.proj, out, self.tp_group)
 
 
 class EncoderBlock(nn.Module):

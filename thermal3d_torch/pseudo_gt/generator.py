@@ -12,6 +12,10 @@ intrinsics (median focal fit) and the Umeyama relative pose of each pair.
 generate_pseudo_gt runs it over RGB pairs on disk: the port's PNG decoder
 (resize to the model size), pipelined batches, the eight-directory npy
 writer, and with visualize=True the 2×2 panels of the first 10 pairs.
+
+With `mesh=` (a single-controller core.mesh.Mesh) each batch is split over
+the mesh's 'data' positions, a model replica a distinct device, as the
+serving engine does (core/mesh.py::run_on_mesh).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 
 from thermal3d_torch.core.config import MASTR_512_CATMLPDPT, DustrModelConfig
 from thermal3d_torch.core.device import resolve_device, to_device
+from thermal3d_torch.core.mesh import mesh_positions, replicate, run_on_mesh
 from thermal3d_torch.data.pipeline import PinnedFetch, PinnedStage, pipelined_batches
 from thermal3d_torch.geometry.calibration import load_thermal_calibration
 from thermal3d_torch.geometry.intrinsics import estimate_camera_intrinsics
@@ -54,8 +59,9 @@ class PseudoGTGenerator:
     programs with the same numerics; eager PyTorch runs them as separate
     launches anyway, so it changes nothing. quantize_int8 / int8_*: int8
     trunk GEMMs as in the serving engine (kernels/quant.py), the calibration
-    sample an (rgb1, rgb2) pair batch. mesh is not ported and raises
-    NotImplementedError.
+    sample an (rgb1, rgb2) pair batch. mesh: data-parallel generation
+    (module docstring); the generator's device is then the mesh's first, and
+    a batch must divide into its 'data' size (ValueError).
     """
 
     def __init__(self, config: DustrModelConfig = MASTR_512_CATMLPDPT,
@@ -66,9 +72,9 @@ class PseudoGTGenerator:
                  int8_group_size: Optional[int] = None, int8_skip: tuple = (),
                  int8_only: tuple = (), int8_equalize: bool = False,
                  int8_calibration=None, int8_impl: str = "int_mm", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("mesh (data-parallel) generation is not ported")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._positions = mesh_positions(mesh)
+        self.device = self._positions[0] if mesh is not None else resolve_device(device)
         self.config = config
         self.batch_size = batch_size
         self.split_programs = split_programs
@@ -80,6 +86,7 @@ class PseudoGTGenerator:
                     model, *(to_device(r, self.device) for r in int8_calibration)),
                 group_size=int8_group_size, skip=int8_skip, only=int8_only,
                 equalize=int8_equalize, impl=int8_impl)
+        self._replicas = replicate(self.device, self._positions, (self.model,))
 
         self.calib_k = None
         if calib_file and os.path.exists(calib_file):
@@ -104,14 +111,20 @@ class PseudoGTGenerator:
 
     def run_pairs_async(self, rgb1, rgb2) -> Dict[str, torch.Tensor]:
         """rgb*: [B, H, W, 3] in [0, 1] (numpy, or float32 tensors on the
-        generator's device) → the eight pseudo-GT tensors on the device,
-        without waiting for them."""
+        generator's device) → the eight pseudo-GT tensors on the device (the
+        mesh's first), without waiting for them."""
+        if tuple(rgb1.shape) != tuple(rgb2.shape) or rgb1.shape[0] == 0:
+            raise ValueError(f"run_pairs: want two equal non-empty [B,H,W,3] batches, "
+                             f"got {tuple(rgb1.shape)} and {tuple(rgb2.shape)}")
+        if self.mesh is None:
+            return self._step(self.model, self.device, rgb1, rgb2)
+        return run_on_mesh(self._positions, rgb1.shape[0], lambda device, rows: self._step(
+            self._replicas[device][0], device, rgb1[rows], rgb2[rows]))
+
+    def _step(self, model, device, rgb1, rgb2) -> Dict[str, torch.Tensor]:
         with torch.inference_mode():
-            x1, x2 = to_device(rgb1, self.device), to_device(rgb2, self.device)
-            if x1.shape[0] == 0 or x1.shape != x2.shape:
-                raise ValueError(f"run_pairs: want two equal non-empty [B,H,W,3] batches, "
-                                 f"got {tuple(x1.shape)} and {tuple(x2.shape)}")
-            pred1, pred2 = self.model(x1, x2, with_desc=False)
+            x1, x2 = to_device(rgb1, device), to_device(rgb2, device)
+            pred1, pred2 = model(x1, x2, with_desc=False)
             return self._geometry(pred1, pred2)
 
     def run_pairs(self, rgb1: np.ndarray, rgb2: np.ndarray) -> Dict[str, np.ndarray]:

@@ -15,6 +15,15 @@ first, write into a temporary directory and rename it into place, so a step
 directory is complete or absent; when best and last save the same step of
 the same state, the second hard-links the first's tensor files (a ViT-L
 checkpoint is 5.4 GB). Resume priority: last, then best.
+
+Checkpoints do not depend on the world size. On a process mesh
+(`mesh=`, core/mesh.py) every rank takes part in a save, which gathers the
+full, unsharded tensors (tensor-parallel weights over 'model', ZeRO-1
+moments over 'data'), and only the coordinator writes them; every rank
+restores the same files and cuts its own part out of them. So a
+multi-process run resumes on another world size, and its checkpoint is a
+one-device model's (`--weights` of cli.infer). The directory must be one
+that every rank reads.
 """
 
 from __future__ import annotations
@@ -25,6 +34,10 @@ import shutil
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+
+from thermal3d_torch.core.distributed import is_coordinator
+from thermal3d_torch.core.mesh import full_state_dict, load_full_state_dict_
 
 MODEL_FILE, OPTIMIZER_FILE, META_FILE = "model.pt", "optimizer.pt", "meta.json"
 
@@ -60,10 +73,12 @@ class _Policy:
     def __init__(self, root: str, keep: int, by_val: bool):
         self.root, self.keep, self.by_val = root, keep, by_val
 
-    def save(self, step: int, state, val_loss: float, extra: Optional[dict],
+    def save(self, step: int, payload, val_loss: float, extra: Optional[dict],
              link_from: Optional[str] = None) -> str:
-        """Write step `step`; with link_from (a step directory of the same
-        state) hard-link its tensor files instead. Returns the directory."""
+        """Write step `step`: payload, a function that returns the model's
+        state dict and the optimizer's state (full, on the host); with
+        link_from (a step directory of the same state) hard-link its tensor
+        files instead. Returns the directory."""
         meta = {"val_loss": float(val_loss), **(extra or {})}
         tmp = os.path.join(self.root, f".tmp-{step}")
         shutil.rmtree(tmp, ignore_errors=True)
@@ -76,9 +91,8 @@ class _Policy:
             shutil.rmtree(tmp)
             os.makedirs(tmp)
         if link_from is None:
-            opt = _host(state.tx.state_dict())
-            opt["train_step"] = int(state.step)
-            torch.save(_host(state.model.state_dict()), os.path.join(tmp, MODEL_FILE))
+            model_sd, opt = payload()
+            torch.save(model_sd, os.path.join(tmp, MODEL_FILE))
             torch.save(opt, os.path.join(tmp, OPTIMIZER_FILE))
         with open(os.path.join(tmp, META_FILE), "w") as f:
             json.dump(meta, f)
@@ -106,9 +120,19 @@ class _Policy:
         return steps[-1] if steps else None
 
 
+def _full_payload(state, mesh):
+    """(model state dict, optimizer state) of `state`, full and on the host
+    (collective on a process mesh)."""
+    model_sd = full_state_dict(state.model, mesh)
+    opt = _host(state.tx.full_state_dict())
+    opt["train_step"] = int(state.step)
+    return model_sd, opt
+
+
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, mesh=None):
         self.directory = os.path.abspath(directory)
+        self.mesh = mesh if mesh is not None and mesh.over_processes else None
         self._best = _Policy(os.path.join(self.directory, "best"), max_to_keep, by_val=True)
         self._last = _Policy(os.path.join(self.directory, "last"), 1, by_val=False)
         self._written = None  # ((step, state, state.step), directory) of the last save
@@ -116,10 +140,21 @@ class CheckpointManager:
     def _save(self, policy: _Policy, step: int, state, val_loss: float,
               extra: Optional[dict]) -> None:
         key = (step, id(state), int(state.step))
+        if self.mesh is None:
+            self._write(policy, step, key, lambda: _full_payload(state, None), val_loss, extra)
+            return
+        # every rank gathers the full tensors; the coordinator writes them
+        payload = _full_payload(state, self.mesh)
+        if is_coordinator():
+            self._write(policy, step, key, lambda: payload, val_loss, extra)
+        dist.barrier()
+
+    def _write(self, policy: _Policy, step: int, key, payload, val_loss: float,
+               extra: Optional[dict]) -> None:
         source = self._written[1] if self._written and self._written[0] == key else None
         if source is not None and not os.path.isdir(source):
             source = None
-        self._written = (key, policy.save(step, state, val_loss, extra, link_from=source))
+        self._written = (key, policy.save(step, payload, val_loss, extra, link_from=source))
 
     def _policies(self):
         """Resume priority: last (exact), then best."""
@@ -152,7 +187,8 @@ class CheckpointManager:
     def restore(self, state, step: Optional[int] = None) -> Tuple[Optional[object], Optional[Dict]]:
         """Load a checkpoint into `state` (a TrainState) in place: the LAST
         one when present, else the newest best; with `step`, the policy that
-        holds that step. Returns (state, meta), or (None, None) if there is
+        holds that step. On a process mesh each rank cuts its part out of
+        the full tensors. Returns (state, meta), or (None, None) if there is
         none."""
         policy = None
         if step is not None:
@@ -166,13 +202,14 @@ class CheckpointManager:
             step = policy.latest()
         path = os.path.join(policy.root, str(step))
         device = state.params[0].device if state.params else torch.device("cpu")
-        state.model.load_state_dict(
+        load_full_state_dict_(
+            state.model,
             torch.load(os.path.join(path, MODEL_FILE), map_location=device, weights_only=True),
-            strict=True)
+            self.mesh)
         opt = torch.load(os.path.join(path, OPTIMIZER_FILE), map_location=device,
                          weights_only=True)
         state.step = int(opt.pop("train_step"))
-        state.tx.load_state_dict(opt)
+        state.tx.load_full_state_dict(opt)
         return state, _read_meta(policy.root, step)
 
     def close(self) -> None:

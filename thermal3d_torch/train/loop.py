@@ -1,5 +1,5 @@
 """The training loop: epochs, validation, early stopping, checkpoints
-(counterpart of thermal3d/train/loop.py), on one device.
+(counterpart of thermal3d/train/loop.py).
 
 The reference's orchestration: a 0.8/0.2 split, the epoch-stepped schedule,
 the best-on-validation checkpoint beside a rolling last one, early-stop
@@ -8,6 +8,17 @@ device and are fetched once per log_interval window. A resumed run restores
 the model, the optimizer, the step and the loop's epoch, best_val and
 patience; its loaders are built fresh, so their shuffle epoch restarts at 0,
 as the JAX loop's do.
+
+Over processes (core/distributed.py: one process a device, under torchrun or
+cli.train --multihost) every rank runs this loop in lockstep on its mesh
+position (cfg.mesh_shape / cfg.mesh_axes, core/mesh.py): the model is cut to
+its tensor-parallel share, the loaders feed each 'data' position its rows
+of every global batch (the final validation batch padded, its real rows
+counted), the validation sums are all-reduced over 'data' so every rank
+takes the same early-stop and checkpoint decisions, checkpoints gather full
+tensors, and only the coordinator logs. The JAX loop's fallback to the
+largest device count that divides the batch cannot drop processes: an
+indivisible batch raises instead.
 """
 
 from __future__ import annotations
@@ -19,7 +30,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from thermal3d_torch.core import collectives
 from thermal3d_torch.core.config import TrainConfig
+from thermal3d_torch.core.distributed import is_coordinator, process_info
+from thermal3d_torch.core.mesh import Mesh, make_mesh, resolve_shape, shard_model_
 from thermal3d_torch.data.pipeline import BatchLoader, PinnedStage, split_index
 from thermal3d_torch.train.checkpoint import CheckpointManager
 from thermal3d_torch.train.logging import MetricLogger
@@ -27,42 +41,72 @@ from thermal3d_torch.train.state import create_train_state, make_lr_schedule
 from thermal3d_torch.train.step import make_eval_step, make_train_step
 
 SCALAR_KEYS = ("loss", "basic_loss", "edge_loss", "smoothness_loss", "detail_loss")
-MULTI_GPU = "ROADMAP Queue 1 item 11, multi-GPU"
 
 
-def check_single_device(cfg: TrainConfig) -> None:
-    """Raise NotImplementedError for the TPU mesh options of TrainConfig."""
-    if tuple(cfg.mesh_shape) not in ((-1,), (1,)) or cfg.zero1:
-        raise NotImplementedError(f"mesh_shape {tuple(cfg.mesh_shape)} / zero1 are not "
-                                  f"ported: one device only ({MULTI_GPU})")
+def training_mesh(cfg: TrainConfig, device: torch.device) -> Mesh:
+    """The mesh of cfg.mesh_shape / cfg.mesh_axes over the processes of the
+    job (one position a process; a single process without a group: the
+    one-position mesh on `device`). Raises ValueError when the shape does
+    not hold the world's process count: training runs one process per
+    device, so a larger mesh needs torchrun (or --multihost)."""
+    _, world = process_info()
+    shape = resolve_shape(cfg.mesh_shape, world)
+    if len(shape) != len(cfg.mesh_axes):
+        raise ValueError(f"mesh_shape {tuple(cfg.mesh_shape)} has {len(shape)} axes but "
+                         f"mesh_axes names {len(cfg.mesh_axes)}: {tuple(cfg.mesh_axes)}")
+    if int(np.prod(shape)) != world:
+        need = int(np.prod([s for s in cfg.mesh_shape if s != -1]))
+        raise ValueError(f"mesh_shape {tuple(cfg.mesh_shape)} needs {need} processes (one a "
+                         f"device) but this job has {world}: launch them with torchrun "
+                         f"--nproc_per_node {need} -m thermal3d_torch.cli.train (or --multihost)")
+    if world == 1:
+        return make_mesh(shape, cfg.mesh_axes, devices=[device])
+    return make_mesh(shape, cfg.mesh_axes)
 
 
 def train_and_evaluate(model: torch.nn.Module, dataset, cfg: TrainConfig,
                        checkpoint_dir: Optional[str] = None,
                        logger: Optional[MetricLogger] = None, resume: bool = False,
-                       enhance_impl: str = "auto") -> Dict[str, float]:
-    """Train `model` (from trainable_model, on its device) on `dataset`.
+                       enhance_impl: str = "auto", mesh: Optional[Mesh] = None
+                       ) -> Dict[str, float]:
+    """Train `model` (from trainable_model, full weights, on its device) on
+    `dataset`. mesh: None builds training_mesh(cfg, device); on a mesh with
+    a 'model' axis the model is sharded in place (core.mesh.shard_model_).
     Returns best_val_loss, epochs_run and final_step."""
-    check_single_device(cfg)
     device = next(model.parameters()).device
-    if logger is None:
-        logger = MetricLogger(use_wandb=False)
+    if mesh is None:
+        mesh = training_mesh(cfg, device)
+    if not mesh.over_processes and mesh.size > 1:
+        raise ValueError(f"training runs one process per device, not one process over {mesh}: "
+                         "launch one process a device with torchrun (or --multihost)")
+    n_data = int(mesh.shape.get("data", 1))
+    if cfg.batch_size % n_data:
+        raise ValueError(f"batch_size {cfg.batch_size} not divisible by the data-parallel size "
+                         f"{n_data} of a world of {process_info()[1]} process(es): processes "
+                         "cannot be dropped; choose a batch size the 'data' axis divides")
+    shard_model_(model, mesh)
+    pid, data_group = mesh.coordinate("data"), mesh.group("data")
+    log = logger.log if logger is not None else MetricLogger(use_wandb=False).log
+    if not is_coordinator():
+        log = lambda _metrics: None  # noqa: E731  (the coordinator logs)
 
     train_idx, val_idx = split_index(len(dataset), cfg.val_fraction, cfg.seed)
-    train_loader = BatchLoader(dataset, train_idx, cfg.batch_size, shuffle=True, seed=cfg.seed)
-    val_loader = BatchLoader(dataset, val_idx, cfg.batch_size, shuffle=False, drop_last=False)
+    train_loader = BatchLoader(dataset, train_idx, cfg.batch_size, shuffle=True, seed=cfg.seed,
+                               process_id=pid, process_count=n_data)
+    val_loader = BatchLoader(dataset, val_idx, cfg.batch_size, shuffle=False, drop_last=False,
+                             process_id=pid, process_count=n_data)
     steps_per_epoch = max(1, len(train_loader))
-    state = create_train_state(model, cfg, steps_per_epoch)
+    state = create_train_state(model, cfg, steps_per_epoch, mesh=mesh)
     lr_schedule = make_lr_schedule(cfg, steps_per_epoch)
 
-    ckpt = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
+    ckpt = CheckpointManager(checkpoint_dir, mesh=mesh) if checkpoint_dir else None
     start_epoch, best_val, patience_counter = 0, math.inf, 0
     if resume and ckpt is not None and ckpt.latest_step() is not None:
         state, meta = ckpt.restore(state)
         start_epoch = int(meta.get("epoch", 0))
         best_val = float(meta.get("best_val", meta.get("val_loss", math.inf)))
         patience_counter = int(meta.get("patience", 0))
-    train_step = make_train_step(model, cfg, enhance_impl)
+    train_step = make_train_step(model, cfg, enhance_impl, mesh=mesh)
     eval_step = make_eval_step(model, cfg, enhance_impl)
     stage = PinnedStage(device)
 
@@ -82,7 +126,7 @@ def train_and_evaluate(model: torch.nn.Module, dataset, cfg: TrainConfig,
             if np.isfinite(loss):
                 run += loss
                 n += 1
-            logger.log({
+            log({
                 "batch_loss": loss,
                 "basic_loss": vals.get("basic_loss", math.nan),
                 "edge_loss": vals.get("edge_loss", 0.0) * cfg.loss.edge_weight,
@@ -118,11 +162,13 @@ def train_and_evaluate(model: torch.nn.Module, dataset, cfg: TrainConfig,
         running += r
         nb += n
         if nb:
-            logger.log({"epoch": epoch + 1, "train_loss": running / nb,
+            log({"epoch": epoch + 1, "train_loss": running / nb,
                         "epoch_seconds": time.time() - epoch_t0})
 
         # validation (plain L1); a short last batch is padded to the batch
-        # size and averaged over its real samples only
+        # size (this rank's rows of it) and averaged over its real samples
+        # only: a rank whose slice is all padding still joins the step
+        local_bs = cfg.batch_size // n_data
         val_sum, val_n = 0.0, 0
         for bi, batch in enumerate(val_loader):
             if cfg.max_batches is not None and bi >= cfg.max_batches:
@@ -131,18 +177,22 @@ def train_and_evaluate(model: torch.nn.Module, dataset, cfg: TrainConfig,
                 continue
             n_rows = batch["thermal1"].shape[0]
             n_real = min(n_rows, val_loader.local_real_count(bi))
-            if n_rows < cfg.batch_size:
-                pad = cfg.batch_size - n_rows
+            if n_rows < local_bs:
+                pad = local_bs - n_rows
                 batch = {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
                          for k, v in batch.items()}
             per_sample = eval_step(state, stage.put(batch)).cpu().numpy()
             val_sum += float(per_sample[:n_real].sum())
             val_n += n_real
         epochs_run = epoch + 1
+        if n_data > 1:  # the global sums: every rank decides alike below
+            sums = torch.tensor([val_sum, float(val_n)], dtype=torch.float64, device=device)
+            collectives.all_reduce_(sums, data_group)
+            val_sum, val_n = float(sums[0]), int(sums[1])
         if not val_n:
             continue
         val_loss = val_sum / val_n
-        logger.log({"epoch": epoch + 1, "val_loss": val_loss})
+        log({"epoch": epoch + 1, "val_loss": val_loss})
 
         improved = val_loss < best_val
         if improved:

@@ -11,22 +11,32 @@ One batched step, on the model's device:
   * the gradients of the float32 master weights go through the clip and
     AdamW of train/state.py.
 The metrics stay on the device: the loop fetches them once per log window.
+
+On a process mesh (core/mesh.py) each rank computes the loss of its own
+rows (its 'data' position's slice of the global batch); after the backward
+the gradients are averaged over 'data' (core.collectives.all_reduce_buckets_:
+flat buckets, one all_reduce each). The per-sample-mean loss makes the
+average of the ranks' means the global batch's mean, and the loss metrics
+are averaged the same way, so every rank reports the global batch's values.
+Tensor parallelism runs inside the model's layers (models/layers.py).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from thermal3d_torch.core import collectives
 from thermal3d_torch.core.config import TrainConfig
+from thermal3d_torch.core.mesh import Mesh
 from thermal3d_torch.core.device import exact_float32_convs
 from thermal3d_torch.losses.losses import (confidence_weighted_regression_loss,
                                            enhanced_thermal_aware_loss)
 from thermal3d_torch.models.dustr import head_dtype
 from thermal3d_torch.preprocess.enhance import enhance_thermal_contrast, rgb_to_gray
 from thermal3d_torch.preprocess.resize import resize_bilinear_hwc
-from thermal3d_torch.train.state import TrainState, global_norm
+from thermal3d_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
 
@@ -69,15 +79,18 @@ def _batch_loss(pred1, pred2, batch: Batch, pred_hw, cfg: TrainConfig):
 
 
 def make_train_step(model: torch.nn.Module, cfg: TrainConfig,
-                    enhance_impl: str = "auto") -> Callable:
+                    enhance_impl: str = "auto", mesh: Optional[Mesh] = None) -> Callable:
     """(state, batch) → (state, metrics). batch: tensors on the model's
-    device, thermal1/2 [B,H,W,3] raw counts, pointmap1/2 [B,Hg,Wg,3].
-    metrics (device tensors): loss, grad_norm (before the clip), the loss
-    components, and sample_pred_depth / sample_gt_depth of sample 0. A
-    model whose trunk or DPT heads compute in float32 takes its gradient
-    with TF32 off (the forward's convs turn it off themselves)."""
+    device, thermal1/2 [B,H,W,3] raw counts, pointmap1/2 [B,Hg,Wg,3] (on a
+    process mesh, this rank's rows). metrics (device tensors): loss,
+    grad_norm (before the clip), the loss components, and
+    sample_pred_depth / sample_gt_depth of sample 0. A model whose trunk or
+    DPT heads compute in float32 takes its gradient with TF32 off (the
+    forward's convs turn it off themselves)."""
     f32 = torch.float32 in (model.config.dtype, head_dtype(model.config))
     dtype = torch.float32 if f32 else model.config.dtype
+    data_group = mesh.group("data") if mesh is not None else None
+    n_data = collectives.group_size(data_group)
 
     def train_step(state: TrainState, batch: Batch):
         batch = _prepare_views(batch, enhance_impl)
@@ -85,13 +98,19 @@ def make_train_step(model: torch.nn.Module, cfg: TrainConfig,
             pred1, pred2 = model(batch["thermal1_enh"], batch["thermal2_enh"])
             pred_hw = tuple(pred1["pts3d"].shape[1:3])
             loss, comps = _batch_loss(pred1, pred2, batch, pred_hw, cfg)
-            grads = torch.autograd.grad(loss, state.params)
+            grads = list(torch.autograd.grad(loss, state.params))
         metrics = {k: v.detach() for k, v in comps.items()}
+        metrics["loss"] = loss.detach()
+        if n_data > 1:  # the global batch's mean gradient and metrics
+            collectives.all_reduce_buckets_(grads, data_group, scale=1.0 / n_data)
+            keys = list(metrics)
+            means = torch.stack([metrics[k].to(torch.float32) for k in keys])
+            collectives.all_reduce_(means, data_group).div_(n_data)
+            metrics = dict(zip(keys, means.unbind()))
         metrics["sample_pred_depth"] = pred1["pts3d"][0, :, :, 2].detach()
         metrics["sample_gt_depth"] = _resize_gt_to(pred_hw, batch["pointmap1"])[0, :, :, 2]
-        metrics["loss"] = loss.detach()
-        metrics["grad_norm"] = global_norm(grads)
-        state.apply_gradients(list(grads))
+        metrics["grad_norm"] = state.tx.grad_norm(grads)
+        state.apply_gradients(grads)
         return state, metrics
 
     return train_step
@@ -101,7 +120,8 @@ def make_eval_step(model: torch.nn.Module, cfg: TrainConfig,
                    enhance_impl: str = "auto") -> Callable:
     """(model or TrainState, batch) → per-sample validation losses [B]: the
     plain L1 (mean1 + mean2) / 2 of each sample, so the caller can average
-    over the real (non-padded) samples only."""
+    over the real (non-padded) samples only. On a process mesh: this rank's
+    rows' losses (every rank of a 'model' group must call it together)."""
     del model, cfg  # the net comes with each call; the signature is JAX's
 
     def eval_step(model_or_state, batch: Batch) -> torch.Tensor:
