@@ -98,9 +98,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
      bytes half of DP's) and Megatron TP over 2 ranks (8 and 6 heads a
      rank) in float32, each step's loss and gradients against one
      single-process step on the global batch, and TP in bf16 recorded;
-  11. print JSON lines of the paths (engine, pseudo_gt, files, training,
-     the bench, fire, int8, multi_gpu) and of the kernels and, last, the
-     device line.
+  11. the serving artifact (see phase_export): cli.export --platforms native
+     of phase 4's seeded bf16 DUSt3R-224 weights at batch sizes 32 and 1, in
+     a subprocess; the artifact loaded and served (2 batches of 32 frames and
+     one of 5, padded to 32) in a fresh process that cannot import the
+     port's models, engine, converters or preprocessing, K1 1, K2 40, K3 16
+     a batch through the ops of kernels/ops.py, its outputs against the
+     in-process engine; the portable program exported on the CPU and served
+     on the card against the plain twin with no kernel launch; a native
+     stereo MASt3R-512 artifact at encoder and decoder depth 2 (K2/K3 at
+     S=1024); the softmax_attention op of K4-K6 against each entry;
+  12. print JSON lines of the paths (engine, pseudo_gt, files, training,
+     the bench, fire, int8, multi_gpu, export) and of the kernels and, last,
+     the device line.
 Without CUDA it exits non-zero before printing any result.
 
     python3 chip_smoke.py --compare-k2k3 OTHER_CSRC_DIR
@@ -115,6 +125,10 @@ builds the kernels and runs the tensor-parallel K2/K3 cases and phase 10
 alone, on its own synthetic Freiburg tree (its pseudo-GT from the mesh
 generator), and prints the multi_gpu line. `--dist-worker RANK WORLD PORT
 DIR [DEVICE]` is one rank of phase 10's gloo job (the phase launches it).
+
+    python3 chip_smoke.py --only-export
+
+builds the kernels and runs phase 11 alone, and prints the export line.
 """
 
 from __future__ import annotations
@@ -2941,6 +2955,274 @@ def compare_k2k3(torch, other_csrc: str) -> bool:
     return all_equal
 
 
+# phase 11: the serving artifact (thermal3d_torch/infer/export.py, cli/export.py)
+# on the card. The native DUSt3R-224 artifact of the phase-4 seed's weights is
+# exported by cli.export in a subprocess, then loaded and served in a fresh
+# process that cannot import the port's models, engine, converters or
+# preprocessing; K1-K3 run there as the ops of kernels/ops.py.
+EXPORT_BATCH_SIZES = (32, 1)
+EXPORT_SERVE_BATCHES = ((0, BATCH), (1, BATCH), (2, 5))  # (frame seed, frames): 5 pads to 32
+EXPORT_BLOCKED = ("thermal3d_torch.models", "thermal3d_torch.infer.engine",
+                  "thermal3d_torch.convert", "thermal3d_torch.preprocess")
+EXPORT_MASTR_DEPTH = dict(enc_depth=2, dec_depth=2)
+EXPORT_MASTR_HW = (512, 640)  # raw Freiburg frames, resized to 512² inside the program
+EXPORT_SOFTMAX_SHAPE = (8, 16, 1024, 64)
+EXPORT_TIMEOUT = 600
+
+# the artifact's serving process: loads with the model code blocked, serves
+# each batch with the counts set to 0 just before it, writes the outputs
+EXPORT_SERVE_CODE = r"""
+import json, sys, time
+
+BLOCKED = tuple(json.loads(sys.argv[1]))
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.startswith(BLOCKED) or name.split(".")[0] in ("jax", "thermal3d"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+import numpy as np
+from thermal3d_torch.infer.export import ServingArtifact
+t0 = time.perf_counter()
+art = ServingArtifact.load(sys.argv[2])
+load_s = time.perf_counter() - t0
+from thermal3d_torch.kernels import flash_attention as fa
+from thermal3d_torch.kernels.image_ops import percentile_enhance
+counters = (percentile_enhance, fa.fused_rope_attention, fa.fused_rope_cross_attention,
+            fa.flash_attention_pallas, fa.flash_attention_grouped, fa.flash_attention_multihead,
+            fa.rope_attention_tc, fa.softmax_attention_tc)
+frames = np.load(sys.argv[3])
+batches = []
+for i, name in enumerate(sorted(frames.files)):
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = art.infer(frames[name])
+    seconds = time.perf_counter() - t0
+    batches.append(dict(frames=int(frames[name].shape[0]), seconds=seconds,
+                        launches={c.__name__: c.launches for c in counters if c.launches}))
+    np.savez(sys.argv[4] + f"_{i}.npz", **out)
+blocked = [m for m in sys.modules if m.startswith(BLOCKED) or m.split(".")[0] == "jax"]
+print(json.dumps(dict(load_s=load_s, batches=batches, blocked_imported=blocked)))
+"""
+
+
+def export_weights(torch, root: str):
+    """Phase 4's bf16 DUSt3R-224 weights (seed 0) as a .pth and the bf16
+    engine on them, as cli.export builds it."""
+    import os
+
+    from thermal3d_torch.convert.from_pth import load_pth
+    from thermal3d_torch.core.config import DUSTR_224_LINEAR
+    from thermal3d_torch.infer.engine import InferenceEngine
+
+    cfg = dataclasses.replace(DUSTR_224_LINEAR, compute_dtype="bfloat16")
+    seeded = InferenceEngine(cfg, params_dtype="bfloat16", seed=0)
+    pth = os.path.join(root, "dustr224_seed0.pth")
+    torch.save({k: v.cpu() for k, v in seeded.model.state_dict().items()}, pth)
+    del seeded
+    state, _ = load_pth(pth, cfg)
+    return cfg, state, pth
+
+
+def export_native_check(torch, np, root: str, cfg, state, pth):
+    """cli.export --platforms native in a subprocess, the artifact served in
+    a process without the model code (counts a batch: K1 1, K2 40, K3 16,
+    tensor-core K2 + K3), its outputs against the in-process engine (the
+    engine's plain-twin gate; predicted bit-equal), and frames/s of
+    ServingArtifact.infer beside engine.infer in turns in this process."""
+    import os
+
+    from thermal3d_torch.infer.engine import InferenceEngine
+    from thermal3d_torch.infer.export import ServingArtifact
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    art_path = os.path.join(root, "dustr224_native.npz")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "thermal3d_torch.cli.export", "--weights", pth,
+                          "--out", art_path, "--platforms", "native", "--params_dtype",
+                          "bfloat16", "--batch_sizes", *map(str, EXPORT_BATCH_SIZES),
+                          "--input_hw", *map(str, RAW_HW)],
+                         cwd=here, capture_output=True, text=True, timeout=EXPORT_TIMEOUT)
+    cli_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"cli.export failed ({res.returncode}):\n{res.stderr[-4000:]}")
+    log(f"export: {res.stdout.strip()} ({cli_s:.1f} s with the process)")
+    with np.load(art_path) as z:
+        meta = json.loads(bytes(z["meta"].tobytes()).decode("utf-8"))
+        weight_bytes = sum(z[f"w_{i:05d}"].nbytes for i in range(meta["num_weights"]))
+        program_bytes = {b: int(z[f"program_{b}"].nbytes) for b in meta["batch_sizes"]}
+    if meta["portable_program"] or meta["platforms"] != ["cuda"]:
+        raise AssertionError(f"cli.export --platforms native wrote {meta['platforms']}, "
+                             f"portable {meta['portable_program']}")
+
+    frames = {f"b{i}": raw_frames(np, seed)[:n] for i, (seed, n) in
+              enumerate(EXPORT_SERVE_BATCHES)}
+    frames_path = os.path.join(root, "export_frames.npz")
+    np.savez(frames_path, **frames)
+    out_prefix = os.path.join(root, "export_out")
+    res = subprocess.run([sys.executable, "-c", EXPORT_SERVE_CODE, json.dumps(EXPORT_BLOCKED),
+                          art_path, frames_path, out_prefix], cwd=here, capture_output=True,
+                         text=True, timeout=EXPORT_TIMEOUT)
+    if res.returncode != 0:
+        raise RuntimeError(f"serving the artifact failed ({res.returncode}):\n"
+                           f"{res.stderr[-4000:]}")
+    served = json.loads(res.stdout.strip().splitlines()[-1])
+    want = {"percentile_enhance": 1, "fused_rope_attention": 40,
+            "fused_rope_cross_attention": 16, "rope_attention_tc": 56}
+    for b in served["batches"]:
+        if b["launches"] != want:
+            raise AssertionError(f"the artifact did not run through K1-K3 as ops: a batch of "
+                                 f"{b['frames']} launched {b['launches']}, want {want}")
+    if served["blocked_imported"]:
+        raise AssertionError(f"the artifact's process imported {served['blocked_imported']}")
+    log(f"export: served in a process without the model code, load {served['load_s']:.1f} s, "
+        f"launches a batch {want}")
+
+    engine = InferenceEngine(cfg, state_dict=state, params_dtype="bfloat16")
+    errs, max_abs = {}, {}
+    for i, name in enumerate(sorted(frames)):
+        ref = engine.infer(frames[name])
+        with np.load(f"{out_prefix}_{i}.npz") as got:
+            for k in ref:
+                if got[k].shape != ref[k].shape:
+                    raise AssertionError(f"artifact {k}: shape {got[k].shape}, engine "
+                                         f"{ref[k].shape}")
+                errs[k] = max(errs.get(k, 0.0), rel_err(got[k], ref[k], np))
+                max_abs[k] = max(max_abs.get(k, 0.0),
+                                 float(np.max(np.abs(got[k].astype(np.float64) - ref[k]))))
+    log(f"export: native artifact vs engine, max|Δ|/max|ref| {errs}, max|Δ| {max_abs} "
+        f"(limit {BF16_ENGINE_REL_LIMIT}; predicted 0)")
+    if max(errs.values()) > BF16_ENGINE_REL_LIMIT:
+        raise AssertionError(f"the native artifact disagrees with the engine: {errs}")
+
+    art = ServingArtifact.load(art_path)
+    batch = frames["b0"]
+    art.infer(batch)  # warm
+    fps = {"artifact": [], "engine": []}
+    for which in ("artifact", "engine", "engine", "artifact"):
+        fn = art.infer if which == "artifact" else engine.infer
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn(batch)
+        fps[which].append(3 * BATCH / (time.perf_counter() - t0))
+    log(f"export: infer() frames/s, in turns: artifact {fps['artifact']}, engine "
+        f"{fps['engine']}")
+    del art, engine
+    return dict(cli_seconds_with_process=cli_s, export_seconds=meta["export_seconds"],
+                load_seconds=served["load_s"], artifact_bytes=os.path.getsize(art_path),
+                weight_bytes=weight_bytes, program_bytes=program_bytes,
+                served_batches=served["batches"], rel_err=errs, max_abs_err=max_abs,
+                infer_fps_in_turns=fps)
+
+
+def export_portable_check(torch, np, root: str, cfg, state):
+    """The portable program exported on the CPU (sort enhance, plain
+    attention, no op), loaded on the card, against the engine's plain twin
+    there (attention_impl='torch', enhance_impl='sort'); no kernel launches."""
+    import os
+
+    from thermal3d_torch.infer.engine import InferenceEngine
+    from thermal3d_torch.infer.export import ServingArtifact, save_serving_artifact
+
+    path = os.path.join(root, "dustr224_portable.npz")
+    cpu_engine = InferenceEngine(cfg, state_dict=state, params_dtype="bfloat16", device="cpu")
+    meta = save_serving_artifact(path, cpu_engine, batch_sizes=(BATCH,), input_hw=RAW_HW)
+    del cpu_engine
+    t0 = time.perf_counter()
+    art = ServingArtifact.load(path, device="cuda")
+    load_s = time.perf_counter() - t0
+    twin = InferenceEngine(dataclasses.replace(cfg, attention_impl="torch"), state_dict=state,
+                           params_dtype="bfloat16", enhance_impl="sort")
+    frames = raw_frames(np, 0)
+    got, launches = run_counted(lambda: art.infer(frames), {})
+    ref = twin.infer(frames)
+    errs = {k: rel_err(got[k], ref[k], np) for k in ref}
+    log(f"export: portable artifact (exported on the CPU) on the card vs the plain twin, "
+        f"max|Δ|/max|ref| {errs} (limit {BF16_ENGINE_REL_LIMIT}); launches {launches}")
+    if max(errs.values()) > BF16_ENGINE_REL_LIMIT:
+        raise AssertionError(f"the portable artifact disagrees with the plain twin: {errs}")
+    del art, twin
+    return dict(export_seconds=meta["export_seconds"], load_seconds=load_s, rel_err=errs,
+                launches=launches)
+
+
+def export_mastr_check(torch, np, root: str):
+    """MASt3R-512 at EXPORT_MASTR_DEPTH, native and stereo, on 4 pairs of raw
+    frames: K2/K3 at S=1024 as ops (K1 2, K2 enc + 2·dec, K3 2·dec a call),
+    against an engine on the generator's model and weights."""
+    import os
+
+    from thermal3d_torch.core.config import MASTR_512_CATMLPDPT
+    from thermal3d_torch.infer.engine import InferenceEngine
+    from thermal3d_torch.infer.export import ServingArtifact, save_serving_artifact
+    from thermal3d_torch.pseudo_gt.generator import PseudoGTGenerator
+
+    cfg = dataclasses.replace(MASTR_512_CATMLPDPT, compute_dtype="bfloat16", **EXPORT_MASTR_DEPTH)
+    gen = PseudoGTGenerator(cfg, batch_size=PAIR_BATCH, params_dtype="bfloat16")
+    engine = InferenceEngine(cfg, state_dict=gen.model.state_dict(), params_dtype="bfloat16")
+    del gen
+    path = os.path.join(root, "mastr512_native.npz")
+    meta = save_serving_artifact(path, engine, batch_sizes=(PAIR_BATCH,),
+                                 input_hw=EXPORT_MASTR_HW, platforms=None, stereo=True)
+    art = ServingArtifact.load(path)
+    rng = np.random.default_rng(11)
+    raw1, raw2 = ((21000.0 + 5000.0 * rng.uniform(size=(PAIR_BATCH, *EXPORT_MASTR_HW)))
+                  / 65535.0 for _ in range(2))
+    raw1, raw2 = raw1.astype(np.float32), raw2.astype(np.float32)
+    enc, dec = cfg.enc_depth, cfg.dec_depth
+    want = {"percentile_enhance": 2, "fused_rope_attention": enc + 2 * dec,
+            "fused_rope_cross_attention": 2 * dec, "rope_attention_tc": enc + 4 * dec}
+    got, launches = run_counted(lambda: art.infer(raw1, raw2), want)
+    ref = engine.infer(raw1, raw2)
+    errs = {k: rel_err(got[k], ref[k], np) for k in ref}
+    log(f"export: MASt3R-512 (depth {enc}/{dec}) stereo artifact vs the engine on the "
+        f"generator's weights, max|Δ|/max|ref| {errs} (limit {BF16_ENGINE_REL_LIMIT}); "
+        f"launches {launches}")
+    if max(errs.values()) > BF16_ENGINE_REL_LIMIT:
+        raise AssertionError(f"the MASt3R-512 artifact disagrees with the engine: {errs}")
+    del art, engine
+    return dict(export_seconds=meta["export_seconds"], rel_err=errs, launches=launches,
+                depth=EXPORT_MASTR_DEPTH, pairs=PAIR_BATCH, raw_hw=list(EXPORT_MASTR_HW))
+
+
+def export_softmax_op_check(torch):
+    """thermal3d_torch::softmax_attention for each K4-K6 entry, bf16 at
+    EXPORT_SOFTMAX_SHAPE, torch.equal to the entry's wrapper."""
+    from thermal3d_torch.kernels import flash_attention as fa
+    from thermal3d_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn(EXPORT_SOFTMAX_SHAPE, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    scale = 1.0 / math.sqrt(EXPORT_SOFTMAX_SHAPE[-1])
+    equal = {}
+    for entry in ops.SOFTMAX_ENTRIES:
+        equal[entry] = bool(torch.equal(ops.softmax_attention(q, k, v, scale, entry),
+                                        getattr(fa, entry)(q, k, v, scale)))
+    log(f"export: softmax_attention op == wrapper at {list(EXPORT_SOFTMAX_SHAPE)} bf16: {equal}")
+    if not all(equal.values()):
+        raise AssertionError(f"the softmax_attention op differs from its wrapper: {equal}")
+    return equal
+
+
+def phase_export(torch, np, root: str):
+    """Phase 11 (see the module docstring); returns its results and seconds."""
+    t_phase = time.perf_counter()
+    cfg, state, pth = export_weights(torch, root)
+    res = dict(native=export_native_check(torch, np, root, cfg, state, pth))
+    res["portable"] = export_portable_check(torch, np, root, cfg, state)
+    del state
+    gc.collect()
+    res["mastr512"] = export_mastr_check(torch, np, root)
+    res["softmax_op_equal"] = export_softmax_op_check(torch)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"export phase: {res['seconds']:.1f} s")
+    return res
+
+
 def main(argv) -> int:
     import torch
 
@@ -2951,7 +3233,7 @@ def main(argv) -> int:
     if argv and argv[0] == "--dist-worker":
         return dist_worker_main(argv[1:])
     if argv and not ((len(argv) == 2 and argv[0] == "--compare-k2k3")
-                     or argv == ["--only-multi-gpu"]):
+                     or argv in (["--only-multi-gpu"], ["--only-export"])):
         print(__doc__, file=sys.stderr)
         return 2
     import numpy as np
@@ -2964,6 +3246,12 @@ def main(argv) -> int:
         return 0 if compare_k2k3(torch, argv[1]) else 1
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     phase_build()
+    if argv == ["--only-export"]:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as root:
+            export = phase_export(torch, np, root)
+        print(card, flush=True)
+        print(json.dumps({"export": export}, default=float), flush=True)
+        return 0
     if argv:  # --only-multi-gpu
         log("K2/K3 at the tensor-parallel shapes (tp=2):")
         tp_attention_cases(torch)
@@ -3003,6 +3291,11 @@ def main(argv) -> int:
         fire = phase_fire(torch, np, card, root)
         int8 = phase_int8(torch, np, root)
         multi_gpu = phase_multi_gpu(torch, np, root)
+        export = phase_export(torch, np, root)
+    export_served = {}  # the native artifact's launches over its served batches
+    for batch in export["native"]["served_batches"]:
+        for name, count in batch["launches"].items():
+            export_served[name] = export_served.get(name, 0) + count
 
     # launches on each path's own run; `launches` is this slice's main path
     # (pseudo-GT) for K2-K6, the serving path for K1
@@ -3031,7 +3324,10 @@ def main(argv) -> int:
                            for name, e in multi_gpu["gloo_2rank"].items()
                            if isinstance(e, dict)),
                          *((f"int8_{k}", int8["files"][k]["launches"])
-                           for k in ("cli_infer_int8_static", "cli_pseudo_gt_int8_test_set"))):
+                           for k in ("cli_infer_int8_static", "cli_pseudo_gt_int8_test_set")),
+                         ("export_native_artifact", export_served),
+                         ("export_portable_artifact", export["portable"]["launches"]),
+                         ("export_mastr512_artifact", export["mastr512"]["launches"])):
         for name, count in counts.items():
             by_path.setdefault(name, {})[path] = count
     for counts in by_path.values():  # every kernel names the training path
@@ -3082,6 +3378,7 @@ def main(argv) -> int:
     print(json.dumps({"int8": dict(int8, int_mm_launches_by_path=by_path["int_mm"])},
                      default=float), flush=True)
     print(json.dumps({"multi_gpu": multi_gpu}, default=float), flush=True)
+    print(json.dumps({"export": export}, default=float), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

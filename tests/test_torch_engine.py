@@ -109,9 +109,11 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     ("head", "catmlpdpt"),
 ])
 def test_unported_config_raises(field, value):
-    """scan_layers/branch_batch are not ported (NotImplementedError); a
-    DPT-family head with an unknown dpt_dtype, or an unknown head_type, is
-    refused (ValueError), as the JAX model refuses them."""
+    """A DPT-family head with an unknown dpt_dtype, or an unknown head_type,
+    is refused (ValueError), as the JAX model refuses them. scan_layers and
+    branch_batch, the JAX model's compile layouts, are accepted: the port
+    runs its unrolled model, so the engine's outputs equal the unrolled
+    config's (tests/test_torch_tools.py holds the layouts' trees)."""
     from thermal3d_torch.core.config import TINY, HeadConfig
 
     if field == "head":
@@ -121,8 +123,11 @@ def test_unported_config_raises(field, value):
                 InferenceEngine(dataclasses.replace(TINY, head=head), device="cpu")
         return
     cfg = dataclasses.replace(TINY, **{field: value})
-    with pytest.raises(NotImplementedError):
-        InferenceEngine(cfg, device="cpu")
+    raw = _raw_frames((1, 32, 32))
+    got = InferenceEngine(cfg, device="cpu").infer(raw)
+    want = InferenceEngine(TINY, device="cpu").infer(raw)
+    for k in KEYS:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def _mesh_over_processes():

@@ -462,26 +462,26 @@ def test_cli_evaluate_matches_jax(data, tmp_path):
     ("infer", ["--img_path", "x.png", "--no_vis", "--int8_static_acts"]),
     ("infer", ["--img_path", "x.png", "--int8_equalize"]),
     ("infer", ["--img_path", "x.png", "--advanced_fire", "--ndev", "2"]),
-    ("infer", ["--img_path", "x.png", "--refine_depth", "--scan_layers"]),
+    ("infer", ["--img_path", "x.png", "--fire_scene", "--ndev", "2"]),
     ("infer", ["--img_path", "x.png", "--no_vis", "--ndev", "2"]),
-    ("infer", ["--img_path", "x.png", "--no_vis", "--scan_layers"]),
+    ("infer", ["--img_path", "x.png", "--no_vis", "--int8_equalize", "--int8_static_acts"]),
     ("pseudo_gt", ["--dataset_dir", "d", "--output_dir", "o", "--visualize",
                    "--int8_static_acts"]),
     ("pseudo_gt", ["--dataset_dir", "d", "--output_dir", "o", "--ndev", "4"]),
     ("pseudo_gt", ["--dataset_dir", "d", "--output_dir", "o", "--num_shards", "2",
                    "--shard_id", "2"]),
     ("evaluate", ["--thermal_dir", "t", "--pseudo_gt_dir", "g", "--output_dir", "o",
-                  "--scan_layers"]),
+                  "--ndev", "4"]),
     ("evaluate", ["--thermal_dir", "t", "--pseudo_gt_dir", "g", "--output_dir", "o",
                   "--no_vis", "--ndev", "2"]),
 ])
 def test_cli_unported_options_are_parser_errors(cli, argv, capsys):
-    """Options the port does not run yet stop at the parser, naming their
-    ROADMAP item, before any model is built; so do --int8_static_acts and
-    --int8_equalize without --int8, and --ndev > 1 with the fire modes or
-    more devices than the host has (here the JAX CLIs' texts: the live
-    --ndev runs are in tests/test_torch_mesh.py), as in the JAX CLIs (the
-    live --int8 modes are held in tests/test_torch_quant.py)."""
+    """Options that do not combine stop at the parser before any model is
+    built: --int8_static_acts and --int8_equalize without --int8, --ndev > 1
+    with the fire modes or with more devices than the host has (here the JAX
+    CLIs' texts: the live --ndev runs are in tests/test_torch_mesh.py), and a
+    --shard_id out of range, as in the JAX CLIs (the live --int8 modes are
+    held in tests/test_torch_quant.py)."""
     import importlib
 
     main = importlib.import_module(f"thermal3d_torch.cli.{cli}").main
@@ -489,7 +489,7 @@ def test_cli_unported_options_are_parser_errors(cli, argv, capsys):
         main(argv)
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert ("ROADMAP" in err or "--shard_id" in err or "require --int8" in err
+    assert ("--shard_id" in err or "require --int8" in err
             or "supports only the directory-batch monocular path" in err
             or "devices available" in err)
 

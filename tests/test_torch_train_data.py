@@ -376,7 +376,8 @@ def test_cli_train_debug_loading(tree, capsys):
 @pytest.mark.parametrize("flags,item", [(["--mesh_shape", "2"], "torchrun"),
                                         (["--multihost"], "THERMAL3D_COORDINATOR"),
                                         (["--zero1", "--mesh_shape", "1", "2"], "torchrun"),
-                                        (["--scan_layers"], "item 12"), (["--ndev", "2"], "--mesh_shape")])
+                                        (["--mesh_shape", "1", "2", "3"], "takes 1 or 2 sizes"),
+                                        (["--ndev", "2"], "--mesh_shape")])
 def test_cli_train_parser_errors(tree, flags, item, capsys):
     from thermal3d_torch.cli import train as cli_train
 

@@ -15,5 +15,8 @@ PNG files are decoded by the port's own decoder (`native`), without cv2,
 PIL or libpng. Several cards: serving and pseudo-GT over a device mesh (one
 process, a replica a card) and training over torch.distributed (one process
 a card: data and tensor parallelism, ZeRO-1), in `core/mesh.py` and
-`core/distributed.py`.
+`core/distributed.py`. Deployment: a self-contained serving artifact
+(`infer/export.py`, `cli.export`: torch.export programs with the kernels as
+the custom ops of `kernels/ops.py`). Tools: `cli.model_info`, `cli.explore`,
+`core/profiling.py`.
 """

@@ -103,7 +103,7 @@ def main(argv=None):
               "--model_variant", args.model_variant,
               "--compute_dtype", args.compute_dtype,
               "--model_preset", args.model_preset]
-    if args.scan_layers:  # forwarded: cli.infer names its ROADMAP item
+    if args.scan_layers:  # forwarded to cli.infer, as the JAX CLI does
         common += ["--scan_layers"]
     if args.ndev != 1:
         common += ["--ndev", str(args.ndev)]

@@ -1,7 +1,6 @@
 """Shared CLI helpers (counterpart of thermal3d/cli/common.py): model presets,
-the device flag, the --ndev data-parallel mesh (make_dp_mesh), and parser
-errors for the options the port does not run yet, each naming its ROADMAP
-item."""
+--scan_layers (apply_scan), the device flag and the --ndev data-parallel mesh
+(make_dp_mesh)."""
 
 from __future__ import annotations
 
@@ -33,7 +32,9 @@ def add_preset_flag(parser):
                         choices=["full", "tiny"],
                         help="'tiny' shrinks the model for smoke tests")
     parser.add_argument("--scan_layers", action="store_true",
-                        help="not ported (ROADMAP Queue 1 item 12): a parser error")
+                        help="the JAX model's scan layout, an XLA compile layout with "
+                             "the unrolled model's outputs: recorded in the config, the "
+                             "port runs its unrolled modules")
     parser.add_argument("--ndev", type=int, default=1,
                         help="data-parallel serving over N devices: a model replica on "
                              "each, batches split over a 1-D mesh; batch_size must be a "
@@ -43,13 +44,11 @@ def add_preset_flag(parser):
     return parser
 
 
-def refuse_unported(parser, args, flags) -> None:
-    """parser.error for each set flag of `flags` ({dest: ROADMAP item}) and
-    --scan_layers."""
-    flags = dict(flags, scan_layers="ROADMAP Queue 1 item 12 (scan layouts)")
-    for dest, item in flags.items():
-        if getattr(args, dest):
-            parser.error(f"--{dest} is not ported to thermal3d_torch yet ({item})")
+def apply_scan(config: DustrModelConfig, scan_layers: bool) -> DustrModelConfig:
+    """--scan_layers: the config with scan_layers set. The port's weights are
+    in the torch layout whatever the flag (a JAX scan-layout tree is
+    unstacked by convert.from_jax), and its model runs unrolled."""
+    return dataclasses.replace(config, scan_layers=True) if scan_layers else config
 
 
 def refuse_ndev(parser, args, why: str) -> None:

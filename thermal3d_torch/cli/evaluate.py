@@ -3,8 +3,8 @@
 
 The flags are the JAX CLI's; unless --no_vis, each frame also gets its
 `{base}_comparison.png` panel; --ndev N serves over N devices
-(cli/common.py::make_dp_mesh). Not ported yet, and so a parser error naming
-its ROADMAP item: --scan_layers.
+(cli/common.py::make_dp_mesh); --scan_layers is accepted and the model runs
+unrolled (cli/common.py::apply_scan).
 """
 
 from __future__ import annotations
@@ -13,8 +13,8 @@ import argparse
 import glob
 import os
 
-from thermal3d_torch.cli.common import (add_preset_flag, apply_preset, make_dp_mesh,
-                                        refuse_unported)
+from thermal3d_torch.cli.common import (add_preset_flag, apply_preset, apply_scan,
+                                        make_dp_mesh)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -44,10 +44,10 @@ def main(argv=None):
 
     parser = build_parser()
     args = parser.parse_args(argv)
-    refuse_unported(parser, args, {})
     mesh = make_dp_mesh(args.ndev, args.batch_size, parser.error, args.device)
     config = apply_preset(DUSTR_224_LINEAR, args.model_preset, args.img_size,
                           args.compute_dtype)
+    config = apply_scan(config, args.scan_layers)
     state, head_state = (None, None) if args.model is None else load_pth(args.model, config)
     engine = InferenceEngine(config, state_dict=state, thermal_head_state=head_state,
                              use_thermal_head=not args.no_thermal_model, device=args.device,

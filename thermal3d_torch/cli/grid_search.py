@@ -16,8 +16,7 @@ import itertools
 import json
 import os
 
-from thermal3d_torch.cli.common import (add_preset_flag, apply_preset, refuse_ndev,
-                                        refuse_unported)
+from thermal3d_torch.cli.common import (add_preset_flag, apply_preset, apply_scan, refuse_ndev)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -47,11 +46,11 @@ def main(argv=None):
 
     parser = build_parser()
     args = parser.parse_args(argv)
-    refuse_unported(parser, args, {})
     refuse_ndev(parser, args, "its trainings run in this one process, on one device")
     os.makedirs(args.output_dir, exist_ok=True)
     device = resolve_device(args.device)
     model_cfg = apply_preset(DUSTR_224_LINEAR, args.model_preset, args.img_size, "bfloat16")
+    model_cfg = apply_scan(model_cfg, args.scan_layers)
     base_state, _ = load_pth(args.weights, model_cfg)
     dataset = FreiburgPairDataset(args.dataset_dir, img_size=tuple(args.img_size),
                                   pseudo_gt_dir=args.pseudo_gt_dir, frame_skip=args.frame_skip)

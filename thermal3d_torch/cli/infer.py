@@ -13,8 +13,8 @@ static activation scales on the first decodable batch); --ndev N serves the
 directory batches over N devices (cli/common.py::make_dp_mesh: a model
 replica on each, every batch split over them; the stereo and fire-scene
 modes stay on one device, a parser error as in the JAX CLI). The flags are
-the JAX CLI's, with its parser errors. Not ported yet, and so a parser error
-naming its ROADMAP item: --scan_layers.
+the JAX CLI's, with its parser errors; --scan_layers is accepted and the
+model runs unrolled (cli/common.py::apply_scan).
 """
 
 from __future__ import annotations
@@ -27,8 +27,8 @@ import os
 import numpy as np
 import torch
 
-from thermal3d_torch.cli.common import (add_preset_flag, apply_preset, make_dp_mesh,
-                                        refuse_unported)
+from thermal3d_torch.cli.common import (add_preset_flag, apply_preset, apply_scan,
+                                        make_dp_mesh)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -92,13 +92,13 @@ def main(argv=None):
         # stereo and the fire-scene modes serve one frame a batch
         parser.error("--ndev > 1 supports only the directory-batch monocular path "
                      "(stereo/--fire_scene/--advanced_fire run batch-1 programs)")
-    refuse_unported(parser, args, {})
     mesh = make_dp_mesh(args.ndev, args.batch_size, parser.error, args.device)
     base = {"dustr224_linear": DUSTR_224_LINEAR, "dustr512_dpt": DUSTR_512_DPT,
             "mastr512_catmlpdpt": MASTR_512_CATMLPDPT}[args.model_variant]
     if args.img_size is None:
         args.img_size = list(base.img_size)  # the variant's native resolution
     config = apply_preset(base, args.model_preset, args.img_size, args.compute_dtype)
+    config = apply_scan(config, args.scan_layers)
     if args.dpt_f32:
         config = dataclasses.replace(
             config, head=dataclasses.replace(config.head, dpt_dtype="float32"))

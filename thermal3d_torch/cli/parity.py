@@ -21,8 +21,8 @@ Modes (combinable), with the JAX CLI's flags, exit codes and report:
         --golden_dir pseudo_gt_test_set/day
 
 Runs on the card unless --device cpu, on one device: --ndev > 1 is a
-parser error (the JAX CLI has no --ndev), and so is --scan_layers (not
-ported).
+parser error (the JAX CLI has no --ndev); --scan_layers is accepted and the
+model runs unrolled (cli/common.py::apply_scan).
 """
 
 from __future__ import annotations
@@ -31,8 +31,7 @@ import argparse
 import dataclasses
 import json
 
-from thermal3d_torch.cli.common import (add_preset_flag, apply_preset, refuse_ndev,
-                                        refuse_unported)
+from thermal3d_torch.cli.common import (add_preset_flag, apply_preset, apply_scan, refuse_ndev)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -202,6 +201,7 @@ def _golden(args, report, failures):
     if args.img_size is None:
         args.img_size = list(base.img_size)
     config = apply_preset(base, args.model_preset, args.img_size, args.compute_dtype)
+    config = apply_scan(config, args.scan_layers)
     state = head_state = None  # no --model: seeded random weights
     if args.full_gate:
         conv_rep, raw_state, loaded = _full_gate_convert(args, config)
@@ -268,7 +268,6 @@ def main(argv=None):
 
     parser = build_parser()
     args = parser.parse_args(argv)
-    refuse_unported(parser, args, {})
     refuse_ndev(parser, args, "cli.parity compares on one device")
     # a CI gate must fail loudly on a half-specified comparison: a silently
     # skipped mode would print PASS for a check that never ran

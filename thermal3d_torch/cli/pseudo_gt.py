@@ -6,8 +6,8 @@ The flags are the JAX CLI's, with its parser errors. --int8 runs the trunk
 GEMMs in int8 (kernels/quant.py; --int8_scope, --int8_equalize, and
 --int8_static_acts, which calibrates static activation scales on the first
 batch of pairs that decode); --ndev N runs each batch over N devices
-(cli/common.py::make_dp_mesh). Not ported yet, and so a parser error naming
-its ROADMAP item: --scan_layers.
+(cli/common.py::make_dp_mesh); --scan_layers is accepted and the model runs
+unrolled (cli/common.py::apply_scan).
 """
 
 from __future__ import annotations
@@ -17,8 +17,8 @@ import dataclasses
 
 import numpy as np
 
-from thermal3d_torch.cli.common import (add_preset_flag, apply_preset, make_dp_mesh,
-                                        refuse_unported)
+from thermal3d_torch.cli.common import (add_preset_flag, apply_preset, apply_scan,
+                                        make_dp_mesh)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -69,13 +69,13 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if (args.int8_equalize or args.int8_static_acts) and not args.int8:
         parser.error("--int8_equalize/--int8_static_acts require --int8")
-    refuse_unported(parser, args, {})
     if not 0 <= args.shard_id < args.num_shards:
         parser.error(f"--shard_id {args.shard_id} out of range for "
                      f"--num_shards {args.num_shards}")
     mesh = make_dp_mesh(args.ndev, args.batch_size, parser.error, args.device)
     config = apply_preset(MASTR_512_CATMLPDPT, args.model_preset, args.img_size,
                           args.compute_dtype)
+    config = apply_scan(config, args.scan_layers)
     if args.dpt_f32:
         config = dataclasses.replace(
             config, head=dataclasses.replace(config.head, dpt_dtype="float32"))

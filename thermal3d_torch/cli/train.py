@@ -18,9 +18,9 @@ THERMAL3D_COORDINATOR / _NUM_PROCESSES / _PROCESS_ID variables).
 D T as D × T with Megatron tensor parallelism over T ('data', 'model'),
 --zero1 shards the AdamW moments over 'data'. A mesh that needs more
 processes than the job has is a parser error naming torchrun. NCCL joins
-the processes on the card, gloo on the CPU (--device cpu). Parser errors naming their
-ROADMAP item: --scan_layers; --ndev > 1 is a parser error too (a serving
-flag: training takes --mesh_shape).
+the processes on the card, gloo on the CPU (--device cpu). --ndev > 1 is a
+parser error (a serving flag: training takes --mesh_shape); --scan_layers is
+accepted and the model runs unrolled (cli/common.py::apply_scan).
 """
 
 from __future__ import annotations
@@ -29,8 +29,7 @@ import argparse
 import dataclasses
 import os
 
-from thermal3d_torch.cli.common import (add_preset_flag, apply_preset, refuse_ndev,
-                                        refuse_unported)
+from thermal3d_torch.cli.common import (add_preset_flag, apply_preset, apply_scan, refuse_ndev)
 
 MESH_AXES = ("data", "model")
 
@@ -98,7 +97,6 @@ def under_torchrun() -> bool:
 def parse_args(parser: argparse.ArgumentParser, argv):
     """Parse and refuse what does not apply (parser errors)."""
     args = parser.parse_args(argv)
-    refuse_unported(parser, args, {})
     refuse_ndev(parser, args, "training runs one process per device; give --mesh_shape "
                               "under torchrun (or --multihost)")
     if not 1 <= len(args.mesh_shape) <= len(MESH_AXES):
@@ -158,6 +156,7 @@ def _train(parser: argparse.ArgumentParser, args, rank: int, world: int, device)
             f"mesh_shape {args.mesh_shape}{', zero1' if args.zero1 else ''}")
     model_cfg = apply_preset(DUSTR_224_LINEAR, args.model_preset, args.img_size,
                              args.compute_dtype)
+    model_cfg = apply_scan(model_cfg, args.scan_layers)
     if args.remat:
         model_cfg = dataclasses.replace(model_cfg, remat=True)
     cfg = TrainConfig(

@@ -8,7 +8,9 @@ ThermalDUSt3R (`thermal_preprocess` scalars + `model` subtree). Dense kernels
 ConvTranspose kernel (HWIO, applied unflipped) becomes the torch
 ConvTranspose2d weight [in, out, kh, kw] flipped in both spatial axes;
 LayerNorm `scale` becomes `weight`. Keys follow the torch/dust3r layout that
-the port's module names mirror, so the result loads with strict=True.
+the port's module names mirror, so the result loads with strict=True. A tree
+of the JAX model's scan or branch layout (`scan_layers`, `branch_batch`) is
+unstacked into the unrolled layout first (models/scan_params.py).
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from thermal3d_torch.models.scan_params import unrolled_params
 
 _LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight"}
 
@@ -95,11 +99,19 @@ def _key_and_value(mods, leaf: str, value: np.ndarray):
     return None
 
 
+def _unrolled(tree: Mapping, wrapper: bool) -> Mapping:
+    """The tree with the model's (or the wrapper's `model`) subtree in the
+    unrolled layout."""
+    if wrapper:
+        return {k: unrolled_params(v) if k == "model" else v for k, v in tree.items()}
+    return unrolled_params(tree)
+
+
 def state_dict_from_jax(params: Mapping, wrapper: bool = False) -> Dict[str, torch.Tensor]:
     """Convert a Flax param tree to a torch state dict (CPU tensors, the
     source dtype). Raises KeyError on a path that no module of the port has."""
     out: Dict[str, torch.Tensor] = {}
-    for path, value in _flatten(params):
+    for path, value in _flatten(_unrolled(params, wrapper)):
         parts = list(path)
         prefix = ""
         if wrapper:
@@ -132,7 +144,7 @@ def int8_state_dict_from_jax(params_q: Mapping, quant: Mapping,
     `act_scale` stays a 0-dim float32. Load it with
     kernels.quant.load_int8_state_dict."""
     out = state_dict_from_jax(params_q, wrapper=wrapper)
-    for path, value in _flatten(quant):
+    for path, value in _flatten(_unrolled(quant, wrapper)):
         parts = list(path)
         prefix = ""
         if wrapper and parts[0] == "model":

@@ -12,10 +12,14 @@ the torch key layout, so no tensor is transformed).
   12-block checkpoint into the 8-block 224 model), and the dead
   `refinenet4.resConfUnit1` of the DPT heads.
 * The rest loads with strict=True: an unknown or a missing key raises.
+
+`expected_torch_keys` and `released_checkpoint_keys` give the name → shape
+inventory a checkpoint of a config has (the validator of cli.model_info).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import re
 from typing import Dict, Mapping, Optional, Tuple
@@ -103,3 +107,35 @@ def load_pth(path: str, config: DustrModelConfig
     if not path.endswith(".pth"):
         raise ValueError(f"unsupported weights format: {path}")
     return split_checkpoint(load_torch_checkpoint(path), config)
+
+
+def expected_torch_keys(config: DustrModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """name → shape of every tensor of a checkpoint the converter
+    understands for `config`: the port's own model's state dict (built on
+    the meta device), plus the DPT heads' dead refinenet4.resConfUnit1, which
+    checkpoints carry and the converter skips (shaped as resConfUnit2)."""
+    import torch
+
+    from thermal3d_torch.models.dustr import AsymmetricCroCo3DStereo
+
+    with torch.device("meta"):
+        state = AsymmetricCroCo3DStereo(config).state_dict()
+    keys = {k: tuple(v.shape) for k, v in state.items()}
+    for k, shape in list(keys.items()):
+        if ".scratch.refinenet4.resConfUnit2." in k:
+            keys[k.replace("resConfUnit2", "resConfUnit1")] = shape
+    return keys
+
+
+def released_checkpoint_keys(config: DustrModelConfig, ckpt_dec_depth: Optional[int] = None
+                             ) -> Dict[str, Tuple[int, ...]]:
+    """The inventory of a released naver checkpoint of this architecture:
+    expected_torch_keys at the checkpoint's native decoder depth (default
+    max(dec_depth, 12): the 224-linear checkpoint carries 12 decoder blocks
+    a branch where the model builds 8), plus croco's `mask_token`
+    [1, 1, dec_embed_dim], which the model never reads."""
+    if ckpt_dec_depth is None:
+        ckpt_dec_depth = max(config.dec_depth, 12)
+    keys = expected_torch_keys(dataclasses.replace(config, dec_depth=ckpt_dec_depth))
+    keys["mask_token"] = (1, 1, config.dec_embed_dim)
+    return keys

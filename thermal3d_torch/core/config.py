@@ -2,9 +2,9 @@
 
 Field names and defaults mirror the JAX dataclasses, so a JAX config and a
 port config built from the same keywords describe the same network, loss and
-training run. Only fields that the port reads are kept. The layouts the
-port does not run yet (`scan_layers`, `branch_batch`) are fields so that
-asking for them raises instead of being ignored.
+training run. Only fields that the port reads are kept, and the JAX
+model's compile layouts (`scan_layers`, `branch_batch`), which a JAX config
+carries over: their outputs equal the unrolled model's, which the port runs.
 """
 
 from __future__ import annotations
@@ -78,8 +78,10 @@ class DustrModelConfig:
     # recompute each encoder and decoder block in the backward pass
     # (torch.utils.checkpoint): activation memory for compute
     remat: bool = False
-    scan_layers: bool = False  # not ported: raises
-    branch_batch: bool = False  # not ported: raises
+    # the JAX model's XLA compile layouts (the stacks under lax.scan; the
+    # two decoder branches batched); the port runs its unrolled modules
+    scan_layers: bool = False
+    branch_batch: bool = False
 
     @property
     def patch_grid(self) -> Tuple[int, int]:

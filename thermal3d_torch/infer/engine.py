@@ -37,6 +37,17 @@ from thermal3d_torch.preprocess.resize import resize_bilinear_hw
 OUTPUT_KEYS = ("pointmap1", "pointmap2", "confidence1", "confidence2", "depth")
 
 
+def serving_outputs(pred1: Dict, pred2: Dict) -> Dict[str, torch.Tensor]:
+    """The model's two predictions → the five serving outputs."""
+    return {
+        "pointmap1": pred1["pts3d"],
+        "pointmap2": pred2["pts3d_in_other_view"],
+        "confidence1": pred1["conf"],
+        "confidence2": pred2["conf"],
+        "depth": pred1["pts3d"][..., 2],
+    }
+
+
 class InferenceEngine:
     """Holds the model (on one device, or a replica a mesh device) and serves
     batches.
@@ -143,14 +154,7 @@ class InferenceEngine:
             if self.use_thermal_head:
                 x1 = head(x1)
                 x2 = None if x2 is None else head(x2)
-            pred1, pred2 = model(x1, x2)
-            return {
-                "pointmap1": pred1["pts3d"],
-                "pointmap2": pred2["pts3d_in_other_view"],
-                "confidence1": pred1["conf"],
-                "confidence2": pred2["conf"],
-                "depth": pred1["pts3d"][..., 2],
-            }
+            return serving_outputs(*model(x1, x2))
 
     def infer_paths(self, paths: List[str], batch_size: int = 36, pad_final: bool = True,
                     outputs: Optional[Sequence[str]] = None, prefetch: int = 2

@@ -161,7 +161,14 @@ def build_log(name: str) -> str:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, building all sources on the
-    first call."""
+    first call. Raises while a trace (torch.export, torch.compile) runs: a
+    traced program reaches a kernel only through its op (kernels/ops.py),
+    never through a launch on the tracer's tensors."""
+    import torch
+
+    if torch.compiler.is_compiling():
+        raise RuntimeError(f"kernel library {name!r} reached while tracing: the call "
+                           "has no op in thermal3d_torch/kernels/ops.py")
     with _lock:
         lib = _libs.get(name)
         if lib is None:

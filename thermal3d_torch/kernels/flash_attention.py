@@ -86,7 +86,12 @@ def fused_rope_attention_plain(qkv, cos, sin, num_heads, scale):
 def fused_rope_attention(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                          num_heads: int, scale: float) -> torch.Tensor:
     """K2: RoPE + self-attention on the packed [B, S, 3C] qkv projection;
-    differentiable in qkv (no gradient for the tables, as in JAX)."""
+    differentiable in qkv (no gradient for the tables, as in JAX). Under
+    tracing, the op thermal3d_torch::fused_rope_attention (kernels/ops.py)."""
+    if torch.compiler.is_compiling():
+        from thermal3d_torch.kernels import ops
+
+        return ops.fused_rope_attention(qkv, cos, sin, num_heads, scale)
     if _needs_grad(qkv):
         return _FusedRopeAttention.apply(qkv, cos, sin, num_heads, scale)
     return _fused_rope_attention_fwd(qkv, cos, sin, num_heads, scale)
@@ -115,7 +120,12 @@ def fused_rope_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                                scale: float) -> torch.Tensor:
     """K3: RoPE + cross-attention on separate [B, S, C] projections. Needs
     Sq == Sk and one shared position grid (DUSt3R's dual decoder).
-    Differentiable in q, k and v."""
+    Differentiable in q, k and v. Under tracing, the op
+    thermal3d_torch::fused_rope_cross_attention (kernels/ops.py)."""
+    if torch.compiler.is_compiling():
+        from thermal3d_torch.kernels import ops
+
+        return ops.fused_rope_cross_attention(q, k, v, cos, sin, num_heads, scale)
     if _needs_grad(q, k, v):
         return _FusedRopeCrossAttention.apply(q, k, v, cos, sin, num_heads, scale)
     return _fused_rope_cross_attention_fwd(q, k, v, cos, sin, num_heads, scale)
@@ -319,7 +329,13 @@ flash_attention_multihead.launches = 0
 def _softmax_attention(entry, q, k, v, scale):
     """K4/K5/K6 by their entry (whose launch count moves): through the
     autograd Function where a gradient is needed, else straight to the
-    kernel (the plain version on the CPU)."""
+    kernel (the plain version on the CPU); under tracing, the op
+    thermal3d_torch::softmax_attention (kernels/ops.py) with the entry's
+    name."""
+    if torch.compiler.is_compiling():
+        from thermal3d_torch.kernels import ops
+
+        return ops.softmax_attention(q, k, v, scale, entry.__name__)
     if _needs_grad(q, k, v):
         return _SoftmaxAttention.apply(q, k, v, scale, entry)
     return _softmax_attention_fwd(entry, q, k, v, scale)

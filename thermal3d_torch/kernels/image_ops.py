@@ -112,7 +112,20 @@ def percentile_radix_plain(gray: torch.Tensor, lo: float = 2.0,
 def percentile_enhance(gray: torch.Tensor, lo: float = 2.0,
                        hi: float = 98.0) -> torch.Tensor:
     """[B, H, W] float32 in [0, 1] → [B, H, W]: the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor. Forward only."""
+    tensor, the plain version for a CPU tensor. Forward only. Under tracing
+    (torch.export, torch.compile) the op thermal3d_torch::percentile_enhance
+    (kernels/ops.py), whose implementation is this function's launch."""
+    if torch.compiler.is_compiling():
+        from thermal3d_torch.kernels import ops
+
+        return ops.percentile_enhance(gray, lo, hi)
+    return launch_percentile_enhance(gray, lo, hi)
+
+
+def launch_percentile_enhance(gray: torch.Tensor, lo: float = 2.0,
+                              hi: float = 98.0) -> torch.Tensor:
+    """percentile_enhance without the tracing route: the kernel's launch (a
+    CUDA tensor) or the plain version (a CPU tensor)."""
     if gray.device.type == "cpu":
         return percentile_enhance_plain(gray, lo, hi)
     if gray.device.type != "cuda":

@@ -1,5 +1,6 @@
 """AsymmetricCroCo3DStereo — the DUSt3R/MASt3R two-view pointmap network
-(counterpart of thermal3d/models/dustr.py), unrolled layout; linear, DPT and
+(counterpart of thermal3d/models/dustr.py), unrolled layout (a JAX tree in the
+scan or branch layout is unstacked by convert.from_jax); linear, DPT and
 catmlpdpt heads.
 
 I/O contract:
@@ -33,12 +34,10 @@ PARAMS_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def check_supported(cfg: DustrModelConfig) -> None:
-    """Raise NotImplementedError for the layouts the port does not run yet,
-    and ValueError for a head_type or dpt_dtype no package knows."""
-    if cfg.scan_layers:
-        raise NotImplementedError("scan_layers is not ported: use the unrolled layout")
-    if cfg.branch_batch:
-        raise NotImplementedError("branch_batch is not ported: use the unrolled layout")
+    """Raise ValueError for a head_type or dpt_dtype no package knows.
+    cfg.scan_layers and cfg.branch_batch, the JAX model's compile layouts
+    (whose outputs equal the unrolled model's), change nothing here: the
+    port's model always runs unrolled."""
     if cfg.head.head_type not in HEAD_TYPES:
         raise ValueError(f"unknown head_type {cfg.head.head_type!r} (not in {HEAD_TYPES})")
     head_dtype(cfg)

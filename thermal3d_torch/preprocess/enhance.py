@@ -47,6 +47,22 @@ def _percentile_rescale_grid(gray: torch.Tensor, lo: float, hi: float,
     return out.reshape(*batch_shape, h, w).to(gray.dtype)
 
 
+def quantile_linear(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """torch.quantile(x, q, dim=-1, interpolation='linear') for a 1-D q, as
+    ATen computes it (sort, ranks q·(n − 1), a row with a NaN at rank n − 1,
+    lerp of the values at the floor and the ceiling of the rank), bit for
+    bit, without torch.quantile's data-dependent check of q, which a trace
+    (torch.export) cannot take. Returns [len(q), ...]."""
+    values = x.sort(dim=-1).values
+    n = values.shape[-1]
+    ranks, has_nan = torch.broadcast_tensors(q * (n - 1), values.isnan().any(-1, keepdim=True))
+    ranks = ranks.masked_fill(has_nan, n - 1)
+    below = ranks.to(torch.long)
+    above = ranks.ceil().to(torch.long)
+    out = torch.lerp(values.gather(-1, below), values.gather(-1, above), ranks - below)
+    return out.movedim(-1, 0)
+
+
 def percentile_rescale(gray: torch.Tensor, lo: float = 2.0, hi: float = 98.0,
                        impl: str = "auto") -> torch.Tensor:
     """Clip each image [..., H, W] to its (lo, hi) percentiles, rescale to [0, 1]."""
@@ -58,7 +74,7 @@ def percentile_rescale(gray: torch.Tensor, lo: float = 2.0, hi: float = 98.0,
         return _percentile_rescale_grid(gray, lo, hi, plain=True)
     flat = gray.reshape(*gray.shape[:-2], -1)
     q = torch.tensor([lo / 100.0, hi / 100.0], dtype=flat.dtype, device=flat.device)
-    p = torch.quantile(flat, q, dim=-1, interpolation="linear")
+    p = quantile_linear(flat, q)
     p_lo = p[0][..., None, None]
     p_hi = p[1][..., None, None]
     span = p_hi - p_lo  # a flat frame maps to 0, not NaN

@@ -50,16 +50,27 @@ def axis_matrix(n_in: int, n_out: int, align_corners: bool = False) -> Optional[
     return m
 
 
-@functools.lru_cache(maxsize=None)
-def _device_matrix(n_in: int, n_out: int, align_corners: bool, device: str):
-    """The cached matrix on `device`, made outside inference mode whoever
-    asks first: a serving call's inference tensor cannot enter a later
-    training step's autograd graph."""
+def _make_matrix(n_in: int, n_out: int, align_corners: bool, device: str):
+    """The matrix as a tensor on `device`, made outside inference mode: a
+    serving call's inference tensor cannot enter a later training step's
+    autograd graph."""
     m = axis_matrix(n_in, n_out, align_corners)
     if m is None:
         return None
     with torch.inference_mode(False):
         return torch.tensor(m, device=device)
+
+
+_cached_matrix = functools.lru_cache(maxsize=None)(_make_matrix)
+
+
+def _device_matrix(n_in: int, n_out: int, align_corners: bool, device: str):
+    """The matrix on `device`, cached by shape; under tracing (torch.export,
+    torch.compile) made anew and not cached, since the tensor a trace makes
+    is a fake one that no later eager call may read."""
+    if torch.compiler.is_compiling():
+        return _make_matrix(n_in, n_out, align_corners, device)
+    return _cached_matrix(n_in, n_out, align_corners, device)
 
 
 def resize_bilinear_hw(x: torch.Tensor, out_hw: Tuple[int, int],

@@ -3,7 +3,10 @@
 LUTS holds, for `plasma`, `viridis`, `hot` and `gray`, the 256 RGB entries
 that matplotlib 3.10.8's `colormaps[name](i, bytes=True)` gives for
 i = 0..255, read once from that version and kept here as constants (the
-card's machine has no matplotlib). `colormap` maps values as
+card's machine has no matplotlib). `jet`, a segmented map in matplotlib, is
+built from its segments (JET_SEGMENTS) as matplotlib builds it:
+`float_table('jet')` is its float64 table, the one `colormaps['jet'](x)`
+reads, and its bytes are that table times 255, truncated. `colormap` maps values as
 `colormaps[name](Normalize(vmin, vmax)(x), bytes=True)` does, bit for bit:
 Normalize's in-place float arithmetic in the data's own dtype, 256 bins,
 x == vmax in the top bin, values below vmin the first entry, above vmax the
@@ -94,11 +97,46 @@ LUTS = {
 }
 
 
+# matplotlib's _cm._jet_data: (x, y0, y1) rows a channel
+JET_SEGMENTS = {
+    "red": ((0.00, 0, 0), (0.35, 0, 0), (0.66, 1, 1), (0.89, 1, 1), (1.00, 0.5, 0.5)),
+    "green": ((0.000, 0, 0), (0.125, 0, 0), (0.375, 1, 1), (0.640, 1, 1), (0.910, 0, 0),
+              (1.000, 0, 0)),
+    "blue": ((0.00, 0.5, 0.5), (0.11, 1, 1), (0.34, 1, 1), (0.65, 0, 0), (1.00, 0, 0)),
+}
+
+
+def _segment_table(data) -> np.ndarray:
+    """matplotlib's colors._create_lookup_table(N, data, gamma=1): N values
+    of the piecewise-linear map the (x, y0, y1) rows define."""
+    adata = np.array(data)
+    x, y0, y1 = adata[:, 0] * (N - 1), adata[:, 1], adata[:, 2]
+    xind = (N - 1) * np.linspace(0, 1, N) ** 1.0
+    ind = np.searchsorted(x, xind)[1:-1]
+    distance = (xind[1:-1] - x[ind - 1]) / (x[ind] - x[ind - 1])
+    lut = np.concatenate([[y1[0]], distance * (y0[ind] - y1[ind - 1]) + y1[ind - 1], [y0[-1]]])
+    return np.clip(lut, 0.0, 1.0)
+
+
+@functools.lru_cache(maxsize=None)
+def float_table(name: str) -> np.ndarray:
+    """float64 [N, 3]: the RGB entries of a segmented map ('jet') as
+    matplotlib's table holds them."""
+    if name != "jet":
+        raise ValueError(f"no float table for {name!r}: only the segmented 'jet'")
+    table = np.stack([_segment_table(JET_SEGMENTS[c]) for c in ("red", "green", "blue")], -1)
+    table.flags.writeable = False
+    return table
+
+
 @functools.lru_cache(maxsize=None)
 def rgba_table(name: str) -> np.ndarray:
     """uint8 [N + 3, 4]: the N entries, then under, over and bad (NaN), as
     matplotlib orders them."""
-    rgb = np.frombuffer(bytes.fromhex("".join(LUTS[name])), np.uint8).reshape(N, 3)
+    if name == "jet":
+        rgb = (float_table(name) * 255).astype(np.uint8)
+    else:
+        rgb = np.frombuffer(bytes.fromhex("".join(LUTS[name])), np.uint8).reshape(N, 3)
     table = np.zeros((N + 3, 4), np.uint8)
     table[:N, :3] = rgb
     table[:N, 3] = 255
@@ -148,14 +186,29 @@ def colormap(x, name: str, vmin=None, vmax=None) -> np.ndarray:
         lo, hi = autoscale(x)
         vmin = lo if vmin is None else vmin
         vmax = hi if vmax is None else vmax
-    xa = normalize(x, vmin, vmax)
+    return rgba_table(name).take(_table_index(normalize(x, vmin, vmax)), axis=0, mode="clip")
+
+
+def _table_index(xa: np.ndarray) -> np.ndarray:
+    """Colormap.__call__'s index of each value of the float array xa
+    (changed in place): 256 bins of [0, 1], 1.0 in the top bin, then
+    N, N + 1, N + 2 for under, over and NaN."""
     xa *= N
     xa[xa == N] = N - 1
     under, over, bad = xa < 0, xa >= N, np.isnan(xa)
     with np.errstate(invalid="ignore"):
         idx = xa.astype(int)
     idx[under], idx[over], idx[bad] = N, N + 1, N + 2
-    return rgba_table(name).take(idx, axis=0, mode="clip")
+    return idx
+
+
+def colormap_float(x, name: str) -> np.ndarray:
+    """float64 RGB [..., 3] of `colormaps[name](x)[..., :3]` for float x
+    already in [0, 1] (a segmented map: 'jet'): below 0 the first entry,
+    above 1 the last, NaN 0."""
+    table = float_table(name)
+    table = np.concatenate([table, table[:1], table[-1:], np.zeros((1, 3))])
+    return table.take(_table_index(np.array(x, copy=True)), axis=0, mode="clip")
 
 
 def colormap_rgb(x, name: str, vmin=None, vmax=None,
