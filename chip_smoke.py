@@ -18,7 +18,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      phase 10 (8 and 6 heads). Each K2-K6 case records the kernel
      that served it: bf16 with head_dim 64 the tensor-core kernel (its own
      count moves), float32, and bf16 at head_dim 32, a CUDA-core kernel (K2/K3:
-     one-shot at S=196, key-tile at S=1024);
+     one-shot at S=196, key-tile at S=1024). Then, on a host with two
+     cards or more, with cuda:0 current, K1-K6 (both kernel families) and
+     one full-width InferenceEngine batch on the last card, each bit-equal
+     to the same call on cuda:0 (multi_card_check); on one card a line says
+     that this check did not run and why;
   4. drive the serving path: a full-width bf16 DUSt3R-224 InferenceEngine
      (seeded random weights) answers batches of synthetic raw thermal frames
      [32, 320, 416]; its depth is held against the same engine run with the
@@ -108,9 +112,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
      on the card against the plain twin with no kernel launch; a native
      stereo MASt3R-512 artifact at encoder and decoder depth 2 (K2/K3 at
      S=1024); the softmax_attention op of K4-K6 against each entry;
-  12. print JSON lines of the paths (engine, pseudo_gt, files, training,
-     the bench, fire, int8, multi_gpu, export) and of the kernels and, last,
-     the device line.
+  12. the workflow wrappers (see phase_wrappers), each run with bash on
+     phase 6's tree and full-width, full-depth bf16 checkpoints from seed 0:
+     scripts/torch_run_generate_pseudo_gt.sh (MASt3R-512, 512², frame_skip
+     5), torch_run_train_thermal_dustr.sh (EPOCHS=1 on that pseudo-GT),
+     torch_run_evaluate_thermal_dustr.sh (its best checkpoint on the
+     tree's thermal frames, --no_vis), torch_run_grid_search_thermal_parameters
+     .sh (one cell, one epoch) and torch_run_test_preprocessing.sh (one
+     frame); each exits 0, writes its CLI's files and launches K1-K3 (K2/K3
+     for pseudo-GT) in its own processes; the pseudo-GT, evaluation and
+     preprocessing files equal a direct call of the same CLI with the same
+     arguments in this process, byte for byte;
+  13. print JSON lines of the paths (engine, pseudo_gt, files, training,
+     the bench, fire, int8, multi_gpu, export, multi_card, wrappers) and of
+     the kernels and, last, the device line.
 Without CUDA it exits non-zero before printing any result.
 
     python3 chip_smoke.py --compare-k2k3 OTHER_CSRC_DIR
@@ -129,6 +144,13 @@ DIR [DEVICE]` is one rank of phase 10's gloo job (the phase launches it).
     python3 chip_smoke.py --only-export
 
 builds the kernels and runs phase 11 alone, and prints the export line.
+
+    python3 chip_smoke.py --only-multi-card
+    python3 chip_smoke.py --only-wrappers
+
+build the kernels and run phase 3's multi-card check alone (it needs two
+cards to do more than say so), or phase 12 alone on its own synthetic
+Freiburg tree, and print its line.
 """
 
 from __future__ import annotations
@@ -136,6 +158,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import gc
+import importlib
 import json
 import math
 import subprocess
@@ -312,7 +335,7 @@ def attention_cases(torch, cross: bool, batch: int = BATCH, grid=(14, 14), width
     memory. Each case records the kernel that served it."""
     import torch.nn.functional as F
 
-    from thermal3d_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
     from thermal3d_torch.kernels.flash_attention import (fused_rope_attention,
                                                          fused_rope_attention_plain,
                                                          fused_rope_cross_attention,
@@ -414,7 +437,7 @@ def plain_attention_cases(torch, name: str, shapes=PLAIN_ATTENTION_SHAPES,
     CUDA-core one; each case records the kernel that served it."""
     import torch.nn.functional as F
 
-    from thermal3d_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
 
     kern_fn = getattr(fa, name)
     cases = []
@@ -461,6 +484,103 @@ def plain_attention_cases(torch, name: str, shapes=PLAIN_ATTENTION_SHAPES,
             del q, k, v
             torch.cuda.empty_cache()
     return cases
+
+
+# the multi-card check's inputs (phase 3, two cards or more): made on the
+# CPU from this seed, then copied to cuda:0 and to the last card
+MULTI_CARD_SEED = 3
+
+
+def multi_card_check(torch, np):
+    """Each kernel launches on its tensors' card: with cuda:0 current, K1-K6
+    (tensor-core and CUDA-core kernels) on the last card and one
+    InferenceEngine(device='cuda:<last>') batch of BATCH frames at full
+    width, each bit-equal to the same call on cuda:0, and cuda:0 still
+    current after them. On a host with one card it does not run, and says
+    why."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        reason = (f"{n} card on this host: the check runs the kernels on a card other "
+                  "than the current one, so it needs two")
+        log(f"multi-card check: not run ({reason})")
+        return dict(ran=False, cards=n, reason=reason)
+    from thermal3d_torch.core.config import DUSTR_224_LINEAR
+    from thermal3d_torch.infer.engine import InferenceEngine
+    from thermal3d_torch.kernels.image_ops import percentile_enhance
+    from thermal3d_torch.models.rope import make_grid_positions, rope_tables
+
+    fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
+    torch.cuda.set_device(0)
+    last = torch.device("cuda", n - 1)
+    gen = torch.Generator().manual_seed(MULTI_CARD_SEED)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen).to(dtype)
+
+    def tables(side):
+        return rope_tables(make_grid_positions(side, side), 64)
+
+    bf16 = torch.bfloat16
+    cases = [
+        ("K1 [32,224,224]", percentile_enhance, (torch.rand((BATCH, 224, 224), generator=gen),
+                                                 2.0, 98.0)),
+        ("K2 bf16 [32,196,3072] (tensor cores)", fa.fused_rope_attention,
+         (rand(BATCH, 196, 3072, dtype=bf16), *tables(14), 16, 0.125)),
+        ("K2 f32 [8,196,3072] (one-shot)", fa.fused_rope_attention,
+         (rand(8, 196, 3072), *tables(14), 16, 0.125)),
+        ("K2 f32 [2,1024,2304] (key tile)", fa.fused_rope_attention,
+         (rand(2, 1024, 2304), *tables(32), 12, 0.125)),
+        ("K3 bf16 [32,196,768] (tensor cores)", fa.fused_rope_cross_attention,
+         (*(rand(BATCH, 196, 768, dtype=bf16) for _ in range(3)), *tables(14), 12, 0.125)),
+        ("K3 f32 [8,196,768] (one-shot)", fa.fused_rope_cross_attention,
+         (*(rand(8, 196, 768) for _ in range(3)), *tables(14), 12, 0.125)),
+    ]
+    for name, fn in (("K4", fa.flash_attention_pallas), ("K5", fa.flash_attention_grouped),
+                     ("K6", fa.flash_attention_multihead)):
+        cases.append((f"{name} bf16 [8,16,1024,64] (tensor cores)", fn,
+                      (*(rand(8, 16, 1024, 64, dtype=bf16) for _ in range(3)), 0.125)))
+        cases.append((f"{name} f32 [2,16,196,64] (CUDA cores)", fn,
+                      (*(rand(2, 16, 196, 64) for _ in range(3)), 0.125)))
+    results = []
+    for what, fn, args in cases:
+        outs = []
+        for dev in (torch.device("cuda", 0), last):
+            moved = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]
+            out = fn(*moved)
+            if out.device != dev:
+                raise AssertionError(f"multi-card: {what} on {dev} returned on {out.device}")
+            outs.append(out)
+        torch.cuda.synchronize(0)
+        torch.cuda.synchronize(last)
+        equal = torch.equal(outs[0].cpu(), outs[1].cpu())
+        log(f"multi-card: {what} on {last} with cuda:0 current: "
+            f"{'bit-equal to' if equal else 'DIFFERS from'} cuda:0")
+        if not equal or torch.cuda.current_device() != 0:
+            raise AssertionError(f"multi-card: {what} on {last} differs from cuda:0, or the "
+                                 f"current device moved ({torch.cuda.current_device()})")
+        results.append(dict(case=what, bit_equal=True))
+        del outs
+    cfg = dataclasses.replace(DUSTR_224_LINEAR, compute_dtype="bfloat16")
+    eng0 = InferenceEngine(cfg, params_dtype="bfloat16", seed=0, device="cuda:0")
+    eng_last = InferenceEngine(cfg, state_dict=eng0.model.state_dict(),
+                               params_dtype="bfloat16", device=str(last))
+    frames = raw_frames(np, 0)
+    want = eng0.infer(frames)
+    got, launches = run_counted(lambda: eng_last.infer(frames), {
+        "percentile_enhance": 1, "fused_rope_attention": 40, "fused_rope_cross_attention": 16,
+        "rope_attention_tc": 56})
+    unequal = [k for k in want if not np.array_equal(got[k], want[k])]
+    if unequal or torch.cuda.current_device() != 0:
+        raise AssertionError(f"multi-card: the engine on {last} differs from cuda:0 in "
+                             f"{unequal}, or the current device moved")
+    log(f"multi-card: InferenceEngine(device='{last}') batch of {BATCH} with cuda:0 current: "
+        f"every output bit-equal to cuda:0's; launches {launches}")
+    del eng0, eng_last
+    for i in range(n):
+        with torch.cuda.device(i):
+            torch.cuda.empty_cache()
+    return dict(ran=True, cards=n, card=str(last), kernels=results,
+                engine=dict(batch=BATCH, bit_equal=True, launches=launches))
 
 
 def raw_frames(np, seed: int):
@@ -545,7 +665,7 @@ def kernel_counters():
     kernel's own and the tensor-core K4-K6 kernel's own (every bf16 launch
     with head_dim 64 goes through them), then the int8 product's
     (torch._int_mm: 0 on every path that does not quantize)."""
-    from thermal3d_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
     from thermal3d_torch.kernels.image_ops import percentile_enhance
     from thermal3d_torch.kernels.quant import int_mm
 
@@ -1267,7 +1387,7 @@ def train_backward_cases(torch, device: str = "cuda"):
     of the plain forward. On the card the Function must launch its kernel,
     and the backward alone is timed by graph replay; returns the cases and
     the bf16 backward ms of one training step (None on the CPU)."""
-    from thermal3d_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
     from thermal3d_torch.models.rope import make_grid_positions, rope_tables
 
     on_card = device != "cpu"
@@ -2908,7 +3028,7 @@ def compare_k2k3(torch, other_csrc: str) -> bool:
     from pathlib import Path
 
     from thermal3d_torch.kernels import _build
-    from thermal3d_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
     from thermal3d_torch.models.rope import make_grid_positions, rope_tables
 
     lib_path = _build.BUILD_DIR / "libother_rope_attention_tc.so"
@@ -2988,7 +3108,8 @@ from thermal3d_torch.infer.export import ServingArtifact
 t0 = time.perf_counter()
 art = ServingArtifact.load(sys.argv[2])
 load_s = time.perf_counter() - t0
-from thermal3d_torch.kernels import flash_attention as fa
+import importlib
+fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
 from thermal3d_torch.kernels.image_ops import percentile_enhance
 counters = (percentile_enhance, fa.fused_rope_attention, fa.fused_rope_cross_attention,
             fa.flash_attention_pallas, fa.flash_attention_grouped, fa.flash_attention_multihead,
@@ -3191,7 +3312,7 @@ def export_mastr_check(torch, np, root: str):
 def export_softmax_op_check(torch):
     """thermal3d_torch::softmax_attention for each K4-K6 entry, bf16 at
     EXPORT_SOFTMAX_SHAPE, torch.equal to the entry's wrapper."""
-    from thermal3d_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
     from thermal3d_torch.kernels import ops
 
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -3223,6 +3344,232 @@ def phase_export(torch, np, root: str):
     return res
 
 
+# phase 12: the workflow wrappers scripts/torch_run_*.sh, run with bash from
+# the repository's root as users run them, on phase 6's Freiburg tree. Their
+# `python` is WRAPPER_LAUNCHER, which runs the same module (-m) or stdin
+# script (-) in this interpreter and at exit appends the process's kernel
+# launch counts to a log: each wrapper must launch its path's kernels.
+WRAPPER_TIMEOUT = 600  # seconds a wrapper may take
+WRAPPER_LAUNCHER = r"""
+import atexit, json, os, runpy, sys
+
+ARGS = sys.argv[1:]
+COUNTED = ("fused_rope_attention", "fused_rope_cross_attention", "flash_attention_pallas",
+           "flash_attention_grouped", "flash_attention_multihead", "rope_attention_tc",
+           "softmax_attention_tc")
+
+
+def record():
+    counts = {}
+    k1 = sys.modules.get("thermal3d_torch.kernels.image_ops")
+    fa = sys.modules.get("thermal3d_torch.kernels.flash_attention")
+    if k1 is not None:
+        counts["percentile_enhance"] = k1.percentile_enhance.launches
+    if fa is not None:
+        counts.update((name, getattr(fa, name).launches) for name in COUNTED)
+    with open(os.environ["WRAPPER_LAUNCH_LOG"], "a") as f:
+        f.write(json.dumps(dict(argv=ARGS, launches={k: v for k, v in counts.items() if v}))
+                + "\n")
+
+
+atexit.register(record)
+if ARGS[:1] == ["-m"]:
+    sys.argv = ARGS[1:]
+    runpy.run_module(ARGS[1], run_name="__main__", alter_sys=True)
+elif ARGS[:1] == ["-"]:
+    sys.argv = ARGS
+    exec(compile(sys.stdin.read(), "<stdin>", "exec"), {"__name__": "__main__"})
+else:
+    raise SystemExit(f"launcher: unsupported arguments {ARGS}")
+"""
+K1_K3 = ("percentile_enhance", "fused_rope_attention", "fused_rope_cross_attention",
+         "rope_attention_tc")
+
+
+def same_tree(got_dir: str, want_dir: str, what: str) -> int:
+    """Every file of two output trees byte for byte; returns the count."""
+    import os
+
+    def files(d):
+        return sorted(os.path.relpath(os.path.join(r, f), d) for r, _, fs in os.walk(d)
+                      for f in fs)
+
+    names = files(want_dir)
+    if files(got_dir) != names or not names:
+        raise AssertionError(f"{what}: files {files(got_dir)[:5]}... against {names[:5]}...")
+    for rel in names:
+        with open(os.path.join(got_dir, rel), "rb") as a, open(os.path.join(want_dir, rel),
+                                                               "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"{what}: {rel} differs from the direct call's")
+    return len(names)
+
+
+def phase_wrappers(torch, np, root: str):
+    """Phase 12 (see the module docstring): each wrapper's exit code, files,
+    launches and seconds, and the direct CLI calls its files are held to."""
+    import glob
+    import os
+
+    from thermal3d_torch.cli import evaluate as cli_evaluate
+    from thermal3d_torch.cli import infer as cli_infer
+    from thermal3d_torch.cli import pseudo_gt as cli_pseudo_gt
+    from thermal3d_torch.core.config import MASTR_512_CATMLPDPT
+    from thermal3d_torch.data.freiburg import build_rgb_pair_index
+    from thermal3d_torch.preprocess.enhance import (enhance_thermal_contrast,
+                                                    enhance_thermal_fixed_range)
+    from thermal3d_torch.preprocess.io import load_thermal_image
+    from thermal3d_torch.pseudo_gt.generator import OUTPUT_DIRS, PseudoGTGenerator
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    wr = os.path.join(root, "wrappers")
+    os.makedirs(os.path.join(wr, "bin"))
+    launcher, launch_log = os.path.join(wr, "launcher.py"), os.path.join(wr, "launches.jsonl")
+    with open(launcher, "w") as f:
+        f.write(WRAPPER_LAUNCHER)
+    shim = os.path.join(wr, "bin", "python")
+    with open(shim, "w") as f:
+        f.write(f'#!/bin/sh\nexec "{sys.executable}" "{launcher}" "$@"\n')
+    os.chmod(shim, 0o755)
+    env = dict(os.environ, PATH=os.path.join(wr, "bin") + os.pathsep + os.environ["PATH"],
+               PYTHONPATH=repo, WRAPPER_LAUNCH_LOG=launch_log)
+    steps = {}
+
+    def run(name, script, args=(), extra_env=(), want=K1_K3):
+        """Run one wrapper; it must exit 0 and launch each kernel in `want`."""
+        open(launch_log, "w").close()
+        torch.cuda.empty_cache()  # the wrapper's process needs the card's memory
+        t0 = time.perf_counter()
+        proc = subprocess.run(["bash", os.path.join(repo, "scripts", script), *args], cwd=repo,
+                              env=dict(env, **dict(extra_env)), capture_output=True, text=True,
+                              timeout=WRAPPER_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"{script}: exit {proc.returncode}\n{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+        launches = {}
+        with open(launch_log) as f:
+            for line in f:
+                for k, v in json.loads(line)["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+        if not all(launches.get(k) for k in want):
+            raise AssertionError(f"{script}: launches {launches}; each of {want} must launch"
+                                 f"\n{proc.stdout[-2000:]}")
+        log(f"wrappers: {script} exit 0 in {seconds:.1f} s; launches {launches}")
+        steps[name] = dict(script=script, seconds=seconds, launches=launches)
+        return proc
+
+    # full-width, full-depth bf16 checkpoints from seed 0: MASt3R-512 here,
+    # DUSt3R-224 from phase 11 (export_weights)
+    pcfg = dataclasses.replace(MASTR_512_CATMLPDPT, compute_dtype="bfloat16")
+    gen = PseudoGTGenerator(pcfg, params_dtype="bfloat16", seed=0)
+    mastr_pth = os.path.join(wr, "mastr512_seed0.pth")
+    torch.save({"state_dict": {k: v.cpu() for k, v in gen.model.state_dict().items()}},
+               mastr_pth)
+    del gen
+    dustr_pth = os.path.join(root, "dustr224_seed0.pth")
+    if not os.path.exists(dustr_pth):
+        export_weights(torch, root)
+    ds = os.path.join(root, "ds")
+    thermal_dir = os.path.join(ds, "train", "seq_00_day", "00", "fl_ir_aligned")
+
+    # 1. pseudo-GT at 512², frame_skip 5, against cli.pseudo_gt called here
+    pgt, pgt_direct = os.path.join(wr, "pseudo_gt"), os.path.join(wr, "pseudo_gt_direct")
+    run("generate_pseudo_gt", "torch_run_generate_pseudo_gt.sh",
+        extra_env=dict(DATASET_DIR=ds, OUTPUT_DIR=pgt, WEIGHTS=mastr_pth),
+        want=("fused_rope_attention", "fused_rope_cross_attention", "rope_attention_tc"))
+    n_pairs = len(build_rgb_pair_index(ds, frame_skip=5))
+    counts = {d: len(os.listdir(os.path.join(pgt, d))) for d in OUTPUT_DIRS}
+    if set(counts.values()) != {n_pairs}:
+        raise AssertionError(f"pseudo-GT wrapper: {counts} files, want {n_pairs} a directory")
+    n_steps = -(-n_pairs // PAIR_BATCH)
+    _, direct_launches = run_counted(lambda: cli_pseudo_gt.main([
+        "--dataset_dir", ds, "--output_dir", pgt_direct, "--weights", mastr_pth,
+        "--img_size", "512", "512", "--frame_skip", "5"]),
+        {"fused_rope_attention": 48 * n_steps, "fused_rope_cross_attention": 24 * n_steps,
+         "rope_attention_tc": 72 * n_steps})
+    steps["generate_pseudo_gt"].update(pairs=n_pairs, files=same_tree(
+        pgt, pgt_direct, "pseudo-GT wrapper"), direct_launches=direct_launches)
+
+    # 2. one epoch of training on that pseudo-GT (img 224, frame_skip 3)
+    ckpt = os.path.join(wr, "train_ckpt")
+    run("train", "torch_run_train_thermal_dustr.sh", extra_env=dict(
+        DATASET_DIR=ds, PSEUDO_GT_DIR=pgt, WEIGHTS=dustr_pth, OUTPUT_MODEL=ckpt, EPOCHS="1"))
+    metas = []
+    for policy in ("best", "last"):
+        (step,) = os.listdir(os.path.join(ckpt, policy))
+        step_dir = os.path.join(ckpt, policy, step)
+        if sorted(os.listdir(step_dir)) != ["meta.json", "model.pt", "optimizer.pt"]:
+            raise AssertionError(f"train wrapper: {step_dir} holds {os.listdir(step_dir)}")
+        with open(os.path.join(step_dir, "meta.json")) as f:
+            metas.append(json.load(f))
+    if not all(math.isfinite(m["val_loss"]) for m in metas):
+        raise AssertionError(f"train wrapper: val_loss {metas}")
+    steps["train"].update(best_and_last=metas)
+
+    # 3. evaluation of the best checkpoint on the tree's thermal frames,
+    # against depths named as evaluation/evaluator.find_matching_depth_file
+    # matches them
+    gt_dir = os.path.join(wr, "gt")
+    os.makedirs(gt_dir)
+    rng = np.random.default_rng(12)
+    for path in sorted(glob.glob(os.path.join(thermal_dir, "*.png"))):
+        gt = rng.uniform(1.0, 20.0, FRAME_HW).astype(np.float32)
+        gt[:40] = 0.0  # outside the mask
+        np.save(os.path.join(gt_dir, os.path.basename(path)[:-4] + "_depth.npy"), gt)
+    ev, ev_direct = os.path.join(wr, "evaluation"), os.path.join(wr, "evaluation_direct")
+    run("evaluate", "torch_run_evaluate_thermal_dustr.sh", ["--no_vis"], dict(
+        MODEL=ckpt, THERMAL_DIR=thermal_dir, PSEUDO_GT_DIR=gt_dir, OUTPUT_DIR=ev))
+    n_txt = len(glob.glob(os.path.join(ev, "*_metrics.txt")))
+    if n_txt != N_RGB or not os.path.exists(os.path.join(ev, "metrics_summary.txt")):
+        raise AssertionError(f"evaluate wrapper: {n_txt} metrics files, want {N_RGB}")
+    _, direct_launches = run_counted(lambda: cli_evaluate.main([
+        "--model", ckpt, "--thermal_dir", thermal_dir, "--pseudo_gt_dir", gt_dir,
+        "--output_dir", ev_direct, "--img_size", "224", "224", "--no_vis"]),
+        {"percentile_enhance": 1, "fused_rope_attention": 40, "fused_rope_cross_attention": 16,
+         "rope_attention_tc": 56})
+    steps["evaluate"].update(files=same_tree(ev, ev_direct, "evaluate wrapper"),
+                             direct_launches=direct_launches)
+
+    # 4. the grid search cut to one cell and one epoch through its arguments
+    grid = os.path.join(wr, "grid")
+    run("grid_search", "torch_run_grid_search_thermal_parameters.sh",
+        ["--edge_weights", "0.5", "--smoothness_weights", "0.3", "--epochs", "1",
+         "--output_dir", grid], dict(DATASET_DIR=ds, PSEUDO_GT_DIR=pgt, WEIGHTS=dustr_pth))
+    with open(os.path.join(grid, "best_params.json")) as f:
+        results = json.load(f)["results"]
+    if [(r["edge_weight"], r["smoothness_weight"]) for r in results] != [(0.5, 0.3)] or \
+            not math.isfinite(results[0]["val_loss"]) or \
+            not os.path.exists(os.path.join(grid, "run_best_params.sh")):
+        raise AssertionError(f"grid-search wrapper: {results}")
+    steps["grid_search"].update(results=results)
+
+    # 5. the preprocessing smoke test on one frame: cli.infer's depth file
+    # against cli.infer called here, its line against the same code here
+    frame = sorted(glob.glob(os.path.join(thermal_dir, "*.png")))[0]
+    pre, pre_direct = os.path.join(wr, "preprocess"), os.path.join(wr, "preprocess_direct")
+    proc = run("test_preprocessing", "torch_run_test_preprocessing.sh", [frame, pre])
+    _, direct_launches = run_counted(lambda: cli_infer.main([
+        "--img_path", frame, "--output_dir", pre_direct, "--no_vis"]),
+        {"percentile_enhance": 1, "fused_rope_attention": 40, "fused_rope_cross_attention": 16,
+         "rope_attention_tc": 56})
+    gray = load_thermal_image(frame, normalize=True)
+    on_card = torch.from_numpy(gray).to("cuda")
+    enh = enhance_thermal_contrast(on_card).cpu().numpy()
+    fixed = enhance_thermal_fixed_range(on_card).cpu().numpy()
+    line = (f"decoded {gray.shape}; contrast-enhanced range [{enh.min():.3f},{enh.max():.3f}]; "
+            f"fixed-range mean {fixed.mean():.3f}")
+    if line not in proc.stdout.splitlines():
+        raise AssertionError(f"preprocessing wrapper printed {proc.stdout[-500:]!r}, want {line!r}")
+    steps["test_preprocessing"].update(files=same_tree(pre, pre_direct, "preprocessing wrapper"),
+                                       line=line, direct_launches=direct_launches)
+    seconds = time.perf_counter() - t_phase
+    log(f"wrappers phase: {seconds:.1f} s (" + ", ".join(
+        f"{k} {v['seconds']:.1f} s" for k, v in steps.items()) + ")")
+    return dict(steps=steps, seconds=seconds)
+
+
 def main(argv) -> int:
     import torch
 
@@ -3233,7 +3580,8 @@ def main(argv) -> int:
     if argv and argv[0] == "--dist-worker":
         return dist_worker_main(argv[1:])
     if argv and not ((len(argv) == 2 and argv[0] == "--compare-k2k3")
-                     or argv in (["--only-multi-gpu"], ["--only-export"])):
+                     or argv in (["--only-multi-gpu"], ["--only-export"], ["--only-wrappers"],
+                                 ["--only-multi-card"])):
         print(__doc__, file=sys.stderr)
         return 2
     import numpy as np
@@ -3251,6 +3599,18 @@ def main(argv) -> int:
             export = phase_export(torch, np, root)
         print(card, flush=True)
         print(json.dumps({"export": export}, default=float), flush=True)
+        return 0
+    if argv == ["--only-multi-card"]:
+        multi_card = multi_card_check(torch, np)
+        print(card, flush=True)
+        print(json.dumps({"multi_card": multi_card}), flush=True)
+        return 0
+    if argv == ["--only-wrappers"]:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_wrappers_") as root:
+            write_tree(np, root)
+            wrappers = phase_wrappers(torch, np, root)
+        print(card, flush=True)
+        print(json.dumps({"wrappers": wrappers}), flush=True)
         return 0
     if argv:  # --only-multi-gpu
         log("K2/K3 at the tensor-parallel shapes (tp=2):")
@@ -3283,6 +3643,7 @@ def main(argv) -> int:
             + plain_attention_cases(torch, name, PLAIN_ATTENTION_D32, ("bfloat16",))
             for name in ("flash_attention_pallas", "flash_attention_grouped",
                          "flash_attention_multihead")}
+    multi_card = multi_card_check(torch, np)
     engine = phase_engine(torch, np)
     pseudo_gt = phase_pseudo_gt(torch, np)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as root:
@@ -3292,6 +3653,7 @@ def main(argv) -> int:
         int8 = phase_int8(torch, np, root)
         multi_gpu = phase_multi_gpu(torch, np, root)
         export = phase_export(torch, np, root)
+        wrappers = phase_wrappers(torch, np, root)
     export_served = {}  # the native artifact's launches over its served batches
     for batch in export["native"]["served_batches"]:
         for name, count in batch["launches"].items():
@@ -3327,7 +3689,9 @@ def main(argv) -> int:
                            for k in ("cli_infer_int8_static", "cli_pseudo_gt_int8_test_set")),
                          ("export_native_artifact", export_served),
                          ("export_portable_artifact", export["portable"]["launches"]),
-                         ("export_mastr512_artifact", export["mastr512"]["launches"])):
+                         ("export_mastr512_artifact", export["mastr512"]["launches"]),
+                         *((f"wrapper_{name}", step["launches"])
+                           for name, step in wrappers["steps"].items())):
         for name, count in counts.items():
             by_path.setdefault(name, {})[path] = count
     for counts in by_path.values():  # every kernel names the training path
@@ -3379,6 +3743,8 @@ def main(argv) -> int:
                      default=float), flush=True)
     print(json.dumps({"multi_gpu": multi_gpu}, default=float), flush=True)
     print(json.dumps({"export": export}, default=float), flush=True)
+    print(json.dumps({"multi_card": multi_card}), flush=True)
+    print(json.dumps({"wrappers": wrappers}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

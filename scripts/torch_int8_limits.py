@@ -24,6 +24,7 @@ A few minutes and ~8 GB of memory on 8 cores; no card needed.
 """
 
 import dataclasses
+import importlib
 import os
 import sys
 
@@ -36,7 +37,9 @@ import torch  # noqa: E402
 import chip_smoke  # noqa: E402
 from thermal3d_torch.core.config import DUSTR_224_LINEAR  # noqa: E402
 from thermal3d_torch.infer.engine import InferenceEngine  # noqa: E402
-from thermal3d_torch.kernels import flash_attention  # noqa: E402
+
+# the module (thermal3d_torch.kernels re-exports its flash_attention function)
+flash_attention = importlib.import_module("thermal3d_torch.kernels.flash_attention")
 
 N_FRAMES = 4
 

@@ -13,13 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-import tests.test_torch_common  # noqa: F401  (torch thread count)
+from tests.test_torch_common import StandInLibrary, record_device_blocks
 from thermal3d.models.rope import make_grid_positions as jax_grid
 from thermal3d.models.rope import rope_tables as jax_rope_tables
-from thermal3d_torch.kernels import flash_attention as tfa
 
-# the module (thermal3d.kernels re-exports its flash_attention function)
+# the modules (each kernels package re-exports its flash_attention function)
 jfa = importlib.import_module("thermal3d.kernels.flash_attention")
+tfa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
 
 # f32 against the plain softmax reference (division before PV, one-shot):
 # the same products, other summation orders and one division moved
@@ -323,6 +323,7 @@ def test_tensor_core_attention_launch_arguments(monkeypatch):
             calls.append(args)
             return 0
 
+    record_device_blocks(monkeypatch, [])
     monkeypatch.setattr(tfa, "_attention_tc_lib", lambda: Lib)
     q = torch.zeros(2 * 64 + 7, dtype=torch.bfloat16).as_strided((1, 2, 1, 64), (3, 64, 5, 1))
     _, k, v, _ = _strided_operands(sk=40)
@@ -333,6 +334,73 @@ def test_tensor_core_attention_launch_arguments(monkeypatch):
     (args,) = calls
     assert list(args[4]) == [0, 64, 0, 0, 64, 128, 0, 64, 128, 0, 64, 0]
     assert args[5:11] == (1, 2, 1, 40, 64, 0.125)
+
+
+def _launch_k2k3(dtype, width=128, heads=2):
+    x = torch.zeros((1, 4, 3 * width), dtype=dtype)
+    out = torch.empty((1, 4, width), dtype=dtype)
+    cos, sin = torch.zeros(4, width // heads), torch.zeros(4, width // heads)
+    base, es = x.data_ptr(), x.element_size()
+    tfa._launch(x, base, base + width * es, base + 2 * width * es, 3 * width, cos, sin, out,
+                heads, 0.125, "K2")
+    return out
+
+
+def _launch_rope_attention_tc():
+    x = torch.zeros((1, 4, 384), dtype=torch.bfloat16)
+    out = torch.empty((1, 4, 128), dtype=torch.bfloat16)
+    cos = sin = torch.zeros(4, 64)
+    tfa.rope_attention_tc(x.data_ptr(), x.data_ptr() + 256, x.data_ptr() + 512, 384, cos, sin,
+                          out, 2, 0.125, stream=0)
+    return out
+
+
+def _launch_k4k6(dtype):
+    q, k, v = (torch.zeros((1, 2, 4, 64), dtype=dtype) for _ in range(3))
+    return tfa._attend("K4", q, k, v, 0.125)
+
+
+def _launch_softmax_attention_tc():
+    q, k, v = (torch.zeros((1, 2, 4, 64), dtype=torch.bfloat16) for _ in range(3))
+    out = torch.empty_like(q)
+    tfa.softmax_attention_tc(q, k, v, out, 0.125, stream=0)
+    return out
+
+
+# launch function → (the library loader it calls, the entry it launches,
+# the shared memory the stand-in reports, the call on CPU tensors)
+LAUNCHES = {
+    "k2k3_cuda_core_one_shot": ("_lib", "t3d_rope_attention", 0,
+                                lambda: _launch_k2k3(torch.float32)),
+    "k2k3_cuda_core_key_tile": ("_lib", "t3d_rope_attention_tiled", 1 << 30,
+                                lambda: _launch_k2k3(torch.float32)),
+    "k2k3_tensor_core": ("_tc_lib", "t3d_rope_attention_tc", 0,
+                         lambda: _launch_k2k3(torch.bfloat16)),
+    "rope_attention_tc": ("_tc_lib", "t3d_rope_attention_tc", 0, _launch_rope_attention_tc),
+    "k4k6_cuda_core": ("_attention_lib", "t3d_attention", 0,
+                       lambda: _launch_k4k6(torch.float32)),
+    "k4k6_tensor_core": ("_attention_tc_lib", "t3d_softmax_attention_tc", 0,
+                         lambda: _launch_k4k6(torch.bfloat16)),
+    "softmax_attention_tc": ("_attention_tc_lib", "t3d_softmax_attention_tc", 0,
+                             _launch_softmax_attention_tc),
+}
+
+
+@pytest.mark.parametrize("case", list(LAUNCHES))
+def test_attention_launches_run_on_their_tensors_device(monkeypatch, case):
+    """Each K2-K6 launch function (`_launch`, `rope_attention_tc`, `_attend`,
+    `softmax_attention_tc`) calls its library once, inside one
+    torch.cuda.device block of its output's device (so a call on cuda:1
+    runs there whichever card is current), never before or after it. Stand-in
+    libraries and a recorder for torch.cuda.device, on CPU tensors."""
+    loader, entry, smem, launch = LAUNCHES[case]
+    events = []
+    record_device_blocks(monkeypatch, events)
+    lib = StandInLibrary(events, smem)
+    monkeypatch.setattr(tfa, "_lib", lambda: lib)
+    monkeypatch.setattr(tfa, loader, lambda: lib)
+    out = launch()
+    assert events == [("enter", out.device), ("call", entry), ("exit", out.device)]
 
 
 @pytest.mark.parametrize("impl", ["pallas", "pallas_grouped4", "pallas_multihead"])

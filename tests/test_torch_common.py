@@ -188,3 +188,75 @@ def encode_png(arr: np.ndarray, color: str = "gray", depth: int = 8, filters=(0,
         out += png_chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
     half = len(z) // 2
     return out + png_chunk(b"IDAT", z[:half]) + png_chunk(b"IDAT", z[half:]) + png_chunk(b"IEND", b"")
+
+
+class StandInLibrary:
+    """A kernel library that launches nothing: each `t3d_*` entry point
+    appends ("call", its name) to `events` and returns 0 (no CUDA error);
+    the one-shot K2/K3 kernel's shared-memory query returns `smem`."""
+
+    def __init__(self, events: list, smem: int = 0):
+        self.events = events
+        self.smem = smem
+
+    def t3d_rope_attention_smem_bytes(self, *args) -> int:
+        return self.smem
+
+    def __getattr__(self, name):
+        if not name.startswith("t3d_"):
+            raise AttributeError(name)
+
+        def entry(*args):
+            self.events.append(("call", name))
+            return 0
+
+        return entry
+
+
+def record_device_blocks(monkeypatch, events: list) -> None:
+    """Stand torch.cuda.device in with a recorder that appends ("enter",
+    device) and ("exit", device) to `events`, and torch.cuda.current_stream
+    with one that gives stream 0, so a launch function runs its library call
+    on CPU tensors standing in for a card's."""
+
+    class Device:
+        def __init__(self, device):
+            self.device = device
+
+        def __enter__(self):
+            events.append(("enter", self.device))
+
+        def __exit__(self, *exc):
+            events.append(("exit", self.device))
+            return False
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(torch.cuda, "device", Device)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: Stream)
+
+
+
+def run_wrapper(script: str, tmp_path, args=(), env=None, timeout: int = 300):
+    """Run scripts/<script> with bash from the repository's root, as a user
+    would, and return the CompletedProcess (text output). Its `python` is
+    this interpreter (a script under tmp_path, first on PATH), on the test
+    process's two torch threads, so that its float results can be held bit
+    for bit against a direct call in the test process."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    bin_dir = Path(tmp_path) / "bin"
+    bin_dir.mkdir(exist_ok=True)
+    shim = bin_dir / "python"
+    shim.write_text(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    shim.chmod(0o755)
+    full_env = dict(os.environ, PATH=f"{bin_dir}{os.pathsep}{os.environ.get('PATH', '')}",
+                    PYTHONPATH=str(root), OMP_NUM_THREADS="2", MKL_NUM_THREADS="2",
+                    **(env or {}))
+    return subprocess.run(["bash", str(root / "scripts" / script), *args], cwd=root,
+                          env=full_env, capture_output=True, text=True, timeout=timeout)

@@ -5,6 +5,7 @@ weights, padding, stereo, int8, the loader without model code, the native
 program's ops, and the resize cache under tracing."""
 
 import dataclasses
+import importlib
 import io
 import os
 import subprocess
@@ -173,7 +174,9 @@ def test_artifact_rejects_wrong_shape_and_format(artifacts, jax_artifact, tmp_pa
 def test_loader_imports_without_model_code(artifacts, tmp_path):
     """The deployment contract: `ServingArtifact` loads and serves both
     artifacts in a fresh process where the port's models, engine, converters
-    and preprocessing cannot be imported, and jax is never imported."""
+    and preprocessing cannot be imported, and jax is never imported. The
+    sub-packages `thermal3d_torch.infer` (lazy) and `thermal3d_torch.core`
+    (with their re-exports) import there too."""
     raw = _raw()
     np.save(tmp_path / "frames.npy", raw)
     code = f"""
@@ -189,7 +192,9 @@ class Block:
 
 sys.meta_path.insert(0, Block())
 import numpy as np
-from thermal3d_torch.infer.export import ServingArtifact
+import thermal3d_torch.core
+import thermal3d_torch.infer
+from thermal3d_torch.infer import ServingArtifact
 raw = np.load({str(tmp_path / "frames.npy")!r})
 for path in {[artifacts[k][0] for k in ("portable", "native")]!r}:
     out = ServingArtifact.load(path, device="cpu").infer(raw)
@@ -290,7 +295,7 @@ def test_ops_match_the_wrappers():
     """Each op equals its wrapper bit for bit on the CPU, and passes
     torch.library.opcheck (schema, fake implementation against the real
     one)."""
-    from thermal3d_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
     from thermal3d_torch.kernels import image_ops, ops
 
     gray = torch.rand(3, 9, 11, generator=torch.Generator().manual_seed(1))
@@ -316,7 +321,7 @@ def test_softmax_attention_op_matches_wrapper(entry):
     """thermal3d_torch::softmax_attention for each K4-K6 entry equals the
     entry on [B, H, S, D] inputs and on the [B, S, H, D] views of
     attention_bshd, with q's layout kept (what the fake tells a trace)."""
-    from thermal3d_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
     from thermal3d_torch.kernels import ops
 
     g = torch.Generator().manual_seed(2)
@@ -339,7 +344,7 @@ def test_tracing_routes_through_the_ops_and_never_launches(monkeypatch):
     traced in the kernels' place), and a launch reached while tracing
     raises."""
     from thermal3d_torch.kernels import _build
-    from thermal3d_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
 
     qkv, cos, sin, h, scale = _attention_inputs()
 

@@ -21,8 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_common import (TINY_KW, configs, drawn_params, thermal_head_params,
-                                     torch_state)
+from tests.test_torch_common import (TINY_KW, configs, drawn_params, run_wrapper,
+                                     thermal_head_params, torch_state)
 from thermal3d.cli import common as jax_common
 from thermal3d.convert.flax_to_torch import export_state_dict
 from thermal3d.core.config import MASTR_512_CATMLPDPT as JAX_MASTR
@@ -456,6 +456,28 @@ def test_cli_evaluate_matches_jax(data, tmp_path):
         np.testing.assert_allclose(got[k], ref[k], rtol=RTOL, err_msg=k)
     files = _compare_trees(str(tmp_path / "t"), str(tmp_path / "j"), "*.txt")
     assert "metrics_summary.txt" in files and len(files) == 7
+
+
+def test_evaluate_wrapper_equals_the_direct_cli_call(data, tmp_path):
+    """scripts/torch_run_evaluate_thermal_dustr.sh with MODEL at the wrapper
+    .pth and the tiny preset on the CPU passed on (with --no_vis): exit 0
+    and the same files, byte for byte, as cli.evaluate called with the same
+    arguments."""
+    from thermal3d_torch.cli.evaluate import main
+
+    tiny = ["--no_vis", "--batch_size", str(BATCH), *CLI_TINY, "--device", "cpu"]
+    out = tmp_path / "wrapper"
+    proc = run_wrapper("torch_run_evaluate_thermal_dustr.sh", tmp_path, tiny, env={
+        "MODEL": data["pth"]["wrapper"], "THERMAL_DIR": data["frames"],
+        "PSEUDO_GT_DIR": data["gt"], "OUTPUT_DIR": str(out)})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    main(["--model", data["pth"]["wrapper"], "--thermal_dir", data["frames"], "--pseudo_gt_dir",
+          data["gt"], "--output_dir", str(tmp_path / "direct"), "--img_size", "224", "224",
+          *tiny])
+    names = sorted(os.listdir(tmp_path / "direct"))
+    assert sorted(os.listdir(out)) == names and "metrics_summary.txt" in names
+    for name in names:
+        assert (out / name).read_bytes() == (tmp_path / "direct" / name).read_bytes(), name
 
 
 @pytest.mark.parametrize("cli,argv", [

@@ -1,7 +1,7 @@
 """The port stands alone: thermal3d_torch and chip_smoke.py import nothing of
 JAX, Flax or the JAX package (not even its JAX-free modules), nor the test
 oracle, nor cv2, PIL, matplotlib or wandb (the card's machine has none of
-them)."""
+them); its workflow wrappers name neither jax nor the JAX package."""
 
 import re
 import subprocess
@@ -25,6 +25,16 @@ def test_port_sources_import_no_jax_or_reference():
     assert len(files) > 10 and all(f.exists() for f in files)
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in FORBIDDEN.finditer(f.read_text())]
+    assert not hits, hits
+
+
+def test_wrappers_name_no_jax_or_reference():
+    """The workflow wrappers scripts/torch_run_*.sh run the port's CLIs and
+    name neither jax nor a module of the JAX package."""
+    wrappers = sorted(ROOT.glob("scripts/torch_run_*.sh"))
+    assert len(wrappers) == 5
+    hits = [f"{f.relative_to(ROOT)}: {m.group(0)}" for f in wrappers
+            for m in re.finditer(r"thermal3d\.|jax", f.read_text(), re.IGNORECASE)]
     assert not hits, hits
 
 

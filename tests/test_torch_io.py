@@ -235,6 +235,25 @@ def test_failed_host_build_raises(tmp_path, monkeypatch):
     assert not list((tmp_path / "build").glob("*"))
 
 
+def test_available_and_build_error_report_the_host_library(monkeypatch):
+    """native.available() / build_error() as thermal3d.native's: here the
+    library builds, so available() is true and build_error() None; where it
+    cannot be built, available() is false, build_error() gives the error's
+    text, and library() raises it (they only report: nothing falls back)."""
+    assert native.available() and native.build_error() is None
+    assert jax_native.available() and jax_native.build_error() is None
+
+    def no_compiler(src):
+        raise RuntimeError(f"g++ not found on PATH: {src.name} cannot be built")
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(_build, "build_host", no_compiler)
+    assert not native.available()
+    assert native.build_error() == "g++ not found on PATH: png_decode.cpp cannot be built"
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        native.library()
+
+
 def test_read_png_skips_bad_ancillary_chunks(files, tmp_path):
     """As libpng: a bad CRC drops an ancillary chunk, and a file that ends
     after its image data (no IEND) still decodes."""

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-import tests.test_torch_common  # noqa: F401  (torch thread count)
+from tests.test_torch_common import StandInLibrary, record_device_blocks
 from thermal3d.kernels.flash_attention import (fused_rope_attention as jax_fused_rope_attention,
                                                fused_rope_cross_attention as jax_fused_rope_xattn)
 from thermal3d.kernels.image_ops import percentile_enhance_pallas
@@ -20,6 +20,7 @@ from thermal3d_torch.kernels.flash_attention import (fused_rope_attention,
                                                      fused_rope_attention_plain,
                                                      fused_rope_cross_attention,
                                                      rope_attention_plain)
+from thermal3d_torch.kernels import image_ops
 from thermal3d_torch.kernels.image_ops import (GRID, percentile_enhance,
                                                percentile_enhance_plain, percentile_radix_plain,
                                                search_target)
@@ -78,6 +79,24 @@ def test_k1_wrapper_uses_plain_version_on_cpu():
     torch.testing.assert_close(percentile_enhance(x), percentile_enhance_plain(x),
                                rtol=0, atol=0)
     assert percentile_enhance.launches == before  # only kernel launches count
+
+
+def test_k1_launch_runs_on_its_tensors_device(monkeypatch):
+    """K1's launch calls its library once, inside one torch.cuda.device
+    block of its output's device (so a call on cuda:1 runs there whichever
+    card is current), never before or after it, and counts one launch.
+    A stand-in library and a recorder for torch.cuda.device, on CPU
+    tensors."""
+    events = []
+    record_device_blocks(monkeypatch, events)
+    monkeypatch.setattr(image_ops, "_lib", lambda: StandInLibrary(events))
+    gray = torch.zeros((2, 8, 8))
+    out = torch.empty_like(gray)
+    before = percentile_enhance.launches
+    image_ops._launch(gray, out, 2.0, 98.0)
+    assert events == [("enter", out.device), ("call", "t3d_percentile_enhance"),
+                      ("exit", out.device)]
+    assert percentile_enhance.launches == before + 1
 
 
 @pytest.mark.parametrize("kind", ["random", "flat", "bimodal"])

@@ -51,6 +51,31 @@ def test_apply_rope_2d_bshd_matches_jax_and_tables():
     torch.testing.assert_close(via_tables, out, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("batched_positions", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_apply_rope_2d_matches_jax(batched_positions, dtype):
+    """apply_rope_2d on [B, H, S, D] tokens, with [S, 2] grid positions or
+    [B, S, 2] positions of its own for each batch row, against
+    thermal3d.models.rope.apply_rope_2d on the same seeded numpy input.
+    float32: the same f32 ops, within 1e-6 (cos/sin may round one ulp
+    apart); bfloat16: max|Δ|/max|ref| within 2^-7 (XLA may keep a product
+    in f32 where PyTorch rounds it to bf16, one bf16 rounding)."""
+    rng = _rng(7)
+    b, h, s, d = 2, 3, 35, 16
+    x = rng.standard_normal((b, h, s, d)).astype(np.float32)
+    grid = np.asarray(jrope.make_grid_positions(5, 7))
+    pos = np.stack([grid[rng.permutation(s)] for _ in range(b)]) if batched_positions else grid
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                        torch.bfloat16)
+    ref = np.asarray(jrope.apply_rope_2d(jnp.asarray(x, jdt), jnp.asarray(pos)), np.float32)
+    out = rope.apply_rope_2d(torch.from_numpy(x).to(tdt), torch.from_numpy(pos)).float().numpy()
+    assert out.shape == ref.shape == (b, h, s, d)
+    if dtype == "float32":
+        np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)
+    else:
+        assert np.abs(out - ref).max() / np.abs(ref).max() <= 2.0 ** -7
+
+
 def test_thermal_head_matches_jax():
     """Local normalisation, zero-padded Sobel, (x + w·mag)·t, clip: the same
     f32 ops in the same order (atol 1e-6)."""

@@ -1,11 +1,14 @@
 """The port's preprocessing (resize, grayscale, percentile enhance) against
 thermal3d.preprocess."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import tests.test_torch_common  # noqa: F401  (torch thread count)
+from thermal3d.core.config import PreprocessConfig as JaxPreprocessConfig
 from thermal3d.preprocess.enhance import enhance_thermal_contrast as jax_enhance
 from thermal3d.preprocess.enhance import percentile_rescale as jax_percentile_rescale
 from thermal3d.preprocess.enhance import rgb_to_gray as jax_rgb_to_gray
@@ -13,7 +16,19 @@ from thermal3d.preprocess.resize import _axis_matrix
 from thermal3d.preprocess.resize import resize_bilinear_hw as jax_resize
 from thermal3d_torch.preprocess.enhance import (enhance_thermal_contrast, percentile_rescale,
                                                 rgb_to_gray)
+from thermal3d_torch.core.config import PreprocessConfig
 from thermal3d_torch.preprocess.resize import axis_matrix, resize_bilinear_hw
+
+
+def test_preprocess_config_equals_jax():
+    """PreprocessConfig: the JAX dataclass's fields, in its order, with its
+    defaults, frozen."""
+    got, want = PreprocessConfig(), JaxPreprocessConfig()
+    assert [f.name for f in dataclasses.fields(got)] == [f.name for f in
+                                                         dataclasses.fields(want)]
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        got.raw_min = 0
 
 
 @pytest.mark.parametrize("n_in,n_out", [(320, 224), (416, 224), (480, 224),

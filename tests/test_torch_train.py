@@ -23,7 +23,6 @@ from thermal3d.models.rope import make_grid_positions as jax_grid
 from thermal3d.models.rope import rope_tables as jax_rope_tables
 from thermal3d_torch.convert.from_jax import state_dict_from_jax
 from thermal3d_torch.core.config import LossConfig, TrainConfig
-from thermal3d_torch.kernels import flash_attention as tfa
 from thermal3d_torch.models import layers
 from thermal3d_torch.models.dustr import AsymmetricCroCo3DStereo, trainable_model
 from thermal3d_torch.train import state as tstate
@@ -31,8 +30,9 @@ from thermal3d_torch.train import step as tstep
 from thermal3d_torch.train.checkpoint import CheckpointManager, load_params_from_checkpoint_dir
 
 CPU = torch.device("cpu")
-# the module (thermal3d.kernels re-exports a function of the same name)
+# the modules (each kernels package re-exports a function of the same name)
 jfa = importlib.import_module("thermal3d.kernels.flash_attention")
+tfa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
 
 
 # --- the learning-rate schedule ------------------------------------------

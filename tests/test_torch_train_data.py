@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_common import TINY_KW, configs, drawn_params, to_np, torch_state
+from tests.test_torch_common import (TINY_KW, configs, drawn_params, run_wrapper, to_np,
+                                     torch_state)
 from thermal3d.core.config import TrainConfig as JaxTrainConfig
 from thermal3d.data import freiburg as jax_freiburg
 from thermal3d.data.pipeline import BatchLoader as JaxBatchLoader
@@ -364,6 +365,57 @@ def test_cli_train_resume_and_infer_from_its_checkpoint(tree, tmp_path, capsys):
         [frame], outputs=("depth",))["depth"][0]
     np.testing.assert_array_equal(depth, ref)
     assert meta["epoch"] in (1, 2, 3)
+
+
+def _same_checkpoints(got_dir, want_dir):
+    """Two cli.train output directories hold the same step directories, with
+    equal meta.json and bit-equal tensors in model.pt and optimizer.pt."""
+    def files(d):
+        return sorted(os.path.relpath(os.path.join(r, f), d)
+                      for r, _, fs in os.walk(d) for f in fs)
+
+    assert files(got_dir) == files(want_dir) and files(got_dir)
+    for rel in files(want_dir):
+        got, want = os.path.join(got_dir, rel), os.path.join(want_dir, rel)
+        if rel.endswith(".json"):
+            assert json.load(open(got)) == json.load(open(want)), rel
+            continue
+        assert _equal(torch.load(got, weights_only=False),
+                      torch.load(want, weights_only=False)), rel
+
+
+def _equal(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(map(_equal, a, b))
+    return a == b
+
+
+def test_train_wrapper_equals_the_direct_cli_call(tree, tmp_path):
+    """scripts/torch_run_train_thermal_dustr.sh with the wrapper's defaults
+    (img 224, frame_skip 3, lr 5e-4, the thermal-aware multi-scale loss),
+    EPOCHS=1 and BATCH_SIZE=2, and the tiny preset on the CPU passed on:
+    exit 0 and the same checkpoints as cli.train called with the same
+    arguments."""
+    from thermal3d_torch.cli import train as cli_train
+
+    common = ["--dataset_dir", tree["ds"], "--pseudo_gt_dir", tree["pgt"], "--weights",
+              tree["weights"]]
+    tiny = ["--model_preset", "tiny", "--img_size", "32", "32", "--compute_dtype", "float32",
+            "--max_batches", "2", "--no_wandb", "--device", "cpu"]
+    proc = run_wrapper("torch_run_train_thermal_dustr.sh", tmp_path, tiny, env={
+        "DATASET_DIR": tree["ds"], "PSEUDO_GT_DIR": tree["pgt"], "WEIGHTS": tree["weights"],
+        "OUTPUT_MODEL": str(tmp_path / "wrapper"), "EPOCHS": "1", "BATCH_SIZE": "2"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    summary = cli_train.main(common + [
+        "--output_model", str(tmp_path / "direct"), "--epochs", "1", "--batch_size", "2",
+        "--lr", "5e-4", "--img_size", "224", "224", "--frame_skip", "3", "--log_interval",
+        "100", "--use_thermal_aware_loss", "--multi_scale", *tiny])
+    assert summary["epochs_run"] == 1
+    _same_checkpoints(str(tmp_path / "wrapper"), str(tmp_path / "direct"))
 
 
 def test_cli_train_debug_loading(tree, capsys):

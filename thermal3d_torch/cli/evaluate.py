@@ -18,7 +18,8 @@ from thermal3d_torch.cli.common import (add_preset_flag, apply_preset, apply_sca
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="Evaluate Thermal DUSt3R on a test set "
+    p = argparse.ArgumentParser(prog="python -m thermal3d_torch.cli.evaluate",
+                                description="Evaluate Thermal DUSt3R on a test set "
                                             "(PyTorch/CUDA)")
     p.add_argument("--model", type=str, default=None,
                    help=".pth checkpoint (dust3r or ThermalDUSt3R layout)")

@@ -20,7 +20,8 @@ from thermal3d_torch.cli.common import (add_preset_flag, apply_preset, apply_sca
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="Grid search thermal loss weights (PyTorch/CUDA)")
+    p = argparse.ArgumentParser(prog="python -m thermal3d_torch.cli.grid_search",
+                                description="Grid search thermal loss weights (PyTorch/CUDA)")
     p.add_argument("--dataset_dir", type=str, required=True)
     p.add_argument("--pseudo_gt_dir", type=str, required=True)
     p.add_argument("--weights", type=str, required=True,

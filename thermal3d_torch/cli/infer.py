@@ -32,7 +32,8 @@ from thermal3d_torch.cli.common import (add_preset_flag, apply_preset, apply_sca
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="Thermal DUSt3R depth inference (PyTorch/CUDA)")
+    p = argparse.ArgumentParser(prog="python -m thermal3d_torch.cli.infer",
+                                description="Thermal DUSt3R depth inference (PyTorch/CUDA)")
     p.add_argument("--weights", type=str, default=None,
                    help=".pth checkpoint (dust3r or ThermalDUSt3R layout); random "
                         "init if omitted")

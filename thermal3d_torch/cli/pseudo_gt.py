@@ -23,6 +23,7 @@ from thermal3d_torch.cli.common import (add_preset_flag, apply_preset, apply_sca
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
+        prog="python -m thermal3d_torch.cli.pseudo_gt",
         description="Generate pseudo-GT from RGB pairs with MASt3R (PyTorch/CUDA)")
     p.add_argument("--dataset_dir", type=str, required=True)
     p.add_argument("--output_dir", type=str, required=True)

@@ -35,7 +35,8 @@ MESH_AXES = ("data", "model")
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="Fine-tune DUSt3R on thermal images with "
+    p = argparse.ArgumentParser(prog="python -m thermal3d_torch.cli.train",
+                                description="Fine-tune DUSt3R on thermal images with "
                                             "pseudo-GT (PyTorch/CUDA)")
     p.add_argument("--dataset_dir", type=str, required=True)
     p.add_argument("--pseudo_gt_dir", type=str, required=True)

@@ -5,6 +5,8 @@ port config built from the same keywords describe the same network, loss and
 training run. Only fields that the port reads are kept, and the JAX
 model's compile layouts (`scan_layers`, `branch_batch`), which a JAX config
 carries over: their outputs equal the unrolled model's, which the port runs.
+`PreprocessConfig` is kept whole, with the JAX defaults, as part of the
+package's import surface (`from thermal3d_torch.core import PreprocessConfig`).
 """
 
 from __future__ import annotations
@@ -129,6 +131,24 @@ TINY = DustrModelConfig(
     dec_depth=2,
     dec_num_heads=2,
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class PreprocessConfig:
+    """Thermal preprocessing constants (the reference's utils/preprocessing.py):
+    the percentile window, the Freiburg raw-count window, the 16-bit scale,
+    the thermal head's initial values and the fire-scene CLAHE settings."""
+
+    percentile_low: float = 2.0
+    percentile_high: float = 98.0
+    raw_min: int = FREIBURG_RAW_MIN
+    raw_max: int = FREIBURG_RAW_MAX
+    uint16_scale: float = 65535.0
+    edge_weight_init: float = 0.5  # ThermalDUSt3R's learnable head
+    temp_scale_init: float = 1.0
+    clahe_clip_limit: float = 3.0  # fire-scene CLAHE
+    clahe_grid: Tuple[int, int] = (8, 8)
+    fire_mask_threshold: float = 0.7
 
 
 @dataclasses.dataclass(frozen=True)

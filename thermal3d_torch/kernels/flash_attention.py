@@ -20,7 +20,9 @@ other dtypes and head dims on the CUDA cores (csrc/attention.cu).
 them by `impl` name, as the JAX functions do.
 
 Every wrapper launches its CUDA kernel for CUDA tensors and runs the plain
-PyTorch version of the same arithmetic for CPU tensors. Where autograd needs
+PyTorch version of the same arithmetic for CPU tensors. A launch runs on its
+tensors' card: the library call is made inside `torch.cuda.device(out.device)`
+on that card's current stream, whichever card is current. Where autograd needs
 a gradient (grad mode on and an input that requires grad), the wrapper runs
 through a torch.autograd.Function: its forward is the same kernel launch
 (or the plain version on the CPU) and saves what the JAX custom_vjp
@@ -218,8 +220,9 @@ def _launch(x, q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale,
     # key-tile loop runs instead.
     one_shot = smem_bytes(s, d, x.dtype) <= SMEM_LIMIT
     fn = lib.t3d_rope_attention if one_shot else lib.t3d_rope_attention_tiled
-    rc = fn(_DTYPE_CODE[x.dtype], q_ptr, k_ptr, v_ptr, row_stride, cos.data_ptr(),
-            sin.data_ptr(), out.data_ptr(), b, s, num_heads, d, float(scale), stream)
+    with torch.cuda.device(out.device):
+        rc = fn(_DTYPE_CODE[x.dtype], q_ptr, k_ptr, v_ptr, row_stride, cos.data_ptr(),
+                sin.data_ptr(), out.data_ptr(), b, s, num_heads, d, float(scale), stream)
     _build.check(lib, rc, f"{what} launch")
 
 
@@ -230,15 +233,17 @@ def rope_attention_tc(q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads,
     library call launches the RoPE prologue of K into a [B, H, S, 64] bf16
     scratch, then the attention kernel, on `stream`. `lib`: another build
     of csrc/rope_attention_tc.cu, loaded by `bind_tc_lib` (this checkout's
-    by default). Counts its own calls in `rope_attention_tc.launches`."""
+    by default). The library call runs with out's card current. Counts its
+    own calls in `rope_attention_tc.launches`."""
     b, s, c = out.shape
     k_roped = torch.empty((b, num_heads, s, c // num_heads), dtype=out.dtype, device=out.device)
     ptrs = (q_ptr, k_ptr, v_ptr, cos.data_ptr(), sin.data_ptr(), k_roped.data_ptr(),
             out.data_ptr())
     check_alignment(what, ptrs, row_stride * out.element_size())
     lib = lib or _tc_lib()
-    rc = lib.t3d_rope_attention_tc(*ptrs[:3], row_stride, *ptrs[3:], b, s, num_heads,
-                                   c // num_heads, float(scale), stream)
+    with torch.cuda.device(out.device):
+        rc = lib.t3d_rope_attention_tc(*ptrs[:3], row_stride, *ptrs[3:], b, s, num_heads,
+                                       c // num_heads, float(scale), stream)
     _build.check(lib, rc, f"{what} launch")
     _build.count_launch(rope_attention_tc)
 
@@ -555,8 +560,10 @@ def _attend(what, q, k, v, scale):
         return out
     strides = (ctypes.c_longlong * 12)(*(t.stride(i) for t in (q, k, v, out) for i in range(3)))
     lib = _attention_lib()
-    rc = lib.t3d_attention(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           out.data_ptr(), strides, b, h, sq, sk, d, float(scale), stream)
+    with torch.cuda.device(out.device):
+        rc = lib.t3d_attention(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+                               v.data_ptr(), out.data_ptr(), strides, b, h, sq, sk, d,
+                               float(scale), stream)
     _build.check(lib, rc, f"{what} launch")
     return out
 
@@ -565,16 +572,18 @@ def softmax_attention_tc(q, k, v, out, scale, stream, what="softmax_attention_tc
     """Launch the tensor-core K4-K6 kernel (bf16, head_dim 64) on checked
     [B, H, S, D] operands and out. Strides of axes of size 1 are never
     read and go to the kernel as 0; every other batch, head and row stride,
-    and every base pointer, must be a multiple of 16 bytes. Counts its own
-    calls in `softmax_attention_tc.launches`."""
+    and every base pointer, must be a multiple of 16 bytes. The library
+    call runs with out's card current. Counts its own calls in
+    `softmax_attention_tc.launches`."""
     b, h, sq, d = q.shape
     strides = [t.stride(i) if t.shape[i] > 1 else 0 for t in (q, k, v, out) for i in range(3)]
     es = q.element_size()
     check_alignment(what, [t.data_ptr() for t in (q, k, v, out)], *(st * es for st in strides))
     lib = _attention_tc_lib()
-    rc = lib.t3d_softmax_attention_tc(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                      (ctypes.c_longlong * 12)(*strides), b, h, sq, k.shape[2],
-                                      d, float(scale), stream)
+    with torch.cuda.device(out.device):
+        rc = lib.t3d_softmax_attention_tc(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                          out.data_ptr(), (ctypes.c_longlong * 12)(*strides),
+                                          b, h, sq, k.shape[2], d, float(scale), stream)
     _build.check(lib, rc, f"{what} launch")
     _build.count_launch(softmax_attention_tc)
 

@@ -143,16 +143,25 @@ def launch_percentile_enhance(gray: torch.Tensor, lo: float = 2.0,
         raise ValueError(f"percentile_enhance: at most {MAX_PIXELS} pixels an image and "
                          f"65535 images (got {b} of {h}x{w})")
     out = torch.empty_like(gray)
-    if out.numel() == 0:
-        return out
+    if out.numel() > 0:
+        _launch(gray, out, lo, hi)
+    return out
+
+
+def _launch(gray: torch.Tensor, out: torch.Tensor, lo: float, hi: float) -> None:
+    """Launch K1 on checked [B, H, W] float32 tensors, on their card: the
+    library call runs with that card current, on its current stream."""
+    b, h, w = gray.shape
+    n = h * w
     scratch = torch.zeros(b * _SCRATCH_INTS, dtype=torch.int32, device=gray.device)
     lib = _lib()
-    rc = lib.t3d_percentile_enhance(
-        gray.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, n, search_target(lo, n),
-        search_target(hi, n), torch.cuda.current_stream(gray.device).cuda_stream)
+    stream = torch.cuda.current_stream(gray.device).cuda_stream
+    with torch.cuda.device(out.device):
+        rc = lib.t3d_percentile_enhance(
+            gray.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, n, search_target(lo, n),
+            search_target(hi, n), stream)
     _build.check(lib, rc, "percentile_enhance launch")
     _build.count_launch(percentile_enhance)
-    return out
 
 
 percentile_enhance.launches = 0

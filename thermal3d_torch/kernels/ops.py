@@ -20,11 +20,15 @@ registered, and an artifact serves forward passes.
 
 from __future__ import annotations
 
+import importlib
+
 import torch
 from torch.library import custom_op
 
-from thermal3d_torch.kernels import flash_attention as fa
 from thermal3d_torch.kernels.image_ops import launch_percentile_enhance
+
+# the module (the package re-exports its function flash_attention)
+fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
 
 SOFTMAX_ENTRIES = {f.__name__: f for f in (fa.flash_attention_pallas, fa.flash_attention_grouped,
                                            fa.flash_attention_multihead)}

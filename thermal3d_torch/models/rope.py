@@ -46,12 +46,26 @@ def _rope_1d(t: torch.Tensor, pos: torch.Tensor, base: float) -> torch.Tensor:
     return t * cos + rotated * sin
 
 
+def _rope_2d(tokens: torch.Tensor, pos_y: torch.Tensor, pos_x: torch.Tensor,
+             base: float) -> torch.Tensor:
+    d = tokens.shape[-1] // 2
+    return torch.cat([_rope_1d(tokens[..., :d], pos_y, base),
+                      _rope_1d(tokens[..., d:], pos_x, base)], dim=-1)
+
+
+def apply_rope_2d(tokens: torch.Tensor, positions: torch.Tensor,
+                  base: float = 100.0) -> torch.Tensor:
+    """2-D RoPE on [B, num_heads, S, head_dim] tokens in their own dtype;
+    positions [S, 2] or [B, S, 2] (y, x)."""
+    if positions.dim() == 2:
+        return _rope_2d(tokens, positions[:, 0], positions[:, 1], base)
+    # [B, 1, S]: broadcasts over heads
+    return _rope_2d(tokens, positions[:, None, :, 0], positions[:, None, :, 1], base)
+
+
 def apply_rope_2d_bshd(tokens: torch.Tensor, positions: torch.Tensor,
                        base: float = 100.0) -> torch.Tensor:
     """2-D RoPE on [B, S, num_heads, head_dim] tokens in their own dtype;
     positions [S, 2] (y, x)."""
-    pos_y = positions[:, 0][:, None]  # [S, 1]: broadcasts over heads
-    pos_x = positions[:, 1][:, None]
-    d = tokens.shape[-1] // 2
-    return torch.cat([_rope_1d(tokens[..., :d], pos_y, base),
-                      _rope_1d(tokens[..., d:], pos_x, base)], dim=-1)
+    # [S, 1]: broadcasts over heads
+    return _rope_2d(tokens, positions[:, 0][:, None], positions[:, 1][:, None], base)

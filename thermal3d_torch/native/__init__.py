@@ -68,6 +68,22 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+def build_error() -> Optional[str]:
+    """The error text that keeps the decoder's host library from building or
+    loading (building it on the first call), or None once it is loaded. It
+    only reports: `library()` raises that error, and nothing falls back."""
+    try:
+        library()
+    except (RuntimeError, OSError) as e:
+        return str(e)
+    return None
+
+
+def available() -> bool:
+    """Whether the decoder's host library is built and loaded."""
+    return build_error() is None
+
+
 @dataclasses.dataclass
 class Png:
     """A PNG's header and its inflated, still filtered rows."""
