@@ -15,7 +15,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      shapes (S=196) and the MASt3R-512 shapes (S=1024); K4/K5/K6 at both,
      and with Sq=196 against Sk=1024; K2-K6 also in bf16 at head_dim 32,
      both S, and K2/K3 at the shapes a tensor-parallel rank gives them in
-     phase 10 (8 and 6 heads). Each K2-K6 case records the kernel
+     phase 10 (tp=2: 8 and 6 heads) and in the multi-device phase (tp=4: 4
+     and 3 heads). Each K2-K6 case records the kernel
      that served it: bf16 with head_dim 64 the tensor-core kernel (its own
      count moves), float32, and bf16 at head_dim 32, a CUDA-core kernel (K2/K3:
      one-shot at S=196, key-tile at S=1024). Then, on a host with two
@@ -123,9 +124,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
      for pseudo-GT) in its own processes; the pseudo-GT, evaluation and
      preprocessing files equal a direct call of the same CLI with the same
      arguments in this process, byte for byte;
-  13. print JSON lines of the paths (engine, pseudo_gt, files, training,
-     the bench, fire, int8, multi_gpu, export, multi_card, wrappers) and of
-     the kernels and, last, the device line.
+  13. the multi-device phase (see phase_multi_device and the comment above
+     MD_N_RGB), on a host with two cards or more; on one card a line says
+     that it did not run and why: serving and pseudo-GT over a mesh of 2
+     and of all the host's cards, each bit-equal to the same mesh laid on
+     cuda:0, with frames/s and pairs/s against the card count; the --ndev
+     CLIs and the bench byte-equal to --ndev 1; training over NCCL on 4
+     ranks (DP, ZeRO-1, DP×TP, TP) under torchrun and --multihost, each
+     layout's float32 step against the single-process step, timed bf16
+     steps, a ZeRO-1 checkpoint restored bit-equal and resumed;
+  14. print JSON lines of the paths (engine, pseudo_gt, files, training,
+     the bench, fire, int8, multi_gpu, export, multi_card, multi_device,
+     wrappers) and of the kernels and, last, the device line.
 Without CUDA it exits non-zero before printing any result.
 
     python3 chip_smoke.py --compare-k2k3 OTHER_CSRC_DIR
@@ -139,18 +149,22 @@ shapes of both paths, times in turns) and exits non-zero if any differs.
 builds the kernels and runs the tensor-parallel K2/K3 cases and phase 10
 alone, on its own synthetic Freiburg tree (its pseudo-GT from the mesh
 generator), and prints the multi_gpu line. `--dist-worker RANK WORLD PORT
-DIR [DEVICE]` is one rank of phase 10's gloo job (the phase launches it).
+DIR` is one rank of the job DIR/job.json describes (phase 10's gloo job on
+cuda:0, the multi-device phase's NCCL job; run_dist_job launches them).
 
     python3 chip_smoke.py --only-export
 
 builds the kernels and runs phase 11 alone, and prints the export line.
 
-    python3 chip_smoke.py --only-multi-card
+    python3 chip_smoke.py --only-multi-card [PART ...]
     python3 chip_smoke.py --only-wrappers
 
-build the kernels and run phase 3's multi-card check alone (it needs two
-cards to do more than say so), or phase 12 alone on its own synthetic
-Freiburg tree, and print its line.
+build the kernels and run phase 3's multi-card check and the
+multi-device phase alone (they need two cards to do more than say so; on
+four cards about 15 minutes), or, with PARTs (of MD_PARTS: engine,
+generator, tp_attention, clis, training), those parts of the phase alone;
+or phase 12 alone on its own synthetic Freiburg tree; and print their
+lines.
 """
 
 from __future__ import annotations
@@ -620,6 +634,15 @@ LAYERS = (("K2/K3 rope_attention", ("rope_attention",)),
           ("copies", ("memcpy", "memset")))
 
 
+def union_ms(spans) -> float:
+    """The ms that (start µs, end µs, ...) spans cover together."""
+    busy_us, cur_end = 0.0, -math.inf
+    for start, end, *_ in sorted(spans):
+        busy_us += max(0.0, end - max(start, cur_end))
+        cur_end = max(cur_end, end)
+    return busy_us / 1e3
+
+
 def profile_batch(torch, fn, what: str = f"one infer() of {BATCH} frames", layers=LAYERS):
     """One warmed-up call of fn under torch.profiler: device time by layer,
     the device's busy time (union of its kernel and copy spans) and the host
@@ -640,16 +663,13 @@ def profile_batch(torch, fn, what: str = f"one infer() of {BATCH} frames", layer
         log("profile: the profiler recorded no device events")
         return dict(wall_ms=wall_ms, device_events=0)
     by_layer, by_kernel = {}, {}
-    busy_us, cur_end = 0.0, -math.inf
     for start, end, name in spans:
         ms = (end - start) / 1e3
         low = name.lower()
         layer = next((lay for lay, keys in layers if any(k in low for k in keys)), "other")
         by_layer[layer] = by_layer.get(layer, 0.0) + ms
         by_kernel[name] = by_kernel.get(name, 0.0) + ms
-        busy_us += max(0.0, end - max(start, cur_end))
-        cur_end = max(cur_end, end)
-    busy_ms = busy_us / 1e3
+    busy_ms = union_ms(spans)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     log(f"profile ({what}, profiler on): wall {wall_ms:.3f} ms, "
         f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
@@ -1021,10 +1041,10 @@ def png_bytes(np, arr) -> bytes:
             + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
 
 
-def write_tree(np, root: str):
+def write_tree(np, root: str, n_rgb: int = N_RGB):
     """The phase's files: `thermal/` (N_FRAMES uint16 frames, raw counts
     21000-26000 with structure, and one corrupt file) and a Freiburg tree
-    `ds/train/seq_00_day/00/{fl_rgb,fl_ir_aligned}` of N_RGB RGB8 frames and
+    `ds/train/seq_00_day/00/{fl_rgb,fl_ir_aligned}` of n_rgb RGB8 frames and
     their thermal twins. Returns the sorted thermal paths."""
     import os
 
@@ -1048,13 +1068,14 @@ def write_tree(np, root: str):
         with open(path, "wb") as f:
             f.write(png_bytes(np, (21000 + 5000 * frame).astype(np.uint16)))
     base = np.stack([yy, xx, 0.5 * (yy + xx)], axis=-1)
-    for i in range(N_RGB):
+    good = [p for i, p in enumerate(thermal) if i != CORRUPT_AT]  # the RGB twins decode
+    for i in range(n_rgb):
         stamp = f"{1590000 + i}_{i:03d}"
         rgb = np.roll(0.7 * base, 8 * i, axis=1) + 0.3 * rng.uniform(size=base.shape)
         with open(os.path.join(seq, "fl_rgb", f"fl_rgb_{stamp}.png"), "wb") as f:
             f.write(png_bytes(np, (255 * rgb).astype(np.uint8)))
         with open(os.path.join(seq, "fl_ir_aligned", f"fl_ir_aligned_{stamp}.png"), "wb") as f:
-            f.write(open(thermal[i], "rb").read())
+            f.write(open(good[i], "rb").read())
     return sorted(thermal)
 
 
@@ -1335,12 +1356,11 @@ GRAD_TENSOR_REL_MAX = 0.25
 TF32_CLI_REL_LIMIT = 1e-5
 
 
-def train_batch(torch, np, seed: int = 0, device: str = "cuda"):
-    """A training batch on `device`: raw-count thermal pairs [B,224,224,3]
-    (a ramp, a wave and noise; view 2 shifted 6 pixels) and 512² pointmaps
-    of a tilted wavy surface with confidences."""
+def train_batch(torch, np, seed: int = 0, device: str = "cuda", b: int = TRAIN_BATCH):
+    """A training batch of b pairs on `device`: raw-count thermal pairs
+    [b,224,224,3] (a ramp, a wave and noise; view 2 shifted 6 pixels) and
+    512² pointmaps of a tilted wavy surface with confidences."""
     rng = np.random.default_rng(seed)
-    b = TRAIN_BATCH
     yy, xx = np.meshgrid(np.linspace(0, 1, 224), np.linspace(0, 1, 224), indexing="ij")
     t1 = 21000 + 5000 * (0.5 * xx + 0.3 * np.sin(8 * yy) + 0.2 * rng.uniform(size=(b, 224, 224)))
     t2 = np.roll(t1, 6, axis=2)
@@ -2508,57 +2528,80 @@ def dist_model_config(dtype: str, depth: dict):
     return dataclasses.replace(DUSTR_224_LINEAR, compute_dtype=dtype, **depth)
 
 
-def dist_inputs(torch, np, out: str, depth: dict = DIST_DEPTH) -> None:
-    """out/depth.json, out/init.pt (seeded float32 weights of
-    dist_model_config at that depth) and out/batch.pt (chip_smoke's
-    training batch), on the host."""
+def dist_inputs(torch, np, out: str, depth: dict = DIST_DEPTH, batch: int = TRAIN_BATCH,
+                device: str = "cpu") -> None:
+    """out/depth.json, out/init.pth (seeded float32 weights of
+    dist_model_config at that depth, made on `device`: a state dict that
+    cli.train's --weights also reads) and out/batch.pt (chip_smoke's
+    training batch of `batch` pairs), on the host."""
     import os
 
     from thermal3d_torch.models.dustr import trainable_model
 
     with open(os.path.join(out, "depth.json"), "w") as f:
         json.dump(depth, f)
-    model = trainable_model(dist_model_config("float32", depth), torch.device("cpu"), seed=0)
-    torch.save(model.state_dict(), os.path.join(out, "init.pt"))
-    torch.save(train_batch(torch, np, device="cpu"), os.path.join(out, "batch.pt"))
+    model = trainable_model(dist_model_config("float32", depth), torch.device(device), seed=0)
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+               os.path.join(out, "init.pth"))
+    del model
+    torch.save(train_batch(torch, np, device="cpu", b=batch), os.path.join(out, "batch.pt"))
+
+
+def dist_model(torch, out: str, dev, dtype: str, mesh=None):
+    """dist_model_config(dtype, out/depth.json) from out/init.pth on `dev`,
+    cut to this rank's tensor-parallel share on a process mesh."""
+    import os
+
+    from thermal3d_torch.core.mesh import shard_model_
+    from thermal3d_torch.models.dustr import trainable_model
+
+    with open(os.path.join(out, "depth.json")) as f:
+        depth = json.load(f)
+    model = trainable_model(dist_model_config(dtype, depth), dev,
+                            torch.load(os.path.join(out, "init.pth"), weights_only=True))
+    if mesh is not None:
+        shard_model_(model, mesh)
+    return model
+
+
+def dist_batch(torch, out: str, dev, mesh=None):
+    """out/batch.pt on `dev` (this rank's rows on a process mesh) and its
+    global number of pairs."""
+    import os
+
+    from thermal3d_torch.core.mesh import shard_batch
+
+    batch = torch.load(os.path.join(out, "batch.pt"), weights_only=True)
+    rows = int(batch["thermal1"].shape[0])
+    if mesh is not None:
+        batch = shard_batch(mesh, batch)
+    return {k: v.to(dev) for k, v in batch.items()}, rows
 
 
 def dist_step(torch, out: str, device: str, dtype: str, mesh=None, zero1: bool = False):
-    """One train step of dist_model_config(dtype, out/depth.json) from out/init.pt on
-    out/batch.pt (on a process mesh: this rank's rows, this rank's share of
-    the model). Returns the loss and grad_norm metrics, the averaged
-    gradient the optimizer received (gathered to full tensors, float32, on
-    the host), the kernels' launches, the attention modules' head counts,
-    the optimizer's mu + nu bytes and the peak device memory."""
-    import os
-
+    """One train step of dist_model from out/init.pth on out/batch.pt (on a
+    process mesh: this rank's rows, this rank's share of the model). Returns
+    the loss and grad_norm metrics, the averaged gradient the optimizer
+    received (gathered to full tensors, float32, on the host), the kernels'
+    launches, the attention modules' head counts, the optimizer's mu + nu
+    bytes and the peak device memory."""
     from thermal3d_torch.core.config import TrainConfig
-    from thermal3d_torch.core.mesh import (gather_full, param_partition_spec, shard_batch,
-                                           shard_model_)
-    from thermal3d_torch.models.dustr import trainable_model
+    from thermal3d_torch.core.mesh import gather_full, param_partition_spec
     from thermal3d_torch.train.state import create_train_state
     from thermal3d_torch.train.step import make_train_step
 
     dev = torch.device(device)
-    with open(os.path.join(out, "depth.json")) as f:
-        depth = json.load(f)
-    model = trainable_model(dist_model_config(dtype, depth), dev,
-                            torch.load(os.path.join(out, "init.pt"), weights_only=True))
-    if mesh is not None:
-        shard_model_(model, mesh)
-    cfg = TrainConfig(batch_size=TRAIN_BATCH, zero1=zero1)
+    model = dist_model(torch, out, dev, dtype, mesh)
+    batch, rows = dist_batch(torch, out, dev, mesh)
+    cfg = TrainConfig(batch_size=rows, zero1=zero1)
     state = create_train_state(model, cfg, steps_per_epoch=100, mesh=mesh)
     train_step = make_train_step(model, cfg, mesh=mesh)
     received = []
     inner = state.tx.step
     state.tx.step = lambda grads: (received.append([g.detach().clone() for g in grads]),
                                    inner(grads))[1]
-    batch = torch.load(os.path.join(out, "batch.pt"), weights_only=True)
-    if mesh is not None:
-        batch = shard_batch(mesh, batch)
-    batch = {k: v.to(dev) for k, v in batch.items()}
     if dev.type == "cuda":
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     counters = kernel_counters()
     for c in counters:
@@ -2583,11 +2626,132 @@ def dist_step(torch, out: str, device: str, dtype: str, mesh=None, zero1: bool =
                 slot_bytes=slot_bytes, peak_bytes=peak)
 
 
+def step_errors(got: dict, ref: dict) -> dict:
+    """A distributed step's loss, grad_norm and gradient errors against the
+    single-process step `ref` on the same global batch."""
+    return dict(loss_ref=ref["loss"], loss_rel=abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+                grad_norm_rel=abs(got["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"]),
+                grad_rel=grad_rel_err(got["grads"], ref["grads"]),
+                slot_bytes_single=ref["slot_bytes"], peak_bytes_single=ref["peak_bytes"])
+
+
+def timed_steps(torch, out: str, device: str, mesh, zero1: bool, n: int) -> dict:
+    """bf16 training on this rank's rows of out/batch.pt over a process mesh
+    on the card: a warm-up step, then n steps timed by CUDA events between
+    barriers (steps/s; launches a step; peak memory; mu + nu bytes), then one
+    step under torch.profiler: the device ms of its NCCL kernels (their
+    spans, which include waiting for the other ranks), the device's busy ms
+    (union of spans) and the step's wall ms."""
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from thermal3d_torch.core.config import TrainConfig
+    from thermal3d_torch.train.state import create_train_state
+    from thermal3d_torch.train.step import make_train_step
+
+    dev = torch.device(device)
+    model = dist_model(torch, out, dev, "bfloat16", mesh)
+    batch, rows = dist_batch(torch, out, dev, mesh)
+    cfg = TrainConfig(batch_size=rows, zero1=zero1)
+    state = create_train_state(model, cfg, steps_per_epoch=100, mesh=mesh)
+    train_step = make_train_step(model, cfg, mesh=mesh)
+    train_step(state, batch)  # warm-up
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    counters = kernel_counters()
+    for c in counters:
+        c.launches = 0
+    dist.barrier()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses = [train_step(state, batch)[1]["loss"] for _ in range(n)]
+    end.record()
+    end.synchronize()
+    elapsed_ms = start.elapsed_time(end)
+    launches = {c.__name__: c.launches // n for c in counters if c.launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = torch.stack(losses).cpu().tolist()
+    dist.barrier()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(state, batch)
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    nccl = [s1 - s0 for s0, s1, name in spans if "nccl" in name.lower()]
+    busy_ms = union_ms(spans)
+    slot_bytes = sum(t.numel() * t.element_size() for t in state.tx.mu + state.tx.nu)
+    del state, train_step, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(steps=n, global_batch=rows, steps_per_s=n / (elapsed_ms / 1e3),
+                step_ms=elapsed_ms / n, losses=losses, launches_per_step=launches,
+                peak_bytes=peak, slot_bytes=slot_bytes,
+                profiled_step=dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                                   idle_share=1 - busy_ms / wall_ms, nccl_ms=sum(nccl) / 1e3,
+                                   nccl_kernels=len(nccl), device_events=len(spans)))
+
+
+def restore_check(torch, ckpt_dir: str, device: str, mesh) -> dict:
+    """Restore the newest checkpoint of a cli.train --zero1 run (the full
+    bf16 DUSt3R-224) into a fresh ZeRO-1 train state on this process mesh,
+    gather the state back to full tensors, and (on rank 0) hold every model
+    tensor, AdamW slot and counter against the checkpoint's files with
+    torch.equal."""
+    import os
+
+    import torch.distributed as dist
+
+    from thermal3d_torch.core.config import TrainConfig
+    from thermal3d_torch.core.mesh import full_state_dict
+    from thermal3d_torch.models.dustr import trainable_model
+    from thermal3d_torch.train.checkpoint import MODEL_FILE, OPTIMIZER_FILE, CheckpointManager
+    from thermal3d_torch.train.state import create_train_state
+
+    dev = torch.device(device)
+    model = trainable_model(dist_model_config("bfloat16", {}), dev, seed=1)
+    state = create_train_state(model, TrainConfig(batch_size=MD_TRAIN_BATCH, zero1=True),
+                               steps_per_epoch=1, mesh=mesh)
+    mgr = CheckpointManager(ckpt_dir, mesh=mesh)
+    step = mgr.latest_step()
+    state, meta = mgr.restore(state)
+    model_sd = full_state_dict(model, mesh)
+    opt = state.tx.full_state_dict()
+    opt = dict(opt, mu=[t.cpu() for t in opt["mu"]], nu=[t.cpu() for t in opt["nu"]])
+    mine = sum(t.numel() * t.element_size() for t in state.tx.mu + state.tx.nu)
+    out = dict(step=step, epoch=meta["epoch"], train_step=state.step, slot_bytes=mine)
+    if dist.get_rank() == 0:
+        path = os.path.join(ckpt_dir, "last", str(step))
+        want_sd = torch.load(os.path.join(path, MODEL_FILE), weights_only=True)
+        want_opt = torch.load(os.path.join(path, OPTIMIZER_FILE), weights_only=True)
+        unequal = [k for k in want_sd if not torch.equal(model_sd[k], want_sd[k])]
+        unequal += [f"{slot}[{i}]" for slot in ("mu", "nu")
+                    for i, (a, b) in enumerate(zip(opt[slot], want_opt[slot]))
+                    if not torch.equal(a, b)]
+        if sorted(model_sd) != sorted(want_sd) or len(opt["mu"]) != len(want_opt["mu"]) or \
+                (opt["count"], state.step) != (want_opt["count"], want_opt["train_step"]):
+            unequal.append("keys or counters")
+        out.update(tensors=len(want_sd) + 2 * len(want_opt["mu"]), unequal=unequal)
+    del state, model, model_sd, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def dist_worker_main(argv) -> int:
-    """`--dist-worker RANK WORLD PORT OUT [DEVICE]`: one rank of the gloo job
-    (DEVICE cuda:0 by default; the CPU limits script passes cpu). Runs
-    DIST_CASES in order and writes OUT/<case>_<rank>.pt (rank 0 with the
-    gathered gradients)."""
+    """`--dist-worker RANK WORLD PORT OUT`: one rank of the job OUT/job.json
+    describes (run_dist_job). Its device is job["device"] ('cuda:0' for every
+    rank on one card, 'cuda' for cuda:RANK, or 'cpu'), its backend
+    job["backend"] (None: NCCL on a card, gloo on the CPU). Runs the float32
+    or bf16 step of each of job["cases"] ([name, mesh shape, dtype, zero1])
+    and writes OUT/<name>_<rank>.pt: rank 0 first takes the single-process
+    step of each dtype on its own device (the other ranks wait in the first
+    collective), then holds each case's gathered gradients against it and
+    keeps only the errors. Then, on a card, timed_steps for each of job["timed"]
+    (OUT/timed_<name>_<rank>.pt) and, with job["restore"] (a cli.train
+    --zero1 checkpoint directory), restore_check (OUT/restore_<rank>.pt)."""
     import os
 
     import torch
@@ -2598,53 +2762,119 @@ def dist_worker_main(argv) -> int:
     from thermal3d_torch.core.mesh import make_mesh
 
     rank, world, port, out = int(argv[0]), int(argv[1]), int(argv[2]), argv[3]
-    device = argv[4] if len(argv) > 4 else "cuda:0"
+    with open(os.path.join(out, "job.json")) as f:
+        job = json.load(f)
+    device = f"cuda:{rank}" if job["device"] == "cuda" else job["device"]
+    if device == "cpu":  # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    initialize_multihost(f"127.0.0.1:{port}", world, rank, device=device, backend="gloo")
-    for name, shape, dtype, zero1 in DIST_CASES:
+    initialize_multihost(f"127.0.0.1:{port}", world, rank, device=device,
+                         backend=job.get("backend"))
+    refs = {dtype: dist_step(torch, out, device, dtype)
+            for dtype in sorted({case[2] for case in job["cases"]})} if rank == 0 else None
+    for name, shape, dtype, zero1 in job["cases"]:
         before = dict(STAGED)
         mesh = make_mesh(shape, ("data", "model")[:len(shape)])
         res = dist_step(torch, out, device, dtype, mesh, zero1)
         res["staged"] = {k: STAGED[k] - before[k] for k in STAGED}
-        if rank:
-            res.pop("grads")
+        if rank == 0:
+            res.update(step_errors(res, refs[dtype]))
+        res.pop("grads")
         torch.save(res, os.path.join(out, f"{name}_{rank}.pt"))
         del res
+    del refs
+    for name, shape, zero1 in job.get("timed", ()):
+        mesh = make_mesh(shape, ("data", "model")[:len(shape)])
+        res = timed_steps(torch, out, device, mesh, zero1, job["timed_steps"])
+        torch.save(res, os.path.join(out, f"timed_{name}_{rank}.pt"))
+    if job.get("restore"):
+        res = restore_check(torch, job["restore"], device, make_mesh((world,), ("data",)))
+        torch.save(res, os.path.join(out, f"restore_{rank}.pt"))
     dist.destroy_process_group()
     return 0
 
 
-def run_dist_job(torch, out: str, device: str = "cuda:0", timeout: int = DIST_TIMEOUT):
-    """Launch the 2 ranks of dist_worker_main (subprocesses of this script),
-    wait for both within `timeout` seconds, kill both on any failure; returns
-    {case: [rank 0 result, rank 1 result]}."""
-    import os
+def free_port() -> int:
     import socket
 
     sock = socket.socket()
     sock.bind(("127.0.0.1", 0))
     port = sock.getsockname()[1]
     sock.close()
+    return port
+
+
+def run_processes(commands, timeout: int, what: str):
+    """Start each (argv, env) in a session of its own, wait for all within
+    `timeout` seconds, and on a failure or the timeout kill every process
+    of every session (a launcher's children too). Returns each command's
+    stdout, and raises naming `what` if any exited non-zero."""
+    import os
+    import signal
+
     here = os.path.dirname(os.path.abspath(__file__))
-    code = ("import sys, chip_smoke; "
-            "sys.exit(chip_smoke.dist_worker_main(sys.argv[1:]))")
-    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(MESH2), str(port), out,
-                               device], cwd=here, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True) for r in range(MESH2)]
+    procs = [subprocess.Popen(argv, env=env, cwd=here, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, start_new_session=True)
+             for argv, env in commands]
+    outs, t_end = [], time.monotonic() + timeout
     try:
-        for r, p in enumerate(procs):
-            _, err = p.communicate(timeout=timeout)
+        for i, p in enumerate(procs):
+            try:
+                out, err = p.communicate(timeout=max(1.0, t_end - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{what}: process {i} did not end within {timeout} s")
             if p.returncode != 0:
-                raise AssertionError(f"2-rank gloo job: rank {r} exited {p.returncode}:\n"
+                raise AssertionError(f"{what}: process {i} exited {p.returncode}:\n"
                                      f"{err[-3000:]}")
+            outs.append(out)
     finally:
         for p in procs:
             if p.poll() is None:
-                p.kill()
+                try:
+                    os.killpg(p.pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
                 p.wait()
-    return {name: [torch.load(os.path.join(out, f"{name}_{r}.pt"), weights_only=False)
-                   for r in range(MESH2)] for name, *_ in DIST_CASES}
+    return outs
+
+
+def clean_env(**extra):
+    """This process's environment without torchrun's rendezvous variables,
+    plus `extra`."""
+    import os
+
+    drop = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+            "LOCAL_WORLD_SIZE", "GROUP_RANK", "THERMAL3D_COORDINATOR",
+            "THERMAL3D_NUM_PROCESSES", "THERMAL3D_PROCESS_ID")
+    env = {k: v for k, v in os.environ.items() if k not in drop}
+    env.update({k: str(v) for k, v in extra.items()})
+    return env
+
+
+def run_dist_job(torch, out: str, world: int, job: dict, timeout: int = DIST_TIMEOUT):
+    """Write out/job.json and launch its `world` ranks (dist_worker_main, in
+    subprocesses of this script); returns {case: [each rank's result]}, with
+    "timed" {case: [...]} and "restore" [...] when the job asks for them."""
+    import os
+
+    with open(os.path.join(out, "job.json"), "w") as f:
+        json.dump(job, f)
+    port = free_port()
+    code = "import sys, chip_smoke; sys.exit(chip_smoke.dist_worker_main(sys.argv[1:]))"
+    run_processes([([sys.executable, "-c", code, str(r), str(world), str(port), out],
+                    clean_env()) for r in range(world)], timeout, f"{world}-rank job")
+
+    def load(name):
+        return [torch.load(os.path.join(out, f"{name}_{r}.pt"), weights_only=False)
+                for r in range(world)]
+
+    res = {name: load(name) for name, *_ in job["cases"]}
+    if job.get("timed"):
+        res["timed"] = {name: load(f"timed_{name}") for name, *_ in job["timed"]}
+    if job.get("restore"):
+        res["restore"] = load("restore")
+    return res
 
 
 def grad_rel_err(got: dict, want: dict) -> float:
@@ -2655,25 +2885,61 @@ def grad_rel_err(got: dict, want: dict) -> float:
                for k in want)
 
 
-def dist_errors(refs: dict, ranks: dict) -> dict:
+def dist_errors(ranks: dict, cases) -> dict:
     """Each case's loss and gradient errors against the single-process step
-    of its dtype, with the ranks' launches, heads, optimizer bytes, peak
-    memory and host-staged collectives."""
+    of its dtype (rank 0's, step_errors), with every rank's launches, heads,
+    optimizer bytes, peak memory and host-staged collectives."""
     out = {}
-    for name, _, dtype, _ in DIST_CASES:
-        r0, r1 = ranks[name]
-        ref = refs[dtype]
+    for name, shape, dtype, _ in cases:
+        rs = ranks[name]
+        r0 = rs[0]
         out[name] = dict(
-            dtype=dtype, loss=r0["loss"], loss_ref=ref["loss"],
-            loss_rel=abs(r0["loss"] - ref["loss"]) / abs(ref["loss"]),
-            grad_norm_rel=abs(r0["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"]),
-            grad_rel=grad_rel_err(r0["grads"], ref["grads"]),
-            ranks_agree=r0["loss"] == r1["loss"] and r0["grad_norm"] == r1["grad_norm"],
-            launches=[r0["launches"], r1["launches"]], heads=r0["heads"],
-            slot_bytes=[r0["slot_bytes"], r1["slot_bytes"]], slot_bytes_single=ref["slot_bytes"],
-            peak_bytes=[r0["peak_bytes"], r1["peak_bytes"]], peak_bytes_single=ref["peak_bytes"],
-            staged=[r0["staged"], r1["staged"]])
+            dtype=dtype, mesh=list(shape), loss=r0["loss"],
+            **{k: r0[k] for k in ("loss_ref", "loss_rel", "grad_norm_rel", "grad_rel",
+                                  "slot_bytes_single", "peak_bytes_single")},
+            ranks_agree=all(r["loss"] == r0["loss"] and r["grad_norm"] == r0["grad_norm"]
+                            for r in rs),
+            launches=[r["launches"] for r in rs], heads=r0["heads"],
+            slot_bytes=[r["slot_bytes"] for r in rs], peak_bytes=[r["peak_bytes"] for r in rs],
+            staged=[r["staged"] for r in rs])
     return out
+
+
+def hold_dist_errors(errs: dict, cases, depth: dict, world: int, what: str) -> None:
+    """The gates of a job's float32 and bf16 steps: ranks agree, launches a
+    rank are one forward's K1-K3 (and the tensor-core count in bf16), heads
+    a rank are the mesh's share, the float32 loss and gradients within
+    DIST_F32_LOSS_REL / DIST_F32_GRAD_REL of the single-process step, and
+    everything finite."""
+    enc, dec = depth.get("enc_depth", 24), depth.get("dec_depth", 8)
+    fwd = {"percentile_enhance": 2, "fused_rope_attention": enc + 2 * dec,
+           "fused_rope_cross_attention": 2 * dec}
+    for name, shape, dtype, zero1 in cases:
+        e = errs[name]
+        log(f"{what} {name} (mesh {shape}, {dtype}{', zero1' if zero1 else ''}): loss "
+            f"{e['loss']:.6f} (single {e['loss_ref']:.6f}, rel {e['loss_rel']:.3e}); gradients "
+            f"max|Δ|/max|ref| {e['grad_rel']:.3e}; grad_norm rel {e['grad_norm_rel']:.3e}; "
+            f"heads {e['heads']}; mu+nu bytes a rank {e['slot_bytes']} (single "
+            f"{e['slot_bytes_single']}); peak bytes a rank {e['peak_bytes']} (single "
+            f"{e['peak_bytes_single']}); launches {e['launches'][0]}; host-staged "
+            f"{e['staged'][0]}")
+        want = dict(fwd)
+        if dtype == "bfloat16":
+            want["rope_attention_tc"] = fwd["fused_rope_attention"] + \
+                fwd["fused_rope_cross_attention"]
+        if not e["ranks_agree"] or e["launches"] != [want] * world:
+            raise AssertionError(f"{what} {name}: ranks disagree or launches {e['launches']} "
+                                 f"(want {want} on each rank)")
+        if dtype == "float32" and (e["loss_rel"] > DIST_F32_LOSS_REL
+                                   or e["grad_rel"] > DIST_F32_GRAD_REL):
+            raise AssertionError(f"{what} {name}: the step disagrees with the single-process "
+                                 f"step (loss {e['loss_rel']:.3e} > {DIST_F32_LOSS_REL:.0e} or "
+                                 f"gradients {e['grad_rel']:.3e} > {DIST_F32_GRAD_REL:.0e})")
+        if not math.isfinite(e["loss"]) or not math.isfinite(e["grad_rel"]):
+            raise AssertionError(f"{what} {name}: non-finite loss or gradients")
+        tp = shape[1] if len(shape) > 1 else 1
+        if e["heads"] != [12 // tp, 16 // tp]:
+            raise AssertionError(f"{what} {name}: attention heads a rank {e['heads']}")
 
 
 def dist_check(torch, np, root: str):
@@ -2684,37 +2950,10 @@ def dist_check(torch, np, root: str):
     os.makedirs(out, exist_ok=True)
     t0 = time.perf_counter()
     dist_inputs(torch, np, out)
-    refs = {dtype: dist_step(torch, out, "cuda", dtype) for dtype in ("float32", "bfloat16")}
-    ranks = run_dist_job(torch, out)
-    errs = dist_errors(refs, ranks)
-    enc, dec = DIST_DEPTH["enc_depth"], DIST_DEPTH["dec_depth"]
-    fwd = {"percentile_enhance": 2, "fused_rope_attention": enc + 2 * dec,
-           "fused_rope_cross_attention": 2 * dec}
-    for name, shape, dtype, zero1 in DIST_CASES:
-        e = errs[name]
-        log(f"2-rank gloo {name} (mesh {shape}, {dtype}): loss {e['loss']:.6f} "
-            f"(single {e['loss_ref']:.6f}, rel {e['loss_rel']:.3e}); gradients "
-            f"max|Δ|/max|ref| {e['grad_rel']:.3e}; grad_norm rel {e['grad_norm_rel']:.3e}; "
-            f"heads {e['heads']}; mu+nu bytes a rank {e['slot_bytes']} (single "
-            f"{e['slot_bytes_single']}); peak bytes a rank {e['peak_bytes']} (single "
-            f"{e['peak_bytes_single']}); launches {e['launches'][0]}; host-staged "
-            f"{e['staged'][0]}")
-        want = dict(fwd)
-        if dtype == "bfloat16":
-            want["rope_attention_tc"] = fwd["fused_rope_attention"] + \
-                fwd["fused_rope_cross_attention"]
-        if not e["ranks_agree"] or e["launches"] != [want, want]:
-            raise AssertionError(f"{name}: ranks disagree or launches {e['launches']} "
-                                 f"(want {want} on each rank)")
-        if dtype == "float32" and (e["loss_rel"] > DIST_F32_LOSS_REL
-                                   or e["grad_rel"] > DIST_F32_GRAD_REL):
-            raise AssertionError(f"{name}: the step disagrees with the single-process step "
-                                 f"(loss {e['loss_rel']:.3e} > {DIST_F32_LOSS_REL:.0e} or "
-                                 f"gradients {e['grad_rel']:.3e} > {DIST_F32_GRAD_REL:.0e})")
-        if not math.isfinite(e["loss"]) or not math.isfinite(e["grad_rel"]):
-            raise AssertionError(f"{name}: non-finite loss or gradients")
-        if e["heads"] != ([6, 8] if shape == (1, 2) else [12, 16]):
-            raise AssertionError(f"{name}: attention heads a rank {e['heads']}")
+    ranks = run_dist_job(torch, out, MESH2, dict(cases=DIST_CASES, device="cuda:0",
+                                                 backend="gloo"))
+    errs = dist_errors(ranks, DIST_CASES)
+    hold_dist_errors(errs, DIST_CASES, DIST_DEPTH, MESH2, "2-rank gloo")
     if errs["zero1"]["slot_bytes"] != [errs["dp"]["slot_bytes"][0] // 2] * 2:
         raise AssertionError(f"ZeRO-1: mu+nu bytes a rank {errs['zero1']['slot_bytes']}, "
                              f"want half of DP's {errs['dp']['slot_bytes']}")
@@ -2923,13 +3162,9 @@ def nccl_train_check(torch, np, root: str):
     checkpoint directory, bit-equal to an engine on the checkpoint's
     weights."""
     import os
-    import socket
 
-    from thermal3d_torch.cli import infer as cli_infer
     from thermal3d_torch.core.config import DUSTR_224_LINEAR
-    from thermal3d_torch.infer.engine import InferenceEngine
     from thermal3d_torch.models.dustr import trainable_model
-    from thermal3d_torch.train.checkpoint import load_params_from_checkpoint_dir
 
     weights = os.path.join(root, "mg_init.pth")
     model = trainable_model(dataclasses.replace(DUSTR_224_LINEAR, compute_dtype="bfloat16"),
@@ -2945,12 +3180,8 @@ def nccl_train_check(torch, np, root: str):
     here = os.path.dirname(os.path.abspath(__file__))
 
     def run(extra):
-        sock = socket.socket()
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-        sock.close()
-        env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        env = clean_env(RANK=0, WORLD_SIZE=1, LOCAL_RANK=0, MASTER_ADDR="127.0.0.1",
+                        MASTER_PORT=free_port())
         t0 = time.perf_counter()
         res = subprocess.run([sys.executable, "-m", "thermal3d_torch.cli.train", *args, *extra],
                              cwd=here, env=env, capture_output=True, text=True, timeout=600)
@@ -2972,24 +3203,37 @@ def nccl_train_check(torch, np, root: str):
             (first["epochs_run"], first["final_step"]) != (2, 2) or \
             (resumed["epochs_run"], resumed["final_step"]) != (3, 3) or epochs != [3]:
         raise AssertionError(f"cli.train over NCCL: {group}, {first}, {resumed}, {epochs}")
-    frames = os.path.join(root, "mg_frames")
-    inf_dir = os.path.join(root, "mg_train_infer")
-    cli_infer.main(["--img_path", frames, "--output_dir", inf_dir, "--no_vis", "--weights", ckpt])
+    n_files = checkpoint_serves(torch, np, ckpt, os.path.join(root, "mg_frames"),
+                                os.path.join(root, "mg_train_infer"))
+    return dict(process_group=group[0], first=first, resumed=resumed, epochs_logged=epochs,
+                seconds=[s1, s2], cli_infer_files=n_files)
+
+
+def checkpoint_serves(torch, np, ckpt: str, frames: str, out_dir: str) -> int:
+    """cli.infer --weights CKPT on the PNGs of `frames`: every depth file
+    bit-equal to an engine on the checkpoint's weights. Returns the count."""
+    import os
+
+    from thermal3d_torch.cli import infer as cli_infer
+    from thermal3d_torch.core.config import DUSTR_224_LINEAR
+    from thermal3d_torch.infer.engine import InferenceEngine
+    from thermal3d_torch.train.checkpoint import load_params_from_checkpoint_dir
+
+    cli_infer.main(["--img_path", frames, "--output_dir", out_dir, "--no_vis", "--weights", ckpt])
     state_dict, meta = load_params_from_checkpoint_dir(ckpt)
     eng = InferenceEngine(dataclasses.replace(DUSTR_224_LINEAR, compute_dtype="bfloat16"),
                           state_dict=state_dict)
     paths = sorted(os.path.join(frames, f) for f in os.listdir(frames))
     ref = eng.infer_paths(paths, batch_size=36, outputs=("depth",))
     for i, path in enumerate(ref["paths"]):
-        got = np.load(os.path.join(inf_dir, os.path.basename(path)[:-4] + "_depth.npy"))
+        got = np.load(os.path.join(out_dir, os.path.basename(path)[:-4] + "_depth.npy"))
         if not np.array_equal(got, ref["depth"][i]):
             raise AssertionError(f"cli.infer --weights {ckpt}: {path} differs from the engine")
     log(f"cli.infer --weights <its checkpoint>: {len(ref['paths'])} depth maps bit-equal to an "
         f"engine on the checkpoint's weights (epoch {meta['epoch']})")
     del eng
     torch.cuda.empty_cache()
-    return dict(process_group=group[0], first=first, resumed=resumed, epochs_logged=epochs,
-                seconds=[s1, s2], cli_infer_files=len(ref["paths"]))
+    return len(ref["paths"])
 
 
 def phase_multi_gpu(torch, np, root: str):
@@ -3008,14 +3252,17 @@ def phase_multi_gpu(torch, np, root: str):
     return res
 
 
-def tp_attention_cases(torch):
-    """K2/K3 at the shapes a tensor-parallel rank gives them in phase 10
-    (tp=2: 8 of the encoder's 16 heads, 6 of the decoder's 12): K2 packed
+def tp_attention_cases(torch, tp: int = 2):
+    """K2/K3 at the shapes a tensor-parallel rank of `tp` gives them on a
+    rank's TRAIN_BATCH pairs (B): the encoder's 16/tp heads of width
+    1024/tp, the decoder's 12/tp of 768/tp. tp=2 (phase 10): K2 packed
     [2B,196,1536] H8 (the encoder runs both views at once) and [B,196,1152]
-    H6, K3 [B,196,384] H6, B = TRAIN_BATCH."""
-    k2 = attention_cases(torch, cross=False, batch=2 * TRAIN_BATCH, widths=[(512, 8)])
-    k2 += attention_cases(torch, cross=False, batch=TRAIN_BATCH, widths=[(384, 6)])
-    k3 = attention_cases(torch, cross=True, batch=TRAIN_BATCH, widths=[(384, 6)])
+    H6, K3 [B,196,384] H6; tp=4 (the multi-device phase): K2 [2B,196,768]
+    H4 and [B,196,576] H3, K3 [B,196,192] H3."""
+    enc, dec = (1024 // tp, 16 // tp), (768 // tp, 12 // tp)
+    k2 = attention_cases(torch, cross=False, batch=2 * TRAIN_BATCH, widths=[enc])
+    k2 += attention_cases(torch, cross=False, batch=TRAIN_BATCH, widths=[dec])
+    k3 = attention_cases(torch, cross=True, batch=TRAIN_BATCH, widths=[dec])
     return k2, k3
 
 
@@ -3073,6 +3320,580 @@ def compare_k2k3(torch, other_csrc: str) -> bool:
     all_equal = all(r["equal"] for r in results)
     print(json.dumps({"compare_k2k3": results, "all_equal": all_equal}), flush=True)
     return all_equal
+
+
+# the multi-device phase: the port's multi-device paths on distinct cards
+# (needs two cards or more; `--only-multi-card` runs it after the multi-card
+# check). Serving and pseudo-GT over a 'data' mesh of N distinct cards (N = 2
+# and the host's card count), each bit-equal to the same mesh laid on one
+# card (same chunk sizes), with frames/s and pairs/s for 1, 2 and N cards in
+# turns and each card's busy ms; the --ndev CLIs and the bench; then training
+# over NCCL, one process a card, on 4 ranks (2 on a two-card host): cli.train
+# under torchrun in four layouts (DP, ZeRO-1, DP×TP, TP), --multihost, a
+# resume and cli.infer from the checkpoint, and a job of dist_worker_main
+# that holds each layout's float32 step against the single-process step,
+# times bf16 steps and restores the ZeRO-1 checkpoint.
+MD_N_RGB = 41  # RGB frames of the phase's tree: 40 pairs, 32 train 2 batches of 16
+MD_TRAIN_BATCH = 16  # global pairs a training step (4 a rank on DP over 4)
+MD_TRAIN_STEPS = 2  # cli.train steps of its one epoch (a checkpoint is 5.5 GB a save)
+MD_TIMED_STEPS = 5  # bf16 steps timed a layout
+MD_CLI_BATCH = 2 * BATCH  # cli.infer / cli.evaluate --batch_size (every N divides it)
+MD_BENCH_ITERS = 10
+MD_TRAIN_TIMEOUT = 420  # seconds a cli.train job may take
+MD_JOB_TIMEOUT = 900  # seconds the dist_worker_main job may take
+MD_FULL_DEPTH = {}  # dist_model_config at DUSTR_224_LINEAR's 24 and 8 blocks
+MD_PARTS = ("engine", "generator", "tp_attention", "clis", "training")
+
+
+def md_layouts(world: int):
+    """(name, mesh shape, zero1) of the training layouts over `world` ranks:
+    DP, ZeRO-1, DP×TP (from 4 ranks) and TP over all ranks."""
+    out = [("dp", (world,), False), ("zero1", (world,), True)]
+    if world >= 4:
+        out.append(("dp_tp", (world // 2, 2), False))
+    return out + [("tp", (1, world), False)]
+
+
+def sync_all(torch) -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def on_device(modules, device) -> bool:
+    """Every parameter and buffer of `modules` lies on `device`."""
+    return all(t.device == device for m in modules
+               for t in (*m.parameters(), *m.buffers()))
+
+
+def profile_devices(torch, fn, what: str) -> dict:
+    """One warmed-up call of fn under torch.profiler: each card's busy ms
+    (the union of its kernel and copy spans), its idle share of the call's
+    wall time, and its device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync_all(torch)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync_all(torch)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_dev = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_dev.setdefault(int(e.device_index), []).append((e.time_range.start,
+                                                               e.time_range.end))
+    cards = {}
+    for dev, spans in sorted(by_dev.items()):
+        busy = union_ms(spans)
+        cards[f"cuda:{dev}"] = dict(busy_ms=busy, idle_share=1 - busy / wall_ms,
+                                    device_events=len(spans))
+    log(f"  profile ({what}): wall {wall_ms:.3f} ms; by card "
+        f"{ {d: round(c['busy_ms'], 3) for d, c in cards.items()} } busy ms")
+    return dict(wall_ms=wall_ms, cards=cards)
+
+
+def md_in_turns(counts) -> list:
+    """The device counts in turns: 1, the counts up, the counts down, 1."""
+    return [1, *counts, *reversed(counts), 1]
+
+
+def md_engine_check(torch, np, counts, paths) -> dict:
+    """The bf16 DUSt3R-224 engine over a 'data' mesh of n distinct cards
+    (n of `counts`), BATCH frames a card: infer_async and infer bit-equal to
+    the mesh [cuda:0] * n, launches K1 n, K2 40n, K3 16n (tensor cores 56n)
+    a batch, each replica wholly on its card; infer_paths over the mesh on
+    the PNGs `paths` bit-equal to infer() on the same decoded batches; then
+    infer() and infer_async() frames/s for 1 and each n in turns, and one
+    profiled infer() for each."""
+    from thermal3d_torch.core.config import DUSTR_224_LINEAR
+    from thermal3d_torch.core.mesh import make_mesh
+    from thermal3d_torch.infer.engine import InferenceEngine
+    from thermal3d_torch.preprocess.io import load_thermal_images_batch
+
+    cfg = dataclasses.replace(DUSTR_224_LINEAR, compute_dtype="bfloat16")
+    single = InferenceEngine(cfg, params_dtype="bfloat16", seed=0, device="cuda:0")
+    weights = single.model.state_dict()
+    cuda0 = torch.device("cuda", 0)
+
+    def engine(devices):
+        return InferenceEngine(cfg, state_dict=weights, params_dtype="bfloat16",
+                               mesh=make_mesh((len(devices),), ("data",), devices=devices))
+
+    def per_batch(n, batches=1):
+        return {"percentile_enhance": n * batches, "fused_rope_attention": 40 * n * batches,
+                "fused_rope_cross_attention": 16 * n * batches,
+                "rope_attention_tc": 56 * n * batches}
+
+    engines, res = {1: single}, {}
+    for n in counts:
+        eng, one = engine([torch.device("cuda", i) for i in range(n)]), engine([cuda0] * n)
+        placed = all(on_device(mods, d) for d, mods in eng._replicas.items())
+        frames = np.concatenate([raw_frames(np, s) for s in range(n)])
+        eng.infer(frames)  # warm-up
+        sync_all(torch)
+        got, launches = run_counted(
+            lambda: {k: v.cpu().numpy() for k, v in eng.infer_async(frames).items()},
+            per_batch(n))
+        want = one.infer(frames)
+        got_infer = eng.infer(frames)
+        unequal = [k for k in want if not np.array_equal(got[k], want[k])]
+        unequal += [f"infer {k}" for k in want if not np.array_equal(got_infer[k], want[k])]
+        finite = all(np.isfinite(v).all() for v in got.values())
+        log(f"mesh engine over {n} cards ({BATCH * n} frames): infer_async and infer "
+            f"{'bit-equal to' if not unequal else 'DIFFER from'} the mesh [cuda:0] * {n} "
+            f"({unequal}); replicas on their cards: {placed}; launches {launches}")
+        if unequal or not placed or not finite:
+            raise AssertionError(f"mesh engine over {n} cards: differs in {unequal}, replicas "
+                                 f"placed {placed}, finite {finite}")
+        # infer_paths over the mesh: the pinned stage on cuda:0, chunks copied
+        # to the other cards inside run_on_mesh's threads
+        ip_batch = BATCH * n
+        n_batches = -(-len(paths) // ip_batch)
+        full, ip_launches = run_counted(lambda: eng.infer_paths(paths, batch_size=ip_batch),
+                                        per_batch(n, n_batches))
+        serial = {k: [] for k in want}
+        for i in range(0, len(paths), ip_batch):
+            grays, _ = load_thermal_images_batch(paths[i:i + ip_batch], out_hw=(224, 224))
+            real = len(grays)
+            out = eng.infer(np.stack(grays + [grays[-1]] * (ip_batch - real)))
+            for k in serial:
+                serial[k].append(out[k][:real])
+        ip_unequal = [k for k in serial if not np.array_equal(full[k], np.concatenate(serial[k]))]
+        log(f"  infer_paths over {n} cards: {len(full['paths'])} of {len(paths)} frames in "
+            f"batches of {ip_batch}, {'bit-equal to' if not ip_unequal else 'DIFFERS from'} "
+            f"infer() on the same decoded batches ({ip_unequal}); launches {ip_launches}")
+        if ip_unequal:
+            raise AssertionError(f"infer_paths over {n} cards differs in {ip_unequal}")
+        res[n] = dict(frames=BATCH * n, bit_equal=True, replicas_on_their_cards=placed,
+                      launches=launches, infer_paths=dict(frames=len(full["paths"]),
+                                                          batch=ip_batch, bit_equal=True,
+                                                          launches=ip_launches))
+        engines[n] = eng
+        del one, full, serial
+        torch.cuda.empty_cache()
+
+    batches = {n: [np.concatenate([raw_frames(np, 10 * b + s) for s in range(n)])
+                   for b in range(N_BATCHES)] for n in engines}
+    fps, fps_async = {n: [] for n in engines}, {n: [] for n in engines}
+    for n in md_in_turns(counts):
+        eng = engines[n]
+        t0 = time.perf_counter()
+        for f in batches[n]:
+            eng.infer(f)
+        fps[n].append(BATCH * n * N_BATCHES / (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        for f in batches[n]:
+            out = eng.infer_async(f)
+        sync_all(torch)
+        fps_async[n].append(BATCH * n * N_BATCHES / (time.perf_counter() - t0))
+        del out
+    log(f"mesh engine frames/s by cards (in turns {md_in_turns(counts)}): infer() {fps}; "
+        f"infer_async() {fps_async}")
+    profiles = {n: profile_devices(torch, lambda e=engines[n], f=batches[n][0]: e.infer(f),
+                                   f"one infer() of {BATCH * n} frames on {n} card(s)")
+                for n in engines}
+    del engines, single
+    sync_all(torch)
+    torch.cuda.empty_cache()
+    return dict(meshes=res, fps=fps, fps_async=fps_async, profiles=profiles,
+                frames_a_card=BATCH, batches=N_BATCHES)
+
+
+def md_generator_check(torch, np, counts) -> dict:
+    """The full-depth bf16 MASt3R-512 generator over a 'data' mesh of n
+    distinct cards, PAIR_BATCH pairs a card: all eight outputs of
+    run_pairs_async and run_pairs bit-equal to the mesh [cuda:0] * n (the
+    same chunk sizes: the bf16 generator is not bit-equal across batch
+    sizes), launches K2 48n, K3 24n (tensor cores 72n) a step; then
+    run_pairs() and run_pairs_async() pairs/s for 1 and each n in turns, and
+    one profiled run_pairs() for each."""
+    from thermal3d_torch.core.config import MASTR_512_CATMLPDPT
+    from thermal3d_torch.core.mesh import make_mesh
+    from thermal3d_torch.pseudo_gt.generator import PseudoGTGenerator
+
+    pcfg = dataclasses.replace(MASTR_512_CATMLPDPT, compute_dtype="bfloat16")
+    single = PseudoGTGenerator(pcfg, params_dtype="bfloat16", seed=0, device="cuda:0")
+    weights = single.model.state_dict()
+    cuda0 = torch.device("cuda", 0)
+
+    def generator(devices):
+        return PseudoGTGenerator(pcfg, state_dict=weights, params_dtype="bfloat16",
+                                 batch_size=PAIR_BATCH * len(devices),
+                                 mesh=make_mesh((len(devices),), ("data",), devices=devices))
+
+    def pairs(n, first=0):
+        parts = [rgb_pairs(np, first + s) for s in range(n)]
+        return tuple(np.concatenate([p[i] for p in parts]) for i in range(2))
+
+    gens, res = {1: single}, {}
+    for n in counts:
+        gen, one = generator([torch.device("cuda", i) for i in range(n)]), generator([cuda0] * n)
+        placed = all(on_device(mods, d) for d, mods in gen._replicas.items())
+        rgb1, rgb2 = pairs(n)
+        gen.run_pairs(rgb1, rgb2)  # warm-up
+        sync_all(torch)
+        got, launches = run_counted(
+            lambda: {k: v.cpu().numpy() for k, v in gen.run_pairs_async(rgb1, rgb2).items()},
+            {"fused_rope_attention": 48 * n, "fused_rope_cross_attention": 24 * n,
+             "rope_attention_tc": 72 * n})
+        want = one.run_pairs(rgb1, rgb2)
+        got_sync = gen.run_pairs(rgb1, rgb2)
+        unequal = [k for k in want if not np.array_equal(got[k], want[k], equal_nan=True)]
+        unequal += [f"run_pairs {k}" for k in want
+                    if not np.array_equal(got_sync[k], want[k], equal_nan=True)]
+        log(f"mesh generator over {n} cards ({PAIR_BATCH * n} pairs): run_pairs_async and "
+            f"run_pairs {'bit-equal to' if not unequal else 'DIFFER from'} the mesh [cuda:0] * "
+            f"{n} ({len(want)} outputs; {unequal}); replicas on their cards: {placed}; "
+            f"launches {launches}")
+        if unequal or not placed or len(want) != 8:
+            raise AssertionError(f"mesh generator over {n} cards: differs in {unequal}, "
+                                 f"replicas placed {placed}, {len(want)} outputs")
+        res[n] = dict(pairs=PAIR_BATCH * n, bit_equal=True, outputs=len(want),
+                      replicas_on_their_cards=placed, launches=launches)
+        gens[n] = gen
+        del one
+        torch.cuda.empty_cache()
+
+    inputs = {n: pairs(n, 20) for n in gens}
+    pps, pps_async = {n: [] for n in gens}, {n: [] for n in gens}
+    for n in md_in_turns(counts):
+        gen, (rgb1, rgb2) = gens[n], inputs[n]
+        t0 = time.perf_counter()
+        for _ in range(N_PAIR_BATCHES):
+            gen.run_pairs(rgb1, rgb2)
+        pps[n].append(PAIR_BATCH * n * N_PAIR_BATCHES / (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        for _ in range(N_PAIR_BATCHES):
+            out = gen.run_pairs_async(rgb1, rgb2)
+        sync_all(torch)
+        pps_async[n].append(PAIR_BATCH * n * N_PAIR_BATCHES / (time.perf_counter() - t0))
+        del out
+    log(f"mesh generator pairs/s by cards (in turns {md_in_turns(counts)}): run_pairs() {pps}; "
+        f"run_pairs_async() {pps_async}")
+    profiles = {n: profile_devices(torch, lambda g=gens[n], x=inputs[n]: g.run_pairs(*x),
+                                   f"one run_pairs() of {PAIR_BATCH * n} pairs on {n} card(s)")
+                for n in gens}
+    del gens, single
+    sync_all(torch)
+    torch.cuda.empty_cache()
+    return dict(meshes=res, pairs_per_s=pps, pairs_per_s_async=pps_async, profiles=profiles,
+                pairs_a_card=PAIR_BATCH, steps=N_PAIR_BATCHES)
+
+
+def tree_bytes(d: str) -> dict:
+    """{relative path: bytes} of every file under d."""
+    import os
+
+    out = {}
+    for base, _, names in os.walk(d):
+        for name in names:
+            path = os.path.join(base, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, d)] = f.read()
+    return out
+
+
+def md_cli_check(torch, np, counts, root: str) -> dict:
+    """cli.infer, cli.evaluate and cli.pseudo_gt with --ndev n on the phase's
+    tree for n = 1 and each of `counts`, and the bench with --ndev n: each
+    exits 0 and launches K1-K3 n times a batch's; the cli.infer and
+    cli.evaluate files of every n byte-equal to --ndev 1 at the same
+    --batch_size, the cli.pseudo_gt files of --ndev n --batch_size 4n
+    byte-equal to --ndev 1 --batch_size 4 (the same chunk size); frames/s of
+    each CLI call (wall, model build included) and the bench's headline."""
+    import os
+
+    from thermal3d_torch import bench
+    from thermal3d_torch.cli import evaluate as cli_evaluate
+    from thermal3d_torch.cli import infer as cli_infer
+    from thermal3d_torch.cli import pseudo_gt as cli_pseudo_gt
+    from thermal3d_torch.data.freiburg import build_rgb_pair_index
+
+    thermal, ds = os.path.join(root, "thermal"), os.path.join(root, "ds")
+    n_pairs = len(build_rgb_pair_index(ds, frame_skip=1))
+    gt_dir = os.path.join(root, "gt")
+
+    def serving(n, batches):
+        return {"percentile_enhance": n * batches, "fused_rope_attention": 40 * n * batches,
+                "fused_rope_cross_attention": 16 * n * batches,
+                "rope_attention_tc": 56 * n * batches}
+
+    def call(fn, argv, want):
+        t0 = time.perf_counter()
+        (code, report, lines), launches = run_counted(lambda: _cli_out(fn, argv), want)
+        if code != 0:
+            raise AssertionError(f"{argv}: exit {code}")
+        return report, lines, launches, time.perf_counter() - t0
+
+    cli_batches = -(-(N_FRAMES + 1) // MD_CLI_BATCH)
+    res, files = {}, {}
+    for n in (1, *counts):
+        r = res[n] = {}
+        inf_dir = os.path.join(root, f"md_infer_{n}")
+        _, _, launches, sec = call(cli_infer.main, [
+            "--img_path", thermal, "--output_dir", inf_dir, "--no_vis", "--batch_size",
+            str(MD_CLI_BATCH), "--ndev", str(n)], serving(n, cli_batches))
+        r["cli_infer"] = dict(launches=launches, seconds=sec, frames_per_s=N_FRAMES / sec)
+        if n == 1:  # ground truth for cli.evaluate at the frames' size
+            os.makedirs(gt_dir)
+            rng = np.random.default_rng(13)
+            for name in sorted(os.listdir(inf_dir)):
+                gt = rng.uniform(0.5, 5.0, FRAME_HW).astype(np.float32)
+                gt[:40] = 0.0
+                np.save(os.path.join(gt_dir, name), gt)
+        ev_dir = os.path.join(root, f"md_eval_{n}")
+        summary, _, launches, sec = call(cli_evaluate.main, [
+            "--thermal_dir", thermal, "--pseudo_gt_dir", gt_dir, "--output_dir", ev_dir,
+            "--no_vis", "--batch_size", str(MD_CLI_BATCH), "--ndev", str(n)],
+            serving(n, cli_batches))
+        r["cli_evaluate"] = dict(launches=launches, seconds=sec, frames_per_s=N_FRAMES / sec,
+                                 n_images=summary["n_images"])
+        pgt_dir = os.path.join(root, f"md_pseudo_gt_{n}")
+        steps = -(-n_pairs // (PAIR_BATCH * n))
+        _, _, launches, sec = call(cli_pseudo_gt.main, [
+            "--dataset_dir", ds, "--output_dir", pgt_dir, "--frame_skip", "1",
+            "--batch_size", str(PAIR_BATCH * n), "--ndev", str(n)],
+            {"fused_rope_attention": 48 * n * steps, "fused_rope_cross_attention": 24 * n * steps,
+             "rope_attention_tc": 72 * n * steps})
+        r["cli_pseudo_gt"] = dict(batch_size=PAIR_BATCH * n, launches=launches, seconds=sec,
+                                  pairs_per_s=n_pairs / sec)
+        bench_steps = 1 + 2 * MD_BENCH_ITERS
+        _, lines, launches, sec = call(bench.main, [
+            "--ndev", str(n), "--no_secondary", "--iters", str(MD_BENCH_ITERS)],
+            serving(n, bench_steps))
+        line = json.loads(next(x for x in lines if x.startswith("{")))
+        r["bench"] = dict(metric=line["metric"], frames_per_s=line["value"],
+                          per_card=line.get("per_chip", line["value"]), batch=line["batch"],
+                          step_ms=line["step_ms"], launches=launches)
+        got = {k: tree_bytes(d) for k, d in (("cli_infer", inf_dir), ("cli_evaluate", ev_dir),
+                                             ("cli_pseudo_gt", pgt_dir))}
+        if n == 1:
+            files = got
+            if len(got["cli_infer"]) != N_FRAMES or summary["n_images"] != N_FRAMES or \
+                    len(got["cli_pseudo_gt"]) != 8 * n_pairs:
+                raise AssertionError(f"--ndev 1: {len(got['cli_infer'])} depth files, "
+                                     f"{summary['n_images']} evaluated, "
+                                     f"{len(got['cli_pseudo_gt'])} pseudo-GT files")
+        unequal = {k: sorted(set(files[k]) ^ set(v)) + [f for f in v if files[k].get(f) != v[f]]
+                   for k, v in got.items()}
+        r["files"] = {k: len(v) for k, v in got.items()}
+        r["byte_equal_to_ndev1"] = not any(unequal.values())
+        log(f"--ndev {n}: cli.infer {r['cli_infer']}, cli.evaluate {r['cli_evaluate']}, "
+            f"cli.pseudo_gt {r['cli_pseudo_gt']}, bench {r['bench']}; files {r['files']} "
+            f"byte-equal to --ndev 1: {r['byte_equal_to_ndev1']}")
+        if any(unequal.values()):
+            raise AssertionError(f"--ndev {n}: files differ from --ndev 1: "
+                                 f"{ {k: v[:5] for k, v in unequal.items()} }")
+    return dict(by_ndev=res, cli_batch=MD_CLI_BATCH, frames=N_FRAMES, pairs=n_pairs)
+
+
+def train_log(stdout: str) -> dict:
+    """The coordinator's cli.train output: its process-group line, each
+    step's batch_loss, the epochs logged and the final summary."""
+    lines = stdout.splitlines()
+    metrics = [json.loads(x) for x in lines if x.startswith("{")]
+    done = [x for x in lines if x.startswith("Training done: ")]
+    return dict(group=[x for x in lines if "process group" in x],
+                losses=[m["batch_loss"] for m in metrics if "batch_loss" in m],
+                epochs=sorted({int(m["epoch"]) for m in metrics if "epoch" in m}),
+                summary=eval(done[0].split(": ", 1)[1], {"inf": math.inf}) if done else None)
+
+
+def timed_summary(rs, shape, name: str) -> dict:
+    """timed_steps' results of every rank of a job, held: launches a step
+    K1 2, K2 40, K3 16 (tensor cores 56) on every rank, finite losses."""
+    t = dict(mesh=list(shape), steps_per_s=rs[0]["steps_per_s"], step_ms=rs[0]["step_ms"],
+             global_batch=rs[0]["global_batch"], losses=rs[0]["losses"],
+             launches_per_step=[r["launches_per_step"] for r in rs],
+             peak_bytes=[r["peak_bytes"] for r in rs], slot_bytes=[r["slot_bytes"] for r in rs],
+             nccl_ms=[r["profiled_step"]["nccl_ms"] for r in rs],
+             profiled_step=[r["profiled_step"] for r in rs])
+    want = {"percentile_enhance": 2, "fused_rope_attention": 40,
+            "fused_rope_cross_attention": 16, "rope_attention_tc": 56}
+    log(f"{len(rs)}-rank NCCL bf16 {name} (mesh {tuple(shape)}): {t['steps_per_s']:.3f} "
+        f"steps/s ({t['step_ms']:.2f} ms a step of {t['global_batch']} pairs); peak GB a rank "
+        f"{[round(b / 1e9, 3) for b in t['peak_bytes']]}; mu+nu GB a rank "
+        f"{[round(b / 1e9, 3) for b in t['slot_bytes']]}; NCCL ms a step "
+        f"{[round(x, 3) for x in t['nccl_ms']]}; launches a step {t['launches_per_step'][0]}")
+    if t["launches_per_step"] != [want] * len(rs) or not all(
+            math.isfinite(x) for x in t["losses"]):
+        raise AssertionError(f"timed bf16 {name} over {len(rs)} ranks: {t}")
+    return t
+
+
+def md_train_check(torch, np, world: int, root: str) -> dict:
+    """Training over NCCL, one process a card, `world` ranks: cli.train under
+    torchrun in each md_layouts layout (bf16, one epoch of MD_TRAIN_STEPS
+    steps of MD_TRAIN_BATCH pairs: the loss falls; one 5.5 GB checkpoint a
+    run keeps the phase's disk writes near 37 GB); the
+    ZeRO-1 layout again with --multihost (its losses equal to torchrun's); a
+    dist_worker_main job (each layout's float32 step at full width and depth
+    on a global batch of MD_TRAIN_BATCH against the single-process step,
+    bf16 steps timed and profiled, the ZeRO-1 checkpoint restored
+    bit-equal), then the bf16 DP steps timed again on 1 and 2 cards; the
+    ZeRO-1 run resumed to a second epoch; cli.infer from its checkpoint."""
+    import os
+
+    from thermal3d_torch.cli import pseudo_gt as cli_pseudo_gt
+
+    out = os.path.join(root, "md_train")
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    pgt = os.path.join(root, "md_pseudo_gt_1")
+    if not os.path.isdir(pgt):  # the clis part did not run: the same files
+        code, _, _ = _cli_out(cli_pseudo_gt.main, [
+            "--dataset_dir", os.path.join(root, "ds"), "--output_dir", pgt, "--frame_skip", "1",
+            "--batch_size", str(PAIR_BATCH)])
+        if code != 0:
+            raise AssertionError(f"cli.pseudo_gt for the training tree: exit {code}")
+    dist_inputs(torch, np, out, MD_FULL_DEPTH, MD_TRAIN_BATCH, device="cuda")
+    weights = os.path.join(out, "init.pth")
+    base = ["--dataset_dir", os.path.join(root, "ds"), "--pseudo_gt_dir", pgt,
+            "--weights", weights, "--batch_size",
+            str(MD_TRAIN_BATCH), "--use_thermal_aware_loss", "--multi_scale", "--frame_skip", "1",
+            "--log_interval", "1", "--lr", "5e-5"]
+
+    def layout_args(shape, zero1):
+        return ["--mesh_shape", *map(str, shape), *(["--zero1"] if zero1 else [])]
+
+    def torchrun(args, what):
+        argv = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(world),
+                "--master_addr", "127.0.0.1", "--master_port", str(free_port()),
+                "-m", "thermal3d_torch.cli.train", *args]
+        t1 = time.perf_counter()
+        (stdout,) = run_processes([(argv, clean_env())], MD_TRAIN_TIMEOUT, what)
+        return dict(train_log(stdout), seconds=time.perf_counter() - t1)
+
+    runs = {}
+    ckpt = {name: os.path.join(root, f"md_ckpt_{name}") for name, *_ in md_layouts(world)}
+    for name, shape, zero1 in md_layouts(world):
+        r = runs[name] = torchrun([*base, "--output_model", ckpt[name], "--epochs", "1",
+                                   *layout_args(shape, zero1)], f"torchrun cli.train {name}")
+        ok = (r["group"] and f"nccl, world {world}" in r["group"][0] and r["summary"]
+              and (r["summary"]["epochs_run"], r["summary"]["final_step"])
+              == (1, MD_TRAIN_STEPS) and len(r["losses"]) == MD_TRAIN_STEPS
+              and all(math.isfinite(x) for x in r["losses"]) and r["losses"][-1] < r["losses"][0])
+        log(f"torchrun --nproc_per_node {world} cli.train {name} (mesh {shape}): {r['group']}; "
+            f"losses {r['losses']}; {r['summary']}; {r['seconds']:.1f} s")
+        if not ok:
+            raise AssertionError(f"cli.train {name}: {r}")
+
+    # the ZeRO-1 run again, one launch a process with --multihost
+    port = free_port()
+    zero1_shape = next(s for n, s, _ in md_layouts(world) if n == "zero1")
+    args = [*base, "--output_model", os.path.join(root, "md_ckpt_multihost"), "--epochs", "1",
+            *layout_args(zero1_shape, True), "--multihost",
+            "--coordinator", f"127.0.0.1:{port}", "--num_processes", str(world)]
+    t1 = time.perf_counter()
+    outs = run_processes([([sys.executable, "-m", "thermal3d_torch.cli.train", *args,
+                            "--process_id", str(r)], clean_env()) for r in range(world)],
+                         MD_TRAIN_TIMEOUT, "cli.train --multihost")
+    mh = dict(train_log(outs[0]), seconds=time.perf_counter() - t1)
+    log(f"cli.train --multihost x {world} (zero1): {mh['group']}; losses {mh['losses']}; "
+        f"torchrun's {runs['zero1']['losses']}; {mh['seconds']:.1f} s")
+    if mh["losses"] != runs["zero1"]["losses"] or mh["summary"] != runs["zero1"]["summary"] \
+            or any(train_log(o)["losses"] for o in outs[1:]):
+        raise AssertionError(f"--multihost differs from torchrun: {mh} vs {runs['zero1']}")
+
+    # float32 steps against the single-process step, timed bf16 steps, and
+    # the ZeRO-1 checkpoint restored, in one job of one process a card
+    cases = [(name, shape, "float32", zero1) for name, shape, zero1 in md_layouts(world)]
+    t1 = time.perf_counter()
+    ranks = run_dist_job(torch, out, world, dict(
+        cases=cases, device="cuda", backend=None, timed=md_layouts(world),
+        timed_steps=MD_TIMED_STEPS, restore=ckpt["zero1"]), timeout=MD_JOB_TIMEOUT)
+    errs = dist_errors(ranks, cases)
+    hold_dist_errors(errs, cases, MD_FULL_DEPTH, world, f"{world}-rank NCCL")
+    dp_bytes = errs["dp"]["slot_bytes"][0]
+    z1_bytes = errs["zero1"]["slot_bytes"]
+    if not all(dp_bytes / world <= b < 1.01 * dp_bytes / world for b in z1_bytes):
+        raise AssertionError(f"ZeRO-1 over {world}: mu+nu bytes a rank {z1_bytes}, want about "
+                             f"1/{world} of DP's {dp_bytes}")
+    timed = {name: timed_summary(ranks["timed"][name], shape, name)
+             for name, shape, _ in md_layouts(world)}
+    # DP over fewer cards on the same global batch, in this call: steps/s
+    # against the card count
+    scaling = {world: timed["dp"]}
+    for w in (1, 2):
+        if w < world:
+            job = run_dist_job(torch, out, w, dict(
+                cases=[], device="cuda", backend=None, timed=[("dp", (w,), False)],
+                timed_steps=MD_TIMED_STEPS), timeout=MD_JOB_TIMEOUT)
+            scaling[w] = timed_summary(job["timed"]["dp"], (w,), "dp")
+    restored = ranks["restore"]
+    log(f"ZeRO-1 checkpoint (step {restored[0]['step']}) restored over {world} ranks: "
+        f"{restored[0]['tensors']} tensors, unequal {restored[0]['unequal']}")
+    if restored[0]["unequal"]:
+        raise AssertionError(f"the restored ZeRO-1 state differs from the checkpoint: "
+                             f"{restored[0]['unequal'][:10]}")
+    job_s = time.perf_counter() - t1
+
+    # the ZeRO-1 run resumed to one more epoch, then served from its checkpoint
+    resumed = torchrun([*base, "--output_model", ckpt["zero1"], "--epochs", "2", "--resume",
+                        *layout_args(zero1_shape, True)], "torchrun cli.train --resume")
+    log(f"cli.train --resume (zero1, {world} ranks): {resumed['summary']}, epochs logged "
+        f"{resumed['epochs']}, losses {resumed['losses']}; {resumed['seconds']:.1f} s")
+    if resumed["summary"] is None or (resumed["summary"]["epochs_run"],
+                                      resumed["summary"]["final_step"]) != \
+            (2, 2 * MD_TRAIN_STEPS) or resumed["epochs"] != [2]:
+        raise AssertionError(f"cli.train --resume: {resumed}")
+    frames = os.path.join(root, "md_frames")
+    os.makedirs(frames)
+    for p in sorted(os.listdir(os.path.join(root, "thermal")))[:N_FIRE]:  # < CORRUPT_AT
+        os.link(os.path.join(root, "thermal", p), os.path.join(frames, p))
+    served = checkpoint_serves(torch, np, ckpt["zero1"], frames,
+                               os.path.join(root, "md_ckpt_infer"))
+    return dict(world=world, global_batch=MD_TRAIN_BATCH, cli_train=runs, multihost=mh,
+                float32_vs_single=errs, timed_bf16=timed, dp_steps_by_cards=scaling,
+                restore=dict(restored[0], bit_equal=True), resumed=resumed,
+                cli_infer_from_checkpoint=served, job_seconds=job_s,
+                seconds=time.perf_counter() - t0)
+
+
+def phase_multi_device(torch, np, root: str, parts=MD_PARTS) -> dict:
+    """The multi-device phase (see the comment above MD_N_RGB): on a host of
+    one card it does not run and says why. Each part of `parts` (MD_PARTS by
+    default) runs even when an earlier one failed, and the phase then raises
+    naming each failure."""
+    import os
+    import traceback
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        reason = (f"{cards} card on this host: the phase runs the port's multi-device paths "
+                  "on distinct cards, so it needs two")
+        log(f"multi-device phase: not run ({reason})")
+        return dict(ran=False, cards=cards, reason=reason)
+    t0 = time.perf_counter()
+    counts = sorted({2, cards})
+    world = 4 if cards >= 4 else 2
+    md_root = os.path.join(root, "md")
+    paths = write_tree(np, md_root, n_rgb=MD_N_RGB)
+    log(f"multi-device phase on {cards} cards: serving and pseudo-GT over {counts} cards, "
+        f"training over {world} ranks")
+    res, failed = dict(ran=True, cards=cards, counts=counts), {}
+    parts_run = (("engine", lambda: md_engine_check(torch, np, counts, paths)),
+             ("generator", lambda: md_generator_check(torch, np, counts)),
+             ("tp_attention", lambda: dict(zip(("k2", "k3"), tp_attention_cases(torch, world)))),
+             ("clis", lambda: md_cli_check(torch, np, counts, md_root)),
+             ("training", lambda: md_train_check(torch, np, world, md_root)))
+    for name, run in (p for p in parts_run if p[0] in parts):
+        t1 = time.perf_counter()
+        try:
+            res[name] = run()
+        except Exception as e:  # noqa: BLE001  (every part runs; the phase raises below)
+            failed[name] = f"{type(e).__name__}: {e}"
+            log(f"multi-device {name}: FAILED\n{traceback.format_exc()}")
+        log(f"multi-device {name}: {time.perf_counter() - t1:.1f} s")
+        sync_all(torch)
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"multi-device phase: {res['seconds']:.1f} s")
+    if failed:
+        raise AssertionError(f"multi-device phase: {len(failed)} part(s) failed: {failed}")
+    return res
 
 
 # phase 11: the serving artifact (thermal3d_torch/infer/export.py, cli/export.py)
@@ -3580,8 +4401,8 @@ def main(argv) -> int:
     if argv and argv[0] == "--dist-worker":
         return dist_worker_main(argv[1:])
     if argv and not ((len(argv) == 2 and argv[0] == "--compare-k2k3")
-                     or argv in (["--only-multi-gpu"], ["--only-export"], ["--only-wrappers"],
-                                 ["--only-multi-card"])):
+                     or argv in (["--only-multi-gpu"], ["--only-export"], ["--only-wrappers"])
+                     or (argv[0] == "--only-multi-card" and set(argv[1:]) <= set(MD_PARTS))):
         print(__doc__, file=sys.stderr)
         return 2
     import numpy as np
@@ -3600,10 +4421,13 @@ def main(argv) -> int:
         print(card, flush=True)
         print(json.dumps({"export": export}, default=float), flush=True)
         return 0
-    if argv == ["--only-multi-card"]:
-        multi_card = multi_card_check(torch, np)
+    if argv[:1] == ["--only-multi-card"]:  # [PART ...]: those parts of the phase alone
+        multi_card = multi_card_check(torch, np) if len(argv) == 1 else None
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_md_") as root:
+            multi_device = phase_multi_device(torch, np, root, argv[1:] or MD_PARTS)
         print(card, flush=True)
         print(json.dumps({"multi_card": multi_card}), flush=True)
+        print(json.dumps({"multi_device": multi_device}, default=float), flush=True)
         return 0
     if argv == ["--only-wrappers"]:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_wrappers_") as root:
@@ -3631,8 +4455,10 @@ def main(argv) -> int:
     k2 += attention_cases(torch, cross=False, batch=2 * PAIR_BATCH, widths=[(1024, 16)], **mastr)
     k2 += attention_cases(torch, cross=False, batch=PAIR_BATCH, widths=[(768, 12)], **mastr)
     k3 += attention_cases(torch, cross=True, batch=PAIR_BATCH, **mastr)
-    log("K2/K3 at the tensor-parallel shapes of phase 10 (tp=2: 8 and 6 heads):")
+    log("K2/K3 at the tensor-parallel shapes of phase 10 (tp=2: 8 and 6 heads) and of the "
+        "multi-device phase (tp=4: 4 and 3 heads):")
     k2_tp, k3_tp = tp_attention_cases(torch)
+    k2_tp4, k3_tp4 = tp_attention_cases(torch, 4)
     log("K2/K3 bf16 at head_dim 32 (the CUDA-core one-shot and key-tile kernels):")
     d32 = dict(widths=[(512, 16)], dtypes=("bfloat16",))
     for kw in (dict(), dict(batch=PAIR_BATCH, **mastr)):
@@ -3652,6 +4478,7 @@ def main(argv) -> int:
         fire = phase_fire(torch, np, card, root)
         int8 = phase_int8(torch, np, root)
         multi_gpu = phase_multi_gpu(torch, np, root)
+        multi_device = phase_multi_device(torch, np, root)
         export = phase_export(torch, np, root)
         wrappers = phase_wrappers(torch, np, root)
     export_served = {}  # the native artifact's launches over its served batches
@@ -3694,6 +4521,16 @@ def main(argv) -> int:
                            for name, step in wrappers["steps"].items())):
         for name, count in counts.items():
             by_path.setdefault(name, {})[path] = count
+    if multi_device["ran"]:  # launches on distinct cards: a mesh batch, a rank's step
+        md_paths = [(f"multi_device_engine_{n}_cards", m["launches"])
+                    for n, m in multi_device.get("engine", {}).get("meshes", {}).items()]
+        md_paths += [(f"multi_device_generator_{n}_cards", m["launches"])
+                     for n, m in multi_device.get("generator", {}).get("meshes", {}).items()]
+        md_paths += [(f"multi_device_train_{name}_rank0_step", t["launches_per_step"][0])
+                     for name, t in multi_device["training"]["timed_bf16"].items()]
+        for path, counts in md_paths:
+            for name, count in counts.items():
+                by_path.setdefault(name, {})[path] = count
     for counts in by_path.values():  # every kernel names the training path
         counts.setdefault("training", 0)
 
@@ -3712,8 +4549,8 @@ def main(argv) -> int:
                     plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
                     library_ms=m["library_ms"], main_case=m, cases=cases)
 
-    k2 += k2_tp  # after the cases the entries' main_case indices name
-    k3 += k3_tp
+    k2 += k2_tp + k2_tp4  # after the cases the entries' main_case indices name
+    k3 += k3_tp + k3_tp4
     fa_src = "thermal3d/kernels/flash_attention.py"
     attn_src = "thermal3d_torch/kernels/csrc/attention_tc.cu"
     kernels = [
@@ -3744,6 +4581,7 @@ def main(argv) -> int:
     print(json.dumps({"multi_gpu": multi_gpu}, default=float), flush=True)
     print(json.dumps({"export": export}, default=float), flush=True)
     print(json.dumps({"multi_card": multi_card}), flush=True)
+    print(json.dumps({"multi_device": multi_device}, default=float), flush=True)
     print(json.dumps({"wrappers": wrappers}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

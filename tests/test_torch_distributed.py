@@ -29,6 +29,11 @@ from tests._multihost_worker import GLOBAL_BATCH, TINY_KW, make_global_batch  # 
 
 TIMEOUT = 300  # seconds for every rank of one job
 STEP_LR = 1e-3  # lr of the step cases
+# a narrow model whose head counts 4 ranks divide (head_dim 8), for the
+# 4-rank layouts of the multi-device phase: DP 4, ZeRO-1 4, DP×TP 2×2, TP 4
+NARROW_KW = dict(img_size=(32, 32), enc_embed_dim=32, enc_depth=2, enc_num_heads=4,
+                 dec_embed_dim=32, dec_depth=1, dec_num_heads=4)
+FOUR_RANK_LAYOUTS = ["4", "4_zero1", "2x2", "1x4"]
 
 
 # --- shared by the ranks and the one-process references ---------------------
@@ -39,22 +44,27 @@ def _global_batch(step: int):
             else v for k, v in make_global_batch().items()}
 
 
-def _init_state(out: str):
-    return torch.load(os.path.join(out, "init.pt"), weights_only=True)
+def _init_state(out: str, name: str = "init.pt"):
+    return torch.load(os.path.join(out, name), weights_only=True)
 
 
-def run_steps(out: str, mesh=None, zero1: bool = False, steps: int = 1) -> dict:
-    """`steps` train steps of the tiny model from out/init.pt on the global
-    batches; on a process mesh each rank takes its 'data' rows. Returns the
-    losses and grad norms, the full parameters and AdamW moments (gathered:
-    every rank of a mesh must call this), and this rank's moment bytes."""
+def run_steps(out: str, mesh=None, zero1: bool = False, steps: int = 1,
+              narrow: bool = False) -> dict:
+    """`steps` train steps of the tiny model from out/init.pt (with narrow,
+    the NARROW_KW model from out/narrow.pt) on the global batches; on a
+    process mesh each rank takes its 'data' rows. Returns the losses and
+    grad norms, the full parameters and AdamW moments (gathered: every rank
+    of a mesh must call this), this rank's moment bytes and the attention
+    modules' head counts."""
     from thermal3d_torch.core.config import DustrModelConfig, TrainConfig
     from thermal3d_torch.core.mesh import full_state_dict, shard_batch, shard_model_
     from thermal3d_torch.models.dustr import trainable_model
     from thermal3d_torch.train.state import create_train_state
     from thermal3d_torch.train.step import make_train_step
 
-    model = trainable_model(DustrModelConfig(**TINY_KW), torch.device("cpu"), _init_state(out))
+    model = trainable_model(DustrModelConfig(**(NARROW_KW if narrow else TINY_KW)),
+                            torch.device("cpu"),
+                            _init_state(out, "narrow.pt" if narrow else "init.pt"))
     if mesh is not None:
         shard_model_(model, mesh)
     cfg = TrainConfig(batch_size=GLOBAL_BATCH, lr=STEP_LR, epochs=2, zero1=zero1)
@@ -74,34 +84,47 @@ def run_steps(out: str, mesh=None, zero1: bool = False, steps: int = 1) -> dict:
     return dict(losses=losses, norms=norms, params=full_state_dict(model, mesh),
                 mu=dict(zip(names, opt["mu"])), nu=dict(zip(names, opt["nu"])),
                 slot_bytes=sum(t.numel() * t.element_size()
-                               for t in state.tx.mu + state.tx.nu))
+                               for t in state.tx.mu + state.tx.nu),
+                heads=sorted({m.num_heads for m in model.modules() if hasattr(m, "num_heads")}))
 
 
 class SyntheticPairs:
     """n samples of the tiny model's training layout (identical in every
     process); with same=True all n are one sample, so the order of a
-    batch's rows changes nothing."""
+    batch's rows changes nothing. The samples of `fail` fail to load
+    (None), as an undecodable frame does."""
 
-    def __init__(self, n: int = 6, seed: int = 5, same: bool = False):
+    def __init__(self, n: int = 6, seed: int = 5, same: bool = False, fail=()):
         rng = np.random.default_rng(seed)
         base = make_global_batch()
         self.samples = [{k: (v[0 if same else i % GLOBAL_BATCH]
                              * (1.0 if same else rng.uniform(0.9, 1.1))).astype(np.float32)
                          for k, v in base.items()} for i in range(n)]
+        self.fail = set(fail)
 
     def __len__(self):
         return len(self.samples)
 
     def __getitem__(self, i):
-        return self.samples[i]
+        return None if i in self.fail else self.samples[i]
+
+
+def failing_pairs() -> SyntheticPairs:
+    """12 samples (8 train: two batches of 4 an epoch; 4 validation), the
+    third row of the first epoch's first train batch failing to load: on 2
+    ranks it lies in rank 1's slice."""
+    from thermal3d_torch.data.pipeline import split_index
+
+    train_idx, _ = split_index(12, 0.3, 0)
+    return SyntheticPairs(n=12, fail=[np.random.default_rng(0).permutation(train_idx)[2]])
 
 
 def run_loop(out: str, ckpt: str, epochs: int, zero1: bool, resume: bool = False,
-             same: bool = False) -> dict:
+             same: bool = False, fail: bool = False) -> dict:
     """train_and_evaluate of the tiny model from out/init.pt on
     SyntheticPairs(same=same), over the job's processes: 4 train samples,
     one batch of 4 an epoch; 2 validation samples, one batch padded to 4 (on
-    2 ranks: rank 1's slice is all padding)."""
+    2 ranks: rank 1's slice is all padding). With fail, on failing_pairs()."""
     from thermal3d_torch.core.config import DustrModelConfig, TrainConfig
     from thermal3d_torch.models.dustr import trainable_model
     from thermal3d_torch.train.logging import MetricLogger
@@ -113,7 +136,8 @@ def run_loop(out: str, ckpt: str, epochs: int, zero1: bool, resume: bool = False
     cfg = TrainConfig(batch_size=4, lr=1e-3, eta_min=1e-3, warmup_frac=0.0, epochs=epochs,
                       zero1=zero1, log_interval=1, val_fraction=0.3)
     log = os.path.join(out, f"log_{os.environ.get('T3D_RANK', 'single')}_{epochs}.jsonl")
-    summary = train_and_evaluate(model, SyntheticPairs(same=same), cfg, checkpoint_dir=ckpt,
+    data = failing_pairs() if fail else SyntheticPairs(same=same)
+    summary = train_and_evaluate(model, data, cfg, checkpoint_dir=ckpt,
                                  logger=MetricLogger(log_file=log), resume=resume)
     from thermal3d_torch.core.mesh import full_state_dict
 
@@ -133,10 +157,16 @@ def _worker(case: str, rank: int, world: int, port: int, out: str) -> None:
     os.environ["T3D_RANK"] = str(rank)
     assert initialize_multihost(f"127.0.0.1:{port}", world, rank, device="cpu") == (rank, world)
     assert process_info() == (rank, world)
-    if case.startswith("loop"):  # loop_<epochs>_<checkpoint dir>[_resume][_same]
+    if case == "narrow4":  # every layout of FOUR_RANK_LAYOUTS, in turn
+        result = {}
+        for layout in FOUR_RANK_LAYOUTS:
+            shape = tuple(int(x) for x in layout.split("_")[0].split("x"))
+            mesh = make_mesh(shape, ("data", "model")[:len(shape)])
+            result[layout] = run_steps(out, mesh, zero1="zero1" in layout, narrow=True)
+    elif case.startswith("loop"):  # loop_<epochs>_<checkpoint dir>[_resume][_same][_fail]
         parts = case.split("_")
         result = run_loop(out, os.path.join(out, parts[2]), int(parts[1]), zero1=True,
-                          resume="resume" in parts, same="same" in parts)
+                          resume="resume" in parts, same="same" in parts, fail="fail" in parts)
     else:  # <mesh, e.g. 2 or 2x2>_<steps>[_zero1]
         parts = case.split("_")
         shape = tuple(int(x) for x in parts[0].split("x"))
@@ -279,6 +309,45 @@ def test_dp2_tp2_step_matches_dp(init, single, tmp_path):
     _close(ranks[0]["params"], single[1]["params"], PARAMS_ATOL_ONE_STEP, "params")
 
 
+@pytest.fixture(scope="module")
+def narrow(init):
+    """out/narrow.pt (the port's seeded NARROW_KW weights), its one-process
+    step on the global batch, and one 4-rank job that runs the step in every
+    layout of FOUR_RANK_LAYOUTS."""
+    from thermal3d_torch.core.config import DustrModelConfig
+    from thermal3d_torch.models.dustr import trainable_model
+
+    model = trainable_model(DustrModelConfig(**NARROW_KW), torch.device("cpu"), seed=0)
+    torch.save(model.state_dict(), init / "narrow.pt")
+    return run_steps(str(init), narrow=True), launch("narrow4", 4, init)
+
+
+@pytest.mark.parametrize("layout", FOUR_RANK_LAYOUTS)
+def test_four_rank_layouts_match_one_process(narrow, layout):
+    """DP 4, ZeRO-1 4, DP×TP 2×2 and TP 4 (one of the 4 heads a rank) on 4
+    gloo ranks: the loss equal on every rank and within 2e-5 of the
+    one-process step on the global batch, the gathered parameters and
+    moments within the one-step envelope above, the heads a rank the
+    mesh's share, and ZeRO-1's moments a quarter of the one-process bytes."""
+    single, ranks = narrow
+    got = [r[layout] for r in ranks]
+    assert len({tuple(r["losses"]) for r in got}) == 1
+    np.testing.assert_allclose(got[0]["losses"], single["losses"], rtol=2e-5)
+    np.testing.assert_allclose(got[0]["norms"], single["norms"], rtol=2e-5)
+    _close(got[0]["mu"], single["mu"], MU_ATOL_ONE_STEP, "mu")
+    _close(got[0]["params"], single["params"], PARAMS_ATOL_ONE_STEP, "params")
+    tp = int(layout.split("x")[1]) if "x" in layout else 1
+    assert all(r["heads"] == [4 // tp] for r in got)
+    full, mine = single["slot_bytes"], [r["slot_bytes"] for r in got]
+    assert len(set(mine)) == 1
+    if layout == "4_zero1":
+        assert full / 4 <= mine[0] < 1.01 * full / 4
+    elif tp > 1:  # split tensors: a tp-th; replicated ones (norms, embed, head): whole
+        assert full / tp < mine[0] < full
+    else:
+        assert mine[0] == full
+
+
 @pytest.mark.parametrize("case,world", [("2_3_zero1", 2), ("2x2_3_zero1", 4)])
 def test_zero1_three_steps_match_dp(init, single, case, world):
     """ZeRO-1 after 3 steps (alone and composed with TP, the counterparts of
@@ -325,6 +394,22 @@ def test_two_rank_loop_agrees_and_logs_once(init):
     assert os.path.getsize(init / "log_1_2.jsonl") == 0
 
 
+def test_a_batch_one_rank_cannot_fill_is_skipped_by_every_rank(init):
+    """A train sample that fails to load lies in rank 1's slice of the first
+    global batch: both ranks skip that batch, as one process skips the short
+    batch, and train on the second, so the 2-rank run equals the
+    one-process run (one step). Without the vote rank 1 alone skipped it,
+    and its gradient all-reduce paired with rank 0's step on the first
+    batch: a step no process takes."""
+    ranks = launch("loop_1_ckfail_fail", 2, init)
+    one = run_loop(str(init), str(init / "ckfail_single"), 1, zero1=True, fail=True)
+    assert ranks[0]["summary"] == ranks[1]["summary"]
+    assert ranks[0]["summary"]["final_step"] == one["summary"]["final_step"] == 1
+    np.testing.assert_allclose(ranks[0]["summary"]["best_val_loss"],
+                               one["summary"]["best_val_loss"], rtol=1e-5)
+    _close(ranks[0]["params"], one["params"], 2e-4, "params")
+
+
 def test_zero1_checkpoint_resumes_on_any_world_size(init):
     """A 2-rank --zero1 run checkpointed after 2 epochs, resumed to a third
     in 2 processes and in 1 process, against the uninterrupted 2-rank run
@@ -357,30 +442,59 @@ def test_cli_train_mesh_shape_2_on_two_gloo_processes(tree, tmp_path):
     WORLD_SIZE, MASTER_ADDR, MASTER_PORT, LOCAL_RANK): gloo on the CPU,
     the summary printed by the coordinator only, and its best validation
     loss the one-process run's; its checkpoint serves one-device cli.infer."""
+    _cli_train_job(tree, tmp_path, "env", 2)
+
+
+@pytest.mark.parametrize("launcher", ["multihost", "torchrun"])
+def test_cli_train_on_four_gloo_processes(tree, tmp_path, launcher):
+    """cli.train --mesh_shape 4 --zero1 on 4 gloo processes, one launch a
+    process with --multihost --coordinator --num_processes 4 --process_id R,
+    or under torchrun itself (python -m torch.distributed.run, whose agent
+    hosts the rendezvous store the tcp:// init joins): as the two-process
+    case, against the one-process run on the same batch of 4 (one row a
+    rank; ranks 1-3 see only padding in validation)."""
+    _cli_train_job(tree, tmp_path, launcher, 4)
+
+
+def _cli_train_job(tree, tmp_path, launcher: str, world: int):
     from tests.test_torch_train_data import _train_args
     from thermal3d_torch.cli import train as cli_train
 
     port = free_port()
-    out = str(tmp_path / "ck2")
-    argv = _train_args(tree, out, "--epochs", "1", "--mesh_shape", "2", "--lr", "1e-4")
-    commands = []
-    for r in range(2):
-        env = dict(_env(), RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
-        commands.append(([sys.executable, "-m", "thermal3d_torch.cli.train", *argv], env))
+    out = str(tmp_path / f"ck{world}")
+    batch = ["--batch_size", str(max(2, world))]
+    argv = _train_args(tree, out, "--epochs", "1", "--lr", "1e-4", *batch,
+                       "--mesh_shape", str(world), *(["--zero1"] if world > 2 else []))
+    module = [sys.executable, "-m", "thermal3d_torch.cli.train"]
+    if launcher == "torchrun":
+        commands = [([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+                      str(world), "--master_addr", "127.0.0.1", "--master_port", str(port),
+                      "-m", "thermal3d_torch.cli.train", *argv], _env())]
+    elif launcher == "multihost":
+        commands = [([*module, *argv, "--multihost", "--coordinator", f"127.0.0.1:{port}",
+                      "--num_processes", str(world), "--process_id", str(r)], _env())
+                    for r in range(world)]
+    else:
+        commands = [([*module, *argv], dict(_env(), RANK=str(r), WORLD_SIZE=str(world),
+                                            LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
+                                            MASTER_PORT=str(port)))
+                    for r in range(world)]
     outs = run_ranks(commands)
-    done = [line for line in outs[0].splitlines() if line.startswith("Training done")]
-    assert len(done) == 1 and "Training done" not in outs[1]
-    assert not [x for x in outs[1].splitlines() if x.startswith("{")]  # no metric lines
+    text = "\n".join(outs)
+    done = [line for line in text.splitlines() if line.startswith("Training done")]
+    assert len(done) == 1 and "Training done" in outs[0]
+    assert f"gloo, world {world}" in outs[0]
+    for other in outs[1:]:  # no metric lines from the other ranks
+        assert not [x for x in other.splitlines() if x.startswith("{")]
     one = cli_train.main(_train_args(tree, str(tmp_path / "ck1"), "--epochs", "1",
-                                     "--lr", "1e-4"))
+                                     "--lr", "1e-4", *batch))
     got = eval(done[0].split(": ", 1)[1], {"inf": float("inf")})
     assert got["final_step"] == one["final_step"] and got["epochs_run"] == 1
     np.testing.assert_allclose(got["best_val_loss"], one["best_val_loss"], rtol=1e-5)
     sd, _ = _ckpt_params(out)
     sd1, _ = _ckpt_params(tmp_path / "ck1")
     _close(sd, sd1, 2e-4, "checkpoint")
-    # the 2-process checkpoint is a one-device model's: cli.infer serves it
+    # the multi-process checkpoint is a one-device model's: cli.infer serves it
     from tests.test_torch_train_data import STAMPS
     from thermal3d_torch.cli import infer as cli_infer
     from thermal3d_torch.core.config import DustrModelConfig

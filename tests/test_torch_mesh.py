@@ -144,16 +144,22 @@ def jax_states():
 
 
 @pytest.mark.parametrize("zero1", [False, True])
-@pytest.mark.parametrize("shape,axes", [((8,), ("data",)), ((4, 2), ("data", "model"))])
+@pytest.mark.parametrize("shape,axes", [((8,), ("data",)), ((4, 2), ("data", "model")),
+                                        ((2, 2), ("data", "model")),
+                                        ((1, 4), ("data", "model"))])
 @pytest.mark.parametrize("model", ["tiny", "dustr224"])
 def test_state_sharding_matches_jax(jax_states, model, shape, axes, zero1):
     """For every parameter and both AdamW moments: the port's spec is JAX's
     state_sharding spec on the same mesh, in the torch layout, and its
-    per-rank slice shape is JAX's NamedSharding.shard_shape, transposed."""
+    per-rank slice shape is JAX's NamedSharding.shard_shape, transposed;
+    on 8 devices and on the 4-rank layouts of the multi-device phase (DP×TP
+    2×2, TP 4: 4 of DUSt3R-224's 16 encoder and 3 of its 12 decoder heads a
+    rank)."""
     state = jax_states[model]
-    jm = _jax_mesh(shape, axes)
+    n = int(np.prod(shape))
+    jm = _jax_mesh(shape, axes, n)
     sh = jax_mesh.state_sharding(jm, state, zero1=zero1)
-    tm = make_mesh(shape, axes, devices=CPU8)
+    tm = make_mesh(shape, axes, devices=CPU8[:n])
     adam_sh, adam = sh.opt_state[1][0], state.opt_state[1][0]
     trees = {"params": (sh.params, state.params), "mu": (adam_sh.mu, adam.mu),
              "nu": (adam_sh.nu, adam.nu)}
@@ -470,6 +476,57 @@ def test_run_on_mesh_runs_a_thread_a_distinct_device():
     assert threading.get_ident() not in threads[CPU_PAIR[0]] | threads[CPU_PAIR[1]]
     for d in CPU_PAIR:
         assert [i for dev, i, _ in ran if dev == d] == [positions.index(d), positions.index(d) + 2]
+
+
+def test_run_on_mesh_chunks_run_on_the_callers_streams(monkeypatch):
+    """On a mesh of distinct cards each chunk's thread takes the caller's
+    current stream of every card of the mesh, not its own default stream:
+    a chunk that copies its rows from an input still being staged on the
+    caller's stream of cuda:0, and the gather and fetch the caller queues
+    after, stay ordered with it. torch.cuda's stream and device calls are
+    stood in with per-thread recorders (no card here)."""
+    import threading
+
+    from thermal3d_torch.core.mesh import run_on_mesh
+
+    class Stream:
+        def __init__(self, device, name):
+            self.device, self.name = torch.device(device), name
+
+    local = threading.local()
+
+    def current(device=None):
+        d = torch.device(device)
+        return getattr(local, "streams", {}).get(d, Stream(d, "default"))
+
+    class use:  # torch.cuda.stream(s): s current on its card in this thread
+        def __init__(self, stream):
+            self.stream = stream
+
+        def __enter__(self):
+            streams = getattr(local, "streams", {})
+            self.prev, local.streams = dict(streams), {**streams, self.stream.device: self.stream}
+
+        def __exit__(self, *exc):
+            local.streams = self.prev
+
+    monkeypatch.setattr(torch.cuda, "current_stream", current)
+    monkeypatch.setattr(torch.cuda, "stream", use)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    positions = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    seen = {}
+
+    def chunk(device, rows):
+        seen[device] = ({d: current(d).name for d in positions}, threading.get_ident())
+        return {}
+
+    import contextlib
+
+    with use(Stream("cuda:0", "staging")):
+        run_on_mesh(positions, 4, chunk)
+    want = {positions[0]: "staging", positions[1]: "default"}
+    assert {d: names for d, (names, _) in seen.items()} == {d: want for d in positions}
+    assert threading.get_ident() not in {t for _, t in seen.values()}
 
 
 def _by_chunks(run, n, *arrays):

@@ -58,17 +58,21 @@ ROW_SHARDED = ("fc2",)  # input features split; attn out-proj by context
 
 class Mesh:
     """devices: object ndarray of torch.device, one axis a name. ranks (for
-    a mesh over processes): the rank at each position, and groups: this
-    rank's process group along each axis of size > 1."""
+    a mesh over processes): the rank at each position, groups: this rank's
+    process group along each axis of size > 1, and host_groups: the same
+    ranks in a gloo group (the group itself under gloo), for votes on the
+    host that wait for no device work."""
 
     def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
-                 ranks: Optional[np.ndarray] = None, groups: Optional[Dict] = None):
+                 ranks: Optional[np.ndarray] = None, groups: Optional[Dict] = None,
+                 host_groups: Optional[Dict] = None):
         if devices.ndim != len(axis_names):
             raise ValueError(f"mesh of shape {devices.shape} but axis names {tuple(axis_names)}")
         self.devices = devices
         self.axis_names = tuple(axis_names)
         self.ranks = ranks
         self.groups = dict(groups or {})
+        self.host_groups = dict(host_groups or {})
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -94,6 +98,16 @@ class Mesh:
         """This rank's process group along `axis`; None when the axis has one
         position (no collective needed) or the mesh is single-controller."""
         return self.groups.get(axis)
+
+    def all_agree(self, ok: bool, axis: str = "data") -> bool:
+        """True when `ok` holds on every rank of this rank's `axis` group
+        (collective over it; `ok` itself without one): a vote on the host."""
+        group = self.host_groups.get(axis)
+        if group is None:
+            return ok
+        flag = torch.tensor([int(ok)], dtype=torch.int32)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
+        return bool(flag.item())
 
     def data_devices(self) -> List[torch.device]:
         """The device at each 'data' position (the first along other axes)."""
@@ -143,16 +157,19 @@ def _process_mesh(mesh_shape: Sequence[int], axis_names: Sequence[str]) -> Mesh:
     dist.all_gather_object(names, str(process_device()))
     devices = np.empty(world, dtype=object)
     devices[:] = [torch.device(n) for n in names]
-    groups = {}
+    groups, host_groups = {}, {}
+    on_host = dist.get_backend() == dist.Backend.GLOO
     for k, axis in enumerate(axis_names):
         if ranks.shape[k] == 1:
             continue
         lines = np.moveaxis(ranks, k, -1).reshape(-1, ranks.shape[k])
         for line in lines:  # every rank creates every group, in one order
-            g = dist.new_group([int(r) for r in line])
+            members = [int(r) for r in line]
+            g = dist.new_group(members)
+            h = g if on_host else dist.new_group(members, backend="gloo")
             if rank in line:
-                groups[axis] = g
-    return Mesh(devices.reshape(ranks.shape), axis_names, ranks, groups)
+                groups[axis], host_groups[axis] = g, h
+    return Mesh(devices.reshape(ranks.shape), axis_names, ranks, groups, host_groups)
 
 
 def local_batch_size(mesh: Mesh, global_batch_size: int) -> int:
@@ -382,8 +399,13 @@ def run_on_mesh(positions: List[torch.device], batch: int, chunk) -> Dict[str, t
     position (batch/n a position; an indivisible batch raises the JAX
     engine's ValueError). The chunks of a device run in position order on
     the calling thread when the mesh has one distinct device, else on one
-    thread a distinct device. Returns the chunks' tensors concatenated in
-    position order, on the first position's device."""
+    thread a distinct device. Either way they run on the caller's current
+    stream of every card of the mesh (a thread's current stream is its own,
+    the default stream unless set): a chunk's copy of its rows from an
+    input on one card, and its work, follow what the caller queued there
+    (an input still being staged), and the gather and what the caller
+    queues next (a fetch) follow the chunks. Returns the chunks' tensors
+    concatenated in position order, on the first position's device."""
     n = len(positions)
     if batch % n:
         raise ValueError(f"batch size {batch} not divisible by the mesh's "
@@ -392,10 +414,14 @@ def run_on_mesh(positions: List[torch.device], batch: int, chunk) -> Dict[str, t
     by_device: Dict[torch.device, List[int]] = {}
     for i, d in enumerate(positions):
         by_device.setdefault(d, []).append(i)
+    streams = [torch.cuda.current_stream(d) for d in by_device if d.type == "cuda"]
 
     def run(device):
-        ctx = torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
-        with ctx:
+        with contextlib.ExitStack() as ctx:
+            for s in streams:
+                ctx.enter_context(torch.cuda.stream(s))
+            if device.type == "cuda":
+                ctx.enter_context(torch.cuda.device(device))
             return [(i, chunk(device, slice(i * per, (i + 1) * per))) for i in by_device[device]]
 
     if len(by_device) == 1:

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
-from typing import Dict, Iterator, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -189,14 +189,23 @@ class BatchLoader:
     be partial: every process's slice is then padded to B/P rows with a
     valid index, so all processes yield the same number of batches (their
     collective steps stay in lockstep); local_real_count(bi) counts the
-    real rows.
+    real rows. A sample that fails to load lies in one process's slice
+    only, so whether a global batch is skipped is put to every process:
+    `agree(keep)` takes this process's verdict and returns True only when
+    every process keeps the batch (core/mesh.py::Mesh.all_agree over
+    'data'); every process then skips the batch that one process alone
+    would have, as a single process skips it. Without `agree` (the JAX
+    loader's behaviour) that process alone skips it, and its collectives
+    pair with the other processes' steps of the next batch.
     """
 
     def __init__(self, dataset, indices: Optional[Sequence[int]] = None,
                  batch_size: int = 4, shuffle: bool = True, seed: int = 0,
                  num_workers: int = 4, prefetch: int = 2, drop_last: bool = True,
-                 process_id: int = 0, process_count: int = 1):
+                 process_id: int = 0, process_count: int = 1,
+                 agree: Optional[Callable[[bool], bool]] = None):
         self.dataset = dataset
+        self.agree = agree
         self.indices = np.asarray(indices if indices is not None else np.arange(len(dataset)))
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -262,6 +271,9 @@ class BatchLoader:
                 if next_submit < n_batches:
                     submit(next_submit)
                     next_submit += 1
-                if not samples or (self.drop_last and len(samples) < bs_local):
+                keep = bool(samples) and not (self.drop_last and len(samples) < bs_local)
+                if self.agree is not None:
+                    keep = self.agree(keep)
+                if not keep:
                     continue
                 yield {k: np.stack([s[k] for s in samples]) for k in samples[0]}

@@ -14,11 +14,12 @@ cli.train --multihost) every rank runs this loop in lockstep on its mesh
 position (cfg.mesh_shape / cfg.mesh_axes, core/mesh.py): the model is cut to
 its tensor-parallel share, the loaders feed each 'data' position its rows
 of every global batch (the final validation batch padded, its real rows
-counted), the validation sums are all-reduced over 'data' so every rank
-takes the same early-stop and checkpoint decisions, checkpoints gather full
-tensors, and only the coordinator logs. The JAX loop's fallback to the
-largest device count that divides the batch cannot drop processes: an
-indivisible batch raises instead.
+counted; a batch that a sample failing to load leaves short on one rank
+skipped by every rank), the validation sums are all-reduced over 'data' so
+every rank takes the same early-stop and checkpoint decisions, checkpoints
+gather full tensors, and only the coordinator logs. The JAX loop's
+fallback to the largest device count that divides the batch cannot drop
+processes: an indivisible batch raises instead.
 """
 
 from __future__ import annotations
@@ -91,10 +92,12 @@ def train_and_evaluate(model: torch.nn.Module, dataset, cfg: TrainConfig,
         log = lambda _metrics: None  # noqa: E731  (the coordinator logs)
 
     train_idx, val_idx = split_index(len(dataset), cfg.val_fraction, cfg.seed)
+    # a batch one 'data' rank cannot fill is skipped by every rank (a vote)
+    agree = mesh.all_agree if n_data > 1 else None
     train_loader = BatchLoader(dataset, train_idx, cfg.batch_size, shuffle=True, seed=cfg.seed,
-                               process_id=pid, process_count=n_data)
+                               process_id=pid, process_count=n_data, agree=agree)
     val_loader = BatchLoader(dataset, val_idx, cfg.batch_size, shuffle=False, drop_last=False,
-                             process_id=pid, process_count=n_data)
+                             process_id=pid, process_count=n_data, agree=agree)
     steps_per_epoch = max(1, len(train_loader))
     state = create_train_state(model, cfg, steps_per_epoch, mesh=mesh)
     lr_schedule = make_lr_schedule(cfg, steps_per_epoch)
