@@ -18,8 +18,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      phase 10 (tp=2: 8 and 6 heads) and in the multi-device phase (tp=4: 4
      and 3 heads). Each K2-K6 case records the kernel
      that served it: bf16 with head_dim 64 the tensor-core kernel (its own
-     count moves), float32, and bf16 at head_dim 32, a CUDA-core kernel (K2/K3:
-     one-shot at S=196, key-tile at S=1024). Then, on a host with two
+     count moves; K2/K3 with its schedule, one_pass/N at S=196 and key_tile
+     at S=1024, as the library chooses it), float32, and bf16 at head_dim
+     32, a CUDA-core kernel (K2/K3: one-shot at S=196, key-tile at S=1024). Then, on a host with two
      cards or more, with cuda:0 current, K1-K6 (both kernel families) and
      one full-width InferenceEngine batch on the last card, each bit-equal
      to the same call on cuda:0 (multi_card_check); on one card a line says
@@ -141,8 +142,11 @@ Without CUDA it exits non-zero before printing any result.
     python3 chip_smoke.py --compare-k2k3 OTHER_CSRC_DIR
 
 holds this checkout's tensor-core K2/K3 kernel against a build of another
-checkout's csrc/rope_attention_tc.cu instead (torch.equal on the bf16 K2/K3
-shapes of both paths, times in turns) and exits non-zero if any differs.
+checkout's csrc/rope_attention_tc.cu instead (torch.equal and the largest
+difference on the bf16 K2/K3 shapes of both paths, times in turns) and
+exits non-zero if any differs. Two builds of the same schedule read equal;
+the one-pass schedule (S <= 256) against the 64-key online softmax of an
+older build differs in p's rounding, by about an output ulp.
 
     python3 chip_smoke.py --only-multi-gpu
 
@@ -339,6 +343,19 @@ def k1_cases(torch):
     return cases
 
 
+def tensor_core_schedule(torch, fa, batch: int, heads: int, seq: int) -> str:
+    """The schedule of the tensor-core K2/K3 kernel for a call on cuda:0
+    ("one_pass/N": N parts a head, or "key_tile"), as flash_attention.
+    tc_schedule names it; raises unless the built library chooses the same."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    kind, parts = fa.tc_schedule(batch, heads, seq, sms)
+    built = fa._tc_lib().t3d_rope_attention_tc_schedule(batch, seq, heads, sms)
+    if built != (parts if kind == fa.ONE_PASS else 0):
+        raise AssertionError(f"K2/K3 [{batch},{seq}] H={heads}: the library schedules "
+                             f"{built}, tc_schedule {kind}/{parts}")
+    return f"{kind}/{parts}" if kind == fa.ONE_PASS else kind
+
+
 def attention_cases(torch, cross: bool, batch: int = BATCH, grid=(14, 14), widths=None,
                     reps: int = 20, dtypes=("bfloat16", "float32")):
     """K2 (K3 with cross=True) on a grid×grid patch grid: the serving
@@ -346,7 +363,8 @@ def attention_cases(torch, cross: bool, batch: int = BATCH, grid=(14, 14), width
     `widths` are (C, heads), D=64 by default. bf16 with D=64 runs the
     tensor-core kernel; float32 and other head dims the CUDA-core one-shot
     kernel, or the key-tile kernel where K/V of a head do not fit in shared
-    memory. Each case records the kernel that served it."""
+    memory. Each case records the kernel that served it (for the
+    tensor-core kernel, its schedule: one_pass/N or key_tile)."""
     import torch.nn.functional as F
 
     fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
@@ -400,7 +418,7 @@ def attention_cases(torch, cross: bool, batch: int = BATCH, grid=(14, 14), width
             if (fa.rope_attention_tc.launches > tc_before) != on_tc:
                 raise AssertionError(f"K2/K3 {dname} S={s} D={d}: tensor-core kernel "
                                      f"{'not ' if on_tc else ''}launched")
-            served = (fa.TENSOR_CORE if on_tc else "one_shot"
+            served = (tensor_core_schedule(torch, fa, batch, nh, s) if on_tc else "one_shot"
                       if fa.smem_bytes(s, d, dt) <= fa.SMEM_LIMIT else "key_tile")
             ref = plain()
             torch.cuda.synchronize()
@@ -408,7 +426,8 @@ def attention_cases(torch, cross: bool, batch: int = BATCH, grid=(14, 14), width
             del out, ref
             # f32: summation order only; bf16: the output is rounded to bf16
             # (1 ulp at |x| < 2 is 2^-7) and a flipped rounding of p adds one
-            # more (the key-tile loop rounds p against a running max)
+            # more (the key-tile loop rounds p against a running max; the
+            # one-pass schedule takes exp on the MUFU unit)
             limit = 2e-5 if dt == torch.float32 else 2.0 ** -6
             name = ("K3 fused_rope_cross_attention" if cross else "K2 fused_rope_attention")
             check(f"{name} [{batch},{s},{c}] H={nh} D={d} {dname}", err, limit)
@@ -3269,9 +3288,11 @@ def tp_attention_cases(torch, tp: int = 2):
 def compare_k2k3(torch, other_csrc: str) -> bool:
     """Build OTHER_CSRC/rope_attention_tc.cu with this checkout's nvcc flags
     and launch it and this checkout's build through the same wrapper on the
-    same seeded inputs: torch.equal on each of COMPARE_CASES, and both timed
-    as in phase 3, in turns (other, this, this, other). Prints one JSON
-    line; returns whether every output was equal."""
+    same seeded inputs (a build without the scratch query gets its roped-K
+    scratch on every call, as it was written for): torch.equal and the
+    largest difference on each of COMPARE_CASES, this build's schedule, and
+    both timed as in phase 3, in turns (other, this, this, other). Prints
+    one JSON line; returns whether every output was equal."""
     from pathlib import Path
 
     from thermal3d_torch.kernels import _build
@@ -3309,13 +3330,16 @@ def compare_k2k3(torch, other_csrc: str) -> bool:
         run("other")
         torch.cuda.synchronize()
         equal = torch.equal(outs["this"], outs["other"])
+        max_abs_diff = (outs["this"].float() - outs["other"].float()).abs().max().item()
         ms = {w: [] for w in libs}
         for which in ("other", "this", "this", "other"):
             ms[which].append(cuda_ms(lambda w=which: run(w)))
-        results.append(dict(kernel=kind, shape=[batch, s, c], heads=heads, equal=equal,
-                            this_ms=ms["this"], other_ms=ms["other"]))
-        log(f"{kind} [{batch},{s},{c}] H={heads}: torch.equal {equal}; ms this {ms['this']} "
-            f"other {ms['other']}")
+        results.append(dict(kernel=kind, shape=[batch, s, c], heads=heads,
+                            schedule=tensor_core_schedule(torch, fa, batch, heads, s),
+                            equal=equal, max_abs_diff=max_abs_diff, this_ms=ms["this"],
+                            other_ms=ms["other"]))
+        log(f"{kind} [{batch},{s},{c}] H={heads}: torch.equal {equal} (max|diff| "
+            f"{max_abs_diff:.3e}); ms this {ms['this']} other {ms['other']}")
         del qkv, outs
     all_equal = all(r["equal"] for r in results)
     print(json.dumps({"compare_k2k3": results, "all_equal": all_equal}), flush=True)

@@ -416,3 +416,181 @@ def test_cpu_bf16_k4_k6_do_not_count_tensor_core_launches(impl):
     assert out.dtype == torch.bfloat16 and out.shape == (1, 2, 196, 64)
     assert torch.equal(out, tfa.attention_plain(q, k, v, 0.125))
     assert [c.launches for c in counters] == counts
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core K2/K3 kernel's two schedules (csrc/rope_attention_tc.cu)
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("batch,heads,seq,want", [
+    # the serving and training shapes: B*H items fill the card whole
+    (32, 16, 196, (tfa.ONE_PASS, 1)), (32, 12, 196, (tfa.ONE_PASS, 1)),
+    (8, 16, 196, (tfa.ONE_PASS, 2)),     # a training step's encoder: 128 heads
+    (4, 12, 196, (tfa.ONE_PASS, 4)),     # its decoder: 48 heads
+    # tensor-parallel ranks: 12-64 heads, a part a 64-row tile
+    (8, 8, 196, (tfa.ONE_PASS, 4)), (4, 6, 196, (tfa.ONE_PASS, 4)),
+    (8, 4, 196, (tfa.ONE_PASS, 4)), (4, 3, 196, (tfa.ONE_PASS, 4)),
+    (1, 1, 1, (tfa.ONE_PASS, 1)), (32, 16, 1, (tfa.ONE_PASS, 1)),
+    (1, 16, 64, (tfa.ONE_PASS, 1)), (4, 16, 64, (tfa.ONE_PASS, 1)),
+    (32, 16, 256, (tfa.ONE_PASS, 1)), (2, 16, 256, (tfa.ONE_PASS, 4)),
+    (4, 12, 256, (tfa.ONE_PASS, 4)), (8, 12, 256, (tfa.ONE_PASS, 2)),
+    # past 256 keys: the 64-key online softmax (the pseudo-GT's S=1024)
+    (32, 16, 257, (tfa.KEY_TILE, 1)), (8, 16, 1024, (tfa.KEY_TILE, 1)),
+    (4, 12, 1024, (tfa.KEY_TILE, 1)), (1, 1, 1024, (tfa.KEY_TILE, 1)),
+])
+def test_tensor_core_schedule(batch, heads, seq, want):
+    """The schedule and the query-row split as a pure function of (B, H, S,
+    SM count): one pass up to 256 keys, where each head's rows are cut into
+    the fewest parts (1, 2 tiles, 1 tile) that give the card's 132 SMs an
+    item each; the key-tile kernel above."""
+    assert tfa.tc_schedule(batch, heads, seq, H100_SMS) == want
+    kind, parts = want
+    if kind == tfa.ONE_PASS:
+        row_tiles = -(-seq // 64)
+        assert 1 <= parts <= row_tiles and (parts == 1 or batch * heads * parts >= H100_SMS
+                                            or parts == row_tiles)
+
+
+@pytest.mark.parametrize("sms", [1, 66, 132, 264, 100000])
+@pytest.mark.parametrize("seq", [1, 64, 196, 256])
+def test_tensor_core_schedule_fills_the_card(seq, sms):
+    """Whatever the card, the one-pass split is 1, two tiles or one tile a
+    part, and no coarser than that would leave an SM without an item."""
+    row_tiles = -(-seq // 64)
+    for batch, heads in ((32, 16), (8, 8), (4, 3), (1, 1)):
+        kind, parts = tfa.tc_schedule(batch, heads, seq, sms)
+        assert kind == tfa.ONE_PASS and parts in (1, -(-row_tiles // 2), row_tiles)
+        assert all(batch * heads * coarser < sms
+                   for coarser in (1, -(-row_tiles // 2)) if coarser < parts)
+
+
+class _RecordingTcLibrary:
+    """A stand-in tensor-core K2/K3 library that records the entry's
+    arguments, with the scratch query of csrc/rope_attention_tc.cu."""
+
+    def __init__(self, events):
+        self.events = events
+        self.args = []
+
+    def t3d_rope_attention_tc_scratch_bytes(self, batch, seq, heads):
+        return StandInLibrary(self.events).t3d_rope_attention_tc_scratch_bytes(batch, seq, heads)
+
+    def t3d_rope_attention_tc(self, *args):
+        self.events.append(("call", "t3d_rope_attention_tc"))
+        self.args.append(args)
+        return 0
+
+
+class _OldTcLibrary(_RecordingTcLibrary):
+    """A build without the scratch query, which ropes K into the scratch on
+    every call."""
+
+    def __getattribute__(self, name):
+        if name == "t3d_rope_attention_tc_scratch_bytes":
+            raise AttributeError(name)
+        return super().__getattribute__(name)
+
+
+@pytest.mark.parametrize("seq,library,scratch", [
+    (196, _RecordingTcLibrary, False),   # one pass: no scratch
+    (256, _RecordingTcLibrary, False),
+    (257, _RecordingTcLibrary, True),    # key tiles: the roped-K scratch
+    (1024, _RecordingTcLibrary, True),
+    (196, _OldTcLibrary, True),          # an old build: always the scratch
+    (1024, _OldTcLibrary, True),
+])
+def test_rope_attention_tc_scratch(monkeypatch, seq, library, scratch):
+    """rope_attention_tc allocates the [B, H, S, 64] bf16 roped-K scratch
+    only where the library asks for it (or always, for a library without the
+    query), and calls the same C entry once, inside one torch.cuda.device
+    block of the output's device, with a null scratch pointer otherwise."""
+    events, sizes = [], []
+    record_device_blocks(monkeypatch, events)
+    empty = torch.empty
+
+    def recording_empty(*shape, **kw):
+        if kw.get("dtype") == torch.bfloat16 and len(shape) == 1:
+            sizes.append(shape[0])
+        return empty(*shape, **kw)
+
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    lib = library(events)
+    b, heads = 2, 3
+    x = empty((b, seq, 3 * 64 * heads), dtype=torch.bfloat16)
+    out = empty((b, seq, 64 * heads), dtype=torch.bfloat16)
+    cos = sin = empty((seq, 64))
+    before = tfa.rope_attention_tc.launches
+    tfa.rope_attention_tc(x.data_ptr(), x.data_ptr() + 384, x.data_ptr() + 768, 3 * 64 * heads,
+                          cos, sin, out, heads, 0.125, stream=0, lib=lib)
+    assert events == [("enter", out.device), ("call", "t3d_rope_attention_tc"),
+                      ("exit", out.device)]
+    assert tfa.rope_attention_tc.launches == before + 1
+    (args,) = lib.args
+    assert args[8:12] == (b, seq, heads, 64)
+    assert (args[6] != 0) == scratch
+    assert sizes == ([b * heads * seq * 64] if scratch else [])
+
+
+def _one_pass_recipe(q, k, v, scale):
+    """The one-pass tensor-core kernel's arithmetic (csrc/rope_attention_tc.cu
+    at S <= 256) restated in PyTorch on roped [..., S, D] operands: keys
+    padded with zero rows to whole 64-key tiles (the kernel's n64 products),
+    every score of a row at once with the columns past S masked to -inf, one
+    max a row over the whole padded row, p = exp(s - max) with its f32 sum,
+    p rounded to the storage type before PV, the division after PV. The
+    padded keys carry p = 0 exactly (against zero V rows), so the sum and PV
+    run over the S real keys."""
+    dt = q.dtype
+    s = k.shape[-2]
+    pad = -s % 64
+    qf, kf, vf = (t.to(torch.float32) for t in (q, k, v))
+    kf = torch.nn.functional.pad(kf, (0, 0, 0, pad))
+    scores = (qf @ kf.transpose(-1, -2) * scale).masked_fill(torch.arange(s + pad) >= s,
+                                                             -math.inf)
+    p = torch.exp(scores - scores.amax(-1, keepdim=True))
+    assert not p[..., s:].any()
+    p = p[..., :s]
+    return ((p.to(dt).to(torch.float32) @ vf) / p.sum(-1, keepdim=True)).to(dt)
+
+
+@pytest.mark.parametrize("dtype,limit", [(torch.float32, 2e-5), (torch.bfloat16, 2.0 ** -6)])
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+def test_one_pass_recipe_matches_pallas_interpret(kernel, dtype, limit):
+    """At the serving S=196 (a 14×14 grid, D=64): the one-pass recipe on the
+    roped q/k against the fused Pallas kernel it replaces, in interpret mode
+    on the same inputs rounded to the same dtype, within the limits
+    chip_smoke.py holds the kernel to (2e-5 f32: summation order; 2^-6 bf16:
+    an output ulp plus a flipped rounding of p); and bit-equal to the plain
+    version the card checks the kernel against."""
+    nh, d = 2, 64
+    xs, cos, sin = _rope_inputs(2, 14, 14, nh, d, 1 if kernel == "K2" else 3, seed=13)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jx = [jnp.asarray(a).astype(jdt) for a in xs]
+    scale = 1.0 / math.sqrt(d)
+    tx = [torch.from_numpy(a).to(dtype) for a in xs]
+    tc, ts = torch.from_numpy(cos), torch.from_numpy(sin)
+    if kernel == "K2":
+        ref = jfa.fused_rope_attention(jx[0], jnp.asarray(cos), jnp.asarray(sin), nh, scale, 4,
+                                       True)
+        c = nh * d
+        q, k, v = (tx[0][..., i * c:(i + 1) * c] for i in range(3))
+    else:
+        ref = jfa.fused_rope_cross_attention(*jx, jnp.asarray(cos), jnp.asarray(sin), nh,
+                                             scale, 4, True)
+        q, k, v = tx
+    b, s, c = q.shape
+
+    def heads(t):
+        return t.reshape(b, s, nh, d).transpose(1, 2).to(torch.float32)
+
+    def rope(t):
+        return (t * tc + tfa.rot_lanes(t) * ts).to(dtype)
+
+    out = _one_pass_recipe(rope(heads(q)), rope(heads(k)), heads(v).to(dtype), scale)
+    out = out.transpose(1, 2).reshape(b, s, c)
+    err = np.abs(out.to(torch.float32).numpy() - np.asarray(ref.astype(jnp.float32))).max()
+    assert err <= limit, err
+    assert torch.equal(out, tfa.rope_attention_plain(q, k, v, tc, ts, nh, scale))

@@ -193,7 +193,10 @@ def encode_png(arr: np.ndarray, color: str = "gray", depth: int = 8, filters=(0,
 class StandInLibrary:
     """A kernel library that launches nothing: each `t3d_*` entry point
     appends ("call", its name) to `events` and returns 0 (no CUDA error);
-    the one-shot K2/K3 kernel's shared-memory query returns `smem`."""
+    the one-shot K2/K3 kernel's shared-memory query returns `smem`, and the
+    tensor-core K2/K3 kernel's scratch query answers as
+    csrc/rope_attention_tc.cu does (a bf16 [B, H, S, 64] past S = 256, else
+    0). Neither query is recorded."""
 
     def __init__(self, events: list, smem: int = 0):
         self.events = events
@@ -201,6 +204,9 @@ class StandInLibrary:
 
     def t3d_rope_attention_smem_bytes(self, *args) -> int:
         return self.smem
+
+    def t3d_rope_attention_tc_scratch_bytes(self, batch, seq, heads) -> int:
+        return batch * heads * seq * 64 * 2 if seq > 256 else 0
 
     def __getattr__(self, name):
         if not name.startswith("t3d_"):

@@ -1,31 +1,70 @@
 // K2 + K3 on Hopper tensor cores: fused 2-D RoPE + softmax attention for
-// bf16 with head_dim 64, CUDA C++ for sm_90a (wgmma, mbarriers, cp.async).
+// bf16 with head_dim 64, CUDA C++ for sm_90a (wgmma, TMA, mbarriers).
 //
 // Replaces the Pallas TPU kernel thermal3d/kernels/flash_attention.py::
 // _fused_rope_kernel, reached through _fused_rope_attention_fwd (K2: the
 // packed [B,S,3C] qkv projection, row stride 3C) and _fused_rope_xattn_fwd
 // (K3: separate [B,S,C] q/k/v projections, row stride C). q, k and v are
 // base pointers with a common row stride; head h sits at column h*64; the
-// output is [B,S,C].
+// output is [B,S,C]. q and k are roped in float32 from the cos/sin tables
+// [S,64] (each product and the sum rounded separately, no FMA), then
+// rounded to bf16. Two schedules, chosen by S (t3d_rope_attention_tc_schedule):
 //
-// Arithmetic, the Pallas kernel's: q and k roped in float32 from the cos/sin
-// tables [S,64] (each product and the sum rounded separately, no FMA), then
-// rounded to bf16; then the 64-key online softmax of attention_tc.cuh.
+// One pass, S <= 256 (every serving, training and tensor-parallel call:
+// S = 196). What bounds it on an H100: the bytes, q, k, v read once and the
+// output written once (51.4 MB, 15.4 us at 3.35 TB/s for [32,196,3072] H16;
+// the products take about a third of that at 989 TFLOP/s), and, as built,
+// the CUDA cores' RoPE and softmax, which run longer than either (their L2
+// table loads and dependency chains with 8 warps an SM). The arithmetic is
+// the Pallas kernel's: every score of a row in registers, one max over the
+// whole row, p = exp(s - max) (2^x on the MUFU unit) with its float32 sum,
+// p rounded to bf16, PV, the division after PV (a reciprocal and one
+// correction step). Design (rope_attention_one_pass_kernel):
+//   * A work item is one (batch item, head) and its query rows, all of them,
+//     or a part of 1-2 64-row tiles where the card would be short of items
+//     (the tensor-parallel shapes: 12-64 heads for 132 SMs). A persistent
+//     grid of one block an SM walks the items with a static stride.
+//   * A block is two warpgroups, an item each, in their own Q/K/V buffers
+//     (32 KB each) and output tile: while one ropes or runs its softmax on
+//     the CUDA cores, the other's wgmma run. No producer warp: a ninth warp
+//     would cap every thread at 168 registers (ptxas allots registers by SM
+//     quadrant; setmaxnreg did not lift the cap), and a row's scores need
+//     up to 255. Each warpgroup's thread 0 issues its own TMA loads (3-D
+//     tensor maps: rows >= S read as zeros, never the next batch item's):
+//     the next item's Q and K once the last query tile has its scores, V
+//     once its PV is done; the tiles run last-first when the last holds few
+//     rows, so those loads overlap a whole tile's work.
+//   * K and Q are roped in shared memory, in place; each of q, k, v is read
+//     from device memory once, and no scratch is written. The cos/sin rows
+//     come from L2 (100 KB at S = 196, read once an item, for Q and K).
+//   * Scores: KT = ceil(S/64) wgmma products of a 64-row tile, m64n64k16
+//     but an m64n8k16 last tile where it holds at most 8 keys (4 at S=196);
+//     PV: a k16 step for each 16 keys, P from registers. Warps whose 16 rows
+//     all lie past S skip the softmax and the output.
+//   * The output goes through the warpgroup's shared-memory tile and out by
+//     a TMA store, rows >= S dropped.
 //
-// What bounds it on an H100: at S=196 the bytes (qkv in, out; about 3x the
-// operations' time at 989 TFLOP/s); at S=1024 the operations (4*S^2*64 a
-// head, about 250x the bytes' time). Design: the block pipeline of
-// attention_tc.cuh (one block per 128 query rows, head and batch item; two
-// consumer warpgroups on wgmma, one producer warpgroup feeding a K/V ring).
-//   * Each consumer warpgroup ropes its 64 query rows once into its Q buffer.
-//   * K is roped once per head, by a prologue kernel launched just before
+// Key tiles, S > 256 (the pseudo-GT's S = 1024). What bounds it: the
+// operations (4*S^2*64 a head, about 250x the bytes' time), and the CUDA
+// cores' online softmax between a tile's two products. The arithmetic is
+// attention_tc.cuh's 64-key online softmax (expf, running max and sum,
+// rescale before each PV), step for step: outputs bit-equal to that
+// kernel's. Design (rope_attention_key_tile_kernel):
+//   * K is roped once per head by a prologue kernel launched just before
 //     on the same stream (rope_k_kernel: [B,S,*] rows -> a bf16 [B,H,S,64]
-//     scratch), which the producer copies from. Roping K tiles in the
-//     producer instead repeats the RoPE for every 128 query rows (8 times a
-//     head at S=1024) and measured slower at S=1024 on an H100: four warps
-//     cannot rope a tile (8 KB of K, 32 KB of cos/sin tables) in the time
-//     the consumers take to multiply one.
+//     scratch the caller allocates, t3d_rope_attention_tc_scratch_bytes).
+//     Roping K tiles in the block instead repeats the RoPE for every 128
+//     query rows (8 times a head at S=1024) and measured slower at S=1024
+//     on an H100.
+//   * A block is 128 query rows of one head, two warpgroups of 64, no
+//     producer warp, two blocks an SM (128 registers a thread): K and V
+//     tiles stream by TMA through a ring of 4 stages, refilled by the
+//     warpgroup that releases a stage last.
+//   * Each warpgroup issues tile t's QK^T together with tile t-1's PV, runs
+//     tile t's softmax while that PV runs, then rescales O.
+//   * O goes out through shared memory (the block's Q rows) by a TMA store.
 #include "attention_tc.cuh"
+#include "hopper_tma.cuh"
 
 namespace {
 
@@ -34,25 +73,39 @@ namespace {
 // The cos/sin entries of one row's chunk pair (c, c + 2), c in {0, 1, 4, 5}.
 struct PairTables {
   float ca[8], sa[8], cb[8], sb[8];
-  __device__ __forceinline__ void load(const float* cos_row, const float* sin_row, int c) {
-    const float* src[4] = {cos_row + 8 * c, sin_row + 8 * c, cos_row + 8 * c + 16,
-                           sin_row + 8 * c + 16};
-    float* dst[4] = {ca, sa, cb, sb};
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      *reinterpret_cast<float4*>(dst[t]) = *reinterpret_cast<const float4*>(src[t]);
-      *reinterpret_cast<float4*>(dst[t] + 4) = *reinterpret_cast<const float4*>(src[t] + 4);
-    }
-  }
 };
 
-// RoPE of one row's chunk pair (c, c + 2) of 8 elements each: element d of
-// chunk c (an even quarter of the head) pairs with d + 16 (the odd quarter
-// that follows). Rounded as rope_at in attention_common.cuh.
-__device__ __forceinline__ void rope_pair(const __nv_bfloat16* row, const PairTables& tab, int c,
-                                          uint4& lo, uint4& hi) {
-  const uint4 a = *reinterpret_cast<const uint4*>(row + 8 * c);
-  const uint4 b = *reinterpret_cast<const uint4*>(row + 8 * c + 16);
+__device__ __forceinline__ void put4(float* dst, float4 v) {
+  dst[0] = v.x;
+  dst[1] = v.y;
+  dst[2] = v.z;
+  dst[3] = v.w;
+}
+
+// The entries of chunk pair (c, c + 2) of a row's cos and sin, through the
+// read-only path.
+__device__ __forceinline__ void load_tables(PairTables& t, const float* __restrict__ cos_row,
+                                            const float* __restrict__ sin_row, int c) {
+  const float4* ca = reinterpret_cast<const float4*>(cos_row + 8 * c);
+  const float4* sa = reinterpret_cast<const float4*>(sin_row + 8 * c);
+  const float4* cb = reinterpret_cast<const float4*>(cos_row + 8 * c + 16);
+  const float4* sb = reinterpret_cast<const float4*>(sin_row + 8 * c + 16);
+  put4(t.ca, __ldg(ca));
+  put4(t.ca + 4, __ldg(ca + 1));
+  put4(t.sa, __ldg(sa));
+  put4(t.sa + 4, __ldg(sa + 1));
+  put4(t.cb, __ldg(cb));
+  put4(t.cb + 4, __ldg(cb + 1));
+  put4(t.sb, __ldg(sb));
+  put4(t.sb + 4, __ldg(sb + 1));
+}
+
+// RoPE of one row's chunk pair: a holds chunk c, b chunk c + 2, of 8
+// elements each; element d of chunk c (an even quarter of the head) pairs
+// with d + 16 (the odd quarter that follows). Rounded as rope_at in
+// attention_common.cuh.
+__device__ __forceinline__ void rope_chunks(const uint4 a, const uint4 b, const PairTables& tab,
+                                            uint4& lo, uint4& hi) {
   const __nv_bfloat16* ta = reinterpret_cast<const __nv_bfloat16*>(&a);
   const __nv_bfloat16* tb = reinterpret_cast<const __nv_bfloat16*>(&b);
   uint32_t* ol = reinterpret_cast<uint32_t*>(&lo);
@@ -72,6 +125,22 @@ __device__ __forceinline__ void rope_pair(const __nv_bfloat16* row, const PairTa
   }
 }
 
+// RoPE of the chunk pair (c, c + 2) of a row in device memory.
+__device__ __forceinline__ void rope_pair(const __nv_bfloat16* row, const PairTables& tab, int c,
+                                          uint4& lo, uint4& hi) {
+  rope_chunks(*reinterpret_cast<const uint4*>(row + 8 * c),
+              *reinterpret_cast<const uint4*>(row + 8 * c + 16), tab, lo, hi);
+}
+
+// RoPE in place of the chunk pair (c, c + 2) of row r of a swizzled bf16
+// operand buffer in shared memory.
+__device__ __forceinline__ void rope_swizzled(unsigned char* buf, int r, int c,
+                                              const PairTables& tab) {
+  uint4* a = reinterpret_cast<uint4*>(buf + swizzle(r, c));
+  uint4* b = reinterpret_cast<uint4*>(buf + swizzle(r, c + 2));
+  rope_chunks(*a, *b, tab, *a, *b);
+}
+
 // Rope rows [row0, row0 + 64) of one head into a swizzled bf16 operand
 // buffer of 64 rows; rows >= seq are zero. 128 threads, tid in [0, 128).
 __device__ __forceinline__ void rope_rows(const __nv_bfloat16* __restrict__ x, long long row_stride,
@@ -88,7 +157,7 @@ __device__ __forceinline__ void rope_rows(const __nv_bfloat16* __restrict__ x, l
     uint4 lo = make_uint4(0, 0, 0, 0), hi = lo;
     if (row < seq) {
       PairTables tables;
-      tables.load(cos_t + (size_t)row * kD, sin_t + (size_t)row * kD, c);
+      load_tables(tables, cos_t + (size_t)row * kD, sin_t + (size_t)row * kD, c);
       rope_pair(x + (long long)row * row_stride, tables, c, lo, hi);
     }
     st_shared16(dst + swizzle(r, c), lo);
@@ -96,7 +165,7 @@ __device__ __forceinline__ void rope_rows(const __nv_bfloat16* __restrict__ x, l
   }
 }
 
-// ---- the kernels ------------------------------------------------------------
+// ---- key tiles (S > 256): the RoPE prologue ---------------------------------
 
 // RoPE of K into k_roped [B,H,S,64] bf16 (rows 128 bytes apart). Block: 64
 // rows of one batch item and kPrologueHeads heads, 256 threads, one chunk
@@ -113,7 +182,7 @@ rope_attention_tc_rope_k_kernel(const __nv_bfloat16* __restrict__ k, long long r
   const int pair = threadIdx.x & 3;
   const int c = (pair & 1) | ((pair & 2) << 1);  // 0, 1, 4, 5
   PairTables tables;
-  tables.load(cos_t + (size_t)row * kD, sin_t + (size_t)row * kD, c);
+  load_tables(tables, cos_t + (size_t)row * kD, sin_t + (size_t)row * kD, c);
   const __nv_bfloat16* src = k + ((long long)b * seq + row) * row_stride;
 #pragma unroll
   for (int i = 0; i < kPrologueHeads; ++i) {
@@ -127,75 +196,724 @@ rope_attention_tc_rope_k_kernel(const __nv_bfloat16* __restrict__ k, long long r
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-rope_attention_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ v,
-                         long long row_stride,
-                         const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-                         const __nv_bfloat16* __restrict__ k_roped,
-                         __nv_bfloat16* __restrict__ out, int seq, int num_heads, float scale) {
+// ---- key tiles (S > 256): the attention kernel -------------------------------
+
+namespace key_tiles {
+constexpr int kRing = 4;                        // K/V stages
+constexpr int kBlocksPerSm = 2;                 // 128 registers a thread
+constexpr int kWgs = 2;                         // warpgroups, 64 query rows each
+constexpr int kBlockThreads = 128 * kWgs;
+constexpr int kQArea = kWgs * kTileBytes;       // the block's roped Q rows, then its output
+constexpr int kStageSize = 2 * kTileBytes;      // K, then V
+constexpr int kBarsAt = kQArea + kRing * kStageSize;
+constexpr int kSmem = 1024 + kBarsAt + 2 * kRing * 8 + kRing * 4;
+
+// The online softmax of one 64-key tile (attend_key_tiles' arithmetic,
+// step for step): scores scaled and masked past `valid` keys, the running
+// max and sum moved, p rounded to bf16 as PV's A operand. The output's
+// rescale by alpha is left to the caller (after the previous tile's PV).
+__device__ __forceinline__ void online_softmax_tile(float (&sc)[32], int valid, float scale,
+                                                    int tq, float (&m)[2], float (&l)[2],
+                                                    float (&alpha)[2], uint32_t (&p)[4][4]) {
+  float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * i + 2 * tq + (e & 1);
+      const float x = col < valid ? sc[4 * i + e] * scale : -INFINITY;
+      sc[4 * i + e] = x;
+      tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+    const float m_new = fmaxf(m[r], tmax[r]);  // finite: every tile has a key
+    alpha[r] = expf(m[r] - m_new);             // 0 on the first tile
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float e4[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      e4[e] = expf(sc[4 * i + e] - m[e >> 1]);  // masked: exp(-inf) = 0
+      l[e >> 1] += e4[e];
+    }
+    p[i >> 1][2 * (i & 1) + 0] = pack_bf16(e4[0], e4[1]);
+    p[i >> 1][2 * (i & 1) + 1] = pack_bf16(e4[2], e4[3]);
+  }
+}
+
+}  // namespace key_tiles
+
+// One block a 128 query rows of one (batch item, head), a warpgroup a 64:
+// the roped K tiles (the prologue's scratch, tm_k) and V tiles (tm_v) of the
+// head stream through a ring of kRing stages by TMA; each warpgroup issues
+// tile t's QK^T with tile t-1's PV, runs tile t's softmax while that PV
+// runs, then rescales O. The warpgroup that releases a stage last refills
+// it. O goes out through shared memory by a TMA store (tm_o).
+__global__ void __launch_bounds__(key_tiles::kBlockThreads, key_tiles::kBlocksPerSm)
+rope_attention_key_tile_kernel(const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __grid_constant__ CUtensorMap tm_o,
+                               const __nv_bfloat16* __restrict__ q, long long row_stride,
+                               const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+                               int seq, int num_heads, float scale) {
+  constexpr int R = key_tiles::kRing;
   extern __shared__ unsigned char smem_raw[];
-  const TcSmem sm = tc_smem_init(smem_raw);
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  unsigned char* base = smem_raw + (((raw + 1023) & ~1023u) - raw);  // 1024-byte aligned
+  const uint32_t sbase = raw + (uint32_t)(base - smem_raw);
+  const uint32_t ring = sbase + key_tiles::kQArea;
+  const uint32_t full = sbase + key_tiles::kBarsAt;  // stage s: TMA landed
+  const uint32_t empty = full + 8 * R;               // stage s: every thread done with it
+  unsigned int* claims = reinterpret_cast<unsigned int*>(base + key_tiles::kBarsAt + 16 * R);
   const int tid = threadIdx.x;
-  const int wg = tid / 128;
+  const int w = tid / 128;
+  const int ctid = tid - 128 * w;
+  const int tq = ctid & 3;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const long long in_off = (long long)b * seq * row_stride + (long long)h * kD;
-
-  if (wg == kConsumers) {
-    // producer: K (roped) and V tiles into the ring
-    produce_tiles(k_roped + ((long long)b * num_heads + h) * seq * kD, kD, v + in_off, row_stride,
-                  seq, sm, tid - 128 * kConsumers);
-  } else {
-    // consumers: 64 query rows each
-    const int ctid = tid - 128 * wg;
-    const int row_base = blockIdx.x * kBlockRows + wg * kRowsPerWg;
-    const uint32_t my_q = sm.q + wg * kRowsPerWg * kRowBytes;
-    rope_rows(q + in_off, row_stride, cos_t, sin_t, row_base, seq, my_q, ctid);
-    fence_async_shared();
-    named_barrier(1 + wg, 128);
-    float o[32], l[2];
-    attend_key_tiles(my_q, sm, seq, scale, ctid & 31, o, l);
-    const int c = num_heads * kD;
-    store_rows(o, l, out + (long long)b * seq * c + (long long)h * kD, c, row_base, seq,
-               ctid >> 5, ctid & 31);
+  const int ntiles = (seq + kTile - 1) / kTile;
+  auto load = [&](int t) {
+    const uint32_t st = ring + (t % R) * key_tiles::kStageSize;
+    const uint32_t bar = full + 8 * (t % R);
+    mbar_arrive_expect_tx(bar, 2 * kTileBytes);
+    tma_load_3d(st, &tm_k, bar, 0, kTile * t, b * num_heads + h);
+    tma_load_3d(st + kTileBytes, &tm_v, bar, h * kD, kTile * t, b);
+  };
+  if (tid == 0) {
+    for (int st = 0; st < R; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, key_tiles::kBlockThreads);
+      claims[st] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int t = 0; t < R && t < ntiles; ++t) load(t);
   }
+  __syncthreads();
+  // every thread is done with tile t's stage; of the two warpgroups' thread
+  // 0, the second to get here refills it with tile t + R
+  auto release = [&](int t) {
+    const int st = t % R;
+    mbar_arrive(empty + 8 * st);
+    if (ctid == 0 && (atomicAdd(&claims[st], 1u) & 1u)) {
+      mbar_wait_or_trap(empty + 8 * st, (t / R) & 1);
+      if (t + R < ntiles) load(t + R);
+    }
+  };
+
+  const uint32_t my_q = sbase + w * kTileBytes;
+  const int row_base = blockIdx.x * 2 * kTile + w * kTile;
+  rope_rows(q + (long long)b * seq * row_stride + (long long)h * kD, row_stride, cos_t, sin_t,
+            row_base, seq, my_q, ctid);
+  fence_async_shared();
+  named_barrier(1 + w, 128);
+
+  const uint64_t q_desc = smem_desc(my_q);
+  float sc[32], o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = sc[i] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, alpha[2];
+  uint32_t p_prev[4][4], p_cur[4][4];
+
+  auto issue_qk = [&](int t) {
+    const uint64_t k_desc = smem_desc(ring + (t % R) * key_tiles::kStageSize);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sc, q_desc + 2 * kk, k_desc + 2 * kk, kk);
+  };
+  auto issue_pv = [&](int t, const uint32_t (&pa)[4][4]) {
+    const uint64_t v_desc = smem_desc(ring + (t % R) * key_tiles::kStageSize + kTileBytes);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(o, pa[kk], v_desc + (uint64_t)((16 * kRowBytes * kk) >> 4));
+  };
+  auto rescale = [&]() {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[4 * i + e] *= alpha[e >> 1];
+  };
+
+  mbar_wait_or_trap(full, 0);
+  wgmma_fence();
+  issue_qk(0);
+  wgmma_commit();
+  wgmma_wait_all();
+  reg_fence(sc);
+  key_tiles::online_softmax_tile(sc, seq, scale, tq, m, l, alpha, p_cur);
+  rescale();
+  for (int t = 1; t < ntiles; ++t) {
+    mbar_wait_or_trap(full + 8 * (t % R), (t / R) & 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p_prev[kk][e] = p_cur[kk][e];
+    wgmma_fence();
+    issue_qk(t);
+    wgmma_commit();
+    issue_pv(t - 1, p_prev);
+    wgmma_commit();
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // QK^T of tile t
+    reg_fence(sc);
+    key_tiles::online_softmax_tile(sc, seq - kTile * t, scale, tq, m, l, alpha, p_cur);
+    wgmma_wait_all();  // PV of tile t - 1
+    reg_fence(o);
+    rescale();
+    release(t - 1);
+  }
+  wgmma_fence();
+  issue_pv(ntiles - 1, p_cur);
+  wgmma_commit();
+  wgmma_wait_all();
+  reg_fence(o);
+  release(ntiles - 1);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+
+  // o / l rounded to bf16 (as store_rows) into the warpgroup's Q rows, out
+  // by a TMA store; rows >= seq are dropped
+  const int warp = ctid >> 5, g = (ctid & 31) >> 2;
+  unsigned char* tile = base + w * kTileBytes;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = 16 * warp + g + 8 * r;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float x = o[4 * i + 2 * r] / l[r];
+      const float y = o[4 * i + 2 * r + 1] / l[r];
+      *reinterpret_cast<__nv_bfloat162*>(tile + swizzle(row, i) + 4 * tq) =
+          __floats2bfloat162_rn(x, y);
+    }
+  }
+  fence_async_shared();
+  named_barrier(1 + w, 128);
+  if (ctid == 0) {
+    tma_store_3d(&tm_o, my_q, h * kD, row_base, b);
+    bulk_commit();
+    bulk_wait();
+  }
+}
+
+// ---- one pass (S <= 256) ----------------------------------------------------
+
+
+namespace one_pass {
+constexpr int kMaxSeq = 256;                 // the longest S an item holds whole
+constexpr int kMaxTiles = kMaxSeq / kTile;   // 64-row tiles (query rows, and keys)
+constexpr int kBuf = kMaxSeq * kRowBytes;    // 32 KB: Q, K or V of one item
+constexpr int kItemBytes = 3 * kBuf + kTileBytes;  // Q, K, V and a 64-row output tile
+constexpr int kWgs = 2;                      // warpgroups a block, an item each
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBlockThreads = 128 * kWgs;
+constexpr int kBarsAt = kWgs * kItemBytes;
+constexpr int kSmem = 1024 + kBarsAt + 2 * kWgs * 8;  // + slack to align to 1024
+static_assert(kSmem <= 232448, "more shared memory than an H100 block may use");
+
+// One work item: query rows [row0, row0 + 64 * tiles) of head h of batch item b.
+struct Item {
+  int b, h, row0, tiles;
+};
+
+__device__ __forceinline__ Item item_at(int item, int heads, int parts, int part_tiles,
+                                        int row_tiles) {
+  const int part = item % parts;
+  const int bh = item / parts;
+  Item it;
+  it.b = bh / heads;
+  it.h = bh % heads;
+  it.row0 = part * part_tiles * kTile;
+  it.tiles = min(part_tiles, row_tiles - part * part_tiles);
+  return it;
+}
+
+// RoPE in place of an item's K (rows [0, seq)) and Q (its rows, Q buffer
+// row 0 = query row it.row0) in shared memory, by one warpgroup (tid in
+// [0, 128)). A row's cos/sin entries serve its K and Q rows; the loads of
+// kRopeBatch tasks are issued before any is roped (they come from L2).
+constexpr int kRopeBatch = 2;
+
+__device__ __forceinline__ void rope_item(unsigned char* q, unsigned char* k, const Item& it,
+                                          int seq, const float* __restrict__ cos_t,
+                                          const float* __restrict__ sin_t, int tid) {
+  const int q_end = min(seq, it.row0 + kTile * it.tiles);
+  const int tasks = 4 * seq;  // rows x 4 chunk pairs
+  for (int task0 = tid; task0 < tasks; task0 += 128 * kRopeBatch) {
+    PairTables tab[kRopeBatch];
+#pragma unroll
+    for (int u = 0; u < kRopeBatch; ++u) {
+      const int task = task0 + 128 * u;
+      const int r = task >> 2;
+      if (task < tasks)
+        load_tables(tab[u], cos_t + (size_t)r * kD, sin_t + (size_t)r * kD,
+                    (task & 1) | ((task & 2) << 1));
+    }
+#pragma unroll
+    for (int u = 0; u < kRopeBatch; ++u) {
+      const int task = task0 + 128 * u;
+      if (task < tasks) {
+        const int r = task >> 2;
+        const int c = (task & 1) | ((task & 2) << 1);  // 0, 1, 4, 5
+        rope_swizzled(k, r, c, tab[u]);
+        if (r >= it.row0 && r < q_end) rope_swizzled(q, r - it.row0, c, tab[u]);
+      }
+    }
+  }
+}
+
+// 2^x on the MUFU unit (ex2.approx: a relative error of at most 2^-22).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d = A B, m64n8k16, A and B (K-major) from shared memory (accumulate: d += A B).
+__device__ __forceinline__ void wgmma_ss_n8(float& d0, float& d1, float& d2, float& d3,
+                                            uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, "
+      "0;\n}\n"
+      : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// Key groups of 8 (columns of the score fragment) in tile t: all of them,
+// or one in the narrow last tile (TAIL = 8 keys).
+template <int KT, int TAIL>
+__device__ __forceinline__ constexpr int groups(int t) {
+  return t == KT - 1 ? TAIL / 8 : 8;
+}
+
+// The scores of one warpgroup's 64 query rows (roped, at q_tile) against
+// the keys of the item (roped K at k_buf, rows >= seq zero), the whole row
+// at once: S = Q K^T in KT products, m64n64k16 but the last of TAIL keys
+// (8 where seq - 64(KT-1) <= 8), keys >= seq masked, one max a row, p =
+// exp(s * scale - max) as 2^x on the MUFU unit (x = s*scale*log2 e -
+// max*log2 e in one fused step) with its float32 sum, p rounded to bf16 as the A
+// operand of PV (p[t][kk]: keys 64t + 16kk .. +16). `live`: some row of
+// this warp is < seq (else its softmax is skipped; its rows are never
+// stored). l[r] is row g + 8r's sum (fragment layout as in attention_tc.cuh).
+template <int KT, int TAIL>
+__device__ __forceinline__ void scores_to_p(uint32_t q_tile, uint32_t k_buf, int seq, float scale,
+                                            bool live, int lane, uint32_t (&p)[KT][4][4],
+                                            float (&l)[2]) {
+  const int tq = lane & 3;
+  float sc[KT][32];
+#pragma unroll
+  for (int t = 0; t < KT; ++t)
+#pragma unroll
+    for (int i = 0; i < 4 * groups<KT, TAIL>(t); ++i) sc[t][i] = 0.0f;
+  const uint64_t q_desc = smem_desc(q_tile);
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < KT; ++t) {
+    const uint64_t k_desc = smem_desc(k_buf + t * kTileBytes);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (groups<KT, TAIL>(t) == 8) {
+        wgmma_ss(sc[t], q_desc + 2 * kk, k_desc + 2 * kk, kk);
+      } else {
+        wgmma_ss_n8(sc[t][0], sc[t][1], sc[t][2], sc[t][3], q_desc + 2 * kk, k_desc + 2 * kk, kk);
+      }
+    }
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int t = 0; t < KT; ++t) reg_fence(sc[t]);
+
+  l[0] = l[1] = 0.0f;
+#pragma unroll
+  for (int t = 0; t < KT; ++t)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[t][kk][e] = 0u;
+  if (!live) return;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int t = 0; t < KT; ++t) {
+#pragma unroll
+    for (int i = 0; i < groups<KT, TAIL>(t); ++i) {
+      const int key0 = kTile * t + 8 * i;
+      if (key0 >= seq) continue;  // 8 keys past seq: never read again
+      const bool whole = key0 + 8 <= seq;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = sc[t][4 * i + e] * scale;
+        sc[t][4 * i + e] = whole || key0 + 2 * tq + (e & 1) < seq ? x : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[t][4 * i + e]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+  // exp(x - max) = 2^(x log2 e - max log2 e), one fused step; masked: 2^-inf = 0
+  const float mx_log2e[2] = {mx[0] * kLog2e, mx[1] * kLog2e};
+#pragma unroll
+  for (int t = 0; t < KT; ++t) {
+#pragma unroll
+    for (int i = 0; i < groups<KT, TAIL>(t); ++i) {
+      if (kTile * t + 8 * i >= seq) continue;  // p stays 0
+      float e4[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        e4[e] = exp2_approx(fmaf(sc[t][4 * i + e], kLog2e, -mx_log2e[e >> 1]));
+        l[e >> 1] += e4[e];
+      }
+      // columns 16kk + {2t, 2t+1} (i = 2kk) and 16kk + 8 + {2t, 2t+1}
+      // (i = 2kk + 1): rows g, g+8 -> a0, a1, then a2, a3
+      p[t][i >> 1][2 * (i & 1) + 0] = pack_bf16(e4[0], e4[1]);
+      p[t][i >> 1][2 * (i & 1) + 1] = pack_bf16(e4[2], e4[3]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+}
+
+// O = P V over the k16 steps of the KT key tiles (one for a narrow last
+// tile; keys >= seq: p = 0, V rows zero), V at v_buf as the MN-major B
+// operand.
+template <int KT, int TAIL>
+__device__ __forceinline__ void p_times_v(const uint32_t (&p)[KT][4][4], uint32_t v_buf,
+                                          float (&o)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+  const uint64_t v_desc = smem_desc(v_buf);
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < KT; ++t)
+#pragma unroll
+    for (int kk = 0; kk < (groups<KT, TAIL>(t) + 1) / 2; ++kk)
+      wgmma_rs(o, p[t][kk], v_desc + (uint64_t)(((kTile * t + 16 * kk) * kRowBytes) >> 4));
+  wgmma_commit();
+  wgmma_wait_all();
+  reg_fence(o);
+}
+
+// o / l rounded to bf16 into a swizzled 64-row tile (the TMA store's
+// layout); warp w of the warpgroup holds rows 16w .. 16w + 15. The quotient
+// is x * (1/l) corrected once by its residual, x - q*l (both fused), which
+// rounds as the division does but for ties of the reciprocal's own error.
+__device__ __forceinline__ void stage_rows(const float (&o)[32], const float (&l)[2],
+                                           unsigned char* tile, int warp, int lane) {
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = 16 * warp + g + 8 * r;
+    const float inv = 1.0f / l[r];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float xy[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float x = o[4 * i + 2 * r + e];
+        const float q0 = x * inv;
+        xy[e] = fmaf(fmaf(-q0, l[r], x), inv, q0);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(tile + swizzle(row, i) + 4 * tq) =
+          __floats2bfloat162_rn(xy[0], xy[1]);
+    }
+  }
+}
+
+}  // namespace one_pass
+
+
+// TMA loads of an item into a warpgroup's buffers at q (Q), q + kBuf (K),
+// q + 2 kBuf (V): K with the arrival that expects Q's and K's bytes, then Q
+// (possibly later: the phase completes when both landed), and V.
+template <int KT>
+__device__ __forceinline__ void load_k(const CUtensorMap* tm_k, const one_pass::Item& it,
+                                       uint32_t q, uint32_t qk_full) {
+  mbar_arrive_expect_tx(qk_full, (it.tiles + KT) * kTileBytes);
+  tma_load_3d(q + one_pass::kBuf, tm_k, qk_full, it.h * kD, 0, it.b);
+}
+
+__device__ __forceinline__ void load_q(const CUtensorMap* tm_q, const one_pass::Item& it,
+                                       uint32_t q, uint32_t qk_full) {
+  for (int j = 0; j < it.tiles; ++j)
+    tma_load_3d(q + j * kTileBytes, tm_q, qk_full, it.h * kD, it.row0 + kTile * j, it.b);
+}
+
+template <int KT>
+__device__ __forceinline__ void load_v(const CUtensorMap* tm_v, const one_pass::Item& it,
+                                       uint32_t q, uint32_t v_full) {
+  mbar_arrive_expect_tx(v_full, KT * kTileBytes);
+  tma_load_3d(q + 2 * one_pass::kBuf, tm_v, v_full, it.h * kD, 0, it.b);
+}
+
+// Items: B*H*parts, a part = part_tiles 64-row query tiles of one (b, h);
+// KT = ceil(seq/64) key tiles, the last TAIL keys wide. Block j's warpgroup
+// w takes items j + (w + kWgs*n) * gridDim.x, and loads its next item as its
+// buffers free: Q and K once the item's last query tile has its scores, V
+// once that tile's PV is done. A part's tiles run last-first when its last
+// tile holds few rows (at S = 196, 4 of 64), so that the loads overlap a
+// whole tile's softmax, PV and store. tm_q: boxes of 64 rows; tm_k, tm_v:
+// boxes of 64*KT rows; tm_o: the [B,S,C] output, boxes of 64 rows.
+template <int KT, int TAIL>
+__global__ void __launch_bounds__(one_pass::kBlockThreads, 1)
+rope_attention_one_pass_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __grid_constant__ CUtensorMap tm_o,
+                               const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+                               int seq, int heads, int items, int parts, int part_tiles,
+                               float scale) {
+  using namespace one_pass;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  unsigned char* base = smem_raw + (((raw + 1023) & ~1023u) - raw);  // 1024-byte aligned
+  const uint32_t sbase = raw + (uint32_t)(base - smem_raw);
+  const int tid = threadIdx.x;
+  const int w = tid / 128;
+  const int ctid = tid - 128 * w;
+  const int warp = ctid >> 5;
+  const int lane = ctid & 31;
+  // warpgroup w's buffers (Q, K, V, the output tile) and barriers (Q and K
+  // landed, V landed)
+  unsigned char* q = base + w * kItemBytes;
+  unsigned char* k = q + kBuf;
+  unsigned char* o_tile = q + 3 * kBuf;
+  const uint32_t sq = sbase + w * kItemBytes, sk = sq + kBuf, sv = sk + kBuf, so = sv + kBuf;
+  const uint32_t qk_full = sbase + kBarsAt + 16 * w;
+  const uint32_t v_full = qk_full + 8;
+  const int stride = kWgs * gridDim.x;
+  int item = blockIdx.x + w * gridDim.x;
+  if (ctid == 0) {
+    mbar_init(qk_full, 1);
+    mbar_init(v_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (item < items) {
+      const Item first = item_at(item, heads, parts, part_tiles, KT);
+      load_k<KT>(&tm_k, first, sq, qk_full);
+      load_q(&tm_q, first, sq, qk_full);
+      load_v<KT>(&tm_v, first, sq, v_full);
+    }
+  }
+  named_barrier(1 + w, 128);  // the barriers are initialised
+  for (int n = 0; item < items; item += stride, ++n) {
+    const Item it = item_at(item, heads, parts, part_tiles, KT);
+    const bool more = item + stride < items;
+    const Item next = item_at(more ? item + stride : item, heads, parts, part_tiles, KT);
+    // the last tile first where it holds under half its rows
+    const bool last_first = it.tiles > 1 && seq - (it.row0 + kTile * (it.tiles - 1)) < 32;
+    mbar_wait_or_trap(qk_full, n & 1);
+    rope_item(q, k, it, seq, cos_t, sin_t, ctid);
+    fence_async_shared();
+    named_barrier(1 + w, 128);
+    for (int step = 0; step < it.tiles; ++step) {
+      const int j = last_first ? (step == 0 ? it.tiles - 1 : step - 1) : step;
+      const int row0 = it.row0 + kTile * j;
+      const bool last = step + 1 == it.tiles;
+      const bool live = row0 + 16 * warp < seq;
+      uint32_t p[KT][4][4];
+      float l[2], o[32];
+      scores_to_p<KT, TAIL>(sq + j * kTileBytes, sk, seq, scale, live, lane, p, l);
+      if (last && more) {  // Q and K are free: every warp has its scores
+        named_barrier(1 + w, 128);
+        if (ctid == 0) {
+          load_k<KT>(&tm_k, next, sq, qk_full);
+          load_q(&tm_q, next, sq, qk_full);
+        }
+      }
+      if (step == 0) mbar_wait_or_trap(v_full, n & 1);
+      p_times_v<KT, TAIL>(p, sv, o);
+      if (ctid == 0) bulk_wait_read();  // the last tile's store has read o_tile
+      named_barrier(1 + w, 128);
+      if (live) stage_rows(o, l, o_tile, warp, lane);
+      fence_async_shared();
+      named_barrier(1 + w, 128);
+      if (ctid == 0) {
+        tma_store_3d(&tm_o, so, it.h * kD, row0, it.b);
+        bulk_commit();
+        if (last && more) load_v<KT>(&tm_v, next, sq, v_full);  // V is free: PV is done
+      }
+    }
+  }
+  if (ctid == 0) bulk_wait();
+}
+
+// ---- host ---------------------------------------------------------------------
+
+constexpr int kMaxDevices = 64;
+
+int sm_count(int device) {
+  static int counts[kMaxDevices];  // 0 until read; a benign race writes the same value
+  if (device < 0 || device >= kMaxDevices) return 0;
+  if (counts[device] == 0)
+    cudaDeviceGetAttribute(&counts[device], cudaDevAttrMultiProcessorCount, device);
+  return counts[device];
+}
+
+// A launch of the one-pass kernel: its tensor maps (q, k, v, out) and
+// arguments.
+struct OnePassLaunch {
+  CUtensorMap maps[4];
+  const float* cos_t;
+  const float* sin_t;
+  int seq, heads, items, parts, part_tiles, grid, device;
+  float scale;
+  cudaStream_t stream;
+};
+
+// The one-pass kernel of KT key tiles (the last TAIL keys wide), its
+// dynamic shared memory set once a device.
+template <int KT, int TAIL>
+cudaError_t launch_one_pass(const OnePassLaunch& a) {
+  static bool ready[kMaxDevices];
+  if (a.device < 0 || a.device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!ready[a.device]) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(rope_attention_one_pass_kernel<KT, TAIL>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, one_pass::kSmem);
+    if (err != cudaSuccess) return err;
+    ready[a.device] = true;
+  }
+  rope_attention_one_pass_kernel<KT, TAIL>
+      <<<a.grid, one_pass::kBlockThreads, one_pass::kSmem, a.stream>>>(
+          a.maps[0], a.maps[1], a.maps[2], a.maps[3], a.cos_t, a.sin_t, a.seq, a.heads, a.items,
+          a.parts, a.part_tiles, a.scale);
+  return cudaGetLastError();
+}
+
+// The last key tile 8 keys wide where it holds at most 8 (4 at S = 196).
+template <int KT>
+cudaError_t launch_one_pass(const OnePassLaunch& a) {
+  return a.seq - kTile * (KT - 1) <= 8 ? launch_one_pass<KT, 8>(a) : launch_one_pass<KT, 64>(a);
+}
+
+// The key-tile kernel over the prologue's roped K (k_roped) and V, its
+// dynamic shared memory set once a device.
+cudaError_t launch_key_tiles(const void* q, const void* v, long long row_stride,
+                             const float* cos_t, const float* sin_t, const void* k_roped,
+                             void* out, int batch, int seq, int num_heads, float scale,
+                             cudaStream_t st, int device) {
+  static bool ready[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  cudaError_t err;
+  if (!ready[device]) {
+    err = cudaFuncSetAttribute(rope_attention_key_tile_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, key_tiles::kSmem);
+    if (err != cudaSuccess) return err;
+    ready[device] = true;
+  }
+  const uint64_t c = (uint64_t)num_heads * kD;
+  CUtensorMap tm_k, tm_v, tm_o;
+  err = encode_bf16_rows(&tm_k, k_roped, kD, seq, (uint64_t)batch * num_heads, kD, kTile);
+  if (err == cudaSuccess) err = encode_bf16_rows(&tm_v, v, c, seq, batch, row_stride, kTile);
+  if (err == cudaSuccess) err = encode_bf16_rows(&tm_o, out, c, seq, batch, c, kTile);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq + 2 * kTile - 1) / (2 * kTile), num_heads, batch);
+  rope_attention_key_tile_kernel<<<grid, key_tiles::kBlockThreads, key_tiles::kSmem, st>>>(
+      tm_k, tm_v, tm_o, static_cast<const __nv_bfloat16*>(q), row_stride, cos_t, sin_t, seq,
+      num_heads, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
+// The schedule of a call on a card of `sms` SMs: 0 for the key-tile kernel
+// (seq > 256), else the parts each head's query rows are cut into for the
+// one-pass kernel: 1 (all rows an item) where B*H items fill every SM, else
+// parts of two 64-row tiles, else of one. Mirrored by flash_attention.py::
+// tc_schedule.
+int t3d_rope_attention_tc_schedule(int batch, int seq, int num_heads, int sms) {
+  if (seq > one_pass::kMaxSeq) return 0;
+  const int row_tiles = (seq + kTile - 1) / kTile;
+  for (int tiles = one_pass::kMaxTiles; tiles > 1; tiles /= 2) {
+    const int parts = (row_tiles + tiles - 1) / tiles;
+    if ((long long)batch * num_heads * parts >= sms) return parts;
+  }
+  return row_tiles;
+}
+
+// Bytes of the roped-K scratch t3d_rope_attention_tc needs for a call: a
+// bf16 [batch, num_heads, seq, 64] for the key-tile kernel, 0 for the
+// one-pass kernel (which ropes K in shared memory).
+unsigned long long t3d_rope_attention_tc_scratch_bytes(int batch, int seq, int num_heads) {
+  if (seq <= one_pass::kMaxSeq) return 0;
+  return (unsigned long long)batch * num_heads * seq * kD * 2;
+}
+
 // q/k/v: bf16 base pointers of [batch, seq, *] rows `row_stride` elements
 // apart (head h at column h*64), 16-byte aligned, row_stride % 8 == 0;
-// cos/sin: float32 [seq, 64], 16-byte aligned; k_roped: bf16 scratch of
-// [batch, num_heads, seq, 64], 16-byte aligned, written here; out: bf16
-// [batch, seq, num_heads*64] contiguous. head_dim must be 64. Launches the
-// RoPE prologue, then the attention kernel, on `stream`. Returns a
-// cudaError_t code.
+// cos/sin: float32 [seq, 64], 16-byte aligned; k_roped: the bf16 scratch of
+// t3d_rope_attention_tc_scratch_bytes, 16-byte aligned, written here (unused,
+// may be null, where that is 0); out: bf16 [batch, seq, num_heads*64]
+// contiguous, 16-byte aligned. head_dim must be 64. Launches on `stream`,
+// on the current device: seq <= 256 the one-pass kernel, else the RoPE
+// prologue and the key-tile kernel. Returns a cudaError_t code.
 int t3d_rope_attention_tc(const void* q, const void* k, const void* v, long long row_stride,
                           const float* cos_t, const float* sin_t, void* k_roped, void* out,
                           int batch, int seq, int num_heads, int head_dim, float scale,
                           void* stream) {
   if (head_dim != kD || seq <= 0 || row_stride % 8) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (seq <= one_pass::kMaxSeq) {
+    OnePassLaunch a;
+    const int sms = sm_count(device);
+    a.parts = t3d_rope_attention_tc_schedule(batch, seq, num_heads, sms);
+    const int row_tiles = (seq + kTile - 1) / kTile;
+    a.part_tiles = (row_tiles + a.parts - 1) / a.parts;
+    const uint64_t c = (uint64_t)num_heads * kD;
+    const void* bases[3] = {q, k, v};
+    for (int i = 0; i < 3; ++i) {
+      err = encode_bf16_rows(&a.maps[i], bases[i], c, seq, batch, row_stride,
+                             i == 0 ? kTile : kTile * row_tiles);
+      if (err != cudaSuccess) return (int)err;
+    }
+    err = encode_bf16_rows(&a.maps[3], out, c, seq, batch, c, kTile);
+    if (err != cudaSuccess) return (int)err;
+    a.cos_t = cos_t;
+    a.sin_t = sin_t;
+    a.seq = seq;
+    a.heads = num_heads;
+    a.items = batch * num_heads * a.parts;
+    a.grid = a.items < sms ? a.items : sms;
+    a.device = device;
+    a.scale = scale;
+    a.stream = st;
+    switch (row_tiles) {
+      case 1: return (int)launch_one_pass<1>(a);
+      case 2: return (int)launch_one_pass<2>(a);
+      case 3: return (int)launch_one_pass<3>(a);
+      default: return (int)launch_one_pass<4>(a);
+    }
+  }
+  if (k_roped == nullptr) return (int)cudaErrorInvalidValue;
   const dim3 rope_grid((seq + 63) / 64, batch, (num_heads + kPrologueHeads - 1) / kPrologueHeads);
   rope_attention_tc_rope_k_kernel<<<rope_grid, 256, 0, st>>>(
       static_cast<const __nv_bfloat16*>(k), row_stride, cos_t, sin_t,
       static_cast<__nv_bfloat16*>(k_roped), seq, num_heads);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(rope_attention_tc_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((seq + kBlockRows - 1) / kBlockRows, num_heads, batch);
-  rope_attention_tc_kernel<<<grid, kThreads, kSmemBytes, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(v), row_stride,
-      cos_t, sin_t,
-      static_cast<const __nv_bfloat16*>(k_roped), static_cast<__nv_bfloat16*>(out), seq,
-      num_heads, scale);
-  return (int)cudaGetLastError();
+  return (int)launch_key_tiles(q, v, row_stride, cos_t, sin_t, k_roped, out, batch, seq,
+                               num_heads, scale, st, device);
 }
 
 const char* t3d_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
 
 }  // extern "C"

@@ -5,8 +5,10 @@ self-attention on the packed [B,S,3C] qkv projection) and
 `fused_rope_cross_attention` (K3, separate [B,S,C] q/k/v projections sharing
 one position grid) return [B,S,C]. `attention_route` picks their CUDA
 kernel by shape: bf16 with head_dim 64 runs on the tensor cores
-(csrc/rope_attention_tc.cu, counted by `rope_attention_tc.launches`); other
-dtypes and head dims run the CUDA-core kernels of csrc/rope_attention.cu.
+(csrc/rope_attention_tc.cu, counted by `rope_attention_tc.launches`; one
+pass over each head's whole rows at S <= 256, a 64-key online softmax
+above, `tc_schedule`); other dtypes and head dims run the CUDA-core kernels
+of csrc/rope_attention.cu.
 
 K4 + K5 + K6, softmax attention on q/k that are already roped:
 `flash_attention_pallas` (K4, [N,S,D] or [B,H,S,D]),
@@ -230,17 +232,20 @@ def rope_attention_tc(q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads,
                       stream, what="rope_attention_tc", lib=None):
     """Launch the tensor-core K2/K3 kernel (bf16, head_dim 64) on base
     pointers with a common row stride in elements; out [B, S, C] bf16. The
-    library call launches the RoPE prologue of K into a [B, H, S, 64] bf16
-    scratch, then the attention kernel, on `stream`. `lib`: another build
-    of csrc/rope_attention_tc.cu, loaded by `bind_tc_lib` (this checkout's
-    by default). The library call runs with out's card current. Counts its
-    own calls in `rope_attention_tc.launches`."""
+    library call launches, on `stream`, the one-pass kernel at S <= 256 and
+    the RoPE prologue of K plus the key-tile kernel above (`tc_schedule`);
+    only the latter gets a roped-K scratch (`tc_scratch_bytes`). `lib`:
+    another build of csrc/rope_attention_tc.cu, loaded by `bind_tc_lib`
+    (this checkout's by default). The library call runs with out's card
+    current. Counts its own calls in `rope_attention_tc.launches`."""
     b, s, c = out.shape
-    k_roped = torch.empty((b, num_heads, s, c // num_heads), dtype=out.dtype, device=out.device)
-    ptrs = (q_ptr, k_ptr, v_ptr, cos.data_ptr(), sin.data_ptr(), k_roped.data_ptr(),
-            out.data_ptr())
-    check_alignment(what, ptrs, row_stride * out.element_size())
     lib = lib or _tc_lib()
+    nbytes = tc_scratch_bytes(lib, b, s, num_heads)
+    k_roped = (torch.empty(nbytes // out.element_size(), dtype=out.dtype, device=out.device)
+               if nbytes else None)
+    ptrs = (q_ptr, k_ptr, v_ptr, cos.data_ptr(), sin.data_ptr(),
+            0 if k_roped is None else k_roped.data_ptr(), out.data_ptr())
+    check_alignment(what, ptrs, row_stride * out.element_size())
     with torch.cuda.device(out.device):
         rc = lib.t3d_rope_attention_tc(*ptrs[:3], row_stride, *ptrs[3:], b, s, num_heads,
                                        c // num_heads, float(scale), stream)
@@ -250,19 +255,59 @@ def rope_attention_tc(q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads,
 
 rope_attention_tc.launches = 0
 
+# the longest S the one-pass schedule of the tensor-core K2/K3 kernel holds
+# whole (csrc/rope_attention_tc.cu, one_pass::kMaxSeq)
+ONE_PASS_MAX_SEQ = 256
+ONE_PASS, KEY_TILE = "one_pass", "key_tile"
+
+
+def tc_schedule(batch: int, heads: int, seq: int, sms: int):
+    """The schedule the tensor-core K2/K3 kernel takes for a call on a card
+    of `sms` SMs, as csrc/rope_attention_tc.cu's
+    t3d_rope_attention_tc_schedule chooses it: (KEY_TILE, 1) past
+    ONE_PASS_MAX_SEQ (the 64-key online softmax, 128 query rows a block);
+    else (ONE_PASS, parts), the parts each head's query rows are cut into:
+    1 where the B*H heads alone give every SM an item, else parts of two
+    64-row tiles if that does, else of one tile."""
+    if seq > ONE_PASS_MAX_SEQ:
+        return KEY_TILE, 1
+    row_tiles = -(-seq // 64)
+    for tiles in (4, 2):
+        parts = -(-row_tiles // tiles)
+        if batch * heads * parts >= sms:
+            return ONE_PASS, parts
+    return ONE_PASS, row_tiles
+
+
+def tc_scratch_bytes(lib, batch: int, seq: int, heads: int) -> int:
+    """Bytes of the roped-K scratch a build of csrc/rope_attention_tc.cu
+    takes for a call: its own answer (t3d_rope_attention_tc_scratch_bytes:
+    0 at S <= ONE_PASS_MAX_SEQ), or a whole bf16 [B, H, S, 64] for a build
+    without that query, which ropes K into it on every call."""
+    query = getattr(lib, "t3d_rope_attention_tc_scratch_bytes", None)
+    if query is None:
+        return batch * heads * seq * 64 * 2
+    return int(query(batch, seq, heads))
+
 
 def _tc_lib() -> ctypes.CDLL:
     return bind_tc_lib(_build.library("rope_attention_tc"))
 
 
 def bind_tc_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C signature of a rope_attention_tc library's entry."""
+    """Declare the C signatures of a rope_attention_tc library's entries
+    (the scratch and schedule queries where the build has them)."""
     fn = lib.t3d_rope_attention_tc
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    if hasattr(lib, "t3d_rope_attention_tc_scratch_bytes"):
+        lib.t3d_rope_attention_tc_scratch_bytes.argtypes = [ctypes.c_int] * 3
+        lib.t3d_rope_attention_tc_scratch_bytes.restype = ctypes.c_ulonglong
+        lib.t3d_rope_attention_tc_schedule.argtypes = [ctypes.c_int] * 4
+        lib.t3d_rope_attention_tc_schedule.restype = ctypes.c_int
     return lib
 
 
