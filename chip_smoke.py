@@ -13,7 +13,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      Freiburg frames [4,512,640], at [1,16,16] and at one view of a training
      batch [4,224,224]; K2/K3 at the serving
      shapes (S=196) and the MASt3R-512 shapes (S=1024); K4/K5/K6 at both,
-     and with Sq=196 against Sk=1024; K2-K6 also in bf16 at head_dim 32,
+     with Sq=196 against Sk=1024 and Sq=1024 against Sk=196, and K4 in bf16
+     on a q whose size-1 axes have odd strides (the tensor-core kernel's
+     map strides held against flash_attention.tc_map_strides in every
+     case); K2-K6 also in bf16 at head_dim 32,
      both S, and K2/K3 at the shapes a tensor-parallel rank gives them in
      phase 10 (tp=2: 8 and 6 heads) and in the multi-device phase (tp=4: 4
      and 3 heads). Each K2-K6 case records the kernel
@@ -148,6 +151,14 @@ exits non-zero if any differs. Two builds of the same schedule read equal;
 the one-pass schedule (S <= 256) against the 64-key online softmax of an
 older build differs in p's rounding, by about an output ulp.
 
+    python3 chip_smoke.py --compare-k4k6 OTHER_CSRC_DIR
+
+does the same for the tensor-core K4-K6 kernel against a build of another
+checkout's csrc/attention_tc.cu, through the same wrapper on phase 3's
+seeded operands: every bf16 K4 shape of PLAIN_ATTENTION_SHAPES and the
+size-1-axes case. Two builds of the same arithmetic read equal; the exp2
+softmax against an older build's expf differs by about an output ulp.
+
     python3 chip_smoke.py --only-multi-gpu
 
 builds the kernels and runs the tensor-parallel K2/K3 cases and phase 10
@@ -173,6 +184,7 @@ lines.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import gc
@@ -453,70 +465,133 @@ def attention_cases(torch, cross: bool, batch: int = BATCH, grid=(14, 14), width
 # K4/K5/K6 shapes [B, H, Sq, Sk, D]: MASt3R-512's encoder (8 = 4 pairs × 2
 # views, 16 heads) and decoder (4 pairs, 12 heads) at S=1024, DUSt3R-224's
 # at the serving S=196 (a ragged last tile of 4 keys and 68 query rows),
-# and Sq=196 against Sk=1024
+# and Sq=196 against Sk=1024 and Sq=1024 against Sk=196
 PLAIN_ATTENTION_SHAPES = ((8, 16, 1024, 1024, 64), (4, 12, 1024, 1024, 64),
                           (BATCH, 16, 196, 196, 64), (BATCH, 12, 196, 196, 64),
-                          (4, 12, 196, 1024, 64))
+                          (4, 12, 196, 1024, 64), (4, 12, 1024, 196, 64))
 # bf16 at head_dim 32 (no configured model): the CUDA-core kernel in bf16
 PLAIN_ATTENTION_D32 = ((BATCH, 16, 196, 196, 32), (PAIR_BATCH, 16, 1024, 1024, 32))
+
+
+def tensor_core_map_strides(fa, q, k, v, out) -> list:
+    """The byte strides of the tensor-core K4-K6 kernel's tensor maps for a
+    call, as flash_attention.tc_map_strides computes them; raises unless the
+    built library's own query gives the same."""
+    b, h, sq, _ = q.shape
+    strides = [t.stride(i) if t.shape[i] > 1 else 0 for t in (q, k, v, out) for i in range(3)]
+    want = fa.tc_map_strides(strides, b, h, sq, k.shape[2])
+    got = (ctypes.c_longlong * 12)()
+    fa._attention_tc_lib().t3d_softmax_attention_tc_map_strides(
+        (ctypes.c_longlong * 12)(*strides), b, h, sq, k.shape[2], got)
+    if list(got) != want:
+        raise AssertionError(f"K4-K6 {tuple(q.shape)} Sk={k.shape[2]}: the library's map "
+                             f"strides {list(got)}, tc_map_strides {want}")
+    return want
+
+
+def hold_attention_case(torch, fa, name: str, q, k, v, reps: int) -> dict:
+    """One K4/K5/K6 case (`name` the entry) on [B,H,S,D] operands: the
+    kernel that serves it (bf16 with D=64 the tensor-core one, its count
+    moving once, the rest the CUDA-core one), the output against the plain
+    version (2e-5 float32, 2^-6 bf16), the tensor-core kernel's map strides
+    against tc_map_strides, and the times of kernel, plain version and SDPA
+    beside the bound."""
+    import torch.nn.functional as F
+
+    kern_fn = getattr(fa, name)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    dt, dname = q.dtype, str(q.dtype).removeprefix("torch.")
+    scale = 1.0 / math.sqrt(d)
+    kern = lambda: kern_fn(q, k, v, scale)  # noqa: E731
+    plain = lambda: fa.attention_plain(q, k, v, scale)  # noqa: E731
+    library = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)  # noqa: E731
+    served = fa.attention_route(dt, d)
+    if (served == fa.TENSOR_CORE) != (dt == torch.bfloat16 and d == 64):
+        raise AssertionError(f"{name} {dname} D={d}: routed to {served}")
+    tc_before, fn_before = fa.softmax_attention_tc.launches, kern_fn.launches
+    out = kern()
+    if kern_fn.launches != fn_before + 1 or \
+            fa.softmax_attention_tc.launches - tc_before != (served == fa.TENSOR_CORE):
+        raise AssertionError(f"{name} {dname} D={d}: launches {kern_fn.launches - fn_before}"
+                             f", tensor-core {fa.softmax_attention_tc.launches - tc_before}")
+    map_strides = (tensor_core_map_strides(fa, q, k, v, out) if served == fa.TENSOR_CORE
+                   else None)
+    ref = plain()
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    del out, ref
+    limit = 2e-5 if dt == torch.float32 else 2.0 ** -6  # as for K2/K3
+    check(f"{name} [{b},{h},{sq},{d}] Sk={sk} {dname}", err, limit)
+    ms = cuda_ms(kern, reps=reps)
+    plain_ms = cuda_ms(plain, reps=reps)
+    library_ms = cuda_ms(library, reps=reps)
+    nbytes = 2 * b * h * (sq + sk) * d * q.element_size()
+    flops = 4 * b * h * sq * sk * d
+    bnd, by = bound_ms(nbytes, flops, dname)
+    tflops = flops / ms / 1e9
+    log(f"    {served}: ms {ms:.4f} plain {plain_ms:.4f} library(sdpa) "
+        f"{library_ms:.4f} bound {bnd:.4f} ({by}); {tflops:.1f} TFLOP/s, "
+        f"{ms / bnd:.2f}x bound, {ms / library_ms:.2f}x sdpa")
+    return dict(shape=[b, h, sq, d], sk=sk, dtype=dname, kernel=served, map_strides=map_strides,
+                max_abs_err=err, limit=limit, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bnd, bound_by=by, tflops=tflops, ms_over_bound=ms / bnd,
+                ms_over_library=ms / library_ms)
+
+
+def bshd_operands(torch, b: int, h: int, sq: int, sk: int, d: int, dt):
+    """Seeded q [B,Sq,H,D] and k, v [B,Sk,H,D] on the card, handed over as
+    [B,H,S,D] views, as attention_bshd hands them on the main path."""
+    gen = torch.Generator(device="cuda").manual_seed(h + sq)
+    q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dt).transpose(1, 2)
+    k, v = (torch.randn((b, sk, h, d), generator=gen, device="cuda").to(dt).transpose(1, 2)
+            for _ in range(2))
+    return q, k, v
 
 
 def plain_attention_cases(torch, name: str, shapes=PLAIN_ATTENTION_SHAPES,
                           dtypes=("bfloat16", "float32"), reps: int = 10):
     """One of K4 (flash_attention_pallas), K5 (flash_attention_grouped) or K6
     (flash_attention_multihead) on [B,S,H,D] q/k/v handed over as
-    [B,H,S,D] views, as attention_bshd hands them on the main path. bf16
-    with D=64 runs the tensor-core kernel, float32 and other head dims the
-    CUDA-core one; each case records the kernel that served it."""
-    import torch.nn.functional as F
-
+    [B,H,S,D] views, as attention_bshd hands them on the main path
+    (hold_attention_case)."""
     fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
 
-    kern_fn = getattr(fa, name)
     cases = []
     for b, h, sq, sk, d in shapes:
         for dname in dtypes:
-            dt = getattr(torch, dname)
-            gen = torch.Generator(device="cuda").manual_seed(h + sq)
-            q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dt).transpose(1, 2)
-            k, v = (torch.randn((b, sk, h, d), generator=gen, device="cuda").to(dt)
-                    .transpose(1, 2) for _ in range(2))
-            scale = 1.0 / math.sqrt(d)
-            kern = lambda: kern_fn(q, k, v, scale)  # noqa: E731
-            plain = lambda: fa.attention_plain(q, k, v, scale)  # noqa: E731
-            library = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)  # noqa: E731
-            served = fa.attention_route(dt, d)
-            if (served == fa.TENSOR_CORE) != (dt == torch.bfloat16 and d == 64):
-                raise AssertionError(f"{name} {dname} D={d}: routed to {served}")
-            tc_before, fn_before = fa.softmax_attention_tc.launches, kern_fn.launches
-            out = kern()
-            if kern_fn.launches != fn_before + 1 or \
-                    fa.softmax_attention_tc.launches - tc_before != (served == fa.TENSOR_CORE):
-                raise AssertionError(f"{name} {dname} D={d}: launches {kern_fn.launches - fn_before}"
-                                     f", tensor-core {fa.softmax_attention_tc.launches - tc_before}")
-            ref = plain()
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            del out, ref
-            limit = 2e-5 if dt == torch.float32 else 2.0 ** -6  # as for K2/K3
-            check(f"{name} [{b},{h},{sq},{d}] Sk={sk} {dname}", err, limit)
-            ms = cuda_ms(kern, reps=reps)
-            plain_ms = cuda_ms(plain, reps=reps)
-            library_ms = cuda_ms(library, reps=reps)
-            nbytes = 2 * b * h * (sq + sk) * d * q.element_size()
-            flops = 4 * b * h * sq * sk * d
-            bnd, by = bound_ms(nbytes, flops, dname)
-            tflops = flops / ms / 1e9
-            log(f"    {served}: ms {ms:.4f} plain {plain_ms:.4f} library(sdpa) "
-                f"{library_ms:.4f} bound {bnd:.4f} ({by}); {tflops:.1f} TFLOP/s, "
-                f"{ms / bnd:.2f}x bound, {ms / library_ms:.2f}x sdpa")
-            cases.append(dict(shape=[b, h, sq, d], sk=sk, dtype=dname, kernel=served,
-                              max_abs_err=err, limit=limit, ms=ms, plain_ms=plain_ms,
-                              library_ms=library_ms, bound_ms=bnd, bound_by=by, tflops=tflops,
-                              ms_over_bound=ms / bnd, ms_over_library=ms / library_ms))
+            q, k, v = bshd_operands(torch, b, h, sq, sk, d, getattr(torch, dname))
+            cases.append(hold_attention_case(torch, fa, name, q, k, v, reps))
             del q, k, v
             torch.cuda.empty_cache()
     return cases
+
+
+# q [1,2,1,64] with strides (3, 64, 5, 1): its batch and row axes have size 1
+# and odd strides the wrapper never checks (it sends 0, the C entry a
+# stride a tensor map takes); k/v [1,2,40,64], one ragged key tile
+SIZE_ONE_Q_STRIDES = (3, 64, 5, 1)
+SIZE_ONE_SK = 40
+
+
+def size_one_operands(torch):
+    """Seeded q [1,2,1,64] (SIZE_ONE_Q_STRIDES) and k, v [1,2,SIZE_ONE_SK,64]
+    ([B,S,H,D] views) on the card, bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(SIZE_ONE_SK)
+    buf = torch.randn(2 * 64 + 7, generator=gen, device="cuda").to(torch.bfloat16)
+    q = buf.as_strided((1, 2, 1, 64), SIZE_ONE_Q_STRIDES)
+    k, v = (torch.randn((1, SIZE_ONE_SK, 2, 64), generator=gen, device="cuda")
+            .to(torch.bfloat16).transpose(1, 2) for _ in range(2))
+    return q, k, v
+
+
+def size_one_axes_case(torch, name: str = "flash_attention_pallas") -> dict:
+    """The bf16 K4 case with size-1 axes of odd strides in q
+    (hold_attention_case)."""
+    fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
+    q, k, v = size_one_operands(torch)
+    log(f"  size-1 axes: q {tuple(q.shape)} strides {q.stride()}, k/v {tuple(k.shape)}")
+    return hold_attention_case(torch, fa, name, q, k, v, reps=10)
 
 
 # the multi-card check's inputs (phase 3, two cards or more): made on the
@@ -3285,26 +3360,49 @@ def tp_attention_cases(torch, tp: int = 2):
     return k2, k3
 
 
+def build_other(other_csrc: str, name: str):
+    """Build OTHER_CSRC/<name>.cu with this checkout's nvcc flags into the
+    build directory and load it."""
+    from pathlib import Path
+
+    from thermal3d_torch.kernels import _build
+
+    lib_path = _build.BUILD_DIR / f"libother_{name}.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path),
+                    str(Path(other_csrc) / f"{name}.cu")],
+                   check=True, capture_output=True, text=True)
+    return _build.load(lib_path)
+
+
+def compare_in_turns(torch, run, outs: dict, reps: int = 20) -> dict:
+    """Two builds on the same inputs: run(which) writes outs[which] for
+    "this" and "other". torch.equal, the largest difference, and both timed
+    by cuda_ms in turns (other, this, this, other)."""
+    run("this")
+    run("other")
+    torch.cuda.synchronize()
+    equal = torch.equal(outs["this"], outs["other"])
+    max_abs_diff = (outs["this"].float() - outs["other"].float()).abs().max().item()
+    ms = {w: [] for w in outs}
+    for which in ("other", "this", "this", "other"):
+        ms[which].append(cuda_ms(lambda w=which: run(w), reps=reps))
+    return dict(equal=equal, max_abs_diff=max_abs_diff, this_ms=ms["this"],
+                other_ms=ms["other"])
+
+
 def compare_k2k3(torch, other_csrc: str) -> bool:
     """Build OTHER_CSRC/rope_attention_tc.cu with this checkout's nvcc flags
     and launch it and this checkout's build through the same wrapper on the
     same seeded inputs (a build without the scratch query gets its roped-K
     scratch on every call, as it was written for): torch.equal and the
     largest difference on each of COMPARE_CASES, this build's schedule, and
-    both timed as in phase 3, in turns (other, this, this, other). Prints
-    one JSON line; returns whether every output was equal."""
-    from pathlib import Path
-
-    from thermal3d_torch.kernels import _build
+    both timed as in phase 3, in turns (compare_in_turns). Prints one JSON
+    line; returns whether every output was equal."""
     fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
     from thermal3d_torch.models.rope import make_grid_positions, rope_tables
 
-    lib_path = _build.BUILD_DIR / "libother_rope_attention_tc.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path),
-                    str(Path(other_csrc) / "rope_attention_tc.cu")],
-                   check=True, capture_output=True, text=True)
-    libs = {"this": None, "other": fa.bind_tc_lib(_build.load(lib_path))}
+    libs = {"this": None, "other": fa.bind_tc_lib(build_other(other_csrc, "rope_attention_tc"))}
     results = []
     for kind, batch, side, c, heads in COMPARE_CASES:
         s = side * side
@@ -3326,23 +3424,54 @@ def compare_k2k3(torch, other_csrc: str) -> bool:
                                  1.0 / math.sqrt(c // heads),
                                  torch.cuda.current_stream().cuda_stream, lib=libs[which])
 
-        run("this")
-        run("other")
-        torch.cuda.synchronize()
-        equal = torch.equal(outs["this"], outs["other"])
-        max_abs_diff = (outs["this"].float() - outs["other"].float()).abs().max().item()
-        ms = {w: [] for w in libs}
-        for which in ("other", "this", "this", "other"):
-            ms[which].append(cuda_ms(lambda w=which: run(w)))
+        r = compare_in_turns(torch, run, outs)
         results.append(dict(kernel=kind, shape=[batch, s, c], heads=heads,
-                            schedule=tensor_core_schedule(torch, fa, batch, heads, s),
-                            equal=equal, max_abs_diff=max_abs_diff, this_ms=ms["this"],
-                            other_ms=ms["other"]))
-        log(f"{kind} [{batch},{s},{c}] H={heads}: torch.equal {equal} (max|diff| "
-            f"{max_abs_diff:.3e}); ms this {ms['this']} other {ms['other']}")
+                            schedule=tensor_core_schedule(torch, fa, batch, heads, s), **r))
+        log(f"{kind} [{batch},{s},{c}] H={heads}: torch.equal {r['equal']} (max|diff| "
+            f"{r['max_abs_diff']:.3e}); ms this {r['this_ms']} other {r['other_ms']}")
         del qkv, outs
     all_equal = all(r["equal"] for r in results)
     print(json.dumps({"compare_k2k3": results, "all_equal": all_equal}), flush=True)
+    return all_equal
+
+
+def compare_k4k6(torch, other_csrc: str) -> bool:
+    """Build OTHER_CSRC/attention_tc.cu with this checkout's nvcc flags and
+    launch it and this checkout's build through the same wrapper
+    (softmax_attention_tc) on the same seeded [B,S,H,D]-view operands as
+    phase 3: every bf16 K4 shape of PLAIN_ATTENTION_SHAPES (bshd_operands)
+    and the size-1-axes case (size_one_operands). torch.equal and the
+    largest difference on each, and both timed as in phase 3, in turns
+    (compare_in_turns). Prints one JSON line; returns whether every output
+    was equal."""
+    fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
+
+    libs = {"this": None,
+            "other": fa.bind_attention_tc_lib(build_other(other_csrc, "attention_tc"))}
+    cases = [(f"[{b},{h},{sq},{d}] Sk={sk}",
+              lambda b=b, h=h, sq=sq, sk=sk, d=d: bshd_operands(torch, b, h, sq, sk, d,
+                                                                torch.bfloat16))
+             for b, h, sq, sk, d in PLAIN_ATTENTION_SHAPES]
+    cases.append((f"size-1 axes [1,2,1,64] Sk={SIZE_ONE_SK}", lambda: size_one_operands(torch)))
+    results = []
+    for label, operands in cases:
+        q, k, v = operands()
+        # out laid out as _attend lays it out for such a q: [B,S,H,D]
+        outs = {w: torch.empty_like(q.transpose(1, 2).contiguous()).transpose(1, 2)
+                for w in libs}
+        scale = 1.0 / math.sqrt(q.shape[-1])
+
+        def run(which):
+            fa.softmax_attention_tc(q, k, v, outs[which], scale,
+                                    torch.cuda.current_stream().cuda_stream, lib=libs[which])
+
+        r = compare_in_turns(torch, run, outs, reps=10)
+        results.append(dict(case=label, shape=list(q.shape), sk=k.shape[2], **r))
+        log(f"K4 {label}: torch.equal {r['equal']} (max|diff| {r['max_abs_diff']:.3e}); "
+            f"ms this {r['this_ms']} other {r['other_ms']}")
+        del q, k, v, outs
+    all_equal = all(r["equal"] for r in results)
+    print(json.dumps({"compare_k4k6": results, "all_equal": all_equal}), flush=True)
     return all_equal
 
 
@@ -4424,7 +4553,7 @@ def main(argv) -> int:
         return 1
     if argv and argv[0] == "--dist-worker":
         return dist_worker_main(argv[1:])
-    if argv and not ((len(argv) == 2 and argv[0] == "--compare-k2k3")
+    if argv and not ((len(argv) == 2 and argv[0] in ("--compare-k2k3", "--compare-k4k6"))
                      or argv in (["--only-multi-gpu"], ["--only-export"], ["--only-wrappers"])
                      or (argv[0] == "--only-multi-card" and set(argv[1:]) <= set(MD_PARTS))):
         print(__doc__, file=sys.stderr)
@@ -4434,9 +4563,10 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 means float32 here
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    if argv and argv[0] == "--compare-k2k3":
+    if argv and argv[0] in ("--compare-k2k3", "--compare-k4k6"):
         log(card)
-        return 0 if compare_k2k3(torch, argv[1]) else 1
+        compare = compare_k2k3 if argv[0] == "--compare-k2k3" else compare_k4k6
+        return 0 if compare(torch, argv[1]) else 1
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     phase_build()
     if argv == ["--only-export"]:
@@ -4493,6 +4623,7 @@ def main(argv) -> int:
             + plain_attention_cases(torch, name, PLAIN_ATTENTION_D32, ("bfloat16",))
             for name in ("flash_attention_pallas", "flash_attention_grouped",
                          "flash_attention_multihead")}
+    k456["flash_attention_pallas"].append(size_one_axes_case(torch))
     multi_card = multi_card_check(torch, np)
     engine = phase_engine(torch, np)
     pseudo_gt = phase_pseudo_gt(torch, np)
@@ -4561,11 +4692,16 @@ def main(argv) -> int:
     def entry(name, source, replaces, cases, main_case, main_path):
         m = cases[main_case]
         extra = {}
+        # the headers a tensor-core source includes (the key-tile loop K2-K6 share)
+        tc_headers = [f"thermal3d_torch/kernels/csrc/{h}" for h in
+                      ("key_tile_attention.cuh", "attention_tc.cuh", "hopper_tma.cuh")]
         if name.startswith("fused_rope"):  # K2/K3: bf16 on tensor cores, f32 on CUDA cores
-            extra = dict(source_cuda_core="thermal3d_torch/kernels/csrc/rope_attention.cu",
+            extra = dict(headers=tc_headers,
+                         source_cuda_core="thermal3d_torch/kernels/csrc/rope_attention.cu",
                          tensor_core_launches_by_path=by_path["rope_attention_tc"])
         elif name.startswith("flash_attention"):  # K4-K6: the same split
-            extra = dict(source_cuda_core="thermal3d_torch/kernels/csrc/attention.cu",
+            extra = dict(headers=tc_headers,
+                         source_cuda_core="thermal3d_torch/kernels/csrc/attention.cu",
                          tensor_core_launches_by_path=by_path["softmax_attention_tc"])
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     **extra, launches=by_path[name][main_path], launches_by_path=by_path[name],

@@ -143,31 +143,56 @@ def test_k3_plain_matches_pallas_interpret_s1024():
     np.testing.assert_array_equal(tfa.fused_rope_cross_attention(*t, 2, scale).numpy(), out)
 
 
-def _online_softmax_recipe(q, k, v, scale, tile):
+def _online_softmax_recipe(q, k, v, scale, tile, mask="every", exp2=False):
     """The key-tile kernels' arithmetic (csrc/attention_common.cuh, and the
-    tensor-core csrc/rope_attention_tc.cu) restated in PyTorch: K/V padded
+    tensor-core csrc/key_tile_attention.cuh) restated in PyTorch: K/V padded
     with zero rows to whole tiles, score columns past the sequence masked
-    to -inf; per tile, p = exp(s - running max) rounded to the storage type
-    before PV; the f32 sum and accumulator rescaled when the max moves; the
-    division after PV."""
+    to -inf (on every tile, or with mask="last" only on a ragged last tile,
+    as the K4-K6 kernel does); per tile, p = exp(s - running max) rounded to
+    the storage type before PV; the f32 sum and accumulator rescaled when
+    the max moves; the division after PV. With exp2, the K4-K6 kernel's
+    fold (csrc/attention_tc.cu): the running max m of the raw scores s,
+    p = 2^(s*c - m*c) with c = scale*log2(e) and s*c - m*c in one rounding
+    (a float64 product and difference rounded once, as an FMA), alpha =
+    2^((m_old - m_new)*c)."""
     dt = q.dtype
     sk = k.shape[-2]
     pad = -sk % tile
     qf, kf, vf = (t.to(torch.float32) for t in (q, k, v))
     kf, vf = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (kf, vf))
+    c = torch.tensor(scale * math.log2(math.e), dtype=torch.float32)
     m = torch.full(q.shape[:-1] + (1,), -math.inf)
     l = torch.zeros_like(m)
     acc = torch.zeros(qf.shape)
     for j0 in range(0, sk + pad, tile):
-        s = qf @ kf[..., j0:j0 + tile, :].transpose(-1, -2) * scale
-        s = s.masked_fill(torch.arange(j0, j0 + tile) >= sk, -math.inf)
+        s = qf @ kf[..., j0:j0 + tile, :].transpose(-1, -2)
+        if not exp2:
+            s = s * scale
+        if mask == "every" or j0 + tile > sk:
+            s = s.masked_fill(torch.arange(j0, j0 + tile) >= sk, -math.inf)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        e = torch.exp(s - m_new)
+        if exp2:
+            alpha = torch.exp2((m - m_new) * c)
+            e = torch.exp2((s.double() * c.double() - (m_new * c).double()).float())
+        else:
+            alpha = torch.exp(m - m_new)
+            e = torch.exp(s - m_new)
         l = l * alpha + e.sum(-1, keepdim=True)
         acc = acc * alpha + e.to(dt).to(torch.float32) @ vf[..., j0:j0 + tile, :]
         m = m_new
     return (acc / l).to(dt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk", [(196, 196), (196, 1024), (1024, 196), (1024, 1024)])
+def test_key_tile_recipe_masked_on_the_last_tile_only(sq, sk, dtype):
+    """Masking only the ragged last key tile (the K4-K6 kernel's template
+    flag) changes no bit of the 64-key online softmax: a full tile has no
+    column past Sk to mask."""
+    q, k, v = (torch.from_numpy(a).to(dtype)
+               for a in _qkv((1, 2, sq, 64), (1, 2, sk, 64), seed=sq + 5 * sk))
+    every = _online_softmax_recipe(q, k, v, 0.125, tile=64)
+    assert torch.equal(_online_softmax_recipe(q, k, v, 0.125, tile=64, mask="last"), every)
 
 
 @pytest.mark.parametrize("dtype,limit", [(torch.float32, 2e-5), (torch.bfloat16, 2.0 ** -6)])
@@ -247,16 +272,17 @@ def _jax_softmax_attention(impl, q, k, v, scale):
 ])
 @pytest.mark.parametrize("impl", ["pallas", "pallas_grouped4", "pallas_multihead"])
 def test_key_tile_recipe_matches_k4_k5_k6_interpret(impl, sq, sk, dtype, limit):
-    """The tensor-core K4-K6 kernel's arithmetic (the 64-key online softmax,
-    csrc/attention_tc.cu) against the JAX kernels it replaces, in interpret
-    mode, on the same rounded inputs in the same dtype: within the limits
-    chip_smoke.py holds the kernel to (2e-5 f32: summation order; 2^-6
-    bf16: an output ulp plus a flipped rounding of p)."""
+    """The tensor-core K4-K6 kernel's arithmetic (the 64-key online softmax
+    with the exp2 fold, masked on the last tile only, csrc/attention_tc.cu)
+    against the JAX kernels it replaces, in interpret mode, on the same
+    rounded inputs in the same dtype: within the limits chip_smoke.py holds
+    the kernel to (2e-5 f32: summation order; 2^-6 bf16: an output ulp plus
+    a flipped rounding of p)."""
     q, k, v = _qkv((1, 2, sq, 64), (1, 2, sk, 64), seed=sq + 3 * sk)
     t = [torch.from_numpy(a).to(dtype) for a in (q, k, v)]
     jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
     ref = _jax_softmax_attention(impl, *(jnp.asarray(a).astype(jdt) for a in (q, k, v)), 0.125)
-    out = _online_softmax_recipe(*t, 0.125, tile=64)
+    out = _online_softmax_recipe(*t, 0.125, tile=64, mask="last", exp2=True)
     assert out.shape == (1, 2, sq, 64)
     err = np.abs(out.to(torch.float32).numpy() - np.asarray(ref.astype(jnp.float32))).max()
     assert err <= limit, err
@@ -334,6 +360,79 @@ def test_tensor_core_attention_launch_arguments(monkeypatch):
     (args,) = calls
     assert list(args[4]) == [0, 64, 0, 0, 64, 128, 0, 64, 128, 0, 64, 0]
     assert args[5:11] == (1, 2, 1, 40, 64, 0.125)
+
+
+def test_softmax_attention_tc_with_another_library(monkeypatch):
+    """softmax_attention_tc(..., lib=L) (another build, as chip_smoke.py
+    --compare-k4k6 passes it) calls L's entry once, inside one
+    torch.cuda.device block of the output's device, with the arguments the
+    default library gets, and moves the count once."""
+    events, args = [], {}
+
+    class Recording:
+        def __init__(self, name):
+            self.name = name
+
+        def t3d_softmax_attention_tc(self, *a):
+            events.append(("call", self.name))
+            args[self.name] = a
+            return 0
+
+    record_device_blocks(monkeypatch, events)
+    monkeypatch.setattr(tfa, "_attention_tc_lib", lambda: Recording("default"))
+    q, k, v, out = _strided_operands(sq=12, sk=40)
+    before = tfa.softmax_attention_tc.launches
+    tfa.softmax_attention_tc(q, k, v, out, 0.125, stream=0, lib=Recording("other"))
+    assert events == [("enter", out.device), ("call", "other"), ("exit", out.device)]
+    assert tfa.softmax_attention_tc.launches == before + 1
+    tfa.softmax_attention_tc(q, k, v, out, 0.125, stream=0)
+    assert tfa.softmax_attention_tc.launches == before + 2
+    other, default = args["other"], args["default"]
+    assert other[:4] == default[:4] and list(other[4]) == list(default[4])
+    assert other[5:] == default[5:]
+
+
+def _map_stride_operands(case):
+    """q, k, v, out of a tc_map_strides case."""
+    def bshd(b, h, s):  # a [B,S,H,D] buffer read as [B,H,S,D] (attention_bshd)
+        return torch.zeros((b, s, h, 64), dtype=torch.bfloat16).transpose(1, 2)
+
+    if case == "bshd":
+        return bshd(2, 2, 12), bshd(2, 2, 40), bshd(2, 2, 40), bshd(2, 2, 12)
+    if case == "bhsd":
+        q, k = (torch.zeros((2, 3, s, 64), dtype=torch.bfloat16) for s in (12, 40))
+        return q, k, k.clone(), q.clone()
+    if case == "size_one":
+        return bshd(1, 1, 1), bshd(1, 1, 40), bshd(1, 1, 40), bshd(1, 1, 1)
+    # test_tensor_core_attention_launch_arguments' operands: q's size-1
+    # batch and row axes have odd strides
+    q = torch.zeros(2 * 64 + 7, dtype=torch.bfloat16).as_strided((1, 2, 1, 64), (3, 64, 5, 1))
+    return q, bshd(1, 2, 40), bshd(1, 2, 40), torch.zeros((1, 2, 1, 64), dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("case,want", [
+    # [B,S,H,D] views: rows H*128 bytes apart, heads 128, items S*H*128
+    ("bshd", [3072, 128, 256, 10240, 128, 256, 10240, 128, 256, 3072, 128, 256]),
+    # contiguous [B,H,S,D]
+    ("bhsd", [4608, 1536, 128, 15360, 5120, 128, 15360, 5120, 128, 4608, 1536, 128]),
+    # one item, one head, one query row: each size-1 axis takes one row's bytes
+    ("size_one", [128] * 12),
+    ("odd_size_one", [128, 128, 128, 128, 128, 256, 128, 128, 256, 128, 128, 128]),
+])
+def test_tensor_core_map_strides(case, want):
+    """The byte strides of the K4-K6 kernel's four tensor maps
+    (tc_map_strides, the mirror of csrc/attention_tc.cu's
+    t3d_softmax_attention_tc_map_strides) from the element strides
+    softmax_attention_tc passes: 2 bytes an element, and
+    SIZE_ONE_STRIDE_BYTES for an axis of size 1, whose stride the wrapper
+    sends as 0 whatever the tensor's own."""
+    q, k, v, out = _map_stride_operands(case)
+    strides = [t.stride(i) if t.shape[i] > 1 else 0 for t in (q, k, v, out) for i in range(3)]
+    b, h, sq, _ = q.shape
+    got = tfa.tc_map_strides(strides, b, h, sq, k.shape[2])
+    assert got == want
+    assert all(x % 16 == 0 and x > 0 for x in got)
+    assert tfa.SIZE_ONE_STRIDE_BYTES == 128
 
 
 def _launch_k2k3(dtype, width=128, heads=2):

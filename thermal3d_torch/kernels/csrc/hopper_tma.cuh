@@ -66,6 +66,29 @@ inline cudaError_t encode_bf16_rows(CUtensorMap* map, const void* base, uint64_t
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A 4-D bf16 map over a [batch, heads, rows, 64] operand given by its
+// (batch, head, row) strides in bytes, which may come in any order (a
+// [B,S,H,D] buffer read as [B,H,S,D] has its rows farther apart than its
+// heads), read and written in boxes of 64 elements x box_rows rows x 1 head
+// x 1 item with the 128-byte swizzle of the wgmma operands. Rows >= `rows`
+// of a box read as zeros and are not written: a box never reaches into the
+// next head or item.
+inline cudaError_t encode_bf16_heads(CUtensorMap* map, const void* base, uint64_t rows,
+                                     uint64_t heads, uint64_t batch, uint64_t batch_bytes,
+                                     uint64_t head_bytes, uint64_t row_bytes, uint32_t box_rows) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {64, rows, heads, batch};
+  const cuuint64_t strides[3] = {row_bytes, head_bytes, batch_bytes};
+  const cuuint32_t box[4] = {64, box_rows, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // ---- device ---------------------------------------------------------------
 
 // An mbarrier wait that traps after ~10 s (2^34 cycles) instead of hanging
@@ -103,6 +126,16 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One box of a 4-D map at (c0, c1, c2, c3), as tma_load_3d.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // One box from shared memory at src to a 3-D map at (c0, c1, c2); rows past
 // the map's extent are dropped. Tracked by the issuing thread's bulk group.
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
@@ -111,6 +144,17 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t sr
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// One box from shared memory at src to a 4-D map at (c0, c1, c2, c3), as
+// tma_store_3d.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 

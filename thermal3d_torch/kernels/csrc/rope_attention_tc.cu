@@ -47,9 +47,10 @@
 // Key tiles, S > 256 (the pseudo-GT's S = 1024). What bounds it: the
 // operations (4*S^2*64 a head, about 250x the bytes' time), and the CUDA
 // cores' online softmax between a tile's two products. The arithmetic is
-// attention_tc.cuh's 64-key online softmax (expf, running max and sum,
-// rescale before each PV), step for step: outputs bit-equal to that
-// kernel's. Design (rope_attention_key_tile_kernel):
+// the 64-key online softmax of attention_common.cuh's key-tile loop (expf,
+// running max and sum, rescale before each PV, every tile masked), step for
+// step. Design (rope_attention_key_tile_kernel, an instantiation of
+// key_tile_attention.cuh's core, which K4-K6 share):
 //   * K is roped once per head by a prologue kernel launched just before
 //     on the same stream (rope_k_kernel: [B,S,*] rows -> a bf16 [B,H,S,64]
 //     scratch the caller allocates, t3d_rope_attention_tc_scratch_bytes).
@@ -61,10 +62,10 @@
 //     tiles stream by TMA through a ring of 4 stages, refilled by the
 //     warpgroup that releases a stage last.
 //   * Each warpgroup issues tile t's QK^T together with tile t-1's PV, runs
-//     tile t's softmax while that PV runs, then rescales O.
+//     tile t's softmax while that PV runs, then rounds p to bf16 and
+//     rescales O once the PV is done.
 //   * O goes out through shared memory (the block's Q rows) by a TMA store.
-#include "attention_tc.cuh"
-#include "hopper_tma.cuh"
+#include "key_tile_attention.cuh"
 
 namespace {
 
@@ -198,64 +199,44 @@ rope_attention_tc_rope_k_kernel(const __nv_bfloat16* __restrict__ k, long long r
 
 // ---- key tiles (S > 256): the attention kernel -------------------------------
 
-namespace key_tiles {
-constexpr int kRing = 4;                        // K/V stages
-constexpr int kBlocksPerSm = 2;                 // 128 registers a thread
-constexpr int kWgs = 2;                         // warpgroups, 64 query rows each
-constexpr int kBlockThreads = 128 * kWgs;
-constexpr int kQArea = kWgs * kTileBytes;       // the block's roped Q rows, then its output
-constexpr int kStageSize = 2 * kTileBytes;      // K, then V
-constexpr int kBarsAt = kQArea + kRing * kStageSize;
-constexpr int kSmem = 1024 + kBarsAt + 2 * kRing * 8 + kRing * 4;
+// K2/K3's operands of the key-tile core (key_tile_attention.cuh): the roped
+// K tiles of the prologue's scratch (tm_k: [B*H, S, 64]) and V (tm_v: the
+// [B, S, *] rows) by TMA, Q roped by the warpgroup from device memory
+// (rope_rows), key_tiles::online_softmax_tile's expf step, masked on every
+// tile, and the [B, S, C] output (tm_o).
+struct RopeKeyTileOperands {
+  const CUtensorMap* tm_k;
+  const CUtensorMap* tm_v;
+  const CUtensorMap* tm_o;
+  const __nv_bfloat16* q;  // the head's column 0 of batch item b
+  long long row_stride;
+  const float* cos_t;
+  const float* sin_t;
+  int seq, num_heads, h, b;
+  float scale;
 
-// The online softmax of one 64-key tile (attend_key_tiles' arithmetic,
-// step for step): scores scaled and masked past `valid` keys, the running
-// max and sum moved, p rounded to bf16 as PV's A operand. The output's
-// rescale by alpha is left to the caller (after the previous tile's PV).
-__device__ __forceinline__ void online_softmax_tile(float (&sc)[32], int valid, float scale,
-                                                    int tq, float (&m)[2], float (&l)[2],
-                                                    float (&alpha)[2], uint32_t (&p)[4][4]) {
-  float tmax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = 8 * i + 2 * tq + (e & 1);
-      const float x = col < valid ? sc[4 * i + e] * scale : -INFINITY;
-      sc[4 * i + e] = x;
-      tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
-    }
+  static constexpr uint32_t kQBytes = 0;  // Q does not come by TMA
+  __device__ void load_q(uint32_t, uint32_t, int) const {}
+  __device__ void load_kv(uint32_t stage, uint32_t bar, int t) const {
+    tma_load_3d(stage, tm_k, bar, 0, kTile * t, b * num_heads + h);
+    tma_load_3d(stage + kTileBytes, tm_v, bar, h * kD, kTile * t, b);
   }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
-    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
-    const float m_new = fmaxf(m[r], tmax[r]);  // finite: every tile has a key
-    alpha[r] = expf(m[r] - m_new);             // 0 on the first tile
-    m[r] = m_new;
-    l[r] *= alpha[r];
+  __device__ void stage_q(uint32_t my_q, int row_base, int ctid, int w) const {
+    rope_rows(q, row_stride, cos_t, sin_t, row_base, seq, my_q, ctid);
+    fence_async_shared();
+    named_barrier(1 + w, 128);
   }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float e4[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      e4[e] = expf(sc[4 * i + e] - m[e >> 1]);  // masked: exp(-inf) = 0
-      l[e >> 1] += e4[e];
-    }
-    p[i >> 1][2 * (i & 1) + 0] = pack_bf16(e4[0], e4[1]);
-    p[i >> 1][2 * (i & 1) + 1] = pack_bf16(e4[2], e4[3]);
+  __device__ void softmax(float (&sc)[32], int valid, int tq, float (&m)[2], float (&l)[2],
+                          float (&alpha)[2]) const {
+    key_tiles::online_softmax_tile(sc, valid, scale, tq, m, l, alpha);
   }
-}
+  __device__ void store_o(uint32_t src, int row_base) const {
+    tma_store_3d(tm_o, src, h * kD, row_base, b);
+  }
+};
 
-}  // namespace key_tiles
-
-// One block a 128 query rows of one (batch item, head), a warpgroup a 64:
-// the roped K tiles (the prologue's scratch, tm_k) and V tiles (tm_v) of the
-// head stream through a ring of kRing stages by TMA; each warpgroup issues
-// tile t's QK^T with tile t-1's PV, runs tile t's softmax while that PV
-// runs, then rescales O. The warpgroup that releases a stage last refills
-// it. O goes out through shared memory by a TMA store (tm_o).
+// One block a 128 query rows of one (batch item, head): the key-tile core
+// over the prologue's roped K tiles and V.
 __global__ void __launch_bounds__(key_tiles::kBlockThreads, key_tiles::kBlocksPerSm)
 rope_attention_key_tile_kernel(const __grid_constant__ CUtensorMap tm_k,
                                const __grid_constant__ CUtensorMap tm_v,
@@ -263,143 +244,12 @@ rope_attention_key_tile_kernel(const __grid_constant__ CUtensorMap tm_k,
                                const __nv_bfloat16* __restrict__ q, long long row_stride,
                                const float* __restrict__ cos_t, const float* __restrict__ sin_t,
                                int seq, int num_heads, float scale) {
-  constexpr int R = key_tiles::kRing;
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
-  unsigned char* base = smem_raw + (((raw + 1023) & ~1023u) - raw);  // 1024-byte aligned
-  const uint32_t sbase = raw + (uint32_t)(base - smem_raw);
-  const uint32_t ring = sbase + key_tiles::kQArea;
-  const uint32_t full = sbase + key_tiles::kBarsAt;  // stage s: TMA landed
-  const uint32_t empty = full + 8 * R;               // stage s: every thread done with it
-  unsigned int* claims = reinterpret_cast<unsigned int*>(base + key_tiles::kBarsAt + 16 * R);
-  const int tid = threadIdx.x;
-  const int w = tid / 128;
-  const int ctid = tid - 128 * w;
-  const int tq = ctid & 3;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int ntiles = (seq + kTile - 1) / kTile;
-  auto load = [&](int t) {
-    const uint32_t st = ring + (t % R) * key_tiles::kStageSize;
-    const uint32_t bar = full + 8 * (t % R);
-    mbar_arrive_expect_tx(bar, 2 * kTileBytes);
-    tma_load_3d(st, &tm_k, bar, 0, kTile * t, b * num_heads + h);
-    tma_load_3d(st + kTileBytes, &tm_v, bar, h * kD, kTile * t, b);
-  };
-  if (tid == 0) {
-    for (int st = 0; st < R; ++st) {
-      mbar_init(full + 8 * st, 1);
-      mbar_init(empty + 8 * st, key_tiles::kBlockThreads);
-      claims[st] = 0;
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int t = 0; t < R && t < ntiles; ++t) load(t);
-  }
-  __syncthreads();
-  // every thread is done with tile t's stage; of the two warpgroups' thread
-  // 0, the second to get here refills it with tile t + R
-  auto release = [&](int t) {
-    const int st = t % R;
-    mbar_arrive(empty + 8 * st);
-    if (ctid == 0 && (atomicAdd(&claims[st], 1u) & 1u)) {
-      mbar_wait_or_trap(empty + 8 * st, (t / R) & 1);
-      if (t + R < ntiles) load(t + R);
-    }
-  };
-
-  const uint32_t my_q = sbase + w * kTileBytes;
-  const int row_base = blockIdx.x * 2 * kTile + w * kTile;
-  rope_rows(q + (long long)b * seq * row_stride + (long long)h * kD, row_stride, cos_t, sin_t,
-            row_base, seq, my_q, ctid);
-  fence_async_shared();
-  named_barrier(1 + w, 128);
-
-  const uint64_t q_desc = smem_desc(my_q);
-  float sc[32], o[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = sc[i] = 0.0f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, alpha[2];
-  uint32_t p_prev[4][4], p_cur[4][4];
-
-  auto issue_qk = [&](int t) {
-    const uint64_t k_desc = smem_desc(ring + (t % R) * key_tiles::kStageSize);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sc, q_desc + 2 * kk, k_desc + 2 * kk, kk);
-  };
-  auto issue_pv = [&](int t, const uint32_t (&pa)[4][4]) {
-    const uint64_t v_desc = smem_desc(ring + (t % R) * key_tiles::kStageSize + kTileBytes);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs(o, pa[kk], v_desc + (uint64_t)((16 * kRowBytes * kk) >> 4));
-  };
-  auto rescale = [&]() {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[4 * i + e] *= alpha[e >> 1];
-  };
-
-  mbar_wait_or_trap(full, 0);
-  wgmma_fence();
-  issue_qk(0);
-  wgmma_commit();
-  wgmma_wait_all();
-  reg_fence(sc);
-  key_tiles::online_softmax_tile(sc, seq, scale, tq, m, l, alpha, p_cur);
-  rescale();
-  for (int t = 1; t < ntiles; ++t) {
-    mbar_wait_or_trap(full + 8 * (t % R), (t / R) & 1);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) p_prev[kk][e] = p_cur[kk][e];
-    wgmma_fence();
-    issue_qk(t);
-    wgmma_commit();
-    issue_pv(t - 1, p_prev);
-    wgmma_commit();
-    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // QK^T of tile t
-    reg_fence(sc);
-    key_tiles::online_softmax_tile(sc, seq - kTile * t, scale, tq, m, l, alpha, p_cur);
-    wgmma_wait_all();  // PV of tile t - 1
-    reg_fence(o);
-    rescale();
-    release(t - 1);
-  }
-  wgmma_fence();
-  issue_pv(ntiles - 1, p_cur);
-  wgmma_commit();
-  wgmma_wait_all();
-  reg_fence(o);
-  release(ntiles - 1);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-
-  // o / l rounded to bf16 (as store_rows) into the warpgroup's Q rows, out
-  // by a TMA store; rows >= seq are dropped
-  const int warp = ctid >> 5, g = (ctid & 31) >> 2;
-  unsigned char* tile = base + w * kTileBytes;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = 16 * warp + g + 8 * r;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float x = o[4 * i + 2 * r] / l[r];
-      const float y = o[4 * i + 2 * r + 1] / l[r];
-      *reinterpret_cast<__nv_bfloat162*>(tile + swizzle(row, i) + 4 * tq) =
-          __floats2bfloat162_rn(x, y);
-    }
-  }
-  fence_async_shared();
-  named_barrier(1 + w, 128);
-  if (ctid == 0) {
-    tma_store_3d(&tm_o, my_q, h * kD, row_base, b);
-    bulk_commit();
-    bulk_wait();
-  }
+  const int h = blockIdx.y, b = blockIdx.z;
+  const RopeKeyTileOperands op{&tm_k, &tm_v, &tm_o,
+                               q + (long long)b * seq * row_stride + (long long)h * kD,
+                               row_stride, cos_t, sin_t, seq, num_heads, h, b, scale};
+  key_tiles::attend(smem_raw, op, seq);
 }
 
 // ---- one pass (S <= 256) ----------------------------------------------------
@@ -411,7 +261,6 @@ constexpr int kMaxTiles = kMaxSeq / kTile;   // 64-row tiles (query rows, and ke
 constexpr int kBuf = kMaxSeq * kRowBytes;    // 32 KB: Q, K or V of one item
 constexpr int kItemBytes = 3 * kBuf + kTileBytes;  // Q, K, V and a 64-row output tile
 constexpr int kWgs = 2;                      // warpgroups a block, an item each
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kBlockThreads = 128 * kWgs;
 constexpr int kBarsAt = kWgs * kItemBytes;
 constexpr int kSmem = 1024 + kBarsAt + 2 * kWgs * 8;  // + slack to align to 1024
@@ -466,13 +315,6 @@ __device__ __forceinline__ void rope_item(unsigned char* q, unsigned char* k, co
       }
     }
   }
-}
-
-// 2^x on the MUFU unit (ex2.approx: a relative error of at most 2^-22).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // d = A B, m64n8k16, A and B (K-major) from shared memory (accumulate: d += A B).

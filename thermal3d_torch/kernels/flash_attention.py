@@ -16,8 +16,10 @@ K4 + K5 + K6, softmax attention on q/k that are already roped:
 [B,H,S,D]) launch one kernel for the three functions the TPU tiled three
 ways; each keeps its own entry and launch count. `attention_route` picks
 the kernel by shape as for K2/K3: bf16 with head_dim 64 runs on the tensor
-cores (csrc/attention_tc.cu, counted by `softmax_attention_tc.launches`),
-other dtypes and head dims on the CUDA cores (csrc/attention.cu).
+cores (csrc/attention_tc.cu, counted by `softmax_attention_tc.launches`: the
+key-tile loop of csrc/key_tile_attention.cuh that K2/K3 share above S=256,
+fed by 4-D tensor maps of each operand's strides, `tc_map_strides`), other
+dtypes and head dims on the CUDA cores (csrc/attention.cu).
 `flash_attention` ([B,H,S,D]) and `attention_bshd` ([B,S,H,D]) pick one of
 them by `impl` name, as the JAX functions do.
 
@@ -163,7 +165,9 @@ def smem_bytes(seq: int, head_dim: int, dtype: torch.dtype) -> int:
 def attention_route(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel family of an attention call (K2-K6), by dtype and head
     dim: TENSOR_CORE (wgmma: csrc/rope_attention_tc.cu for K2/K3,
-    csrc/attention_tc.cu for K4-K6) for bf16 with head_dim 64 at any S,
+    csrc/attention_tc.cu for K4-K6, both on the key-tile loop of
+    csrc/key_tile_attention.cuh past S=256 for K2/K3 and at every S for
+    K4-K6) for bf16 with head_dim 64 at any S,
     which is every call of the configured models (DUSt3R-224, MASt3R-512);
     otherwise CUDA_CORE (csrc/rope_attention.cu, where `_launch` picks
     one-shot or key-tile, and csrc/attention.cu). A dispatch by shape: a
@@ -613,18 +617,22 @@ def _attend(what, q, k, v, scale):
     return out
 
 
-def softmax_attention_tc(q, k, v, out, scale, stream, what="softmax_attention_tc"):
+def softmax_attention_tc(q, k, v, out, scale, stream, what="softmax_attention_tc", lib=None):
     """Launch the tensor-core K4-K6 kernel (bf16, head_dim 64) on checked
-    [B, H, S, D] operands and out. Strides of axes of size 1 are never
-    read and go to the kernel as 0; every other batch, head and row stride,
-    and every base pointer, must be a multiple of 16 bytes. The library
-    call runs with out's card current. Counts its own calls in
-    `softmax_attention_tc.launches`."""
+    [B, H, S, D] operands and out: one block per 128 query rows of a (batch
+    item, head), K/V in 64-key tiles by TMA through the key-tile loop that
+    K2/K3 share, each operand read and out written through a 4-D tensor map
+    of its own strides (`tc_map_strides`). Strides of axes of size 1 are
+    never read and go to the kernel as 0; every other batch, head and row
+    stride, and every base pointer, must be a multiple of 16 bytes. `lib`:
+    another build of csrc/attention_tc.cu, loaded by `bind_attention_tc_lib`
+    (this checkout's by default). The library call runs with out's card
+    current. Counts its own calls in `softmax_attention_tc.launches`."""
     b, h, sq, d = q.shape
     strides = [t.stride(i) if t.shape[i] > 1 else 0 for t in (q, k, v, out) for i in range(3)]
     es = q.element_size()
     check_alignment(what, [t.data_ptr() for t in (q, k, v, out)], *(st * es for st in strides))
-    lib = _attention_tc_lib()
+    lib = lib or _attention_tc_lib()
     with torch.cuda.device(out.device):
         rc = lib.t3d_softmax_attention_tc(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                           out.data_ptr(), (ctypes.c_longlong * 12)(*strides),
@@ -635,14 +643,43 @@ def softmax_attention_tc(q, k, v, out, scale, stream, what="softmax_attention_tc
 
 softmax_attention_tc.launches = 0
 
+# the byte stride the tensor-core K4-K6 kernel's tensor maps take for an axis
+# of size 1 (csrc/attention_tc.cu, kSizeOneStrideBytes: one bf16 row of 64)
+SIZE_ONE_STRIDE_BYTES = 128
+
+
+def tc_map_strides(strides, batch: int, heads: int, sq: int, sk: int):
+    """The byte strides of the tensor-core K4-K6 kernel's four tensor maps,
+    as csrc/attention_tc.cu's t3d_softmax_attention_tc_map_strides computes
+    them from the 12 element strides `softmax_attention_tc` passes ((batch,
+    head, row) of q, k, v, out): 2 bytes an element, and
+    SIZE_ONE_STRIDE_BYTES for an axis of size 1 (whose stride arrives as 0,
+    which a tensor map need not take; the kernel never steps along it)."""
+    out = []
+    for i, st in enumerate(strides):
+        rows = sk if i // 3 in (1, 2) else sq
+        extent = (batch, heads, rows)[i % 3]
+        out.append(SIZE_ONE_STRIDE_BYTES if extent == 1 else 2 * st)
+    return out
+
 
 def _attention_tc_lib() -> ctypes.CDLL:
-    lib = _build.library("attention_tc")
+    return bind_attention_tc_lib(_build.library("attention_tc"))
+
+
+def bind_attention_tc_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of an attention_tc library's entries (the
+    map-stride query where the build has it)."""
     fn = lib.t3d_softmax_attention_tc
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    if hasattr(lib, "t3d_softmax_attention_tc_map_strides"):
+        query = lib.t3d_softmax_attention_tc_map_strides
+        query.argtypes = [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 4 + \
+            [ctypes.POINTER(ctypes.c_longlong)]
+        query.restype = None
     return lib
 
 
