@@ -16,15 +16,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
      with Sq=196 against Sk=1024 and Sq=1024 against Sk=196, and K4 in bf16
      on a q whose size-1 axes have odd strides (the tensor-core kernel's
      map strides held against flash_attention.tc_map_strides in every
-     case); K2-K6 also in bf16 at head_dim 32,
+     case); K2-K6 also in bf16 and float32 at head_dim 32,
      both S, and K2/K3 at the shapes a tensor-parallel rank gives them in
      phase 10 (tp=2: 8 and 6 heads) and in the multi-device phase (tp=4: 4
      and 3 heads). Each K2-K6 case records the kernel
      that served it: bf16 with head_dim 64 the tensor-core kernel (its own
      count moves; K2/K3 with its schedule, one_pass/N at S=196 and key_tile
-     at S=1024, as the library chooses it), float32, and bf16 at head_dim
-     32, a CUDA-core kernel (K2/K3: one-shot at S=196, key-tile at S=1024). Then, on a host with two
-     cards or more, with cuda:0 current, K1-K6 (both kernel families) and
+     at S=1024, as the library chooses it), float32 with head_dim 64 the
+     3xTF32 kernel (its own count moves; bound at 495/3 TFLOP/s, the CUDA
+     cores' 67 beside it), head_dim 32 a CUDA-core kernel (K2/K3: one-shot
+     at S=196, key-tile at S=1024). Then, on a host with two
+     cards or more, with cuda:0 current, K1-K6 (all three kernel families) and
      one full-width InferenceEngine batch on the last card, each bit-equal
      to the same call on cuda:0 (multi_card_check); on one card a line says
      that this check did not run and why;
@@ -36,7 +38,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      K3 = 16·n, and the tensor-core kernel's own count K2 + K3; one more
      batch runs under torch.profiler for the device time by layer and the
      device's idle share; then a float32 engine is held against its plain
-     twin, with the tensor-core count 0 there;
+     twin, with the tensor-core count 0 there and the 3xTF32 count K2 + K3;
   5. drive the pseudo-GT path: a full-width, full-depth bf16
      MASt3R-512 PseudoGTGenerator (seeded random weights) turns batches of 4
      synthetic RGB pairs [4, 512, 512, 3] into the eight pseudo-GT arrays,
@@ -48,7 +50,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      with one step under torch.profiler,
      and 'pallas_grouped4' (K5) and 'pallas_multihead' (K6) at encoder and
      decoder depth 2 (10·n each), each against its plain twin, all on the
-     tensor-core K4-K6 kernel (its count equal to theirs);
+     tensor-core K4-K6 kernel (its count equal to theirs); then float32, the
+     default compute_dtype, at full width and depth on the same weights:
+     'auto' (the 3xTF32 K2/K3 count 72) and 'pallas' (the 3xTF32 K4-K6
+     count 72), each against the float32 plain twin, with run_pairs_async()
+     pairs/s;
   6. drive the file-driven entry points on a synthetic Freiburg tree written
      with the script's own PNG encoder (every row filter type): the port's
      decoder alone (frames/s on 1 and 8 threads); InferenceEngine.infer_paths
@@ -172,18 +178,21 @@ cuda:0, the multi-device phase's NCCL job; run_dist_job launches them).
 builds the kernels and runs phase 11 alone, and prints the export line.
 
     python3 chip_smoke.py --only-multi-card [PART ...]
+    python3 chip_smoke.py --only-multi-card check [PART ...]
     python3 chip_smoke.py --only-wrappers
 
 build the kernels and run phase 3's multi-card check and the
 multi-device phase alone (they need two cards to do more than say so; on
 four cards about 15 minutes), or, with PARTs (of MD_PARTS: engine,
-generator, tp_attention, clis, training), those parts of the phase alone;
+generator, tp_attention, clis, training), those parts of the phase alone,
+after the multi-card check where `check` is named too;
 or phase 12 alone on its own synthetic Freiburg tree; and print their
 lines.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -197,7 +206,9 @@ import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor core; f32 CUDA cores
+# dense peaks of one H100 SXM: bf16 tensor cores; float32 on CUDA cores; and
+# float32 as 3xTF32 on tensor cores (495 TFLOP/s TF32, three passes a product)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 N_BATCHES = 4
 BATCH = 32
 RAW_HW = (320, 416)
@@ -368,15 +379,45 @@ def tensor_core_schedule(torch, fa, batch: int, heads: int, seq: int) -> str:
     return f"{kind}/{parts}" if kind == fa.ONE_PASS else kind
 
 
+def expected_route(torch, fa, dt, d: int) -> str:
+    """The kernel family a K2-K6 call of dtype dt and head_dim d must take:
+    with d = 64 bf16 the tensor-core kernels, float32 the 3xTF32 ones; the
+    CUDA-core kernels otherwise."""
+    if d != 64:
+        return fa.CUDA_CORE
+    return fa.TENSOR_CORE if dt == torch.bfloat16 else fa.TF32X3
+
+
+def launched_families(fn, tc_counter, tf32_counter):
+    """Run fn(); return its result and how often it moved the tensor-core
+    counter and the 3xTF32 one."""
+    before = (tc_counter.launches, tf32_counter.launches)
+    out = fn()
+    return out, (tc_counter.launches - before[0], tf32_counter.launches - before[1])
+
+
+def route_bounds(nbytes: float, flops: float, dname: str, route: str, fa) -> dict:
+    """The bound of a case beside its route: the 3xTF32 rate for the 3xTF32
+    kernels (with the CUDA cores' float32 bound named beside it), the dtype's
+    own otherwise."""
+    bnd, by = bound_ms(nbytes, flops, "tf32x3" if route == fa.TF32X3 else dname)
+    extra = {}
+    if route == fa.TF32X3:
+        extra["bound_cuda_core_ms"] = bound_ms(nbytes, flops, "float32")[0]
+    return dict(bound_ms=bnd, bound_by=by, **extra)
+
+
 def attention_cases(torch, cross: bool, batch: int = BATCH, grid=(14, 14), widths=None,
                     reps: int = 20, dtypes=("bfloat16", "float32")):
     """K2 (K3 with cross=True) on a grid×grid patch grid: the serving
     shapes (S=196) by default, MASt3R-512's (S=1024) with grid (32, 32);
     `widths` are (C, heads), D=64 by default. bf16 with D=64 runs the
-    tensor-core kernel; float32 and other head dims the CUDA-core one-shot
-    kernel, or the key-tile kernel where K/V of a head do not fit in shared
-    memory. Each case records the kernel that served it (for the
-    tensor-core kernel, its schedule: one_pass/N or key_tile)."""
+    tensor-core kernel, float32 with D=64 the 3xTF32 one (a prologue and the
+    key-tile loop); other head dims the CUDA-core one-shot kernel, or the
+    key-tile kernel where K/V of a head do not fit in shared memory. Each
+    case records the kernel that served it (for the tensor-core kernel, its
+    schedule: one_pass/N or key_tile), and the bound at its route's peak
+    (3xTF32 at 495/3 TFLOP/s, with the CUDA cores' 67 beside it)."""
     import torch.nn.functional as F
 
     fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
@@ -421,16 +462,15 @@ def attention_cases(torch, cross: bool, batch: int = BATCH, grid=(14, 14), width
 
             qr, kr, vh = roped(q), roped(k), heads(v).contiguous()
             library = lambda: F.scaled_dot_product_attention(qr, kr, vh)  # noqa: E731
-            on_tc = dt == torch.bfloat16 and d == 64
             route = fa.attention_route(dt, d)
-            if (route == fa.TENSOR_CORE) != on_tc:
+            if route != expected_route(torch, fa, dt, d):
                 raise AssertionError(f"K2/K3 {dname} D={d}: routed to {route}")
-            tc_before = fa.rope_attention_tc.launches
-            out = kern()
-            if (fa.rope_attention_tc.launches > tc_before) != on_tc:
-                raise AssertionError(f"K2/K3 {dname} S={s} D={d}: tensor-core kernel "
-                                     f"{'not ' if on_tc else ''}launched")
-            served = (tensor_core_schedule(torch, fa, batch, nh, s) if on_tc else "one_shot"
+            out, moved = launched_families(kern, fa.rope_attention_tc, fa.rope_attention_3xtf32)
+            if moved != (int(route == fa.TENSOR_CORE), int(route == fa.TF32X3)):
+                raise AssertionError(f"K2/K3 {dname} S={s} D={d} ({route}): tensor-core and "
+                                     f"3xTF32 launches {moved}")
+            served = (tensor_core_schedule(torch, fa, batch, nh, s) if route == fa.TENSOR_CORE
+                      else "3xtf32/key_tile" if route == fa.TF32X3 else "one_shot"
                       if fa.smem_bytes(s, d, dt) <= fa.SMEM_LIMIT else "key_tile")
             ref = plain()
             torch.cuda.synchronize()
@@ -447,14 +487,15 @@ def attention_cases(torch, cross: bool, batch: int = BATCH, grid=(14, 14), width
             plain_ms = cuda_ms(plain, reps=reps)
             library_ms = cuda_ms(library, reps=reps)
             flops = 4 * batch * nh * s * s * d
-            bnd, by = bound_ms(nbytes, flops, dname)
+            bounds = route_bounds(nbytes, flops, dname, route, fa)
+            bnd = bounds["bound_ms"]
             tflops = flops / ms / 1e9
             log(f"    {served}: ms {ms:.4f} plain {plain_ms:.4f} library(sdpa) "
-                f"{library_ms:.4f} bound {bnd:.4f} ({by}); {tflops:.1f} TFLOP/s, "
-                f"{ms / bnd:.2f}x bound, {ms / library_ms:.2f}x sdpa")
+                f"{library_ms:.4f} bound {bnd:.4f} ({bounds['bound_by']}); {tflops:.1f} TFLOP/s, "
+                f"{ms / bnd:.2f}x bound, {ms / library_ms:.2f}x sdpa, {ms / plain_ms:.2f}x plain")
             cases.append(dict(shape=[batch, s, c], heads=nh, head_dim=d, dtype=dname,
                               kernel=served, max_abs_err=err, limit=limit, ms=ms,
-                              plain_ms=plain_ms, library_ms=library_ms, bound_ms=bnd, bound_by=by,
+                              plain_ms=plain_ms, library_ms=library_ms, **bounds,
                               tflops=tflops, ms_over_bound=ms / bnd,
                               ms_over_library=ms / library_ms))
             del qr, kr, vh, q, k, v
@@ -469,7 +510,7 @@ def attention_cases(torch, cross: bool, batch: int = BATCH, grid=(14, 14), width
 PLAIN_ATTENTION_SHAPES = ((8, 16, 1024, 1024, 64), (4, 12, 1024, 1024, 64),
                           (BATCH, 16, 196, 196, 64), (BATCH, 12, 196, 196, 64),
                           (4, 12, 196, 1024, 64), (4, 12, 1024, 196, 64))
-# bf16 at head_dim 32 (no configured model): the CUDA-core kernel in bf16
+# head_dim 32 (no configured model): the CUDA-core kernel, bf16 and float32
 PLAIN_ATTENTION_D32 = ((BATCH, 16, 196, 196, 32), (PAIR_BATCH, 16, 1024, 1024, 32))
 
 
@@ -491,8 +532,9 @@ def tensor_core_map_strides(fa, q, k, v, out) -> list:
 
 def hold_attention_case(torch, fa, name: str, q, k, v, reps: int) -> dict:
     """One K4/K5/K6 case (`name` the entry) on [B,H,S,D] operands: the
-    kernel that serves it (bf16 with D=64 the tensor-core one, its count
-    moving once, the rest the CUDA-core one), the output against the plain
+    kernel that serves it (with D=64 bf16 the tensor-core one and float32
+    the 3xTF32 one, its count moving once; the rest the CUDA-core one), the
+    output against the plain
     version (2e-5 float32, 2^-6 bf16), the tensor-core kernel's map strides
     against tc_map_strides, and the times of kernel, plain version and SDPA
     beside the bound."""
@@ -507,14 +549,14 @@ def hold_attention_case(torch, fa, name: str, q, k, v, reps: int) -> dict:
     plain = lambda: fa.attention_plain(q, k, v, scale)  # noqa: E731
     library = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)  # noqa: E731
     served = fa.attention_route(dt, d)
-    if (served == fa.TENSOR_CORE) != (dt == torch.bfloat16 and d == 64):
+    if served != expected_route(torch, fa, dt, d):
         raise AssertionError(f"{name} {dname} D={d}: routed to {served}")
-    tc_before, fn_before = fa.softmax_attention_tc.launches, kern_fn.launches
-    out = kern()
+    fn_before = kern_fn.launches
+    out, moved = launched_families(kern, fa.softmax_attention_tc, fa.softmax_attention_3xtf32)
     if kern_fn.launches != fn_before + 1 or \
-            fa.softmax_attention_tc.launches - tc_before != (served == fa.TENSOR_CORE):
+            moved != (int(served == fa.TENSOR_CORE), int(served == fa.TF32X3)):
         raise AssertionError(f"{name} {dname} D={d}: launches {kern_fn.launches - fn_before}"
-                             f", tensor-core {fa.softmax_attention_tc.launches - tc_before}")
+                             f", tensor-core and 3xTF32 {moved}")
     map_strides = (tensor_core_map_strides(fa, q, k, v, out) if served == fa.TENSOR_CORE
                    else None)
     ref = plain()
@@ -528,14 +570,15 @@ def hold_attention_case(torch, fa, name: str, q, k, v, reps: int) -> dict:
     library_ms = cuda_ms(library, reps=reps)
     nbytes = 2 * b * h * (sq + sk) * d * q.element_size()
     flops = 4 * b * h * sq * sk * d
-    bnd, by = bound_ms(nbytes, flops, dname)
+    bounds = route_bounds(nbytes, flops, dname, served, fa)
+    bnd = bounds["bound_ms"]
     tflops = flops / ms / 1e9
     log(f"    {served}: ms {ms:.4f} plain {plain_ms:.4f} library(sdpa) "
-        f"{library_ms:.4f} bound {bnd:.4f} ({by}); {tflops:.1f} TFLOP/s, "
-        f"{ms / bnd:.2f}x bound, {ms / library_ms:.2f}x sdpa")
+        f"{library_ms:.4f} bound {bnd:.4f} ({bounds['bound_by']}); {tflops:.1f} TFLOP/s, "
+        f"{ms / bnd:.2f}x bound, {ms / library_ms:.2f}x sdpa, {ms / plain_ms:.2f}x plain")
     return dict(shape=[b, h, sq, d], sk=sk, dtype=dname, kernel=served, map_strides=map_strides,
                 max_abs_err=err, limit=limit, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bnd, bound_by=by, tflops=tflops, ms_over_bound=ms / bnd,
+                **bounds, tflops=tflops, ms_over_bound=ms / bnd,
                 ms_over_library=ms / library_ms)
 
 
@@ -601,7 +644,7 @@ MULTI_CARD_SEED = 3
 
 def multi_card_check(torch, np):
     """Each kernel launches on its tensors' card: with cuda:0 current, K1-K6
-    (tensor-core and CUDA-core kernels) on the last card and one
+    (tensor-core, 3xTF32 and CUDA-core kernels) on the last card and one
     InferenceEngine(device='cuda:<last>') batch of BATCH frames at full
     width, each bit-equal to the same call on cuda:0, and cuda:0 still
     current after them. On a host with one card it does not run, and says
@@ -634,21 +677,25 @@ def multi_card_check(torch, np):
                                                  2.0, 98.0)),
         ("K2 bf16 [32,196,3072] (tensor cores)", fa.fused_rope_attention,
          (rand(BATCH, 196, 3072, dtype=bf16), *tables(14), 16, 0.125)),
-        ("K2 f32 [8,196,3072] (one-shot)", fa.fused_rope_attention,
+        ("K2 f32 [8,196,3072] (3xTF32)", fa.fused_rope_attention,
          (rand(8, 196, 3072), *tables(14), 16, 0.125)),
-        ("K2 f32 [2,1024,2304] (key tile)", fa.fused_rope_attention,
+        ("K2 f32 [2,1024,2304] (3xTF32)", fa.fused_rope_attention,
          (rand(2, 1024, 2304), *tables(32), 12, 0.125)),
+        ("K2 f32 D=32 [8,196,1536] (CUDA cores, one-shot)", fa.fused_rope_attention,
+         (rand(8, 196, 1536), *rope_tables(make_grid_positions(14, 14), 32), 16, 0.125)),
         ("K3 bf16 [32,196,768] (tensor cores)", fa.fused_rope_cross_attention,
          (*(rand(BATCH, 196, 768, dtype=bf16) for _ in range(3)), *tables(14), 12, 0.125)),
-        ("K3 f32 [8,196,768] (one-shot)", fa.fused_rope_cross_attention,
+        ("K3 f32 [8,196,768] (3xTF32)", fa.fused_rope_cross_attention,
          (*(rand(8, 196, 768) for _ in range(3)), *tables(14), 12, 0.125)),
     ]
     for name, fn in (("K4", fa.flash_attention_pallas), ("K5", fa.flash_attention_grouped),
                      ("K6", fa.flash_attention_multihead)):
         cases.append((f"{name} bf16 [8,16,1024,64] (tensor cores)", fn,
                       (*(rand(8, 16, 1024, 64, dtype=bf16) for _ in range(3)), 0.125)))
-        cases.append((f"{name} f32 [2,16,196,64] (CUDA cores)", fn,
+        cases.append((f"{name} f32 [2,16,196,64] (3xTF32)", fn,
                       (*(rand(2, 16, 196, 64) for _ in range(3)), 0.125)))
+        cases.append((f"{name} f32 [2,16,196,32] (CUDA cores)", fn,
+                      (*(rand(2, 16, 196, 32) for _ in range(3)), 0.125)))
     results = []
     for what, fn, args in cases:
         outs = []
@@ -716,7 +763,8 @@ def check_outputs(out, np):
 
 # device work by layer, matched on lower-cased kernel names (first match wins;
 # cuDNN's conv kernels carry "fprop"/"dgrad" and are matched before the GEMMs)
-LAYERS = (("K2/K3 rope_attention", ("rope_attention",)),
+LAYERS = (("K2-K6 3xTF32 prologue", ("attention_3xtf32_split",)),
+          ("K2/K3 rope_attention", ("rope_attention",)),
           ("K4-K6 softmax_attention", ("softmax_attention",)),
           ("K1 percentile_enhance", ("percentile_enhance",)),
           ("optimizer (foreach)", ("multi_tensor_apply",)),
@@ -777,7 +825,8 @@ def profile_batch(torch, fn, what: str = f"one infer() of {BATCH} frames", layer
 def kernel_counters():
     """The launch counters of K1-K6, in order, then the tensor-core K2/K3
     kernel's own and the tensor-core K4-K6 kernel's own (every bf16 launch
-    with head_dim 64 goes through them), then the int8 product's
+    with head_dim 64 goes through them), the 3xTF32 K2/K3 and K4-K6 kernels'
+    own (every float32 launch with head_dim 64), then the int8 product's
     (torch._int_mm: 0 on every path that does not quantize)."""
     fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
     from thermal3d_torch.kernels.image_ops import percentile_enhance
@@ -786,7 +835,7 @@ def kernel_counters():
     return (percentile_enhance, fa.fused_rope_attention, fa.fused_rope_cross_attention,
             fa.flash_attention_pallas, fa.flash_attention_grouped,
             fa.flash_attention_multihead, fa.rope_attention_tc, fa.softmax_attention_tc,
-            int_mm)
+            fa.rope_attention_3xtf32, fa.softmax_attention_3xtf32, int_mm)
 
 
 def run_counted(fn, want_by_name):
@@ -867,9 +916,10 @@ def phase_engine(torch, np):
     f32_ref = InferenceEngine(dataclasses.replace(DUSTR_224_LINEAR, attention_impl="torch"),
                               state_dict=f32.model.state_dict(), enhance_impl="plain")
     small = frames[1][:4]
-    # the float32 engine runs the CUDA-core K2/K3 kernels, none on tensor cores
+    # the float32 engine runs the 3xTF32 K2/K3 kernel, none on the bf16 one
     a, f32_launches = run_counted(lambda: f32.infer(small), {
-        "percentile_enhance": 1, "fused_rope_attention": 40, "fused_rope_cross_attention": 16})
+        "percentile_enhance": 1, "fused_rope_attention": 40, "fused_rope_cross_attention": 16,
+        "rope_attention_3xtf32": 56})
     log(f"engine f32: launches {f32_launches}")
     b = f32_ref.infer(small)
     errs32 = {k: rel_err(a[k], b[k], np) for k in b}
@@ -1063,6 +1113,38 @@ def phase_pseudo_gt(torch, np):
     del gen_p, outs_p
     torch.cuda.empty_cache()
 
+    # float32, the default compute_dtype, at full width and depth through the
+    # 3xTF32 kernels: 'auto' (K2/K3) and 'pallas' (K4), each on the bf16
+    # generator's weights against the float32 plain twin on pairs[0]
+    f32 = {}
+    for impl, want in (("auto", {"fused_rope_attention": 48, "fused_rope_cross_attention": 24,
+                                 "rope_attention_3xtf32": 72}),
+                       ("pallas", {"flash_attention_pallas": 72,
+                                   "softmax_attention_3xtf32": 72})):
+        g = PseudoGTGenerator(dataclasses.replace(cfg, compute_dtype="float32",
+                                                  attention_impl=impl), state_dict=weights)
+        g.run_pairs(*pairs[0])  # warm-up
+        torch.cuda.synchronize()
+        out32, launches32 = run_counted(lambda: g.run_pairs(*pairs[0]), want)
+        check_pgt_outputs(out32, np)
+        errs32 = rel(out32, gold)
+        t0 = time.perf_counter()
+        for p in pairs:
+            dev_out = g.run_pairs_async(*p)
+        torch.cuda.synchronize()
+        pps32 = PAIR_BATCH * n / (time.perf_counter() - t0)
+        del dev_out
+        log(f"pseudo-GT float32 {impl!r} (3xTF32): launches {launches32}; run_pairs_async "
+            f"{pps32:.3f} pairs/s; vs the float32 plain twin, max|Δ|/max|ref| "
+            f"{json.dumps(errs32)} (limit {F32_ENGINE_REL_LIMIT} on {', '.join(PGT_KEYS)})")
+        if max(errs32[k] for k in PGT_KEYS) > F32_ENGINE_REL_LIMIT:
+            raise AssertionError(f"pseudo-GT float32 {impl!r} disagrees with its plain twin: "
+                                 f"{errs32}")
+        f32[impl] = dict(launches=launches32, rel_err=errs32, limit=F32_ENGINE_REL_LIMIT,
+                         pairs_per_s_device=pps32)
+        del g, out32
+        torch.cuda.empty_cache()
+
     # K5 and K6 at encoder and decoder depth 2: 2 + 4·2 launches a step
     small = dataclasses.replace(cfg, enc_depth=2, dec_depth=2)
     small_weights = PseudoGTGenerator(small, params_dtype="bfloat16",
@@ -1084,7 +1166,7 @@ def phase_pseudo_gt(torch, np):
                 n_steps=n, launches=launches, breakdown=breakdown, geometry=geometry,
                 rel_err=held, pallas=dict(pairs_per_s=pps_pallas, launches=launches_p,
                                           breakdown=breakdown_p, rel_err=held_p),
-                reduced_depth=reduced)
+                float32=f32, reduced_depth=reduced)
 
 
 # the file-driven phase: N_FRAMES decodable Freiburg-size thermal frames (3
@@ -2588,6 +2670,13 @@ def phase_int8(torch, np, root: str):
 COMPARE_CASES = (("K2", BATCH, 14, 1024, 16), ("K2", BATCH, 14, 768, 12),
                  ("K3", BATCH, 14, 768, 12), ("K2", 2 * PAIR_BATCH, 32, 1024, 16),
                  ("K2", PAIR_BATCH, 32, 768, 12), ("K3", PAIR_BATCH, 32, 768, 12))
+# the float32 cases of --compare-k2k3 (this checkout's route against the other
+# checkout's CUDA-core kernels, the parent's float32 route): COMPARE_CASES'
+# serving and pseudo-GT shapes, and a tensor-parallel rank's (tp=2)
+COMPARE_F32_K2K3 = COMPARE_CASES + (("K2", 2 * TRAIN_BATCH, 14, 512, 8),
+                                    ("K2", TRAIN_BATCH, 14, 384, 6), ("K3", TRAIN_BATCH, 14, 384, 6))
+# ... and of --compare-k4k6: every K4 shape of PLAIN_ATTENTION_SHAPES
+F32_LIMIT = 2e-5  # float32 kernels against each other or the plain version
 
 
 # phase 10: multi-GPU on one card. The card's machine has one H100, so every
@@ -3001,7 +3090,8 @@ def dist_errors(ranks: dict, cases) -> dict:
 
 def hold_dist_errors(errs: dict, cases, depth: dict, world: int, what: str) -> None:
     """The gates of a job's float32 and bf16 steps: ranks agree, launches a
-    rank are one forward's K1-K3 (and the tensor-core count in bf16), heads
+    rank are one forward's K1-K3 (and the tensor-core count in bf16, the
+    3xTF32 one in float32), heads
     a rank are the mesh's share, the float32 loss and gradients within
     DIST_F32_LOSS_REL / DIST_F32_GRAD_REL of the single-process step, and
     everything finite."""
@@ -3018,9 +3108,8 @@ def hold_dist_errors(errs: dict, cases, depth: dict, world: int, what: str) -> N
             f"{e['peak_bytes_single']}); launches {e['launches'][0]}; host-staged "
             f"{e['staged'][0]}")
         want = dict(fwd)
-        if dtype == "bfloat16":
-            want["rope_attention_tc"] = fwd["fused_rope_attention"] + \
-                fwd["fused_rope_cross_attention"]
+        want["rope_attention_tc" if dtype == "bfloat16" else "rope_attention_3xtf32"] = \
+            fwd["fused_rope_attention"] + fwd["fused_rope_cross_attention"]
         if not e["ranks_agree"] or e["launches"] != [want] * world:
             raise AssertionError(f"{what} {name}: ranks disagree or launches {e['launches']} "
                                  f"(want {want} on each rank)")
@@ -3102,7 +3191,7 @@ def mesh_engine_check(torch, np):
     gold = InferenceEngine(DUSTR_224_LINEAR, state_dict=weights)  # float32, the same weights
     gold_mesh = InferenceEngine(DUSTR_224_LINEAR, state_dict=weights, mesh=mesh)
     want32 = {"percentile_enhance": MESH2, "fused_rope_attention": 40 * MESH2,
-              "fused_rope_cross_attention": 16 * MESH2}
+              "fused_rope_cross_attention": 16 * MESH2, "rope_attention_3xtf32": 56 * MESH2}
     f32_mesh, f32_launches = run_counted(lambda: gold_mesh.infer(frames[0]), want32)
     f32 = gold.infer(frames[0])
     f32_err = {k: rel_err(f32_mesh[k], f32[k], np) for k in f32}
@@ -3391,14 +3480,90 @@ def compare_in_turns(torch, run, outs: dict, reps: int = 20) -> dict:
                 other_ms=ms["other"])
 
 
+@contextlib.contextmanager
+def float32_on_cuda_cores(fa, libs: dict):
+    """float32 attention as a checkout before the 3xTF32 kernels ran it:
+    attention_route sends float32 calls to the CUDA-core kernels, and those
+    are the builds in `libs` (rope_attention, attention: the other
+    checkout's, by build_other)."""
+    from thermal3d_torch.kernels import _build
+
+    route, saved = fa.attention_route, {n: _build._libs.get(n) for n in libs}
+
+    def parent_route(dtype, head_dim):
+        got = route(dtype, head_dim)
+        return fa.CUDA_CORE if got == fa.TF32X3 else got
+
+    fa.attention_route = parent_route
+    _build._libs.update(libs)
+    try:
+        yield
+    finally:
+        fa.attention_route = route
+        for n, lib in saved.items():
+            if lib is None:
+                _build._libs.pop(n, None)
+            else:
+                _build._libs[n] = lib
+
+
+def compare_float32(torch, fa, libs: dict, cases, path_runs) -> dict:
+    """The float32 half of --compare-k2k3 / --compare-k4k6: each case (label,
+    run) writes its output with this checkout's route ("this": the 3xTF32
+    kernels) and with the other's (float32_on_cuda_cores), max|diff| within
+    F32_LIMIT and both timed in turns (compare_in_turns); then each path
+    (label, fn, items, unit) timed the same way end to end: fn() on the card
+    to the last kernel, items per second, in turns other, this, this, other."""
+    results = []
+    for label, run_case in cases:
+        outs = {}
+
+        def run(which):
+            if which == "this":
+                outs[which] = run_case()
+            else:
+                with float32_on_cuda_cores(fa, libs):
+                    outs[which] = run_case()
+
+        r = compare_in_turns(torch, run, outs, reps=10)
+        r["within_limit"] = r["max_abs_diff"] <= F32_LIMIT
+        results.append(dict(case=label, dtype="float32", **r))
+        log(f"float32 {label}: max|diff| against the CUDA-core kernels {r['max_abs_diff']:.3e} "
+            f"(limit {F32_LIMIT:.0e}); ms this {r['this_ms']} other {r['other_ms']}")
+        del outs
+    paths = []
+    for label, fn, items, unit in path_runs:
+        rates = {"this": [], "other": []}
+        fn()  # warm-up, both routes
+        with float32_on_cuda_cores(fa, libs):
+            fn()
+        for which in ("other", "this", "this", "other"):
+            ctx = float32_on_cuda_cores(fa, libs) if which == "other" else contextlib.nullcontext()
+            with ctx:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                rates[which].append(items / (time.perf_counter() - t0))
+        paths.append(dict(path=label, unit=unit, this=rates["this"], other=rates["other"]))
+        log(f"float32 {label}: {unit} this {rates['this']} other (CUDA cores) {rates['other']}")
+    return dict(cases=results, paths=paths,
+                all_within_limit=all(r["within_limit"] for r in results))
+
+
 def compare_k2k3(torch, other_csrc: str) -> bool:
     """Build OTHER_CSRC/rope_attention_tc.cu with this checkout's nvcc flags
     and launch it and this checkout's build through the same wrapper on the
     same seeded inputs (a build without the scratch query gets its roped-K
     scratch on every call, as it was written for): torch.equal and the
     largest difference on each of COMPARE_CASES, this build's schedule, and
-    both timed as in phase 3, in turns (compare_in_turns). Prints one JSON
-    line; returns whether every output was equal."""
+    both timed as in phase 3, in turns (compare_in_turns). Then float32
+    (compare_float32): this checkout's 3xTF32 K2/K3 against the other
+    checkout's CUDA-core rope_attention.cu (its float32 route before the
+    3xTF32 kernels) on COMPARE_F32_K2K3, and the float32 engine's
+    infer_async() frames/s and the float32 generator's run_pairs_async()
+    pairs/s with each. Prints one JSON line; returns whether every bf16
+    output was equal and every float32 one within F32_LIMIT."""
     fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
     from thermal3d_torch.models.rope import make_grid_positions, rope_tables
 
@@ -3431,8 +3596,52 @@ def compare_k2k3(torch, other_csrc: str) -> bool:
             f"{r['max_abs_diff']:.3e}); ms this {r['this_ms']} other {r['other_ms']}")
         del qkv, outs
     all_equal = all(r["equal"] for r in results)
-    print(json.dumps({"compare_k2k3": results, "all_equal": all_equal}), flush=True)
-    return all_equal
+    f32 = compare_float32(torch, fa, {n: build_other(other_csrc, n) for n in ("rope_attention",)},
+                          f32_k2k3_cases(torch, fa), f32_k2k3_paths(torch))
+    print(json.dumps({"compare_k2k3": results, "all_equal": all_equal, "float32": f32}),
+          flush=True)
+    return all_equal and f32["all_within_limit"]
+
+
+def f32_k2k3_cases(torch, fa):
+    """(label, run) of COMPARE_F32_K2K3 on seeded float32 inputs."""
+    from thermal3d_torch.models.rope import make_grid_positions, rope_tables
+
+    cases = []
+    for kind, batch, side, c, heads in COMPARE_F32_K2K3:
+        s = side * side
+        cos, sin = rope_tables(make_grid_positions(side, side, device="cuda"), c // heads)
+        gen = torch.Generator(device="cuda").manual_seed(c + s)
+        scale = 1.0 / math.sqrt(c // heads)
+        if kind == "K2":
+            qkv = torch.randn((batch, s, 3 * c), generator=gen, device="cuda")
+            run = functools.partial(fa.fused_rope_attention, qkv, cos, sin, heads, scale)
+        else:
+            q, k, v = (torch.randn((batch, s, c), generator=gen, device="cuda") for _ in range(3))
+            run = functools.partial(fa.fused_rope_cross_attention, q, k, v, cos, sin, heads, scale)
+        cases.append((f"{kind} [{batch},{s},{c}] H={heads}", run))
+    return cases
+
+
+def f32_k2k3_paths(torch):
+    """The float32 paths of --compare-k2k3: the engine's infer_async() on
+    N_BATCHES batches of BATCH frames, the MASt3R-512 generator's
+    run_pairs_async() on N_PAIR_BATCHES steps of PAIR_BATCH pairs, both at
+    their default float32 config, full width and depth."""
+    import numpy as np
+
+    from thermal3d_torch.core.config import DUSTR_224_LINEAR, MASTR_512_CATMLPDPT
+    from thermal3d_torch.infer.engine import InferenceEngine
+    from thermal3d_torch.pseudo_gt.generator import PseudoGTGenerator
+
+    eng = InferenceEngine(DUSTR_224_LINEAR, seed=0)
+    frames = [raw_frames(np, seed) for seed in range(N_BATCHES)]
+    gen = PseudoGTGenerator(MASTR_512_CATMLPDPT, seed=0)
+    pairs = [rgb_pairs(np, seed) for seed in range(N_PAIR_BATCHES)]
+    return [("infer_async", lambda: [eng.infer_async(f) for f in frames], BATCH * N_BATCHES,
+             "frames/s"),
+            ("run_pairs_async", lambda: [gen.run_pairs_async(*p) for p in pairs],
+             PAIR_BATCH * N_PAIR_BATCHES, "pairs/s")]
 
 
 def compare_k4k6(torch, other_csrc: str) -> bool:
@@ -3443,7 +3652,11 @@ def compare_k4k6(torch, other_csrc: str) -> bool:
     and the size-1-axes case (size_one_operands). torch.equal and the
     largest difference on each, and both timed as in phase 3, in turns
     (compare_in_turns). Prints one JSON line; returns whether every output
-    was equal."""
+    was equal. Then float32 (compare_float32): this checkout's 3xTF32 K4
+    against the other checkout's CUDA-core attention.cu on every K4 shape of
+    PLAIN_ATTENTION_SHAPES, and the float32 'pallas' generator's
+    run_pairs_async() pairs/s with each; it returns False also where a
+    float32 output differs by more than F32_LIMIT."""
     fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
 
     libs = {"this": None,
@@ -3471,8 +3684,33 @@ def compare_k4k6(torch, other_csrc: str) -> bool:
             f"ms this {r['this_ms']} other {r['other_ms']}")
         del q, k, v, outs
     all_equal = all(r["equal"] for r in results)
-    print(json.dumps({"compare_k4k6": results, "all_equal": all_equal}), flush=True)
-    return all_equal
+    f32_cases = []
+    for b, h, sq, sk, d in PLAIN_ATTENTION_SHAPES:
+        q, k, v = bshd_operands(torch, b, h, sq, sk, d, torch.float32)
+        f32_cases.append((f"K4 [{b},{h},{sq},{d}] Sk={sk}",
+                          functools.partial(fa.flash_attention_pallas, q, k, v,
+                                            1.0 / math.sqrt(d))))
+    f32 = compare_float32(torch, fa, {n: build_other(other_csrc, n) for n in ("attention",)},
+                          f32_cases, f32_k4k6_paths(torch))
+    print(json.dumps({"compare_k4k6": results, "all_equal": all_equal, "float32": f32}),
+          flush=True)
+    return all_equal and f32["all_within_limit"]
+
+
+def f32_k4k6_paths(torch):
+    """The float32 path of --compare-k4k6: the MASt3R-512 generator with
+    attention_impl='pallas' (RoPE on the heads, then K4), float32, full
+    width and depth, run_pairs_async() on N_PAIR_BATCHES steps."""
+    import numpy as np
+
+    from thermal3d_torch.core.config import MASTR_512_CATMLPDPT
+    from thermal3d_torch.pseudo_gt.generator import PseudoGTGenerator
+
+    gen = PseudoGTGenerator(dataclasses.replace(MASTR_512_CATMLPDPT, attention_impl="pallas"),
+                            seed=0)
+    pairs = [rgb_pairs(np, seed) for seed in range(N_PAIR_BATCHES)]
+    return [("run_pairs_async 'pallas'", lambda: [gen.run_pairs_async(*p) for p in pairs],
+             PAIR_BATCH * N_PAIR_BATCHES, "pairs/s")]
 
 
 # the multi-device phase: the port's multi-device paths on distinct cards
@@ -4330,7 +4568,7 @@ import atexit, json, os, runpy, sys
 ARGS = sys.argv[1:]
 COUNTED = ("fused_rope_attention", "fused_rope_cross_attention", "flash_attention_pallas",
            "flash_attention_grouped", "flash_attention_multihead", "rope_attention_tc",
-           "softmax_attention_tc")
+           "softmax_attention_tc", "rope_attention_3xtf32", "softmax_attention_3xtf32")
 
 
 def record():
@@ -4555,7 +4793,8 @@ def main(argv) -> int:
         return dist_worker_main(argv[1:])
     if argv and not ((len(argv) == 2 and argv[0] in ("--compare-k2k3", "--compare-k4k6"))
                      or argv in (["--only-multi-gpu"], ["--only-export"], ["--only-wrappers"])
-                     or (argv[0] == "--only-multi-card" and set(argv[1:]) <= set(MD_PARTS))):
+                     or (argv[0] == "--only-multi-card"
+                         and set(argv[1:]) <= set(MD_PARTS) | {"check"})):
         print(__doc__, file=sys.stderr)
         return 2
     import numpy as np
@@ -4575,10 +4814,14 @@ def main(argv) -> int:
         print(card, flush=True)
         print(json.dumps({"export": export}, default=float), flush=True)
         return 0
-    if argv[:1] == ["--only-multi-card"]:  # [PART ...]: those parts of the phase alone
-        multi_card = multi_card_check(torch, np) if len(argv) == 1 else None
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_md_") as root:
-            multi_device = phase_multi_device(torch, np, root, argv[1:] or MD_PARTS)
+    if argv[:1] == ["--only-multi-card"]:  # [PART ...]: those parts alone ('check': the check)
+        parts = argv[1:]
+        multi_card = multi_card_check(torch, np) if not parts or "check" in parts else None
+        md_parts = [p for p in parts if p != "check"] if parts else list(MD_PARTS)
+        multi_device = None
+        if md_parts:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_md_") as root:
+                multi_device = phase_multi_device(torch, np, root, md_parts)
         print(card, flush=True)
         print(json.dumps({"multi_card": multi_card}), flush=True)
         print(json.dumps({"multi_device": multi_device}, default=float), flush=True)
@@ -4613,14 +4856,15 @@ def main(argv) -> int:
         "multi-device phase (tp=4: 4 and 3 heads):")
     k2_tp, k3_tp = tp_attention_cases(torch)
     k2_tp4, k3_tp4 = tp_attention_cases(torch, 4)
-    log("K2/K3 bf16 at head_dim 32 (the CUDA-core one-shot and key-tile kernels):")
-    d32 = dict(widths=[(512, 16)], dtypes=("bfloat16",))
+    log("K2/K3 bf16 and float32 at head_dim 32 (the CUDA-core one-shot and key-tile "
+        "kernels):")
+    d32 = dict(widths=[(512, 16)], dtypes=("bfloat16", "float32"))
     for kw in (dict(), dict(batch=PAIR_BATCH, **mastr)):
         k2 += attention_cases(torch, cross=False, **d32, **kw)
         k3 += attention_cases(torch, cross=True, **d32, **kw)
-    log("K4-K6 (bf16 also at head_dim 32, on the CUDA-core kernel):")
+    log("K4-K6 (bf16 and float32 also at head_dim 32, on the CUDA-core kernel):")
     k456 = {name: plain_attention_cases(torch, name)
-            + plain_attention_cases(torch, name, PLAIN_ATTENTION_D32, ("bfloat16",))
+            + plain_attention_cases(torch, name, PLAIN_ATTENTION_D32)
             for name in ("flash_attention_pallas", "flash_attention_grouped",
                          "flash_attention_multihead")}
     k456["flash_attention_pallas"].append(size_one_axes_case(torch))
@@ -4647,6 +4891,8 @@ def main(argv) -> int:
     for path, counts in (("serving", engine["launches"]), ("serving_f32", engine["f32_launches"]),
                          ("pseudo_gt_auto", pseudo_gt["launches"]),
                          ("pseudo_gt_pallas", pseudo_gt["pallas"]["launches"]),
+                         *((f"pseudo_gt_f32_{impl}", r["launches"])
+                           for impl, r in pseudo_gt["float32"].items()),
                          *((f"pseudo_gt_{impl}_depth2", r["launches"])
                            for impl, r in pseudo_gt["reduced_depth"].items()),
                          ("files_infer_paths", files["infer_paths"]["launches"]),
@@ -4695,14 +4941,19 @@ def main(argv) -> int:
         # the headers a tensor-core source includes (the key-tile loop K2-K6 share)
         tc_headers = [f"thermal3d_torch/kernels/csrc/{h}" for h in
                       ("key_tile_attention.cuh", "attention_tc.cuh", "hopper_tma.cuh")]
-        if name.startswith("fused_rope"):  # K2/K3: bf16 on tensor cores, f32 on CUDA cores
-            extra = dict(headers=tc_headers,
+        tf32_src = "thermal3d_torch/kernels/csrc/attention_3xtf32.cu"
+        if name.startswith("fused_rope"):  # K2/K3: bf16 and f32 on tensor cores, D!=64 not
+            extra = dict(headers=tc_headers, source_3xtf32=tf32_src,
                          source_cuda_core="thermal3d_torch/kernels/csrc/rope_attention.cu",
-                         tensor_core_launches_by_path=by_path["rope_attention_tc"])
+                         tensor_core_launches_by_path=by_path["rope_attention_tc"],
+                         tf32x3_launches_by_path=by_path["rope_attention_3xtf32"])
         elif name.startswith("flash_attention"):  # K4-K6: the same split
-            extra = dict(headers=tc_headers,
+            extra = dict(headers=tc_headers, source_3xtf32=tf32_src,
                          source_cuda_core="thermal3d_torch/kernels/csrc/attention.cu",
-                         tensor_core_launches_by_path=by_path["softmax_attention_tc"])
+                         tensor_core_launches_by_path=by_path["softmax_attention_tc"],
+                         tf32x3_launches_by_path=by_path["softmax_attention_3xtf32"])
+        elif name.endswith("3xtf32"):  # the float32 family: its own counts
+            extra = dict(headers=tc_headers)
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     **extra, launches=by_path[name][main_path], launches_by_path=by_path[name],
                     max_abs_err=max(c["max_abs_err"] for c in cases), ms=m["ms"],
@@ -4711,6 +4962,12 @@ def main(argv) -> int:
 
     k2 += k2_tp + k2_tp4  # after the cases the entries' main_case indices name
     k3 += k3_tp + k3_tp4
+    fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
+    f32_k2k3 = [c for c in k2 + k3 if c["kernel"].startswith("3xtf32")]
+    f32_k4k6 = [c for name in k456 for c in k456[name] if c["kernel"] == fa.TF32X3]
+
+    def main_index(cases, shape):
+        return next(i for i, c in enumerate(cases) if c["shape"] == shape)
     fa_src = "thermal3d/kernels/flash_attention.py"
     attn_src = "thermal3d_torch/kernels/csrc/attention_tc.cu"
     kernels = [
@@ -4728,7 +4985,17 @@ def main(argv) -> int:
               k456["flash_attention_grouped"], 0, "pseudo_gt_pallas_grouped4_depth2"),
         entry("flash_attention_multihead", attn_src, f"{fa_src}:164",
               k456["flash_attention_multihead"], 0, "pseudo_gt_pallas_multihead_depth2"),
+        # the float32 family (3xTF32) of K2/K3 and of K4-K6, on their own
+        # counts: main cases the S=1024 encoder call of K2 and K4
+        entry("rope_attention_3xtf32", "thermal3d_torch/kernels/csrc/attention_3xtf32.cu",
+              f"{fa_src}:310", f32_k2k3, main_index(f32_k2k3, [8, 1024, 1024]),
+              "pseudo_gt_f32_auto"),
+        entry("softmax_attention_3xtf32", "thermal3d_torch/kernels/csrc/attention_3xtf32.cu",
+              f"{fa_src}:91", f32_k4k6, main_index(f32_k4k6, [8, 16, 1024, 64]),
+              "pseudo_gt_f32_pallas"),
     ]
+    kernels[-2]["replaces_also"] = [f"{fa_src}:415"]  # K3 on the same kernel
+    kernels[-1]["replaces_also"] = [f"{fa_src}:227", f"{fa_src}:164"]  # K5, K6
     print(card, flush=True)
     print(json.dumps({"engine": engine}), flush=True)
     print(json.dumps({"pseudo_gt": pseudo_gt}), flush=True)

@@ -219,14 +219,17 @@ def test_key_tile_recipe_within_kernel_limits(dtype, limit, tile, seq):
     (torch.bfloat16, 196, 64, tfa.TENSOR_CORE),   # serving
     (torch.bfloat16, 1024, 64, tfa.TENSOR_CORE),  # pseudo-GT
     (torch.bfloat16, 4096, 64, tfa.TENSOR_CORE),  # any S
-    (torch.float32, 196, 64, tfa.CUDA_CORE),      # float32: CUDA cores
-    (torch.float32, 1024, 64, tfa.CUDA_CORE),
+    (torch.float32, 196, 64, tfa.TF32X3),         # float32: 3xTF32 on tensor cores
+    (torch.float32, 1024, 64, tfa.TF32X3),
     (torch.bfloat16, 196, 32, tfa.CUDA_CORE),     # another head_dim: CUDA cores
     (torch.bfloat16, 1024, 32, tfa.CUDA_CORE),
+    (torch.float32, 196, 32, tfa.CUDA_CORE),
+    (torch.float32, 1024, 32, tfa.CUDA_CORE),
 ])
 def test_rope_attention_route(dtype, seq, head_dim, want):
-    """The K2/K3 kernel family by shape, decided without the library: bf16
-    with head_dim 64 on tensor cores at every S, the rest on CUDA cores."""
+    """The K2/K3 kernel family by shape, decided without the library: with
+    head_dim 64 bf16 on tensor cores and float32 3xTF32 on tensor cores, at
+    every S; other head dims on CUDA cores."""
     assert tfa.attention_route(dtype, head_dim) == want
 
 
@@ -290,10 +293,12 @@ def test_key_tile_recipe_matches_k4_k5_k6_interpret(impl, sq, sk, dtype, limit):
 
 @pytest.mark.parametrize("dtype,head_dim,want", [
     (torch.bfloat16, 64, tfa.TENSOR_CORE),  # every 'pallas*' call of DUSt3R / MASt3R
-    (torch.float32, 64, tfa.CUDA_CORE),     # float32: CUDA cores
+    (torch.float32, 64, tfa.TF32X3),        # float32: 3xTF32 on tensor cores
     (torch.bfloat16, 32, tfa.CUDA_CORE),    # another head_dim: CUDA cores
     (torch.bfloat16, 128, tfa.CUDA_CORE),
     (torch.float32, 16, tfa.CUDA_CORE),
+    (torch.float32, 32, tfa.CUDA_CORE),
+    (torch.float16, 64, tfa.CUDA_CORE),     # no tensor-core family (the wrappers refuse it)
 ])
 def test_attention_route(dtype, head_dim, want):
     """The K4/K5/K6 kernel family by shape, decided without the library."""
@@ -454,8 +459,8 @@ def _launch_rope_attention_tc():
     return out
 
 
-def _launch_k4k6(dtype):
-    q, k, v = (torch.zeros((1, 2, 4, 64), dtype=dtype) for _ in range(3))
+def _launch_k4k6(dtype, d=64):
+    q, k, v = (torch.zeros((1, 2, 4, d), dtype=dtype) for _ in range(3))
     return tfa._attend("K4", q, k, v, 0.125)
 
 
@@ -470,14 +475,18 @@ def _launch_softmax_attention_tc():
 # the shared memory the stand-in reports, the call on CPU tensors)
 LAUNCHES = {
     "k2k3_cuda_core_one_shot": ("_lib", "t3d_rope_attention", 0,
-                                lambda: _launch_k2k3(torch.float32)),
+                                lambda: _launch_k2k3(torch.float32, heads=4)),
     "k2k3_cuda_core_key_tile": ("_lib", "t3d_rope_attention_tiled", 1 << 30,
-                                lambda: _launch_k2k3(torch.float32)),
+                                lambda: _launch_k2k3(torch.float32, heads=4)),
+    "k2k3_3xtf32": ("_3xtf32_lib", "t3d_rope_attention_3xtf32", 0,
+                    lambda: _launch_k2k3(torch.float32)),
     "k2k3_tensor_core": ("_tc_lib", "t3d_rope_attention_tc", 0,
                          lambda: _launch_k2k3(torch.bfloat16)),
     "rope_attention_tc": ("_tc_lib", "t3d_rope_attention_tc", 0, _launch_rope_attention_tc),
     "k4k6_cuda_core": ("_attention_lib", "t3d_attention", 0,
-                       lambda: _launch_k4k6(torch.float32)),
+                       lambda: _launch_k4k6(torch.float32, d=32)),
+    "k4k6_3xtf32": ("_3xtf32_lib", "t3d_softmax_attention_3xtf32", 0,
+                    lambda: _launch_k4k6(torch.float32)),
     "k4k6_tensor_core": ("_attention_tc_lib", "t3d_softmax_attention_tc", 0,
                          lambda: _launch_k4k6(torch.bfloat16)),
     "softmax_attention_tc": ("_attention_tc_lib", "t3d_softmax_attention_tc", 0,
@@ -488,7 +497,8 @@ LAUNCHES = {
 @pytest.mark.parametrize("case", list(LAUNCHES))
 def test_attention_launches_run_on_their_tensors_device(monkeypatch, case):
     """Each K2-K6 launch function (`_launch`, `rope_attention_tc`, `_attend`,
-    `softmax_attention_tc`) calls its library once, inside one
+    `softmax_attention_tc`, and through them the 3xTF32 launchers) calls
+    its library once, inside one
     torch.cuda.device block of its output's device (so a call on cuda:1
     runs there whichever card is current), never before or after it. Stand-in
     libraries and a recorder for torch.cuda.device, on CPU tensors."""
@@ -693,3 +703,153 @@ def test_one_pass_recipe_matches_pallas_interpret(kernel, dtype, limit):
     err = np.abs(out.to(torch.float32).numpy() - np.asarray(ref.astype(jnp.float32))).max()
     assert err <= limit, err
     assert torch.equal(out, tfa.rope_attention_plain(q, k, v, tc, ts, nh, scale))
+
+
+# ---------------------------------------------------------------------------
+# the 3xTF32 float32 kernels (csrc/attention_3xtf32.cu)
+# ---------------------------------------------------------------------------
+
+# the limit chip_smoke.py holds float32 kernels to against the plain version
+F32_LIMIT = 2e-5
+
+
+def test_tf32_round_is_nearest_ties_away():
+    """tf32_round (the kernels' cvt.rna.tf32.f32) against a float64
+    restatement: 11 significant bits, to nearest, ties away from zero; with
+    exact ties of both signs and values that round up into the next binade."""
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal(4096).astype(np.float32) * np.float32(2.0) ** rng.integers(
+        -20, 20, 4096).astype(np.float32)
+    tie = np.float32(1.0 + 2.0 ** -11)  # halfway between two tf32 values
+    x = np.concatenate([x, [tie, -tie, np.float32(2.0 - 2.0 ** -12), 0.0]]).astype(np.float32)
+    m, e = np.frexp(x.astype(np.float64))
+    scaled = m * 2.0 ** 11
+    want = np.ldexp(np.sign(scaled) * np.floor(np.abs(scaled) + 0.5) / 2.0 ** 11, e)
+    got = tfa.tf32_round(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want.astype(np.float32))
+    assert got[-4] == np.float32(1.0 + 2.0 ** -10) and got[-3] == -got[-4]
+    assert got[-2] == 2.0
+
+
+def _3xtf32_case(kernel, seq, products):
+    """One K2/K3/K4 call at head_dim 64 with two heads: the 3xTF32
+    emulation with `products` tf32 passes, and the JAX kernel in interpret
+    mode, on the same float32 inputs."""
+    side = int(math.isqrt(seq))
+    nh, d = 2, 64
+    scale = 1.0 / math.sqrt(d)
+    if kernel == "K4":
+        q, k, v = _qkv((1, nh, seq, d), (1, nh, seq, d), seed=seq + 7)
+        ref = _jax_softmax_attention("pallas", *(jnp.asarray(a) for a in (q, k, v)), scale)
+        out = tfa.attention_3xtf32_plain(*(torch.from_numpy(a) for a in (q, k, v)), scale,
+                                         products)
+        return out, ref
+    xs, cos, sin = _rope_inputs(1, side, side, nh, d, 1 if kernel == "K2" else 3, seed=seq)
+    jx = [jnp.asarray(a) for a in xs]
+    tx = [torch.from_numpy(a) for a in xs]
+    tc, ts = torch.from_numpy(cos), torch.from_numpy(sin)
+    if kernel == "K2":
+        ref = jfa.fused_rope_attention(jx[0], jnp.asarray(cos), jnp.asarray(sin), nh, scale, 4,
+                                       True)
+        c = nh * d
+        q, k, v = (tx[0][..., i * c:(i + 1) * c] for i in range(3))
+    else:
+        ref = jfa.fused_rope_cross_attention(*jx, jnp.asarray(cos), jnp.asarray(sin), nh,
+                                             scale, 4, True)
+        q, k, v = tx
+    out = tfa.rope_attention_3xtf32_plain(q, k, v, tc, ts, nh, scale, products)
+    return out, ref
+
+
+@pytest.mark.parametrize("seq", [196, 1024])
+@pytest.mark.parametrize("kernel", ["K2", "K3", "K4"])
+def test_3xtf32_arithmetic_matches_pallas_interpret(kernel, seq):
+    """The float32 kernels' 3xTF32 products (tf32 hi and lo by mantissa
+    masking, hi*lo + lo*hi + hi*hi in float32), restated in PyTorch, against
+    the JAX kernel they replace in interpret mode, at the serving S=196 and
+    the pseudo-GT's S=1024: within the 2e-5 chip_smoke.py holds the kernel
+    to against the float32 plain version."""
+    out, ref = _3xtf32_case(kernel, seq, products=3)
+    err = np.abs(out.numpy() - np.asarray(ref)).max()
+    assert err <= F32_LIMIT, err
+
+
+@pytest.mark.parametrize("kernel,seq", [("K2", 196), ("K4", 1024)])
+def test_one_tf32_product_exceeds_the_float32_limit(kernel, seq):
+    """Why three products: one tf32 pass (hi*hi alone, 11 significant bits an
+    operand) misses the 2e-5 float32 limit on the same inputs that the three
+    passes meet."""
+    out, ref = _3xtf32_case(kernel, seq, products=1)
+    err = np.abs(out.numpy() - np.asarray(ref)).max()
+    assert err > F32_LIMIT, err
+
+
+@pytest.mark.parametrize("impl", ["pallas", "pallas_grouped4", "pallas_multihead", "fused"])
+def test_cpu_f32_attention_does_not_count_3xtf32_launches(impl):
+    """On CPU tensors float32 K2-K6 run the plain version although their
+    route is the 3xTF32 kernel, and no kernel count moves."""
+    counters = (tfa.rope_attention_3xtf32, tfa.softmax_attention_3xtf32,
+                tfa.fused_rope_attention, tfa.flash_attention_pallas,
+                tfa.flash_attention_grouped, tfa.flash_attention_multihead)
+    counts = [c.launches for c in counters]
+    if impl == "fused":
+        (qkv,), cos, sin = _rope_inputs(1, 14, 14, 2, 64, 1, seed=8)
+        t = [torch.from_numpy(a) for a in (qkv, cos, sin)]
+        out = tfa.fused_rope_attention(*t, 2, 0.125)
+        assert torch.equal(out, tfa.fused_rope_attention_plain(*t, 2, 0.125))
+    else:
+        q, k, v = (torch.from_numpy(a) for a in _qkv((1, 2, 196, 64), (1, 2, 100, 64), seed=9))
+        out = tfa.flash_attention(q, k, v, impl=impl)
+        assert torch.equal(out, tfa.attention_plain(q, k, v, 0.125))
+    assert out.dtype == torch.float32
+    assert [c.launches for c in counters] == counts
+
+
+def test_3xtf32_launch_arguments(monkeypatch):
+    """What the 3xTF32 K4-K6 launcher hands the library, with a stand-in:
+    the strides as the bf16 launcher passes them (0 for an axis of size 1),
+    a float32 scratch of the library's own size for Sk keys, and one count
+    per launch; K2/K3's launcher the same scratch for S."""
+    calls, sizes = [], []
+
+    class Lib:
+        @staticmethod
+        def t3d_attention_3xtf32_scratch_bytes(batch, heads, seq):
+            sizes.append((batch, heads, seq))
+            return 4 * (2 * batch * heads * seq * 64 + 2 * batch * heads * 64 * (-(-seq // 8) * 8))
+
+        @staticmethod
+        def t3d_softmax_attention_3xtf32(*args):
+            calls.append(args)
+            return 0
+
+        @staticmethod
+        def t3d_rope_attention_3xtf32(*args):
+            calls.append(args)
+            return 0
+
+    record_device_blocks(monkeypatch, [])
+    monkeypatch.setattr(tfa, "_3xtf32_lib", lambda: Lib)
+    q = torch.zeros((1, 12, 2, 64)).transpose(1, 2)   # [B,S,H,D] views
+    k = torch.zeros((1, 40, 2, 64)).transpose(1, 2)
+    out = torch.zeros_like(q)
+    before = tfa.softmax_attention_3xtf32.launches
+    tfa.softmax_attention_3xtf32(q, k, k, out, 0.125, stream=0)
+    assert tfa.softmax_attention_3xtf32.launches == before + 1
+    (args,) = calls
+    assert list(args[4]) == [0, 64, 128, 0, 64, 128, 0, 64, 128, 0, 64, 128]
+    assert args[6:12] == (1, 2, 12, 40, 64, 0.125) and sizes == [(1, 2, 40)]
+    x = torch.zeros((2, 9, 3 * 128))
+    before = tfa.rope_attention_3xtf32.launches
+    tfa._launch(x, x.data_ptr(), x.data_ptr() + 512, x.data_ptr() + 1024, 384,
+                torch.zeros(9, 64), torch.zeros(9, 64), torch.empty((2, 9, 128)), 2, 0.125, "K2")
+    assert tfa.rope_attention_3xtf32.launches == before + 1
+    assert calls[1][8:12] == (2, 9, 2, 64) and sizes[1] == (2, 2, 9)
+
+
+def test_every_csrc_source_is_built():
+    """Each CUDA source under kernels/csrc/ is one of the libraries the
+    build compiles (_build.SOURCES), and each of those has its source."""
+    from thermal3d_torch.kernels import _build
+
+    assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == sorted(_build.SOURCES)

@@ -196,7 +196,8 @@ class StandInLibrary:
     the one-shot K2/K3 kernel's shared-memory query returns `smem`, and the
     tensor-core K2/K3 kernel's scratch query answers as
     csrc/rope_attention_tc.cu does (a bf16 [B, H, S, 64] past S = 256, else
-    0). Neither query is recorded."""
+    0), and the 3xTF32 kernels' as csrc/attention_3xtf32.cu does. No query
+    is recorded."""
 
     def __init__(self, events: list, smem: int = 0):
         self.events = events
@@ -207,6 +208,9 @@ class StandInLibrary:
 
     def t3d_rope_attention_tc_scratch_bytes(self, batch, seq, heads) -> int:
         return batch * heads * seq * 64 * 2 if seq > 256 else 0
+
+    def t3d_attention_3xtf32_scratch_bytes(self, batch, heads, seq) -> int:
+        return 4 * (2 * batch * heads * seq * 64 + 2 * batch * heads * 64 * (-(-seq // 8) * 8))
 
     def __getattr__(self, name):
         if not name.startswith("t3d_"):

@@ -18,8 +18,8 @@
 // softmax, which at head_dim 64 takes longer than the tensor cores' share
 // of the tile. Design: the key-tile core of key_tile_attention.cuh, which
 // K2/K3 share at S > 256: one block per (128 query rows, head, batch item),
-// two warpgroups and two blocks an SM, K/V tiles through a 4-stage TMA
-// ring, tile t's QK^T issued with tile t-1's PV and tile t's softmax run
+// two warpgroups and two blocks an SM, K and V tiles through two 4-stage
+// TMA rings, tile t's QK^T issued with tile t-1's PV and tile t's softmax run
 // while that PV does, O out by a TMA store.
 // What is K4-K6's own:
 //   * Operands by 4-D tensor maps over (64, rows, heads, batch) with each
@@ -83,17 +83,19 @@ struct SoftmaxOperands {
   int h, b;
   float c;  // scale * log2(e)
 
-  static constexpr uint32_t kQBytes = key_tiles::kQArea;  // both warpgroups' rows
+  static constexpr uint32_t kQBytes = key_tiles::Bf16Tiles::kQArea;  // both warpgroups' rows
   __device__ void load_q(uint32_t q_area, uint32_t bar, int block_row0) const {
 #pragma unroll
     for (int w = 0; w < key_tiles::kWgs; ++w)
       tma_load_4d(q_area + w * kTileBytes, tm_q, bar, 0, block_row0 + w * kTile, h, b);
   }
-  __device__ void load_kv(uint32_t stage, uint32_t bar, int t) const {
+  __device__ void load_k(uint32_t stage, uint32_t bar, int t) const {
     tma_load_4d(stage, tm_k, bar, 0, kTile * t, h, b);
-    tma_load_4d(stage + kTileBytes, tm_v, bar, 0, kTile * t, h, b);
   }
-  __device__ void stage_q(uint32_t, int, int, int) const {}  // Q came with stage 0
+  __device__ void load_v(uint32_t stage, uint32_t bar, int t) const {
+    tma_load_4d(stage, tm_v, bar, 0, kTile * t, h, b);
+  }
+  __device__ void stage_q(uint32_t, int, int, int, uint32_t) const {}  // Q came with stage 0
   __device__ void softmax(float (&sc)[32], int valid, int tq, float (&m)[2], float (&l)[2],
                           float (&alpha)[2]) const {
     if (valid < kTile) {
@@ -107,7 +109,7 @@ struct SoftmaxOperands {
   }
 };
 
-__global__ void __launch_bounds__(key_tiles::kBlockThreads, key_tiles::kBlocksPerSm)
+__global__ void __launch_bounds__(key_tiles::kBlockThreads, key_tiles::Bf16Tiles::kBlocksPerSm)
 softmax_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v,
@@ -115,7 +117,7 @@ softmax_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   extern __shared__ unsigned char smem_raw[];
   const SoftmaxOperands op{&tm_q, &tm_k, &tm_v, &tm_o, (int)blockIdx.y, (int)blockIdx.z,
                            scale * kLog2e};
-  key_tiles::attend(smem_raw, op, sk);
+  key_tiles::attend<key_tiles::Bf16Tiles>(smem_raw, op, sk);
 }
 
 // The byte stride a tensor map takes for an axis of size 1, which the kernel
@@ -163,7 +165,8 @@ int t3d_softmax_attention_tc(const void* q, const void* k, const void* v, void* 
   if (device < 0 || device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   if (!ready[device]) {
     err = cudaFuncSetAttribute(softmax_attention_tc_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, key_tiles::kSmem);
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               key_tiles::Bf16Tiles::kSmem);
     if (err != cudaSuccess) return (int)err;
     ready[device] = true;
   }
@@ -178,7 +181,7 @@ int t3d_softmax_attention_tc(const void* q, const void* k, const void* v, void* 
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((sq + key_tiles::kBlockRows - 1) / key_tiles::kBlockRows, heads, batch);
-  softmax_attention_tc_kernel<<<grid, key_tiles::kBlockThreads, key_tiles::kSmem,
+  softmax_attention_tc_kernel<<<grid, key_tiles::kBlockThreads, key_tiles::Bf16Tiles::kSmem,
                                 (cudaStream_t)stream>>>(maps[0], maps[1], maps[2], maps[3], sk,
                                                         scale);
   return (int)cudaGetLastError();

@@ -1,13 +1,22 @@
 // wgmma building blocks of the tensor-core attention kernels, CUDA C++ for
 // sm_90a: rope_attention_tc.cu (K2/K3, fused RoPE) and attention_tc.cu
 // (K4-K6, softmax attention on q/k that are already roped), whose key-tile
-// loop is key_tile_attention.cuh. bf16, head_dim 64.
+// loop is key_tile_attention.cuh, in bf16; attention_3xtf32.cu (K2-K6 in
+// float32) on the same loop. head_dim 64.
 //
 // Operands in shared memory use the 128-byte swizzle (rows of 128 bytes,
 // 8-row atoms of 1024 bytes, chunk c of row r at chunk c ^ (r % 8)), the
 // layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B: Q and K as K-major
 // operands of S = Q K^T (wgmma m64n64k16), V as the MN-major B operand of
 // O += P V with P from the score registers converted to bf16.
+//
+// float32 (3xTF32): each operand x is split into hi = tf32(x) and lo =
+// tf32(x - hi) (cvt.rna.tf32.f32), and each product is hi*hi + hi*lo +
+// lo*hi, three wgmma m64n64k8 .tf32 products accumulating in float32. A
+// float32 row of 64 is 256 bytes, so a 64-row operand is two 128-byte-wide
+// halves (d 0-31, then d 32-63), 8 KB each, one after the other. tf32
+// operands in shared memory must be K-major (the transpose bits are for
+// 16-bit types only), so V enters P V transposed, as V^T [d][key].
 #pragma once
 
 #include <cuda_bf16.h>
@@ -106,6 +115,44 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : T3D_ACC32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (+)= A B, m64n64k8 tf32, A and B (K-major) from shared memory.
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " T3D_REGS32
+      ", %32, %33, p, 1, 1;\n}\n"
+      : T3D_ACC32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += A B, m64n64k8 tf32, A from registers (4 x tf32: rows g, g+8, g, g+8
+// of the warp's 16, columns t, t, t+4, t+4; not the accumulator's layout of
+// an 8-column group, which holds columns 2t and 2t+1), B K-major in shared
+// memory.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " T3D_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : T3D_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// x rounded to tf32, nearest with ties away from zero (its low 13 bits 0).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// The 3xTF32 split: hi = tf32(x), lo = tf32(x - hi) (x - hi is exact).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
 }
 
 constexpr float kLog2e = 1.4426950408889634f;

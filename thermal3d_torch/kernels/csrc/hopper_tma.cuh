@@ -45,6 +45,23 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
+// A map of `rank` dimensions (innermost first) with `dims`, byte `strides`
+// of the outer ones and `box`, of 2-byte bf16 or 4-byte float32 elements,
+// with the 128-byte swizzle of the wgmma operands (box[0] elements must fill
+// at most 128 bytes). Elements of a box outside `dims` read as zeros and are
+// not written.
+inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                              cuuint32_t rank, const cuuint64_t* dims, const cuuint64_t* strides,
+                              const cuuint32_t* box) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, type, rank, const_cast<void*>(base), dims, strides, box,
+                        elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // A 3-D bf16 map over `batch` items of `rows` rows of `width` elements, rows
 // `row_stride` elements apart and items rows * row_stride apart, read and
 // written in boxes of 64 elements x box_rows rows x 1 item with the 128-byte
@@ -53,17 +70,10 @@ inline EncodeTiledFn encode_tiled_fn() {
 inline cudaError_t encode_bf16_rows(CUtensorMap* map, const void* base, uint64_t width,
                                     uint64_t rows, uint64_t batch, uint64_t row_stride,
                                     uint32_t box_rows) {
-  const EncodeTiledFn fn = encode_tiled_fn();
-  if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {width, rows, batch};
   const cuuint64_t strides[2] = {row_stride * 2, rows * row_stride * 2};  // bytes
   const cuuint32_t box[3] = {64, box_rows, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-                        strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, 3, dims, strides, box);
 }
 
 // A 4-D bf16 map over a [batch, heads, rows, 64] operand given by its
@@ -76,17 +86,32 @@ inline cudaError_t encode_bf16_rows(CUtensorMap* map, const void* base, uint64_t
 inline cudaError_t encode_bf16_heads(CUtensorMap* map, const void* base, uint64_t rows,
                                      uint64_t heads, uint64_t batch, uint64_t batch_bytes,
                                      uint64_t head_bytes, uint64_t row_bytes, uint32_t box_rows) {
-  const EncodeTiledFn fn = encode_tiled_fn();
-  if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {64, rows, heads, batch};
   const cuuint64_t strides[3] = {row_bytes, head_bytes, batch_bytes};
   const cuuint32_t box[4] = {64, box_rows, 1, 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                        strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, 4, dims, strides, box);
+}
+
+// The float32 forms of the two maps above: boxes of 32 elements (128 bytes,
+// one swizzle atom wide) x 64 rows, so a 64-wide row of a tile takes two
+// boxes. encode_f32_rows: `batch` items of `rows` rows of `width` elements,
+// rows `row_stride` elements apart, items `item_stride` elements apart.
+inline cudaError_t encode_f32_rows(CUtensorMap* map, const void* base, uint64_t width,
+                                   uint64_t rows, uint64_t batch, uint64_t row_stride,
+                                   uint64_t item_stride) {
+  const cuuint64_t dims[3] = {width, rows, batch};
+  const cuuint64_t strides[2] = {row_stride * 4, item_stride * 4};  // bytes
+  const cuuint32_t box[3] = {32, 64, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, 3, dims, strides, box);
+}
+
+inline cudaError_t encode_f32_heads(CUtensorMap* map, const void* base, uint64_t rows,
+                                    uint64_t heads, uint64_t batch, uint64_t batch_bytes,
+                                    uint64_t head_bytes, uint64_t row_bytes) {
+  const cuuint64_t dims[4] = {64, rows, heads, batch};
+  const cuuint64_t strides[3] = {row_bytes, head_bytes, batch_bytes};
+  const cuuint32_t box[4] = {32, 64, 1, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, 4, dims, strides, box);
 }
 
 // ---- device ---------------------------------------------------------------

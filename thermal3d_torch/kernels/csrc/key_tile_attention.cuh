@@ -1,38 +1,53 @@
 // The key-tile core of the tensor-core attention kernels, CUDA C++ for
 // sm_90a: one loop over 64-key tiles that rope_attention_tc.cu (K2/K3 at
 // S > 256, K roped by a prologue) and attention_tc.cu (K4-K6, q/k already
-// roped) both instantiate. bf16, head_dim 64.
+// roped) instantiate in bf16 (Bf16Tiles), and attention_3xtf32.cu (K2-K6
+// in float32, K and V split by a prologue) in 3xTF32 (Tf32x3Tiles). head_dim
+// 64.
 //
 // Block: 128 query rows of one (batch item, head), two warpgroups of 64
-// rows, no producer warp, two blocks an SM (128 registers a thread; a
-// ninth warp would cap every thread at 168 and leave one block an SM).
-//   * K and V tiles stream by TMA through a ring of kRing stages, each with
-//     a "full" mbarrier (the TMA's bytes landed) and an "empty" one (every
-//     thread of the block is done with it). Thread 0 fills the first stages;
-//     of the two warpgroups' thread 0, the one that releases a stage second
-//     (the `claims` count) refills it with the tile kRing on.
-//   * Each warpgroup issues tile t's QK^T (wgmma m64n64k16, Q and K from
-//     shared memory, 128-byte swizzle) together with tile t-1's PV (P from
-//     registers, V as the MN-major B operand), and runs tile t's online
-//     softmax in place on the float32 scores while that PV runs. Only after
-//     the PV's wait does it round p to bf16 into P's registers and rescale
-//     O by the step's alpha: a write to a register that an issued wgmma
-//     still reads (P packed during the PV, into registers ptxas shares
-//     between the two tiles' P) makes ptxas serialize every wgmma of the
-//     kernel (its C7513 warning), which undoes the overlap.
-//   * O / l, rounded to bf16, goes through the warpgroup's Q rows in shared
-//     memory and out by a TMA store that drops rows past the query count.
+// rows, no producer warp; bf16 two blocks an SM (128 registers a thread; a
+// ninth warp would cap every thread at 168 and leave one block an SM),
+// 3xTF32 one (its Q and stages take 192 KB of shared memory).
+//   * K and V tiles stream by TMA through rings of stages, each stage with a
+//     "full" mbarrier (the TMA's bytes landed) and an "empty" one (every
+//     thread of the block is done with it). Thread 0 fills the first
+//     stages; of the two warpgroups' thread 0, the one that releases a stage
+//     second (the `claims` count) refills it with the tile a ring's length
+//     on. bf16 keeps a tile's K and V in one stage of one 4-stage ring,
+//     released at the end of iteration t+1 (after PV(t)). 3xTF32 has room
+//     for two stages only, and there one ring left no slack: the load of
+//     tile t+2 was issued just before it was needed. So it streams K and V
+//     through rings of their own (kRingV > 0), iteration t releasing K(t)
+//     and V(t-1): each load is issued an iteration ahead. (The split rings
+//     measured 7-11% slower for bf16 at S=1024 on an H100; releasing K(t)
+//     as soon as its QK^T is done stalls a warpgroup, whose refilling thread
+//     waits there for the other warpgroup's QK^T.)
+//   * Each warpgroup issues tile t's QK^T (Q and K from shared memory,
+//     128-byte swizzle) together with tile t-1's PV (P from registers, V
+//     from shared memory), and runs tile t's online softmax in place on the
+//     float32 scores while that PV runs. Only after the PV's wait does it
+//     turn p into P's registers (bf16, or tf32 hi and lo) and rescale O by
+//     the step's alpha: a write to a register that an issued wgmma still
+//     reads (P packed during the PV, into registers ptxas shares between the
+//     two tiles' P) makes ptxas serialize every wgmma of the kernel (its
+//     C7513 warning), which undoes the overlap.
+//   * O / l goes through the warpgroup's Q rows in shared memory and out by
+//     TMA stores that drop rows past the query count.
 //
-// The kernel's operands (an Op) supply what differs:
+// The tile policy (Tiles) supplies the arithmetic of a precision: the sizes
+// of a warpgroup's Q rows and of a stage, QK^T and PV of a stage, P from the
+// float32 p, and the output's staging. The kernel's operands (an Op) supply
+// what differs between kernels:
 //   * Op::kQBytes, load_q: Q rows that arrive by TMA on the first stage's
 //     full barrier (K4-K6), or none (0; K2/K3);
 //   * stage_q: Q rows staged by the warpgroup's threads before the first
-//     tile (K2/K3's RoPE), or nothing;
-//   * load_kv: tile t's K and V boxes into a stage;
+//     tile (K2/K3's RoPE; the 3xTF32 split of Q, after it landed), or nothing;
+//   * load_k, load_v: tile t's K boxes, V boxes, into a stage of their ring;
 //   * softmax: the online-softmax step of a tile, in place (scores scaled,
 //     masked past `valid` keys, the running max and float32 sum moved, p in
 //     float32 where the score was, alpha for the rescale of O);
-//   * store_o: the warpgroup's output box.
+//   * store_o: the warpgroup's output boxes.
 // Fragment layout of a warpgroup's 64 x 64 tile: the thread owns rows g and
 // g + 8 of its warp's 16 (g = lane / 4), columns 8i + 2t + {0, 1} (t = lane
 // % 4); o[4i + e] is row g + 8*(e >> 1), column 8i + 2t + (e & 1); l[r] and
@@ -45,15 +60,175 @@
 namespace {
 namespace key_tiles {
 
-constexpr int kRing = 4;                        // K/V stages
-constexpr int kBlocksPerSm = 2;                 // 128 registers a thread
 constexpr int kWgs = 2;                         // warpgroups, 64 query rows each
 constexpr int kBlockThreads = 128 * kWgs;
 constexpr int kBlockRows = kWgs * kTile;        // query rows a block
-constexpr int kQArea = kWgs * kTileBytes;       // the block's Q rows, then its output
-constexpr int kStageSize = 2 * kTileBytes;      // K, then V
-constexpr int kBarsAt = kQArea + kRing * kStageSize;
-constexpr int kSmem = 1024 + kBarsAt + 2 * kRing * 8 + kRing * 4;
+
+// The shared-memory plan of a tile policy: both warpgroups' Q rows (then
+// their output), the K ring (each stage a tile's K, and its V where RingV is
+// 0), the V ring, then the barriers (full and empty of each K stage, then of
+// each V stage) and the claim counts.
+template <int RingK, int RingV, int BlocksPerSm, int WgQBytes, int KBytes, int VBytes>
+struct TileShape {
+  static constexpr int kRingK = RingK, kRingV = RingV;  // K stages, V stages (0: in K's)
+  static constexpr int kBlocksPerSm = BlocksPerSm;
+  static constexpr int kWgQBytes = WgQBytes;        // a warpgroup's Q rows
+  static constexpr int kQArea = kWgs * WgQBytes;    // the block's Q rows, then its output
+  static constexpr int kKBytes = KBytes, kVBytes = VBytes;  // one tile's K, V
+  static constexpr int kKStage = RingV ? KBytes : KBytes + VBytes;
+  static constexpr int kVRingAt = kQArea + RingK * kKStage;
+  static constexpr int kBarsAt = kVRingAt + RingV * VBytes;
+  static constexpr int kSmem = 1024 + kBarsAt + 16 * (RingK + RingV) + 4 * (RingK + RingV);
+  static_assert(kSmem * BlocksPerSm <= 232448, "more shared memory than an H100 SM has");
+};
+
+// bf16: Q, K and V tiles of 64 rows of 128 bytes (8 KB), QK^T and PV
+// m64n64k16, P rounded to bf16, the output rounded to bf16.
+struct Bf16Tiles : TileShape<4, 0, 2, kTileBytes, kTileBytes, kTileBytes> {
+  using P = uint32_t[4][4];  // P of a tile, PV's A operand
+  static constexpr bool kTilePv = false;  // PV accumulates into O itself
+
+  static __device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t q, uint32_t k) {
+    const uint64_t q_desc = smem_desc(q), k_desc = smem_desc(k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sc, q_desc + 2 * kk, k_desc + 2 * kk, kk);
+  }
+  // O += P V, into O itself (pv unused)
+  static __device__ __forceinline__ void issue_pv(float (&o)[32], float (&)[32], const P& p,
+                                                  uint32_t v) {
+    const uint64_t v_desc = smem_desc(v);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(o, p[kk], v_desc + (uint64_t)((16 * kRowBytes * kk) >> 4));
+  }
+  // after the PV's wait: O *= alpha (the next tile's rescale); at the end, nothing
+  static __device__ __forceinline__ void rescale(float (&o)[32], const float (&)[32],
+                                                 const float (&alpha)[2]) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[4 * i + e] *= alpha[e >> 1];
+  }
+  static __device__ __forceinline__ void add_last(float (&)[32], const float (&)[32]) {}
+  // P, bf16, from the float32 p in sc: columns 16kk + {2t, 2t+1} (i = 2kk)
+  // and 16kk + 8 + {2t, 2t+1} (i = 2kk + 1), rows g, g+8 -> a0, a1, then
+  // a2, a3
+  static __device__ __forceinline__ void pack(P& p, const float (&sc)[32]) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      p[i >> 1][2 * (i & 1) + 0] = pack_bf16(sc[4 * i], sc[4 * i + 1]);
+      p[i >> 1][2 * (i & 1) + 1] = pack_bf16(sc[4 * i + 2], sc[4 * i + 3]);
+    }
+  }
+  // o / l rounded to bf16 into the warpgroup's Q rows (one 64-row tile)
+  static __device__ __forceinline__ void stage_out(unsigned char* tile, const float (&o)[32],
+                                                   const float (&l)[2], int ctid) {
+    const int warp = ctid >> 5, g = (ctid & 31) >> 2, tq = ctid & 3;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * warp + g + 8 * r;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float x = o[4 * i + 2 * r] / l[r];
+        const float y = o[4 * i + 2 * r + 1] / l[r];
+        *reinterpret_cast<__nv_bfloat162*>(tile + swizzle(row, i) + 4 * tq) =
+            __floats2bfloat162_rn(x, y);
+      }
+    }
+  }
+};
+
+// 3xTF32 (float32 operands): a 64 x 64 float32 tile is two halves of 64
+// rows of 128 bytes (kF32Half), d (or keys, for V^T) 0-31 then 32-63. A
+// warpgroup's Q is its hi tile then its lo tile; a K stage holds K hi and K
+// lo, a V stage V^T hi and V^T lo, split by the prologue
+// (attention_3xtf32.cu), each a K-major operand. Every product is hi*lo +
+// lo*hi, then hi*hi, over 8 k8 steps; k-step kk lies in half kk / 4 at byte
+// 32 (kk % 4) of each row. P = p split into tf32 hi and lo; the output o / l
+// in float32.
+constexpr int kF32Half = kTile * 128;       // 8 KB: 64 rows of 32 floats
+constexpr int kF32Tile = 2 * kF32Half;      // 16 KB: 64 rows of 64 floats
+
+struct Tf32x3Tiles : TileShape<2, 2, 1, 2 * kF32Tile, 2 * kF32Tile, 2 * kF32Tile> {
+  struct P {
+    uint32_t hi[8][4], lo[8][4];  // k-step kk: keys 8kk + 2t (a0, a1), 8kk + 2t + 1 (a2, a3)
+  };
+  static constexpr bool kTilePv = true;  // a tile's PV into pv, added to O (issue_pv)
+
+  // descriptor offset of k-step kk in a two-half operand
+  static __device__ __forceinline__ uint64_t k_step(int kk) {
+    return (uint64_t)((kk >> 2) * (kF32Half >> 4) + (kk & 3) * 2);
+  }
+  // (The ragged last tile's products run whole: skipping its empty k-steps
+  // behind a branch made ptxas insert warpgroup.arrive around the wgmma
+  // (C7519) and measured 1.1-1.3x slower on an H100.)
+  static __device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t q, uint32_t k) {
+    const uint64_t qh = smem_desc(q), ql = smem_desc(q + kF32Tile);
+    const uint64_t kh = smem_desc(k), kl = smem_desc(k + kF32Tile);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      wgmma_tf32_ss(sc, qh + k_step(kk), kl + k_step(kk), kk);
+      wgmma_tf32_ss(sc, ql + k_step(kk), kh + k_step(kk), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) wgmma_tf32_ss(sc, qh + k_step(kk), kh + k_step(kk), 1);
+  }
+  // One tile's P V into pv, a fresh accumulator (O is not a wgmma operand):
+  // the tensor cores round a float32 accumulator toward zero at each step,
+  // so O's 24 steps a tile over every tile biased it by hundreds of ulps at
+  // S = 1024; a tile's 24 steps into pv, added to O by round-to-nearest
+  // (rescale, add_last), keep that to a tile's few.
+  static __device__ __forceinline__ void issue_pv(float (&)[32], float (&pv)[32], const P& p,
+                                                  uint32_t v) {
+    const uint64_t vh = smem_desc(v), vl = smem_desc(v + kF32Tile);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      wgmma_tf32_rs(pv, p.hi[kk], vl + k_step(kk), kk);
+      wgmma_tf32_rs(pv, p.lo[kk], vh + k_step(kk), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) wgmma_tf32_rs(pv, p.hi[kk], vh + k_step(kk), 1);
+  }
+  // after the PV's wait: O = (O + pv) * alpha (pv the last tile's, 0 before
+  // the first); at the end O += pv
+  static __device__ __forceinline__ void rescale(float (&o)[32], const float (&pv)[32],
+                                                 const float (&alpha)[2]) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = (o[i] + pv[i]) * alpha[(i >> 1) & 1];
+  }
+  static __device__ __forceinline__ void add_last(float (&o)[32], const float (&pv)[32]) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] += pv[i];
+  }
+  // The A fragment of k-step kk from the scores' 8-column group kk. A tf32
+  // A fragment holds columns t and t + 4 (rows g, g+8, g, g+8: a0-a3), the
+  // scores columns 2t and 2t + 1, so within each 8-key group P's columns
+  // are taken in the key order 0, 2, 4, 6, 1, 3, 5, 7, the order in which the
+  // prologue lays out V^T's keys (attention_3xtf32.cu).
+  static __device__ __forceinline__ void pack(P& p, const float (&sc)[32]) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int e = (i & 3) == 1 ? 2 : (i & 3) == 2 ? 1 : (i & 3);
+      split_tf32(sc[i], p.hi[i >> 2][e], p.lo[i >> 2][e]);
+    }
+  }
+  // o / l in float32 into the warpgroup's Q hi tile (two halves)
+  static __device__ __forceinline__ void stage_out(unsigned char* tile, const float (&o)[32],
+                                                   const float (&l)[2], int ctid) {
+    const int warp = ctid >> 5, g = (ctid & 31) >> 2, tq = ctid & 3;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * warp + g + 8 * r;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float2 xy = make_float2(o[4 * i + 2 * r] / l[r], o[4 * i + 2 * r + 1] / l[r]);
+        const int chunk = 2 * (i & 3) + (tq >> 1);  // 16-byte chunk of the 128-byte row
+        *reinterpret_cast<float2*>(tile + (i >> 2) * kF32Half + swizzle(row, chunk) +
+                                   8 * (tq & 1)) = xy;
+      }
+    }
+  }
+};
 
 // K2/K3's online softmax of one 64-key tile (the recipe of
 // attention_common.cuh's key-tile loop: expf, every tile masked): scores
@@ -92,141 +267,142 @@ __device__ __forceinline__ void online_softmax_tile(float (&sc)[32], int valid, 
 }
 
 // One block's attention over `seq` keys (see the header comment): smem_raw
-// is the kernel's dynamic shared memory (kSmem bytes), op its operands.
-template <class Op>
+// is the kernel's dynamic shared memory (Tiles::kSmem bytes), op its operands.
+template <class Tiles, class Op>
 __device__ __forceinline__ void attend(unsigned char* smem_raw, const Op& op, int seq) {
-  constexpr int R = kRing;
+  constexpr int RK = Tiles::kRingK, RV = Tiles::kRingV;
+  constexpr int RV1 = RV > 0 ? RV : 1;  // V's stage arithmetic, never taken where RV is 0
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
   unsigned char* base = smem_raw + (((raw + 1023) & ~1023u) - raw);  // 1024-byte aligned
   const uint32_t sbase = raw + (uint32_t)(base - smem_raw);
-  const uint32_t ring = sbase + kQArea;
-  const uint32_t full = sbase + kBarsAt;  // stage s: TMA landed
-  const uint32_t empty = full + 8 * R;    // stage s: every thread done with it
-  unsigned int* claims = reinterpret_cast<unsigned int*>(base + kBarsAt + 16 * R);
+  const uint32_t k_ring = sbase + Tiles::kQArea;
+  const uint32_t v_ring = sbase + Tiles::kVRingAt;
+  const uint32_t full_k = sbase + Tiles::kBarsAt;  // K stage s: TMA landed
+  const uint32_t empty_k = full_k + 8 * RK;        // K stage s: every thread done with it
+  const uint32_t full_v = empty_k + 8 * RK;
+  const uint32_t empty_v = full_v + 8 * RV;
+  unsigned int* claims_k =
+      reinterpret_cast<unsigned int*>(base + Tiles::kBarsAt + 16 * (RK + RV));
+  unsigned int* claims_v = claims_k + RK;
   const int tid = threadIdx.x;
   const int w = tid / 128;
   const int ctid = tid - 128 * w;
   const int tq = ctid & 3;
   const int block_row0 = blockIdx.x * kBlockRows;
   const int ntiles = (seq + kTile - 1) / kTile;
-  auto load = [&](int t) {
-    const uint32_t bar = full + 8 * (t % R);
-    mbar_arrive_expect_tx(bar, 2 * kTileBytes + (t == 0 ? Op::kQBytes : 0));
+  auto k_stage = [&](int t) { return k_ring + (t % RK) * Tiles::kKStage; };
+  auto v_stage = [&](int t) {
+    return RV ? v_ring + (t % RV1) * Tiles::kVBytes : k_stage(t) + Tiles::kKBytes;
+  };
+  auto load_k = [&](int t) {  // and V, where it shares K's stage
+    const uint32_t bar = full_k + 8 * (t % RK);
+    mbar_arrive_expect_tx(bar, Tiles::kKStage + (t == 0 ? Op::kQBytes : 0));
     if (t == 0) op.load_q(sbase, bar, block_row0);
-    op.load_kv(ring + (t % R) * kStageSize, bar, t);
+    op.load_k(k_stage(t), bar, t);
+    if constexpr (RV == 0) op.load_v(v_stage(t), bar, t);
+  };
+  auto load_v = [&](int t) {
+    const uint32_t bar = full_v + 8 * (t % RV1);
+    mbar_arrive_expect_tx(bar, Tiles::kVBytes);
+    op.load_v(v_stage(t), bar, t);
   };
   if (tid == 0) {
-    for (int st = 0; st < R; ++st) {
-      mbar_init(full + 8 * st, 1);
-      mbar_init(empty + 8 * st, kBlockThreads);
-      claims[st] = 0;
+    for (int st = 0; st < RK + RV; ++st) {  // the K stages' barriers, then the V stages'
+      const uint32_t full = st < RK ? full_k + 8 * st : full_v + 8 * (st - RK);
+      mbar_init(full, 1);
+      mbar_init(full + 8 * (st < RK ? RK : RV), kBlockThreads);
+      claims_k[st] = 0;
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int t = 0; t < R && t < ntiles; ++t) load(t);
+    for (int t = 0; t < RK && t < ntiles; ++t) load_k(t);
+    for (int t = 0; t < RV && t < ntiles; ++t) load_v(t);
   }
   __syncthreads();
-  // every thread is done with tile t's stage; of the two warpgroups' thread
-  // 0, the second to get here refills it with tile t + R
-  auto release = [&](int t) {
+  // every thread is done with tile t's stage of a ring (empty, claims, its
+  // length R); of the two warpgroups' thread 0, the second to get here
+  // refills it with tile t + R
+  auto release = [&](uint32_t empty, unsigned int* claims, int R, int t, auto&& refill) {
     const int st = t % R;
     mbar_arrive(empty + 8 * st);
     if (ctid == 0 && (atomicAdd(&claims[st], 1u) & 1u)) {
       mbar_wait_or_trap(empty + 8 * st, (t / R) & 1);
-      if (t + R < ntiles) load(t + R);
+      if (t + R < ntiles) refill(t + R);
+    }
+  };
+  auto release_k = [&](int t) { release(empty_k, claims_k, RK, t, load_k); };
+  auto release_v = [&](int t) { release(empty_v, claims_v, RV1, t, load_v); };
+  // the end of iteration t: K(t) and V(t-1) with rings of their own, else
+  // the stage of tile t-1
+  auto release_tiles = [&](int t) {
+    if constexpr (RV > 0) {
+      release_k(t);
+      release_v(t - 1);
+    } else {
+      release_k(t - 1);
     }
   };
 
-  const uint32_t my_q = sbase + w * kTileBytes;
+  const uint32_t my_q = sbase + w * Tiles::kWgQBytes;
   const int row_base = block_row0 + w * kTile;
-  op.stage_q(my_q, row_base, ctid, w);
+  op.stage_q(my_q, row_base, ctid, w, full_k);
 
-  const uint64_t q_desc = smem_desc(my_q);
-  float sc[32], o[32];
+  float sc[32], o[32], pv[32];  // pv: a tile's P V where the policy keeps one
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = sc[i] = 0.0f;
+  for (int i = 0; i < 32; ++i) o[i] = sc[i] = pv[i] = 0.0f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, alpha[2];
-  uint32_t p[4][4];  // P of the last tile, PV's A operand
+  typename Tiles::P p;  // P of the last tile, PV's A operand
 
-  auto issue_qk = [&](int t) {
-    const uint64_t k_desc = smem_desc(ring + (t % R) * kStageSize);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sc, q_desc + 2 * kk, k_desc + 2 * kk, kk);
-  };
-  auto issue_pv = [&](int t) {
-    const uint64_t v_desc = smem_desc(ring + (t % R) * kStageSize + kTileBytes);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs(o, p[kk], v_desc + (uint64_t)((16 * kRowBytes * kk) >> 4));
-  };
-  // P, bf16, from the float32 p in sc: columns 16kk + {2t, 2t+1} (i = 2kk)
-  // and 16kk + 8 + {2t, 2t+1} (i = 2kk + 1), rows g, g+8 -> a0, a1, then
-  // a2, a3
-  auto pack = [&]() {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      p[i >> 1][2 * (i & 1) + 0] = pack_bf16(sc[4 * i], sc[4 * i + 1]);
-      p[i >> 1][2 * (i & 1) + 1] = pack_bf16(sc[4 * i + 2], sc[4 * i + 3]);
-    }
-  };
-  auto rescale = [&]() {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[4 * i + e] *= alpha[e >> 1];
-  };
-
-  mbar_wait_or_trap(full, 0);
+  mbar_wait_or_trap(full_k, 0);
   wgmma_fence();
-  issue_qk(0);
+  Tiles::issue_qk(sc, my_q, k_stage(0));
   wgmma_commit();
   wgmma_wait_all();
   reg_fence(sc);
   op.softmax(sc, seq, tq, m, l, alpha);
-  pack();
-  rescale();
+  Tiles::pack(p, sc);
+  Tiles::rescale(o, pv, alpha);
+  if constexpr (RV > 0) release_k(0);
   for (int t = 1; t < ntiles; ++t) {
-    mbar_wait_or_trap(full + 8 * (t % R), (t / R) & 1);
+    mbar_wait_or_trap(full_k + 8 * (t % RK), (t / RK) & 1);
+    if constexpr (RV > 0) mbar_wait_or_trap(full_v + 8 * ((t - 1) % RV1), ((t - 1) / RV1) & 1);
     wgmma_fence();
-    issue_qk(t);
+    Tiles::issue_qk(sc, my_q, k_stage(t));
     wgmma_commit();
-    issue_pv(t - 1);
+    Tiles::issue_pv(o, pv, p, v_stage(t - 1));
     wgmma_commit();
     asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // QK^T of tile t
     reg_fence(sc);
     op.softmax(sc, seq - kTile * t, tq, m, l, alpha);  // in sc: PV reads p
     wgmma_wait_all();  // PV of tile t - 1
     reg_fence(o);
-    pack();
-    rescale();
-    release(t - 1);
+    if constexpr (Tiles::kTilePv) reg_fence(pv);
+    Tiles::pack(p, sc);
+    Tiles::rescale(o, pv, alpha);
+    release_tiles(t);
   }
+  if constexpr (RV > 0)
+    mbar_wait_or_trap(full_v + 8 * ((ntiles - 1) % RV1), ((ntiles - 1) / RV1) & 1);
   wgmma_fence();
-  issue_pv(ntiles - 1);
+  Tiles::issue_pv(o, pv, p, v_stage(ntiles - 1));
   wgmma_commit();
   wgmma_wait_all();
   reg_fence(o);
-  release(ntiles - 1);
+  if constexpr (Tiles::kTilePv) reg_fence(pv);
+  Tiles::add_last(o, pv);
+  if constexpr (RV > 0) {
+    release_v(ntiles - 1);
+  } else {
+    release_k(ntiles - 1);
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
 
-  // o / l rounded to bf16 into the warpgroup's Q rows, out by a TMA store;
-  // rows past the query count are dropped
-  const int warp = ctid >> 5, g = (ctid & 31) >> 2;
-  unsigned char* tile = base + w * kTileBytes;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = 16 * warp + g + 8 * r;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float x = o[4 * i + 2 * r] / l[r];
-      const float y = o[4 * i + 2 * r + 1] / l[r];
-      *reinterpret_cast<__nv_bfloat162*>(tile + swizzle(row, i) + 4 * tq) =
-          __floats2bfloat162_rn(x, y);
-    }
-  }
+  // o / l into the warpgroup's Q rows, out by TMA stores; rows past the
+  // query count are dropped
+  Tiles::stage_out(base + w * Tiles::kWgQBytes, o, l, ctid);
   fence_async_shared();
   named_barrier(1 + w, 128);
   if (ctid == 0) {

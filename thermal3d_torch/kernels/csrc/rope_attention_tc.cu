@@ -59,8 +59,8 @@
 //     on an H100.
 //   * A block is 128 query rows of one head, two warpgroups of 64, no
 //     producer warp, two blocks an SM (128 registers a thread): K and V
-//     tiles stream by TMA through a ring of 4 stages, refilled by the
-//     warpgroup that releases a stage last.
+//     tiles stream by TMA through two rings of 4 stages, each stage refilled
+//     by the warpgroup that releases it last.
 //   * Each warpgroup issues tile t's QK^T together with tile t-1's PV, runs
 //     tile t's softmax while that PV runs, then rounds p to bf16 and
 //     rescales O once the PV is done.
@@ -217,11 +217,13 @@ struct RopeKeyTileOperands {
 
   static constexpr uint32_t kQBytes = 0;  // Q does not come by TMA
   __device__ void load_q(uint32_t, uint32_t, int) const {}
-  __device__ void load_kv(uint32_t stage, uint32_t bar, int t) const {
+  __device__ void load_k(uint32_t stage, uint32_t bar, int t) const {
     tma_load_3d(stage, tm_k, bar, 0, kTile * t, b * num_heads + h);
-    tma_load_3d(stage + kTileBytes, tm_v, bar, h * kD, kTile * t, b);
   }
-  __device__ void stage_q(uint32_t my_q, int row_base, int ctid, int w) const {
+  __device__ void load_v(uint32_t stage, uint32_t bar, int t) const {
+    tma_load_3d(stage, tm_v, bar, h * kD, kTile * t, b);
+  }
+  __device__ void stage_q(uint32_t my_q, int row_base, int ctid, int w, uint32_t) const {
     rope_rows(q, row_stride, cos_t, sin_t, row_base, seq, my_q, ctid);
     fence_async_shared();
     named_barrier(1 + w, 128);
@@ -237,7 +239,7 @@ struct RopeKeyTileOperands {
 
 // One block a 128 query rows of one (batch item, head): the key-tile core
 // over the prologue's roped K tiles and V.
-__global__ void __launch_bounds__(key_tiles::kBlockThreads, key_tiles::kBlocksPerSm)
+__global__ void __launch_bounds__(key_tiles::kBlockThreads, key_tiles::Bf16Tiles::kBlocksPerSm)
 rope_attention_key_tile_kernel(const __grid_constant__ CUtensorMap tm_k,
                                const __grid_constant__ CUtensorMap tm_v,
                                const __grid_constant__ CUtensorMap tm_o,
@@ -249,7 +251,7 @@ rope_attention_key_tile_kernel(const __grid_constant__ CUtensorMap tm_k,
   const RopeKeyTileOperands op{&tm_k, &tm_v, &tm_o,
                                q + (long long)b * seq * row_stride + (long long)h * kD,
                                row_stride, cos_t, sin_t, seq, num_heads, h, b, scale};
-  key_tiles::attend(smem_raw, op, seq);
+  key_tiles::attend<key_tiles::Bf16Tiles>(smem_raw, op, seq);
 }
 
 // ---- one pass (S <= 256) ----------------------------------------------------
@@ -652,7 +654,8 @@ cudaError_t launch_key_tiles(const void* q, const void* v, long long row_stride,
   cudaError_t err;
   if (!ready[device]) {
     err = cudaFuncSetAttribute(rope_attention_key_tile_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, key_tiles::kSmem);
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               key_tiles::Bf16Tiles::kSmem);
     if (err != cudaSuccess) return err;
     ready[device] = true;
   }
@@ -663,7 +666,8 @@ cudaError_t launch_key_tiles(const void* q, const void* v, long long row_stride,
   if (err == cudaSuccess) err = encode_bf16_rows(&tm_o, out, c, seq, batch, c, kTile);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + 2 * kTile - 1) / (2 * kTile), num_heads, batch);
-  rope_attention_key_tile_kernel<<<grid, key_tiles::kBlockThreads, key_tiles::kSmem, st>>>(
+  rope_attention_key_tile_kernel<<<grid, key_tiles::kBlockThreads, key_tiles::Bf16Tiles::kSmem,
+                                   st>>>(
       tm_k, tm_v, tm_o, static_cast<const __nv_bfloat16*>(q), row_stride, cos_t, sin_t, seq,
       num_heads, scale);
   return cudaGetLastError();

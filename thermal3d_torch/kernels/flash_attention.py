@@ -7,8 +7,11 @@ one position grid) return [B,S,C]. `attention_route` picks their CUDA
 kernel by shape: bf16 with head_dim 64 runs on the tensor cores
 (csrc/rope_attention_tc.cu, counted by `rope_attention_tc.launches`; one
 pass over each head's whole rows at S <= 256, a 64-key online softmax
-above, `tc_schedule`); other dtypes and head dims run the CUDA-core kernels
-of csrc/rope_attention.cu.
+above, `tc_schedule`); float32 with head_dim 64 runs 3xTF32 on the tensor
+cores (csrc/attention_3xtf32.cu, counted by `rope_attention_3xtf32.launches`:
+a prologue that ropes K and splits K and V, then the 64-key online softmax
+at every S); other head dims run the CUDA-core kernels of
+csrc/rope_attention.cu.
 
 K4 + K5 + K6, softmax attention on q/k that are already roped:
 `flash_attention_pallas` (K4, [N,S,D] or [B,H,S,D]),
@@ -18,8 +21,15 @@ ways; each keeps its own entry and launch count. `attention_route` picks
 the kernel by shape as for K2/K3: bf16 with head_dim 64 runs on the tensor
 cores (csrc/attention_tc.cu, counted by `softmax_attention_tc.launches`: the
 key-tile loop of csrc/key_tile_attention.cuh that K2/K3 share above S=256,
-fed by 4-D tensor maps of each operand's strides, `tc_map_strides`), other
-dtypes and head dims on the CUDA cores (csrc/attention.cu).
+fed by 4-D tensor maps of each operand's strides, `tc_map_strides`),
+float32 with head_dim 64 on the same loop in 3xTF32 (csrc/attention_3xtf32.cu,
+`softmax_attention_3xtf32.launches`), other head dims on the CUDA cores
+(csrc/attention.cu).
+
+`attention_3xtf32_plain` and `rope_attention_3xtf32_plain` restate the
+3xTF32 arithmetic in PyTorch (tf32 rounding by masking the mantissa), for
+the tests to hold it against the JAX kernels; the wrappers' plain versions
+stay the float32 ones.
 `flash_attention` ([B,H,S,D]) and `attention_bshd` ([B,S,H,D]) pick one of
 them by `impl` name, as the JAX functions do.
 
@@ -51,7 +61,7 @@ from thermal3d_torch.kernels import _build
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel families, by the name attention_route gives them
-TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
+TENSOR_CORE, TF32X3, CUDA_CORE = "tensor_core", "tensor_core_3xtf32", "cuda_core"
 
 
 def rot_lanes(t: torch.Tensor) -> torch.Tensor:
@@ -164,15 +174,23 @@ def smem_bytes(seq: int, head_dim: int, dtype: torch.dtype) -> int:
 
 def attention_route(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel family of an attention call (K2-K6), by dtype and head
-    dim: TENSOR_CORE (wgmma: csrc/rope_attention_tc.cu for K2/K3,
-    csrc/attention_tc.cu for K4-K6, both on the key-tile loop of
-    csrc/key_tile_attention.cuh past S=256 for K2/K3 and at every S for
-    K4-K6) for bf16 with head_dim 64 at any S,
-    which is every call of the configured models (DUSt3R-224, MASt3R-512);
-    otherwise CUDA_CORE (csrc/rope_attention.cu, where `_launch` picks
-    one-shot or key-tile, and csrc/attention.cu). A dispatch by shape: a
-    kernel that fails to build or launch raises."""
-    return TENSOR_CORE if dtype == torch.bfloat16 and head_dim == 64 else CUDA_CORE
+    dim, at any S; head_dim 64 is every call of the configured models
+    (DUSt3R-224, MASt3R-512):
+      * TENSOR_CORE for bf16 with head_dim 64 (wgmma: csrc/rope_attention_tc.cu
+        for K2/K3, csrc/attention_tc.cu for K4-K6, both on the key-tile loop
+        of csrc/key_tile_attention.cuh past S=256 for K2/K3 and at every S
+        for K4-K6);
+      * TF32X3 for float32 with head_dim 64: float32 attention runs 3xTF32
+        on the tensor cores (csrc/attention_3xtf32.cu, on the same key-tile
+        loop): each operand split into tf32 hi and lo, each product hi*hi +
+        hi*lo + lo*hi in float32, about 2^-21 relative a product, so its
+        products are no longer IEEE float32 ones;
+      * otherwise CUDA_CORE (csrc/rope_attention.cu, where `_launch` picks
+        one-shot or key-tile, and csrc/attention.cu), in float32 or bf16.
+    A dispatch by shape: a kernel that fails to build or launch raises."""
+    if head_dim != 64:
+        return CUDA_CORE
+    return {torch.bfloat16: TENSOR_CORE, torch.float32: TF32X3}.get(dtype, CUDA_CORE)
 
 
 def check_alignment(what: str, pointers, *stride_bytes: int) -> None:
@@ -215,9 +233,14 @@ def _launch(x, q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale,
         return
     d = c // num_heads
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if attention_route(x.dtype, d) == TENSOR_CORE:
+    route = attention_route(x.dtype, d)
+    if route == TENSOR_CORE:
         rope_attention_tc(q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale,
                           stream, what)
+        return
+    if route == TF32X3:
+        rope_attention_3xtf32(q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale,
+                              stream, what)
         return
     lib = _lib()
     # The switch between the two CUDA-core kernels: the one-shot kernel
@@ -327,6 +350,106 @@ def _lib() -> ctypes.CDLL:
     sm.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     sm.restype = ctypes.c_ulonglong
     return lib
+
+
+def rope_attention_3xtf32(q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale,
+                          stream, what="rope_attention_3xtf32"):
+    """Launch the 3xTF32 K2/K3 kernel (float32, head_dim 64) on base
+    pointers with a common row stride in elements; out [B, S, C] float32.
+    The library call launches, on `stream`, the prologue (K roped, K and V
+    split into tf32 hi and lo in a scratch allocated here, `_tf32x3_scratch`)
+    and the key-tile kernel, with out's card
+    current. Counts its own calls in `rope_attention_3xtf32.launches`."""
+    b, s, c = out.shape
+    lib = _3xtf32_lib()
+    scratch = _tf32x3_scratch(lib, b, num_heads, s, out.device)
+    ptrs = (q_ptr, k_ptr, v_ptr, cos.data_ptr(), sin.data_ptr(), scratch.data_ptr(),
+            out.data_ptr())
+    check_alignment(what, ptrs, row_stride * out.element_size())
+    with torch.cuda.device(out.device):
+        rc = lib.t3d_rope_attention_3xtf32(*ptrs[:3], row_stride, *ptrs[3:], b, s, num_heads,
+                                           c // num_heads, float(scale), stream)
+    _build.check(lib, rc, f"{what} launch")
+    _build.count_launch(rope_attention_3xtf32)
+
+
+rope_attention_3xtf32.launches = 0
+
+
+def _tf32x3_scratch(lib, batch, heads, seq, device) -> torch.Tensor:
+    """The scratch a 3xTF32 call takes, of the library's own size
+    (t3d_attention_3xtf32_scratch_bytes): K's tf32 hi and lo [B*H, S, 64]
+    and V's, transposed, [B*H, 64, S rounded up to 8]; S is Sk for K4-K6."""
+    nbytes = int(lib.t3d_attention_3xtf32_scratch_bytes(batch, heads, seq))
+    return torch.empty(nbytes // 4, dtype=torch.float32, device=device)
+
+
+def _3xtf32_lib() -> ctypes.CDLL:
+    lib = _build.library("attention_3xtf32")
+    fn = lib.t3d_rope_attention_3xtf32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.t3d_softmax_attention_3xtf32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.t3d_attention_3xtf32_scratch_bytes.argtypes = [ctypes.c_int] * 3
+    lib.t3d_attention_3xtf32_scratch_bytes.restype = ctypes.c_ulonglong
+    return lib
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to tf32 (10 mantissa bits) to nearest, ties away
+    from zero, as cvt.rna.tf32.f32 does: half a tf32 ulp added to the
+    magnitude's bits, then the low 13 bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor, products: int = 3) -> torch.Tensor:
+    """a @ b in float32 the way the 3xTF32 kernels take it: each operand
+    split into hi = tf32(x) and lo = tf32(x - hi), then hi@lo + lo@hi, then
+    hi@hi, summed in float32 (tf32 products are exact in float32).
+    products=1 takes hi@hi alone (one TF32 pass)."""
+    ah, bh = tf32_round(a), tf32_round(b)
+    if products == 1:
+        return ah @ bh
+    al, bl = tf32_round(a - ah), tf32_round(b - bh)
+    return (ah @ bl + al @ bh) + ah @ bh
+
+
+def attention_3xtf32_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                           products: int = 3) -> torch.Tensor:
+    """float32 q [..., Sq, D], k/v [..., Sk, D] → [..., Sq, D], the 3xTF32
+    kernels' arithmetic (matmul_3xtf32 for QK^T and PV, the rest as
+    attention_plain: scores times scale, float32 softmax, p in float32, the
+    division after PV)."""
+    scores = matmul_3xtf32(q, k.transpose(-1, -2), products) * scale
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    return matmul_3xtf32(p, v, products) / p.sum(dim=-1, keepdim=True)
+
+
+def rope_attention_3xtf32_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                cos: torch.Tensor, sin: torch.Tensor, num_heads: int,
+                                scale: float, products: int = 3) -> torch.Tensor:
+    """float32 q/k/v [B, S, C] → [B, S, C]: RoPE in float32 as
+    rope_attention_plain, then attention_3xtf32_plain."""
+    b, s, c = q.shape
+    d = c // num_heads
+
+    def heads(t):
+        return t.reshape(b, s, num_heads, d).transpose(1, 2)
+
+    def rope(t):
+        return heads(t) * cos + rot_lanes(heads(t)) * sin
+
+    out = attention_3xtf32_plain(rope(q), rope(k), heads(v), scale, products)
+    return out.transpose(1, 2).reshape(b, s, c)
 
 
 # --------------------------------------------------------------------------
@@ -604,8 +727,12 @@ def _attend(what, q, k, v, scale):
     if out.numel() == 0:
         return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if attention_route(q.dtype, d) == TENSOR_CORE:
+    route = attention_route(q.dtype, d)
+    if route == TENSOR_CORE:
         softmax_attention_tc(q, k, v, out, scale, stream, what)
+        return out
+    if route == TF32X3:
+        softmax_attention_3xtf32(q, k, v, out, scale, stream, what)
         return out
     strides = (ctypes.c_longlong * 12)(*(t.stride(i) for t in (q, k, v, out) for i in range(3)))
     lib = _attention_lib()
@@ -642,6 +769,33 @@ def softmax_attention_tc(q, k, v, out, scale, stream, what="softmax_attention_tc
 
 
 softmax_attention_tc.launches = 0
+
+
+def softmax_attention_3xtf32(q, k, v, out, scale, stream, what="softmax_attention_3xtf32"):
+    """Launch the 3xTF32 K4-K6 kernel (float32, head_dim 64) on checked
+    [B, H, S, D] operands and out: the prologue splits K and V (read by
+    their strides) into tf32 hi and lo in a scratch allocated here, then the
+    key-tile kernel reads q and writes out through 4-D tensor maps of their
+    strides. Strides of axes of size 1 go to the kernel as 0; every other
+    stride, and every base pointer, must be a multiple of 16 bytes. The
+    library call runs with out's card current. Counts its own calls in
+    `softmax_attention_3xtf32.launches`."""
+    b, h, sq, d = q.shape
+    strides = [t.stride(i) if t.shape[i] > 1 else 0 for t in (q, k, v, out) for i in range(3)]
+    check_alignment(what, [t.data_ptr() for t in (q, k, v, out)],
+                    *(st * q.element_size() for st in strides))
+    lib = _3xtf32_lib()
+    scratch = _tf32x3_scratch(lib, b, h, k.shape[2], out.device)
+    with torch.cuda.device(out.device):
+        rc = lib.t3d_softmax_attention_3xtf32(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                              out.data_ptr(), (ctypes.c_longlong * 12)(*strides),
+                                              scratch.data_ptr(), b, h, sq, k.shape[2], d,
+                                              float(scale), stream)
+    _build.check(lib, rc, f"{what} launch")
+    _build.count_launch(softmax_attention_3xtf32)
+
+
+softmax_attention_3xtf32.launches = 0
 
 # the byte stride the tensor-core K4-K6 kernel's tensor maps take for an axis
 # of size 1 (csrc/attention_tc.cu, kSizeOneStrideBytes: one bf16 row of 64)
