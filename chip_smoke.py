@@ -16,16 +16,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
      with Sq=196 against Sk=1024 and Sq=1024 against Sk=196, and K4 in bf16
      on a q whose size-1 axes have odd strides (the tensor-core kernel's
      map strides held against flash_attention.tc_map_strides in every
-     case); K2-K6 also in bf16 and float32 at head_dim 32,
+     case); K2-K6 also in bf16 and float32 at head_dim 24,
      both S, and K2/K3 at the shapes a tensor-parallel rank gives them in
      phase 10 (tp=2: 8 and 6 heads) and in the multi-device phase (tp=4: 4
-     and 3 heads). Each K2-K6 case records the kernel
-     that served it: bf16 with head_dim 64 the tensor-core kernel (its own
-     count moves; K2/K3 with its schedule, one_pass/N at S=196 and key_tile
-     at S=1024, as the library chooses it), float32 with head_dim 64 the
-     3xTF32 kernel (its own count moves; bound at 495/3 TFLOP/s, the CUDA
-     cores' 67 beside it), head_dim 32 a CUDA-core kernel (K2/K3: one-shot
-     at S=196, key-tile at S=1024). Then, on a host with two
+     and 3 heads); then K2-K6 at head_dims 16, 32 and 128 (HEAD_DIM_K2K3,
+     HEAD_DIM_K4, HEAD_DIM_K5K6), each in bf16 and float32 with the
+     CUDA-core kernel it replaces held and timed beside it in turns, and the
+     size-1-axes K4 case at head_dims 16 and 32 in bf16 and float32
+     (SIZE_ONE_HEAD_DIMS). Each K2-K6 case records the kernel
+     that served it: bf16 with head_dim 16, 32, 64 or 128 the tensor-core
+     kernel (its own count moves; K2/K3 with its schedule, one_pass/N at
+     head_dim 64 and S=196, else key_tile, as the library chooses it),
+     float32 with those head dims the 3xTF32 kernel (its own count moves;
+     bound at 495/3 TFLOP/s, the CUDA cores' 67 beside it), head_dim 24 a
+     CUDA-core kernel (K2/K3: one-shot at S=196, key-tile at S=1024). Then,
+     on a host with two
      cards or more, with cuda:0 current, K1-K6 (all three kernel families) and
      one full-width InferenceEngine batch on the last card, each bit-equal
      to the same call on cuda:0 (multi_card_check); on one card a line says
@@ -39,6 +44,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      batch runs under torch.profiler for the device time by layer and the
      device's idle share; then a float32 engine is held against its plain
      twin, with the tensor-core count 0 there and the 3xTF32 count K2 + K3;
+     then the small-decoder engine (phase_small_decoder: the decoder 512
+     wide with 16 heads, head_dim 32) the same way in bf16 and float32, its
+     infer_async() frames/s beside the head_dim-64 engine's in turns, and
+     its K2-K4 autograd Functions at a training shape against float64;
   5. drive the pseudo-GT path: a full-width, full-depth bf16
      MASt3R-512 PseudoGTGenerator (seeded random weights) turns batches of 4
      synthetic RGB pairs [4, 512, 512, 3] into the eight pseudo-GT arrays,
@@ -148,12 +157,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
      wrappers) and of the kernels and, last, the device line.
 Without CUDA it exits non-zero before printing any result.
 
+Phase 2 logs each kernel's registers and spills and every ptxas C7513
+and C7519 line of the wgmma sources, and fails on a C7513.
+
+    python3 chip_smoke.py --only-head-dims
+    python3 chip_smoke.py --only-small-decoder
+
+build the kernels and run, alone, phase 3's cases at head_dims 16, 32 and
+128 (with the size-1-axes cases there and the head_dim-24 CUDA-core
+cases), or phase 4's small-decoder engine, and print their lines.
+
     python3 chip_smoke.py --compare-k2k3 OTHER_CSRC_DIR
 
 holds this checkout's tensor-core K2/K3 kernel against a build of another
-checkout's csrc/rope_attention_tc.cu instead (torch.equal and the largest
-difference on the bf16 K2/K3 shapes of both paths, times in turns) and
-exits non-zero if any differs. Two builds of the same schedule read equal;
+checkout's csrc/rope_attention_tc.cu instead (a build from before its
+queries took the head_dim is seen through OtherBuild) (torch.equal and the largest
+difference on the bf16 K2/K3 shapes of both paths, times in turns), then
+its 3xTF32 kernels against the other's csrc/attention_3xtf32.cu on float32
+shapes, and exits non-zero if any differs. Two builds of the same schedule read equal;
 the one-pass schedule (S <= 256) against the 64-key online softmax of an
 older build differs in p's rounding, by about an output ulp.
 
@@ -162,8 +183,9 @@ older build differs in p's rounding, by about an output ulp.
 does the same for the tensor-core K4-K6 kernel against a build of another
 checkout's csrc/attention_tc.cu, through the same wrapper on phase 3's
 seeded operands: every bf16 K4 shape of PLAIN_ATTENTION_SHAPES and the
-size-1-axes case. Two builds of the same arithmetic read equal; the exp2
-softmax against an older build's expf differs by about an output ulp.
+size-1-axes case (and the float32 K4 shapes on the 3xTF32 kernels). Two
+builds of the same arithmetic read equal; the exp2 softmax against an older
+build's expf differs by about an output ulp.
 
     python3 chip_smoke.py --only-multi-gpu
 
@@ -200,6 +222,7 @@ import gc
 import importlib
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -297,16 +320,38 @@ def card_line() -> str:
     return res.stdout.strip()
 
 
-def phase_build():
+# the sources whose kernels issue wgmma: ptxas's C7513 ("wgmma.mma_async
+# instructions are serialized") in their build log means no wgmma of a
+# kernel overlaps another, and fails the build phase; C7519 (warpgroup.arrive
+# inserted around a wgmma) is logged
+WGMMA_SOURCES = ("rope_attention_tc", "attention_tc", "attention_3xtf32")
+
+
+def phase_build() -> dict:
+    """Build every kernel library (one nvcc a source, all at once); log each
+    kernel's registers and spills and every C7513 and C7519 line of the
+    wgmma sources' ptxas output, and raise on any C7513."""
     from thermal3d_torch.kernels import _build
 
     t0 = time.perf_counter()
     paths = _build.build_all()
-    log(f"build: {time.perf_counter() - t0:.1f} s for {len(paths)} kernel libraries")
+    seconds = time.perf_counter() - t0
+    log(f"build: {seconds:.1f} s for {len(paths)} kernel libraries")
+    flagged = {}  # source: its C7513 and C7519 lines
     for name in paths:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+            if name in WGMMA_SOURCES and ("C7513" in line or "C7519" in line):
+                log(f"  {name}: ptxas {line.strip()}")
+                flagged.setdefault(name, []).append(line.strip())
+    serialized = {n: [w for w in ws if "C7513" in w] for n, ws in flagged.items()}
+    serialized = {n: ws for n, ws in serialized.items() if ws}
+    log(f"build: ptxas C7513 lines {sum(map(len, serialized.values()))}, C7519 lines "
+        f"{sum('C7519' in w for ws in flagged.values() for w in ws)} in {WGMMA_SOURCES}")
+    if serialized:
+        raise AssertionError(f"ptxas serialized the wgmma of {sorted(serialized)}: {serialized}")
+    return dict(seconds=seconds, libraries=len(paths), ptxas_c7513=0, ptxas_c7519=flagged)
 
 
 # K1 shapes: the serving batch, full 640x512 Freiburg frames (over the
@@ -366,13 +411,13 @@ def k1_cases(torch):
     return cases
 
 
-def tensor_core_schedule(torch, fa, batch: int, heads: int, seq: int) -> str:
+def tensor_core_schedule(torch, fa, batch: int, heads: int, seq: int, head_dim: int = 64) -> str:
     """The schedule of the tensor-core K2/K3 kernel for a call on cuda:0
     ("one_pass/N": N parts a head, or "key_tile"), as flash_attention.
     tc_schedule names it; raises unless the built library chooses the same."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    kind, parts = fa.tc_schedule(batch, heads, seq, sms)
-    built = fa._tc_lib().t3d_rope_attention_tc_schedule(batch, seq, heads, sms)
+    kind, parts = fa.tc_schedule(batch, heads, seq, sms, head_dim)
+    built = fa._tc_lib().t3d_rope_attention_tc_schedule(batch, seq, heads, head_dim, sms)
     if built != (parts if kind == fa.ONE_PASS else 0):
         raise AssertionError(f"K2/K3 [{batch},{seq}] H={heads}: the library schedules "
                              f"{built}, tc_schedule {kind}/{parts}")
@@ -381,11 +426,21 @@ def tensor_core_schedule(torch, fa, batch: int, heads: int, seq: int) -> str:
 
 def expected_route(torch, fa, dt, d: int) -> str:
     """The kernel family a K2-K6 call of dtype dt and head_dim d must take:
-    with d = 64 bf16 the tensor-core kernels, float32 the 3xTF32 ones; the
-    CUDA-core kernels otherwise."""
-    if d != 64:
+    with d of 16, 32, 64 or 128 bf16 the tensor-core kernels, float32 the
+    3xTF32 ones; the CUDA-core kernels otherwise."""
+    if d not in (16, 32, 64, 128):
         return fa.CUDA_CORE
     return fa.TENSOR_CORE if dt == torch.bfloat16 else fa.TF32X3
+
+
+def in_turns(torch, fns: dict, reps: int) -> dict:
+    """Two callables on the same inputs timed by cuda_ms in turns (a, b, b,
+    a for the names in order): each name's two times."""
+    first, second = list(fns)
+    ms = {name: [] for name in fns}
+    for name in (first, second, second, first):
+        ms[name].append(cuda_ms(fns[name], reps=reps))
+    return ms
 
 
 def launched_families(fn, tc_counter, tf32_counter):
@@ -408,16 +463,20 @@ def route_bounds(nbytes: float, flops: float, dname: str, route: str, fa) -> dic
 
 
 def attention_cases(torch, cross: bool, batch: int = BATCH, grid=(14, 14), widths=None,
-                    reps: int = 20, dtypes=("bfloat16", "float32")):
+                    reps: int = 20, dtypes=("bfloat16", "float32"), cuda_core_turns=False):
     """K2 (K3 with cross=True) on a grid×grid patch grid: the serving
     shapes (S=196) by default, MASt3R-512's (S=1024) with grid (32, 32);
-    `widths` are (C, heads), D=64 by default. bf16 with D=64 runs the
-    tensor-core kernel, float32 with D=64 the 3xTF32 one (a prologue and the
-    key-tile loop); other head dims the CUDA-core one-shot kernel, or the
-    key-tile kernel where K/V of a head do not fit in shared memory. Each
-    case records the kernel that served it (for the tensor-core kernel, its
-    schedule: one_pass/N or key_tile), and the bound at its route's peak
-    (3xTF32 at 495/3 TFLOP/s, with the CUDA cores' 67 beside it)."""
+    `widths` are (C, heads), D=64 by default. bf16 with D of 16, 32, 64 or
+    128 runs the tensor-core kernel, float32 with those D the 3xTF32 one (a
+    prologue and the key-tile loop); other head dims the CUDA-core one-shot
+    kernel, or the key-tile kernel where K/V of a head do not fit in shared
+    memory. Each case records the kernel that served it (for the
+    tensor-core kernel, its schedule: one_pass/N or key_tile), and the bound
+    at its route's peak (3xTF32 at 495/3 TFLOP/s, with the CUDA cores' 67
+    beside it). With cuda_core_turns, a case the tensor cores serve also
+    runs the CUDA-core kernel on the same inputs through its own entry
+    (flash_attention.rope_attention_cuda_core), held against the plain
+    version too and timed in turns with the kernel."""
     import torch.nn.functional as F
 
     fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
@@ -469,7 +528,7 @@ def attention_cases(torch, cross: bool, batch: int = BATCH, grid=(14, 14), width
             if moved != (int(route == fa.TENSOR_CORE), int(route == fa.TF32X3)):
                 raise AssertionError(f"K2/K3 {dname} S={s} D={d} ({route}): tensor-core and "
                                      f"3xTF32 launches {moved}")
-            served = (tensor_core_schedule(torch, fa, batch, nh, s) if route == fa.TENSOR_CORE
+            served = (tensor_core_schedule(torch, fa, batch, nh, s, d) if route == fa.TENSOR_CORE
                       else "3xtf32/key_tile" if route == fa.TF32X3 else "one_shot"
                       if fa.smem_bytes(s, d, dt) <= fa.SMEM_LIMIT else "key_tile")
             ref = plain()
@@ -493,11 +552,24 @@ def attention_cases(torch, cross: bool, batch: int = BATCH, grid=(14, 14), width
             log(f"    {served}: ms {ms:.4f} plain {plain_ms:.4f} library(sdpa) "
                 f"{library_ms:.4f} bound {bnd:.4f} ({bounds['bound_by']}); {tflops:.1f} TFLOP/s, "
                 f"{ms / bnd:.2f}x bound, {ms / library_ms:.2f}x sdpa, {ms / plain_ms:.2f}x plain")
+            extra = {}
+            if cuda_core_turns and route != fa.CUDA_CORE:
+                if cross:
+                    ptrs, row_stride = (q.data_ptr(), k.data_ptr(), v.data_ptr()), c
+                else:
+                    base, es = qkv.data_ptr(), qkv.element_size()
+                    ptrs, row_stride = (base, base + c * es, base + 2 * c * es), 3 * c
+                cc_out = torch.empty((batch, s, c), dtype=dt, device="cuda")
+                cc = lambda: fa.rope_attention_cuda_core(  # noqa: E731
+                    *ptrs, row_stride, cos, sin, cc_out, nh, scale,
+                    torch.cuda.current_stream().cuda_stream)
+                extra = cuda_core_in_turns(torch, kern, cc, cc_out, plain, limit, reps,
+                                           f"{name} [{batch},{s},{c}] H={nh} D={d} {dname}")
             cases.append(dict(shape=[batch, s, c], heads=nh, head_dim=d, dtype=dname,
                               kernel=served, max_abs_err=err, limit=limit, ms=ms,
                               plain_ms=plain_ms, library_ms=library_ms, **bounds,
                               tflops=tflops, ms_over_bound=ms / bnd,
-                              ms_over_library=ms / library_ms))
+                              ms_over_library=ms / library_ms, **extra))
             del qr, kr, vh, q, k, v
             torch.cuda.empty_cache()
     return cases
@@ -510,34 +582,57 @@ def attention_cases(torch, cross: bool, batch: int = BATCH, grid=(14, 14), width
 PLAIN_ATTENTION_SHAPES = ((8, 16, 1024, 1024, 64), (4, 12, 1024, 1024, 64),
                           (BATCH, 16, 196, 196, 64), (BATCH, 12, 196, 196, 64),
                           (4, 12, 196, 1024, 64), (4, 12, 1024, 196, 64))
-# head_dim 32 (no configured model): the CUDA-core kernel, bf16 and float32
-PLAIN_ATTENTION_D32 = ((BATCH, 16, 196, 196, 32), (PAIR_BATCH, 16, 1024, 1024, 32))
+# head_dim 24 (no configured model, outside the tensor cores' head dims):
+# the CUDA-core kernel, bf16 and float32
+PLAIN_ATTENTION_D24 = ((BATCH, 16, 196, 196, 24), (PAIR_BATCH, 16, 1024, 1024, 24))
+
+
+def cuda_core_in_turns(torch, kern, cc, cc_out, plain, limit: float, reps: int,
+                       what: str) -> dict:
+    """A case the tensor cores serve, on the CUDA-core kernel too: cc() (its
+    own entry, writing cc_out) held against the plain version at the case's
+    limit, then kern and cc timed in turns (kern, cc, cc, kern)."""
+    cc()
+    ref = plain()
+    torch.cuda.synchronize()
+    err = (cc_out.float() - ref.float()).abs().max().item()
+    del ref
+    check(f"{what} on the CUDA cores", err, limit)
+    turns = in_turns(torch, {"kernel": kern, "cuda_core": cc}, reps)
+    log(f"    in turns: kernel {turns['kernel']} CUDA cores {turns['cuda_core']} ms; "
+        f"{min(turns['cuda_core']) / min(turns['kernel']):.1f}x")
+    return dict(cuda_core_max_abs_err=err, cuda_core_ms=turns["cuda_core"],
+                kernel_ms_in_turns=turns["kernel"])
 
 
 def tensor_core_map_strides(fa, q, k, v, out) -> list:
     """The byte strides of the tensor-core K4-K6 kernel's tensor maps for a
     call, as flash_attention.tc_map_strides computes them; raises unless the
     built library's own query gives the same."""
-    b, h, sq, _ = q.shape
+    b, h, sq, d = q.shape
     strides = [t.stride(i) if t.shape[i] > 1 else 0 for t in (q, k, v, out) for i in range(3)]
-    want = fa.tc_map_strides(strides, b, h, sq, k.shape[2])
+    want = fa.tc_map_strides(strides, b, h, sq, k.shape[2], d)
     got = (ctypes.c_longlong * 12)()
     fa._attention_tc_lib().t3d_softmax_attention_tc_map_strides(
-        (ctypes.c_longlong * 12)(*strides), b, h, sq, k.shape[2], got)
+        (ctypes.c_longlong * 12)(*strides), b, h, sq, k.shape[2], d, got)
     if list(got) != want:
         raise AssertionError(f"K4-K6 {tuple(q.shape)} Sk={k.shape[2]}: the library's map "
                              f"strides {list(got)}, tc_map_strides {want}")
     return want
 
 
-def hold_attention_case(torch, fa, name: str, q, k, v, reps: int) -> dict:
+def hold_attention_case(torch, fa, name: str, q, k, v, reps: int,
+                        cuda_core_turns: bool = False) -> dict:
     """One K4/K5/K6 case (`name` the entry) on [B,H,S,D] operands: the
-    kernel that serves it (with D=64 bf16 the tensor-core one and float32
-    the 3xTF32 one, its count moving once; the rest the CUDA-core one), the
-    output against the plain
-    version (2e-5 float32, 2^-6 bf16), the tensor-core kernel's map strides
-    against tc_map_strides, and the times of kernel, plain version and SDPA
-    beside the bound."""
+    kernel that serves it (with D of 16, 32, 64 or 128 bf16 the tensor-core
+    one and float32 the 3xTF32 one, its count moving once; the rest the
+    CUDA-core one), the output against the plain version (2e-5 float32,
+    2^-6 bf16), the tensor-core kernel's map strides against
+    tc_map_strides, and the times of kernel, plain version and SDPA beside
+    the bound. With cuda_core_turns, a case the tensor cores serve also runs
+    the CUDA-core kernel on the same operands through its own entry
+    (flash_attention.softmax_attention_cuda_core), held and timed in turns
+    (cuda_core_in_turns)."""
     import torch.nn.functional as F
 
     kern_fn = getattr(fa, name)
@@ -576,10 +671,17 @@ def hold_attention_case(torch, fa, name: str, q, k, v, reps: int) -> dict:
     log(f"    {served}: ms {ms:.4f} plain {plain_ms:.4f} library(sdpa) "
         f"{library_ms:.4f} bound {bnd:.4f} ({bounds['bound_by']}); {tflops:.1f} TFLOP/s, "
         f"{ms / bnd:.2f}x bound, {ms / library_ms:.2f}x sdpa, {ms / plain_ms:.2f}x plain")
+    extra = {}
+    if cuda_core_turns and served != fa.CUDA_CORE:
+        cc_out = torch.empty_like(q.transpose(1, 2).contiguous()).transpose(1, 2)
+        cc = lambda: fa.softmax_attention_cuda_core(  # noqa: E731
+            q, k, v, cc_out, scale, torch.cuda.current_stream().cuda_stream)
+        extra = cuda_core_in_turns(torch, kern, cc, cc_out, plain, limit, reps,
+                                   f"{name} [{b},{h},{sq},{d}] Sk={sk} {dname}")
     return dict(shape=[b, h, sq, d], sk=sk, dtype=dname, kernel=served, map_strides=map_strides,
                 max_abs_err=err, limit=limit, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 **bounds, tflops=tflops, ms_over_bound=ms / bnd,
-                ms_over_library=ms / library_ms)
+                ms_over_library=ms / library_ms, **extra)
 
 
 def bshd_operands(torch, b: int, h: int, sq: int, sk: int, d: int, dt):
@@ -593,7 +695,8 @@ def bshd_operands(torch, b: int, h: int, sq: int, sk: int, d: int, dt):
 
 
 def plain_attention_cases(torch, name: str, shapes=PLAIN_ATTENTION_SHAPES,
-                          dtypes=("bfloat16", "float32"), reps: int = 10):
+                          dtypes=("bfloat16", "float32"), reps: int = 10,
+                          cuda_core_turns: bool = False):
     """One of K4 (flash_attention_pallas), K5 (flash_attention_grouped) or K6
     (flash_attention_multihead) on [B,S,H,D] q/k/v handed over as
     [B,H,S,D] views, as attention_bshd hands them on the main path
@@ -604,35 +707,98 @@ def plain_attention_cases(torch, name: str, shapes=PLAIN_ATTENTION_SHAPES,
     for b, h, sq, sk, d in shapes:
         for dname in dtypes:
             q, k, v = bshd_operands(torch, b, h, sq, sk, d, getattr(torch, dname))
-            cases.append(hold_attention_case(torch, fa, name, q, k, v, reps))
+            cases.append(hold_attention_case(torch, fa, name, q, k, v, reps, cuda_core_turns))
             del q, k, v
             torch.cuda.empty_cache()
     return cases
 
 
-# q [1,2,1,64] with strides (3, 64, 5, 1): its batch and row axes have size 1
-# and odd strides the wrapper never checks (it sends 0, the C entry a
-# stride a tensor map takes); k/v [1,2,40,64], one ragged key tile
+def fa_module():
+    return importlib.import_module("thermal3d_torch.kernels.flash_attention")
+
+
+def d24_k2k3_cases(torch):
+    """K2/K3 in bf16 and float32 at head_dim 24 (C=384, 16 heads), outside the
+    tensor cores' head dims: the CUDA-core one-shot kernel at S=196 and its
+    key-tile kernel at S=1024."""
+    log("K2/K3 bf16 and float32 at head_dim 24 (the CUDA-core one-shot and key-tile "
+        "kernels):")
+    k2, k3 = [], []
+    d24 = dict(widths=[(384, 16)], dtypes=("bfloat16", "float32"))
+    for kw in (dict(), dict(batch=PAIR_BATCH, grid=(32, 32), reps=10)):
+        k2 += attention_cases(torch, cross=False, **d24, **kw)
+        k3 += attention_cases(torch, cross=True, **d24, **kw)
+    return k2, k3
+
+
+# phase 3's cases at the tensor cores' other head dims, each in bf16 and
+# float32, each with the CUDA-core kernel it replaces timed beside it in
+# turns. K2/K3 (kernel, batch, grid side, C, heads): head_dim 32, a decoder
+# of 512 wide and 16 heads at the serving S (CroCo v2's small decoder);
+# head_dim 128 at S=1024; head_dim 16 small. K4 (B, H, Sq, Sk, D): the D=32
+# shape the CUDA-core kernel was timed at, D=128 at S=1024 and at S=196, D=16
+# small; K5 and K6 at the D=32 shape.
+HEAD_DIM_K2K3 = (("K2", BATCH, 14, 512, 16), ("K3", BATCH, 14, 512, 16),
+                 ("K2", 8, 32, 1024, 8), ("K2", 4, 14, 256, 16))
+HEAD_DIM_K4 = ((4, 16, 1024, 1024, 32), (8, 8, 1024, 1024, 128), (BATCH, 8, 196, 196, 128),
+               (4, 16, 196, 196, 16))
+HEAD_DIM_K5K6 = ((4, 16, 1024, 1024, 32),)
+
+
+def head_dim_cases(torch):
+    """HEAD_DIM_K2K3, HEAD_DIM_K4 and HEAD_DIM_K5K6 (attention_cases and
+    plain_attention_cases with cuda_core_turns), and K4's size-1-axes case
+    at SIZE_ONE_HEAD_DIMS (size_one_axes_case): (K2 cases, K3 cases,
+    {K4-K6 entry: cases})."""
+    log("K2-K6 at head_dims 16, 32 and 128 on the tensor cores, bf16 and float32, the "
+        "CUDA-core kernels timed beside them in turns:")
+    k2, k3 = [], []
+    for kind, batch, side, c, heads in HEAD_DIM_K2K3:
+        (k3 if kind == "K3" else k2).extend(attention_cases(
+            torch, cross=kind == "K3", batch=batch, grid=(side, side), widths=[(c, heads)],
+            reps=10, cuda_core_turns=True))
+    k456 = {"flash_attention_pallas": plain_attention_cases(
+        torch, "flash_attention_pallas", HEAD_DIM_K4, cuda_core_turns=True)}
+    for d, dname in SIZE_ONE_HEAD_DIMS:
+        k456["flash_attention_pallas"].append(size_one_axes_case(torch, d, getattr(torch, dname)))
+    for name in ("flash_attention_grouped", "flash_attention_multihead"):
+        k456[name] = plain_attention_cases(torch, name, HEAD_DIM_K5K6, cuda_core_turns=True)
+    return k2, k3, k456
+
+
+# q [1,2,1,D] with strides (3, D, 5, 1) in bf16: its batch and row axes
+# have size 1 and odd strides the wrapper never checks (it sends 0, the C
+# entry a stride a tensor map takes: one row, 2*D bytes bf16, 4*D float32);
+# in float32 the [B,S,H,D] view of one query row, strides (2D, D, 2D, 1),
+# since SDPA (the yardstick) refuses a float32 q whose row stride is not
+# 16-byte aligned, and the C entry gets the same 0 either way. k/v
+# [1,2,40,D], one ragged key tile. Phase 3 runs it at D=64 in bf16 and at
+# SIZE_ONE_HEAD_DIMS, where the size-1 stride is 32-128 bytes.
 SIZE_ONE_Q_STRIDES = (3, 64, 5, 1)
 SIZE_ONE_SK = 40
+SIZE_ONE_HEAD_DIMS = ((16, "bfloat16"), (16, "float32"), (32, "bfloat16"), (32, "float32"))
 
 
-def size_one_operands(torch):
-    """Seeded q [1,2,1,64] (SIZE_ONE_Q_STRIDES) and k, v [1,2,SIZE_ONE_SK,64]
-    ([B,S,H,D] views) on the card, bf16."""
+def size_one_operands(torch, d: int = 64, dtype=None):
+    """Seeded q [1,2,1,d] (bf16: SIZE_ONE_Q_STRIDES, d for 64; float32:
+    strides (2d, d, 2d, 1)) and k, v [1,2,SIZE_ONE_SK,d] ([B,S,H,D] views)
+    on the card, bf16 unless dtype."""
+    dtype = dtype or torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(SIZE_ONE_SK)
-    buf = torch.randn(2 * 64 + 7, generator=gen, device="cuda").to(torch.bfloat16)
-    q = buf.as_strided((1, 2, 1, 64), SIZE_ONE_Q_STRIDES)
-    k, v = (torch.randn((1, SIZE_ONE_SK, 2, 64), generator=gen, device="cuda")
-            .to(torch.bfloat16).transpose(1, 2) for _ in range(2))
+    buf = torch.randn(2 * d + 7, generator=gen, device="cuda").to(dtype)
+    strides = ((SIZE_ONE_Q_STRIDES[0], d, *SIZE_ONE_Q_STRIDES[2:]) if dtype == torch.bfloat16
+               else (2 * d, d, 2 * d, 1))
+    q = buf.as_strided((1, 2, 1, d), strides)
+    k, v = (torch.randn((1, SIZE_ONE_SK, 2, d), generator=gen, device="cuda")
+            .to(dtype).transpose(1, 2) for _ in range(2))
     return q, k, v
 
 
-def size_one_axes_case(torch, name: str = "flash_attention_pallas") -> dict:
-    """The bf16 K4 case with size-1 axes of odd strides in q
-    (hold_attention_case)."""
+def size_one_axes_case(torch, d: int = 64, dtype=None, name: str = "flash_attention_pallas"):
+    """The K4 case with size-1 axes of odd strides in q
+    (hold_attention_case), bf16 unless dtype."""
     fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
-    q, k, v = size_one_operands(torch)
+    q, k, v = size_one_operands(torch, d, dtype)
     log(f"  size-1 axes: q {tuple(q.shape)} strides {q.stride()}, k/v {tuple(k.shape)}")
     return hold_attention_case(torch, fa, name, q, k, v, reps=10)
 
@@ -681,8 +847,8 @@ def multi_card_check(torch, np):
          (rand(8, 196, 3072), *tables(14), 16, 0.125)),
         ("K2 f32 [2,1024,2304] (3xTF32)", fa.fused_rope_attention,
          (rand(2, 1024, 2304), *tables(32), 12, 0.125)),
-        ("K2 f32 D=32 [8,196,1536] (CUDA cores, one-shot)", fa.fused_rope_attention,
-         (rand(8, 196, 1536), *rope_tables(make_grid_positions(14, 14), 32), 16, 0.125)),
+        ("K2 f32 D=24 [8,196,1152] (CUDA cores, one-shot)", fa.fused_rope_attention,
+         (rand(8, 196, 1152), *rope_tables(make_grid_positions(14, 14), 24), 16, 0.125)),
         ("K3 bf16 [32,196,768] (tensor cores)", fa.fused_rope_cross_attention,
          (*(rand(BATCH, 196, 768, dtype=bf16) for _ in range(3)), *tables(14), 12, 0.125)),
         ("K3 f32 [8,196,768] (3xTF32)", fa.fused_rope_cross_attention,
@@ -694,8 +860,17 @@ def multi_card_check(torch, np):
                       (*(rand(8, 16, 1024, 64, dtype=bf16) for _ in range(3)), 0.125)))
         cases.append((f"{name} f32 [2,16,196,64] (3xTF32)", fn,
                       (*(rand(2, 16, 196, 64) for _ in range(3)), 0.125)))
-        cases.append((f"{name} f32 [2,16,196,32] (CUDA cores)", fn,
-                      (*(rand(2, 16, 196, 32) for _ in range(3)), 0.125)))
+        cases.append((f"{name} f32 [2,16,196,24] (CUDA cores)", fn,
+                      (*(rand(2, 16, 196, 24) for _ in range(3)), 0.125)))
+    cases += [  # the tensor cores' other head dims
+        ("K2 bf16 D=32 [8,196,1536] (tensor cores, key tiles)", fa.fused_rope_attention,
+         (rand(8, 196, 1536, dtype=bf16), *rope_tables(make_grid_positions(14, 14), 32), 16,
+          0.125)),
+        ("K4 f32 D=128 [2,8,196,128] (3xTF32, one warpgroup a block)",
+         fa.flash_attention_pallas, (*(rand(2, 8, 196, 128) for _ in range(3)), 0.125)),
+        ("K4 bf16 D=16 [2,16,196,16] (tensor cores)", fa.flash_attention_pallas,
+         (*(rand(2, 16, 196, 16, dtype=bf16) for _ in range(3)), 0.125)),
+    ]
     results = []
     for what, fn, args in cases:
         outs = []
@@ -825,8 +1000,10 @@ def profile_batch(torch, fn, what: str = f"one infer() of {BATCH} frames", layer
 def kernel_counters():
     """The launch counters of K1-K6, in order, then the tensor-core K2/K3
     kernel's own and the tensor-core K4-K6 kernel's own (every bf16 launch
-    with head_dim 64 goes through them), the 3xTF32 K2/K3 and K4-K6 kernels'
-    own (every float32 launch with head_dim 64), then the int8 product's
+    with a head_dim of 16, 32, 64 or 128 goes through them), the 3xTF32
+    K2/K3 and K4-K6 kernels' own (every float32 launch with those head
+    dims), the CUDA-core K2/K3 and K4-K6 kernels' own (every other head dim:
+    0 on every path of a configured model), then the int8 product's
     (torch._int_mm: 0 on every path that does not quantize)."""
     fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
     from thermal3d_torch.kernels.image_ops import percentile_enhance
@@ -835,7 +1012,8 @@ def kernel_counters():
     return (percentile_enhance, fa.fused_rope_attention, fa.fused_rope_cross_attention,
             fa.flash_attention_pallas, fa.flash_attention_grouped,
             fa.flash_attention_multihead, fa.rope_attention_tc, fa.softmax_attention_tc,
-            fa.rope_attention_3xtf32, fa.softmax_attention_3xtf32, int_mm)
+            fa.rope_attention_3xtf32, fa.softmax_attention_3xtf32,
+            fa.rope_attention_cuda_core, fa.softmax_attention_cuda_core, int_mm)
 
 
 def run_counted(fn, want_by_name):
@@ -931,6 +1109,110 @@ def phase_engine(torch, np):
                 breakdown=breakdown,
                 bf16_rel_err=errs,
                 bf16_plain_vs_f32=noise, bf16_kernels_vs_f32=kern_err, f32_rel_err=errs32)
+
+
+# phase 4's small-decoder part (alone: --only-small-decoder): DUSt3R-224 at
+# full width and depth with the decoder at CroCo v2's small-decoder widths,
+# 512 wide with 16 heads, so every decoder attention runs at head_dim 32 (the
+# encoder stays at 64)
+SMALL_DECODER = dict(dec_embed_dim=512, dec_num_heads=16)
+
+
+def serve_rates_in_turns(torch, engines: dict, frames) -> dict:
+    """infer_async() frames/s of two engines on the same batches, in turns
+    (a, b, b, a for the names in order), each after a warm-up batch."""
+    first, second = list(engines)
+    for eng in engines.values():
+        eng.infer_async(frames[0])
+    rates = {name: [] for name in engines}
+    for name in (first, second, second, first):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in frames:
+            out = engines[name].infer_async(f)
+        torch.cuda.synchronize()
+        rates[name].append(BATCH * len(frames) / (time.perf_counter() - t0))
+        del out
+    return rates
+
+
+def phase_small_decoder(torch, np):
+    """The small-decoder engine (SMALL_DECODER on DUSTR_224_LINEAR, seeded
+    random weights), built here: in bf16, N_BATCHES batches of BATCH raw
+    frames held against its bf16 plain twin and a float32 twin at phase 4's
+    gates, launches K1 1, K2 40, K3 16 and the tensor-core K2/K3 count 56 a
+    batch (no CUDA-core launch); in float32 on 4 frames against its plain
+    twin within F32_ENGINE_REL_LIMIT, the 3xTF32 count 56; infer_async()
+    frames/s beside the head_dim-64 engine's on the same frames, in turns,
+    in both dtypes; then the K2-K4 autograd Functions at the training shape
+    of that decoder (TRAIN_BWD_D32_CASES) within phase 7's limits."""
+    from thermal3d_torch.core.config import DUSTR_224_LINEAR
+    from thermal3d_torch.infer.engine import InferenceEngine
+
+    cfg64 = dataclasses.replace(DUSTR_224_LINEAR, compute_dtype="bfloat16")
+    cfg = dataclasses.replace(cfg64, **SMALL_DECODER)
+    t0 = time.perf_counter()
+    eng = InferenceEngine(cfg, params_dtype="bfloat16", seed=0)
+    ref_eng = InferenceEngine(dataclasses.replace(cfg, attention_impl="torch"),
+                              state_dict=eng.model.state_dict(), params_dtype="bfloat16",
+                              enhance_impl="plain")
+    log(f"small decoder {SMALL_DECODER}: two full-width bf16 engines built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    frames = [raw_frames(np, seed) for seed in range(N_BATCHES)]
+    check_outputs(eng.infer(frames[0]), np)  # warm-up
+    want = {"percentile_enhance": N_BATCHES, "fused_rope_attention": 40 * N_BATCHES,
+            "fused_rope_cross_attention": 16 * N_BATCHES, "rope_attention_tc": 56 * N_BATCHES}
+    outs, launches = run_counted(lambda: [eng.infer(f) for f in frames], want)
+    for out in outs:
+        check_outputs(out, np)
+    log(f"small decoder bf16: launches {launches}")
+    gold_eng = InferenceEngine(dataclasses.replace(DUSTR_224_LINEAR, attention_impl="torch",
+                                                   **SMALL_DECODER),
+                               state_dict=eng.model.state_dict(), enhance_impl="plain")
+    ref = ref_eng.infer(frames[0])
+    gold = gold_eng.infer(frames[0])
+    errs = {k: rel_err(outs[0][k], ref[k], np) for k in ref}
+    noise = {k: rel_err(ref[k], gold[k], np) for k in ref}
+    kern_err = {k: rel_err(outs[0][k], gold[k], np) for k in ref}
+    log(f"small decoder bf16 kernels vs bf16 plain twin, max|Δ|/max|ref|: {errs} "
+        f"(limit {BF16_ENGINE_REL_LIMIT}); vs f32: plain {noise}, kernels {kern_err} "
+        f"(limit: kernels <= {BF16_NOISE_FACTOR} x plain + 1e-3)")
+    if max(errs.values()) > BF16_ENGINE_REL_LIMIT or any(
+            kern_err[k] > BF16_NOISE_FACTOR * noise[k] + 1e-3 for k in ref):
+        raise AssertionError(f"small-decoder bf16 engine disagrees with its plain twin: {errs}, "
+                             f"vs f32: plain {noise}, kernels {kern_err}")
+    del ref_eng, gold_eng, outs
+    eng64 = InferenceEngine(cfg64, params_dtype="bfloat16", seed=0)
+    fps = serve_rates_in_turns(torch, {"head_dim_64": eng64, "small_decoder": eng}, frames)
+    log(f"small decoder bf16: infer_async frames/s in turns {fps}")
+    del eng, eng64
+
+    f32 = InferenceEngine(dataclasses.replace(DUSTR_224_LINEAR, **SMALL_DECODER), seed=1)
+    f32_ref = InferenceEngine(dataclasses.replace(DUSTR_224_LINEAR, attention_impl="torch",
+                                                  **SMALL_DECODER),
+                              state_dict=f32.model.state_dict(), enhance_impl="plain")
+    small = frames[1][:4]
+    a, f32_launches = run_counted(lambda: f32.infer(small), {
+        "percentile_enhance": 1, "fused_rope_attention": 40, "fused_rope_cross_attention": 16,
+        "rope_attention_3xtf32": 56})
+    b = f32_ref.infer(small)
+    errs32 = {k: rel_err(a[k], b[k], np) for k in b}
+    log(f"small decoder f32: launches {f32_launches}; vs plain twin, max|Δ|/max|ref|: "
+        f"{errs32} (limit {F32_ENGINE_REL_LIMIT})")
+    if max(errs32.values()) > F32_ENGINE_REL_LIMIT:
+        raise AssertionError(f"small-decoder f32 engine disagrees with its plain twin: {errs32}")
+    del f32_ref
+    f32_64 = InferenceEngine(DUSTR_224_LINEAR, seed=1)
+    fps32 = serve_rates_in_turns(torch, {"head_dim_64": f32_64, "small_decoder": f32}, frames)
+    log(f"small decoder f32: infer_async frames/s in turns {fps32}")
+    del f32, f32_64
+    torch.cuda.empty_cache()
+    log("small decoder: the K2-K4 autograd Functions at its training shape (head_dim 32):")
+    grads, _ = train_backward_cases(torch, shapes=TRAIN_BWD_D32_CASES)
+    return dict(config=SMALL_DECODER, batch=BATCH, n_batches=N_BATCHES, launches=launches,
+                f32_launches=f32_launches, bf16_rel_err=errs, bf16_plain_vs_f32=noise,
+                bf16_kernels_vs_f32=kern_err, f32_rel_err=errs32,
+                infer_async_fps=fps, infer_async_fps_f32=fps32, backward=grads)
 
 
 def rgb_pairs(np, seed: int):
@@ -1574,15 +1856,22 @@ TRAIN_BWD_CASES = (("K2 encoder", "K2", 2 * TRAIN_BATCH, 1024, 16),
                    ("K2 decoder", "K2", TRAIN_BATCH, 768, 12),
                    ("K3 decoder", "K3", TRAIN_BATCH, 768, 12),
                    ("K4 'pallas' encoder", "K4", 2 * TRAIN_BATCH, 1024, 16))
+# ... and at the training shape of a decoder 512 wide with 16 heads
+# (head_dim 32, the small-decoder engine's: phase_small_decoder)
+TRAIN_BWD_D32_CASES = (("K2 small decoder", "K2", TRAIN_BATCH, 512, 16),
+                       ("K3 small decoder", "K3", TRAIN_BATCH, 512, 16),
+                       ("K4 'pallas' small decoder", "K4", TRAIN_BATCH, 512, 16))
 
 
-def train_backward_cases(torch, device: str = "cuda"):
-    """Each autograd Function at the training shapes, on `device`: its
-    forward (the kernel on the card) is held against the plain forward at
-    phase 3's limits, its backward (plain PyTorch) against float64 autograd
-    of the plain forward. On the card the Function must launch its kernel,
-    and the backward alone is timed by graph replay; returns the cases and
-    the bf16 backward ms of one training step (None on the CPU)."""
+def train_backward_cases(torch, device: str = "cuda", shapes=TRAIN_BWD_CASES):
+    """Each autograd Function at the training shapes (`shapes`), on
+    `device`: its forward (the kernel on the card) is held against the plain
+    forward at phase 3's limits, its backward (plain PyTorch) against
+    float64 autograd of the plain forward. On the card the Function must
+    launch its kernel, of the family attention_route names (its own count
+    moving once), and the backward alone is timed by graph replay; returns
+    the cases and, for TRAIN_BWD_CASES, the bf16 backward ms of one training
+    step (None on the CPU or for other shapes)."""
     fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
     from thermal3d_torch.models.rope import make_grid_positions, rope_tables
 
@@ -1590,7 +1879,7 @@ def train_backward_cases(torch, device: str = "cuda"):
     pos = make_grid_positions(14, 14, device=device)
     s = 196
     cases = []
-    for what, kind, b, c, nh in TRAIN_BWD_CASES:
+    for what, kind, b, c, nh in shapes:
         d = c // nh
         cos, sin = rope_tables(pos, d)
         scale = 1.0 / math.sqrt(d)
@@ -1608,6 +1897,9 @@ def train_backward_cases(torch, device: str = "cuda"):
             g = torch.randn((b, s, c), generator=gen, device=device).to(dt)
             ins = [x.clone().requires_grad_(True) for x in xs]
             ins64 = [x.double().requires_grad_(True) for x in xs]
+            families = ((fa.softmax_attention_tc, fa.softmax_attention_3xtf32) if kind == "K4"
+                        else (fa.rope_attention_tc, fa.rope_attention_3xtf32))
+            family_before = tuple(f.launches for f in families)
             if kind == "K2":
                 entry = fa.fused_rope_attention
                 plain = lambda: fa.fused_rope_attention_plain(xs[0], cos, sin, nh, scale)  # noqa: E731
@@ -1630,9 +1922,13 @@ def train_backward_cases(torch, device: str = "cuda"):
                 q64, k64, v64 = (bhsd(t) for t in ins64)
                 p = torch.softmax(q64 @ k64.transpose(-1, -2) * scale, dim=-1)
                 ref = (p @ v64).transpose(1, 2).reshape(b, s, c)
-            if "Backward" not in type(out.grad_fn).__name__ or \
-                    (on_card and entry.launches != before + 1):
-                raise AssertionError(f"{what} {dname}: the kernel's Function did not run")
+            route = fa.attention_route(dt, d)
+            moved = tuple(f.launches - n for f, n in zip(families, family_before))
+            if "Backward" not in type(out.grad_fn).__name__ or (on_card and (
+                    entry.launches != before + 1
+                    or moved != (int(route == fa.TENSOR_CORE), int(route == fa.TF32X3)))):
+                raise AssertionError(f"{what} {dname}: the kernel's Function did not run "
+                                     f"(tensor-core and 3xTF32 launches {moved}, route {route})")
             with torch.no_grad():
                 fwd_err = (out.float() - plain().float()).abs().max().item()
             # as in phase 3: f32 differs in summation order only; bf16 by the
@@ -1663,7 +1959,7 @@ def train_backward_cases(torch, device: str = "cuda"):
                               fwd_max_abs_err=fwd_err, fwd_limit=fwd_limit,
                               max_rel_err=max(errs), limit=TRAIN_BWD_LIMIT[dname], bwd_ms=ms))
             del ins, ins64, out, ref
-    if not on_card:
+    if not on_card or shapes is not TRAIN_BWD_CASES:
         return cases, None
     torch.cuda.empty_cache()
     by = {(c["what"], c["dtype"]): c["bwd_ms"] for c in cases}
@@ -2670,13 +2966,12 @@ def phase_int8(torch, np, root: str):
 COMPARE_CASES = (("K2", BATCH, 14, 1024, 16), ("K2", BATCH, 14, 768, 12),
                  ("K3", BATCH, 14, 768, 12), ("K2", 2 * PAIR_BATCH, 32, 1024, 16),
                  ("K2", PAIR_BATCH, 32, 768, 12), ("K3", PAIR_BATCH, 32, 768, 12))
-# the float32 cases of --compare-k2k3 (this checkout's route against the other
-# checkout's CUDA-core kernels, the parent's float32 route): COMPARE_CASES'
-# serving and pseudo-GT shapes, and a tensor-parallel rank's (tp=2)
+# the float32 cases of --compare-k2k3 (this checkout's 3xTF32 kernels against
+# the other checkout's build of them): COMPARE_CASES' serving and pseudo-GT
+# shapes, and a tensor-parallel rank's (tp=2); those of --compare-k4k6 are
+# every K4 shape of PLAIN_ATTENTION_SHAPES
 COMPARE_F32_K2K3 = COMPARE_CASES + (("K2", 2 * TRAIN_BATCH, 14, 512, 8),
                                     ("K2", TRAIN_BATCH, 14, 384, 6), ("K3", TRAIN_BATCH, 14, 384, 6))
-# ... and of --compare-k4k6: every K4 shape of PLAIN_ATTENTION_SHAPES
-F32_LIMIT = 2e-5  # float32 kernels against each other or the plain version
 
 
 # phase 10: multi-GPU on one card. The card's machine has one H100, so every
@@ -3451,17 +3746,68 @@ def tp_attention_cases(torch, tp: int = 2):
 
 def build_other(other_csrc: str, name: str):
     """Build OTHER_CSRC/<name>.cu with this checkout's nvcc flags into the
-    build directory and load it."""
+    build directory and load it, seen through this checkout's C signatures
+    (OtherBuild)."""
     from pathlib import Path
 
     from thermal3d_torch.kernels import _build
 
     lib_path = _build.BUILD_DIR / f"libother_{name}.so"
+    source = Path(other_csrc) / f"{name}.cu"
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path),
-                    str(Path(other_csrc) / f"{name}.cu")],
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path), str(source)],
                    check=True, capture_output=True, text=True)
-    return _build.load(lib_path)
+    return OtherBuild(_build.load(lib_path), source.read_text())
+
+
+# the queries of the tensor-core sources whose arguments gained head_dim
+# when those kernels came to serve head dims other than 64: (argument types
+# before, result type, the index head_dim took)
+_LL_P = ctypes.POINTER(ctypes.c_longlong)
+OLD_QUERIES = {
+    "t3d_rope_attention_tc_scratch_bytes": ([ctypes.c_int] * 3, ctypes.c_ulonglong, 3),
+    "t3d_rope_attention_tc_schedule": ([ctypes.c_int] * 4, ctypes.c_int, 3),
+    "t3d_softmax_attention_tc_map_strides": ([_LL_P] + [ctypes.c_int] * 4 + [_LL_P], None, 5),
+    "t3d_attention_3xtf32_scratch_bytes": ([ctypes.c_int] * 3, ctypes.c_ulonglong, 3),
+}
+
+
+def takes_head_dim(source: str, query: str) -> bool:
+    """Whether the C source's definition of `query` has a head_dim argument."""
+    return re.search(rf"\b{query}\([^)]*\bhead_dim\b", source) is not None
+
+
+class OtherBuild:
+    """Another checkout's build of a tensor-core source (build_other), seen
+    through this checkout's C signatures, so that flash_attention's wrappers
+    take it as they take this checkout's build. Its entries are the build's
+    own: their arguments have not changed. A query of OLD_QUERIES that the
+    source defines without head_dim (a build that serves head_dim 64 alone)
+    is declared here with its own arguments and stands here as a function
+    of this checkout's arguments, which drops the head_dim and raises
+    unless it is 64. flash_attention's bind functions set argtypes and
+    restype on what they find: on the entries that is what they already
+    take, and on such a function an attribute nothing reads."""
+
+    def __init__(self, lib, source: str):
+        self._lib = lib
+        for name, (argtypes, restype, at) in OLD_QUERIES.items():
+            if hasattr(lib, name) and not takes_head_dim(source, name):
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, restype
+                setattr(self, name, self._without_head_dim(fn, at, name))
+
+    @staticmethod
+    def _without_head_dim(fn, at: int, name: str):
+        def query(*args):
+            if args[at] != 64:
+                raise ValueError(f"{name} of the other build serves head_dim 64 alone "
+                                 f"(asked for {args[at]})")
+            return fn(*args[:at], *args[at + 1:])
+        return query
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
 
 
 def compare_in_turns(torch, run, outs: dict, reps: int = 20) -> dict:
@@ -3473,47 +3819,40 @@ def compare_in_turns(torch, run, outs: dict, reps: int = 20) -> dict:
     torch.cuda.synchronize()
     equal = torch.equal(outs["this"], outs["other"])
     max_abs_diff = (outs["this"].float() - outs["other"].float()).abs().max().item()
-    ms = {w: [] for w in outs}
-    for which in ("other", "this", "this", "other"):
-        ms[which].append(cuda_ms(lambda w=which: run(w), reps=reps))
+    ms = in_turns(torch, {"other": lambda: run("other"), "this": lambda: run("this")}, reps)
     return dict(equal=equal, max_abs_diff=max_abs_diff, this_ms=ms["this"],
                 other_ms=ms["other"])
 
 
 @contextlib.contextmanager
-def float32_on_cuda_cores(fa, libs: dict):
-    """float32 attention as a checkout before the 3xTF32 kernels ran it:
-    attention_route sends float32 calls to the CUDA-core kernels, and those
-    are the builds in `libs` (rope_attention, attention: the other
-    checkout's, by build_other)."""
+def other_3xtf32_build(fa, lib):
+    """float32 attention on another build of csrc/attention_3xtf32.cu (the
+    other checkout's, by build_other): the 3xTF32 wrappers load `lib` in
+    place of this checkout's library (an OtherBuild: its queries take this
+    checkout's arguments)."""
     from thermal3d_torch.kernels import _build
 
-    route, saved = fa.attention_route, {n: _build._libs.get(n) for n in libs}
-
-    def parent_route(dtype, head_dim):
-        got = route(dtype, head_dim)
-        return fa.CUDA_CORE if got == fa.TF32X3 else got
-
-    fa.attention_route = parent_route
-    _build._libs.update(libs)
+    saved = _build._libs.get("attention_3xtf32")
+    _build._libs["attention_3xtf32"] = lib
     try:
         yield
     finally:
-        fa.attention_route = route
-        for n, lib in saved.items():
-            if lib is None:
-                _build._libs.pop(n, None)
-            else:
-                _build._libs[n] = lib
+        if saved is None:
+            _build._libs.pop("attention_3xtf32", None)
+        else:
+            _build._libs["attention_3xtf32"] = saved
 
 
-def compare_float32(torch, fa, libs: dict, cases, path_runs) -> dict:
+def compare_float32(torch, fa, other_csrc: str, cases, path_runs) -> dict:
     """The float32 half of --compare-k2k3 / --compare-k4k6: each case (label,
-    run) writes its output with this checkout's route ("this": the 3xTF32
-    kernels) and with the other's (float32_on_cuda_cores), max|diff| within
-    F32_LIMIT and both timed in turns (compare_in_turns); then each path
-    (label, fn, items, unit) timed the same way end to end: fn() on the card
-    to the last kernel, items per second, in turns other, this, this, other."""
+    run) writes its output with this checkout's 3xTF32 kernels ("this") and
+    with the other checkout's build of csrc/attention_3xtf32.cu
+    (other_3xtf32_build), torch.equal and max|diff|, both timed in turns
+    (compare_in_turns); then each path (label, fn, items, unit) timed the
+    same way end to end: fn() on the card to the last kernel, items per
+    second, in turns other, this, this, other."""
+    fa._3xtf32_lib()  # this checkout's, built and bound
+    other = build_other(other_csrc, "attention_3xtf32")
     results = []
     for label, run_case in cases:
         outs = {}
@@ -3522,23 +3861,22 @@ def compare_float32(torch, fa, libs: dict, cases, path_runs) -> dict:
             if which == "this":
                 outs[which] = run_case()
             else:
-                with float32_on_cuda_cores(fa, libs):
+                with other_3xtf32_build(fa, other):
                     outs[which] = run_case()
 
         r = compare_in_turns(torch, run, outs, reps=10)
-        r["within_limit"] = r["max_abs_diff"] <= F32_LIMIT
         results.append(dict(case=label, dtype="float32", **r))
-        log(f"float32 {label}: max|diff| against the CUDA-core kernels {r['max_abs_diff']:.3e} "
-            f"(limit {F32_LIMIT:.0e}); ms this {r['this_ms']} other {r['other_ms']}")
+        log(f"float32 {label}: torch.equal {r['equal']} (max|diff| {r['max_abs_diff']:.3e}); "
+            f"ms this {r['this_ms']} other {r['other_ms']}")
         del outs
     paths = []
     for label, fn, items, unit in path_runs:
         rates = {"this": [], "other": []}
-        fn()  # warm-up, both routes
-        with float32_on_cuda_cores(fa, libs):
+        fn()  # warm-up, both builds
+        with other_3xtf32_build(fa, other):
             fn()
         for which in ("other", "this", "this", "other"):
-            ctx = float32_on_cuda_cores(fa, libs) if which == "other" else contextlib.nullcontext()
+            ctx = other_3xtf32_build(fa, other) if which == "other" else contextlib.nullcontext()
             with ctx:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -3546,9 +3884,8 @@ def compare_float32(torch, fa, libs: dict, cases, path_runs) -> dict:
                 torch.cuda.synchronize()
                 rates[which].append(items / (time.perf_counter() - t0))
         paths.append(dict(path=label, unit=unit, this=rates["this"], other=rates["other"]))
-        log(f"float32 {label}: {unit} this {rates['this']} other (CUDA cores) {rates['other']}")
-    return dict(cases=results, paths=paths,
-                all_within_limit=all(r["within_limit"] for r in results))
+        log(f"float32 {label}: {unit} this {rates['this']} other {rates['other']}")
+    return dict(cases=results, paths=paths, all_equal=all(r["equal"] for r in results))
 
 
 def compare_k2k3(torch, other_csrc: str) -> bool:
@@ -3559,11 +3896,10 @@ def compare_k2k3(torch, other_csrc: str) -> bool:
     largest difference on each of COMPARE_CASES, this build's schedule, and
     both timed as in phase 3, in turns (compare_in_turns). Then float32
     (compare_float32): this checkout's 3xTF32 K2/K3 against the other
-    checkout's CUDA-core rope_attention.cu (its float32 route before the
-    3xTF32 kernels) on COMPARE_F32_K2K3, and the float32 engine's
-    infer_async() frames/s and the float32 generator's run_pairs_async()
-    pairs/s with each. Prints one JSON line; returns whether every bf16
-    output was equal and every float32 one within F32_LIMIT."""
+    checkout's build of csrc/attention_3xtf32.cu on COMPARE_F32_K2K3, and the
+    float32 engine's infer_async() frames/s and the float32 generator's
+    run_pairs_async() pairs/s with each. Prints one JSON line; returns
+    whether every output, bf16 and float32, was equal."""
     fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
     from thermal3d_torch.models.rope import make_grid_positions, rope_tables
 
@@ -3596,11 +3932,11 @@ def compare_k2k3(torch, other_csrc: str) -> bool:
             f"{r['max_abs_diff']:.3e}); ms this {r['this_ms']} other {r['other_ms']}")
         del qkv, outs
     all_equal = all(r["equal"] for r in results)
-    f32 = compare_float32(torch, fa, {n: build_other(other_csrc, n) for n in ("rope_attention",)},
-                          f32_k2k3_cases(torch, fa), f32_k2k3_paths(torch))
+    f32 = compare_float32(torch, fa, other_csrc, f32_k2k3_cases(torch, fa),
+                          f32_k2k3_paths(torch))
     print(json.dumps({"compare_k2k3": results, "all_equal": all_equal, "float32": f32}),
           flush=True)
-    return all_equal and f32["all_within_limit"]
+    return all_equal and f32["all_equal"]
 
 
 def f32_k2k3_cases(torch, fa):
@@ -3653,10 +3989,10 @@ def compare_k4k6(torch, other_csrc: str) -> bool:
     largest difference on each, and both timed as in phase 3, in turns
     (compare_in_turns). Prints one JSON line; returns whether every output
     was equal. Then float32 (compare_float32): this checkout's 3xTF32 K4
-    against the other checkout's CUDA-core attention.cu on every K4 shape of
-    PLAIN_ATTENTION_SHAPES, and the float32 'pallas' generator's
+    against the other checkout's build of csrc/attention_3xtf32.cu on every
+    K4 shape of PLAIN_ATTENTION_SHAPES, and the float32 'pallas' generator's
     run_pairs_async() pairs/s with each; it returns False also where a
-    float32 output differs by more than F32_LIMIT."""
+    float32 output differs."""
     fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
 
     libs = {"this": None,
@@ -3690,11 +4026,10 @@ def compare_k4k6(torch, other_csrc: str) -> bool:
         f32_cases.append((f"K4 [{b},{h},{sq},{d}] Sk={sk}",
                           functools.partial(fa.flash_attention_pallas, q, k, v,
                                             1.0 / math.sqrt(d))))
-    f32 = compare_float32(torch, fa, {n: build_other(other_csrc, n) for n in ("attention",)},
-                          f32_cases, f32_k4k6_paths(torch))
+    f32 = compare_float32(torch, fa, other_csrc, f32_cases, f32_k4k6_paths(torch))
     print(json.dumps({"compare_k4k6": results, "all_equal": all_equal, "float32": f32}),
           flush=True)
-    return all_equal and f32["all_within_limit"]
+    return all_equal and f32["all_equal"]
 
 
 def f32_k4k6_paths(torch):
@@ -4792,7 +5127,8 @@ def main(argv) -> int:
     if argv and argv[0] == "--dist-worker":
         return dist_worker_main(argv[1:])
     if argv and not ((len(argv) == 2 and argv[0] in ("--compare-k2k3", "--compare-k4k6"))
-                     or argv in (["--only-multi-gpu"], ["--only-export"], ["--only-wrappers"])
+                     or argv in (["--only-multi-gpu"], ["--only-export"], ["--only-wrappers"],
+                                 ["--only-head-dims"], ["--only-small-decoder"])
                      or (argv[0] == "--only-multi-card"
                          and set(argv[1:]) <= set(MD_PARTS) | {"check"})):
         print(__doc__, file=sys.stderr)
@@ -4807,7 +5143,25 @@ def main(argv) -> int:
         compare = compare_k2k3 if argv[0] == "--compare-k2k3" else compare_k4k6
         return 0 if compare(torch, argv[1]) else 1
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    phase_build()
+    build = phase_build()
+    if argv == ["--only-head-dims"]:
+        k2_hd, k3_hd, k456_hd = head_dim_cases(torch)
+        k2_d24, k3_d24 = d24_k2k3_cases(torch)
+        k4_d24 = plain_attention_cases(torch, "flash_attention_pallas", PLAIN_ATTENTION_D24)
+        print(card, flush=True)
+        print(json.dumps({"build": build}), flush=True)
+        print(json.dumps({"head_dims": dict(K2=k2_hd, K3=k3_hd, **k456_hd,
+                                            cuda_core_d24=dict(K2=k2_d24, K3=k3_d24,
+                                                               K4=k4_d24))}), flush=True)
+        print(json.dumps(device_line(torch)), flush=True)
+        return 0
+    if argv == ["--only-small-decoder"]:
+        small_decoder = phase_small_decoder(torch, np)
+        print(card, flush=True)
+        print(json.dumps({"build": build}), flush=True)
+        print(json.dumps({"small_decoder": small_decoder}, default=float), flush=True)
+        print(json.dumps(device_line(torch)), flush=True)
+        return 0
     if argv == ["--only-export"]:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as root:
             export = phase_export(torch, np, root)
@@ -4856,20 +5210,19 @@ def main(argv) -> int:
         "multi-device phase (tp=4: 4 and 3 heads):")
     k2_tp, k3_tp = tp_attention_cases(torch)
     k2_tp4, k3_tp4 = tp_attention_cases(torch, 4)
-    log("K2/K3 bf16 and float32 at head_dim 32 (the CUDA-core one-shot and key-tile "
-        "kernels):")
-    d32 = dict(widths=[(512, 16)], dtypes=("bfloat16", "float32"))
-    for kw in (dict(), dict(batch=PAIR_BATCH, **mastr)):
-        k2 += attention_cases(torch, cross=False, **d32, **kw)
-        k3 += attention_cases(torch, cross=True, **d32, **kw)
-    log("K4-K6 (bf16 and float32 also at head_dim 32, on the CUDA-core kernel):")
+    k2_d24, k3_d24 = d24_k2k3_cases(torch)
+    k2 += k2_d24
+    k3 += k3_d24
+    log("K4-K6 (bf16 and float32 also at head_dim 24, on the CUDA-core kernel):")
     k456 = {name: plain_attention_cases(torch, name)
-            + plain_attention_cases(torch, name, PLAIN_ATTENTION_D32)
+            + plain_attention_cases(torch, name, PLAIN_ATTENTION_D24)
             for name in ("flash_attention_pallas", "flash_attention_grouped",
                          "flash_attention_multihead")}
     k456["flash_attention_pallas"].append(size_one_axes_case(torch))
+    k2_hd, k3_hd, k456_hd = head_dim_cases(torch)
     multi_card = multi_card_check(torch, np)
     engine = phase_engine(torch, np)
+    engine["small_decoder"] = phase_small_decoder(torch, np)
     pseudo_gt = phase_pseudo_gt(torch, np)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as root:
         files = phase_files(torch, np, card, engine, pseudo_gt, root)
@@ -4888,7 +5241,10 @@ def main(argv) -> int:
     # launches on each path's own run; `launches` is this slice's main path
     # (pseudo-GT) for K2-K6, the serving path for K1
     by_path = {}
+    small_decoder = engine["small_decoder"]
     for path, counts in (("serving", engine["launches"]), ("serving_f32", engine["f32_launches"]),
+                         ("serving_small_decoder", small_decoder["launches"]),
+                         ("serving_small_decoder_f32", small_decoder["f32_launches"]),
                          ("pseudo_gt_auto", pseudo_gt["launches"]),
                          ("pseudo_gt_pallas", pseudo_gt["pallas"]["launches"]),
                          *((f"pseudo_gt_f32_{impl}", r["launches"])
@@ -4960,8 +5316,10 @@ def main(argv) -> int:
                     plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
                     library_ms=m["library_ms"], main_case=m, cases=cases)
 
-    k2 += k2_tp + k2_tp4  # after the cases the entries' main_case indices name
-    k3 += k3_tp + k3_tp4
+    k2 += k2_tp + k2_tp4 + k2_hd  # after the cases the entries' main_case indices name
+    k3 += k3_tp + k3_tp4 + k3_hd
+    for name, cases in k456_hd.items():
+        k456[name] += cases
     fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
     f32_k2k3 = [c for c in k2 + k3 if c["kernel"].startswith("3xtf32")]
     f32_k4k6 = [c for name in k456 for c in k456[name] if c["kernel"] == fa.TF32X3]
@@ -4997,6 +5355,7 @@ def main(argv) -> int:
     kernels[-2]["replaces_also"] = [f"{fa_src}:415"]  # K3 on the same kernel
     kernels[-1]["replaces_also"] = [f"{fa_src}:227", f"{fa_src}:164"]  # K5, K6
     print(card, flush=True)
+    print(json.dumps({"build": build}), flush=True)
     print(json.dumps({"engine": engine}), flush=True)
     print(json.dumps({"pseudo_gt": pseudo_gt}), flush=True)
     print(json.dumps({"files": files}), flush=True)
@@ -5011,10 +5370,13 @@ def main(argv) -> int:
     print(json.dumps({"multi_device": multi_device}, default=float), flush=True)
     print(json.dumps({"wrappers": wrappers}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}), flush=True)
+    print(json.dumps(device_line(torch)), flush=True)
     return 0
+
+
+def device_line(torch) -> dict:
+    return {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                   "count": torch.cuda.device_count()}}
 
 
 if __name__ == "__main__":

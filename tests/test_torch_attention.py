@@ -196,23 +196,40 @@ def test_key_tile_recipe_masked_on_the_last_tile_only(sq, sk, dtype):
 
 
 @pytest.mark.parametrize("dtype,limit", [(torch.float32, 2e-5), (torch.bfloat16, 2.0 ** -6)])
-@pytest.mark.parametrize("tile,seq", [
-    (128, 1024),  # the CUDA-core key-tile loop at MASt3R-512's S
-    (64, 1024),   # the tensor-core kernel's 64-key tiles
-    (64, 196),    # ... at the serving S (14×14): the last tile holds 4 keys
+@pytest.mark.parametrize("tile,seq,head_dim", [
+    pytest.param(128, 1024, 64, id="128-1024"),  # the CUDA-core key-tile loop at MASt3R-512's S
+    pytest.param(64, 1024, 64, id="64-1024"),    # the tensor-core kernel's 64-key tiles
+    pytest.param(64, 196, 64, id="64-196"),      # ... at the serving S: the last tile holds 4 keys
+    # the tensor-core kernels' other head dims, against the JAX kernel in
+    # interpret mode at small S
+    pytest.param(64, 196, 16, id="64-196-d16"),
+    pytest.param(64, 196, 32, id="64-196-d32"),
+    pytest.param(64, 100, 128, id="64-100-d128"),
 ])
-def test_key_tile_recipe_within_kernel_limits(dtype, limit, tile, seq):
+def test_key_tile_recipe_within_kernel_limits(dtype, limit, tile, seq, head_dim):
     """The online softmax rounds p against a running max, so in bf16 it is
     not bit-equal to the one-shot plain version; with each kernel's key
     tile, at S=1024 and at a ragged S=196, it stays within the limits
     chip_smoke.py holds the tiled kernels to (2e-5 f32: summation order;
-    2^-6 bf16: an output ulp plus a flipped rounding of p)."""
-    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv((2, 2, seq, 64), (2, 2, seq, 64), 9))
-    scale = 1.0 / 8.0
+    2^-6 bf16: an output ulp plus a flipped rounding of p). At head_dims 16,
+    32 and 128 (one head, S <= 196) it is held to the same limits against
+    the JAX K4 it replaces, in interpret mode on the same rounded inputs, as
+    well as against the plain version."""
+    heads = 2 if head_dim == 64 else 1
+    q, k, v = (torch.from_numpy(a).to(dtype)
+               for a in _qkv((2, heads, seq, head_dim), (2, heads, seq, head_dim), 9))
+    scale = 1.0 / math.sqrt(head_dim)
     out = _online_softmax_recipe(q, k, v, scale, tile=tile)
     ref = tfa.attention_plain(q, k, v, scale)
     err = (out.to(torch.float32) - ref.to(torch.float32)).abs().max().item()
     assert err <= limit, err
+    if head_dim != 64:
+        jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+        jref = _jax_softmax_attention(
+            "pallas", *(jnp.asarray(t.to(torch.float32).numpy()).astype(jdt) for t in (q, k, v)),
+            scale)
+        jerr = np.abs(out.to(torch.float32).numpy() - np.asarray(jref.astype(jnp.float32))).max()
+        assert jerr <= limit, jerr
 
 
 @pytest.mark.parametrize("dtype,seq,head_dim,want", [
@@ -221,15 +238,23 @@ def test_key_tile_recipe_within_kernel_limits(dtype, limit, tile, seq):
     (torch.bfloat16, 4096, 64, tfa.TENSOR_CORE),  # any S
     (torch.float32, 196, 64, tfa.TF32X3),         # float32: 3xTF32 on tensor cores
     (torch.float32, 1024, 64, tfa.TF32X3),
-    (torch.bfloat16, 196, 32, tfa.CUDA_CORE),     # another head_dim: CUDA cores
-    (torch.bfloat16, 1024, 32, tfa.CUDA_CORE),
-    (torch.float32, 196, 32, tfa.CUDA_CORE),
-    (torch.float32, 1024, 32, tfa.CUDA_CORE),
+    (torch.bfloat16, 196, 32, tfa.TENSOR_CORE),   # a 512-wide decoder of 16 heads
+    (torch.bfloat16, 1024, 32, tfa.TENSOR_CORE),
+    (torch.float32, 196, 32, tfa.TF32X3),
+    (torch.float32, 1024, 32, tfa.TF32X3),
+    (torch.bfloat16, 196, 16, tfa.TENSOR_CORE),   # the tensor cores' other head dims
+    (torch.bfloat16, 1024, 128, tfa.TENSOR_CORE),
+    (torch.float32, 196, 16, tfa.TF32X3),
+    (torch.float32, 1024, 128, tfa.TF32X3),
+    (torch.bfloat16, 196, 24, tfa.CUDA_CORE),     # any other head_dim: CUDA cores
+    (torch.bfloat16, 1024, 160, tfa.CUDA_CORE),
+    (torch.float32, 196, 24, tfa.CUDA_CORE),
+    (torch.float32, 1024, 160, tfa.CUDA_CORE),
 ])
 def test_rope_attention_route(dtype, seq, head_dim, want):
     """The K2/K3 kernel family by shape, decided without the library: with
-    head_dim 64 bf16 on tensor cores and float32 3xTF32 on tensor cores, at
-    every S; other head dims on CUDA cores."""
+    head_dim 16, 32, 64 or 128 bf16 on tensor cores and float32 3xTF32 on
+    tensor cores, at every S; other head dims on CUDA cores."""
     assert tfa.attention_route(dtype, head_dim) == want
 
 
@@ -294,15 +319,35 @@ def test_key_tile_recipe_matches_k4_k5_k6_interpret(impl, sq, sk, dtype, limit):
 @pytest.mark.parametrize("dtype,head_dim,want", [
     (torch.bfloat16, 64, tfa.TENSOR_CORE),  # every 'pallas*' call of DUSt3R / MASt3R
     (torch.float32, 64, tfa.TF32X3),        # float32: 3xTF32 on tensor cores
-    (torch.bfloat16, 32, tfa.CUDA_CORE),    # another head_dim: CUDA cores
-    (torch.bfloat16, 128, tfa.CUDA_CORE),
-    (torch.float32, 16, tfa.CUDA_CORE),
-    (torch.float32, 32, tfa.CUDA_CORE),
+    (torch.bfloat16, 32, tfa.TENSOR_CORE),  # the tensor cores' other head dims
+    (torch.bfloat16, 128, tfa.TENSOR_CORE),
+    (torch.float32, 16, tfa.TF32X3),
+    (torch.float32, 32, tfa.TF32X3),
     (torch.float16, 64, tfa.CUDA_CORE),     # no tensor-core family (the wrappers refuse it)
+    (torch.bfloat16, 16, tfa.TENSOR_CORE),
+    (torch.float32, 128, tfa.TF32X3),
+    (torch.bfloat16, 24, tfa.CUDA_CORE),    # any other head_dim: CUDA cores
+    (torch.bfloat16, 160, tfa.CUDA_CORE),
+    (torch.float32, 24, tfa.CUDA_CORE),
+    (torch.float32, 160, tfa.CUDA_CORE),
 ])
 def test_attention_route(dtype, head_dim, want):
     """The K4/K5/K6 kernel family by shape, decided without the library."""
     assert tfa.attention_route(dtype, head_dim) == want
+
+
+@pytest.mark.parametrize("head_dim", range(4, 257, 4))
+def test_every_accepted_head_dim_has_one_route(head_dim):
+    """Every head dim the wrappers accept (a multiple of 4 up to 256) has a
+    family in both dtypes, the same for K2/K3 and K4-K6: the tensor cores
+    exactly at TC_HEAD_DIMS (16, 32, 64, 128; csrc/attention_tc.cuh's
+    serves_head_dim, by which the C entries reject any other), the CUDA
+    cores elsewhere."""
+    want_bf16, want_f32 = ((tfa.TENSOR_CORE, tfa.TF32X3) if head_dim in (16, 32, 64, 128)
+                           else (tfa.CUDA_CORE, tfa.CUDA_CORE))
+    assert tfa.TC_HEAD_DIMS == (16, 32, 64, 128)
+    assert tfa.attention_route(torch.bfloat16, head_dim) == want_bf16
+    assert tfa.attention_route(torch.float32, head_dim) == want_f32
 
 
 def _strided_operands(sq=8, sk=8):
@@ -429,7 +474,7 @@ def test_tensor_core_map_strides(case, want):
     (tc_map_strides, the mirror of csrc/attention_tc.cu's
     t3d_softmax_attention_tc_map_strides) from the element strides
     softmax_attention_tc passes: 2 bytes an element, and
-    SIZE_ONE_STRIDE_BYTES for an axis of size 1, whose stride the wrapper
+    size_one_stride_bytes(64) for an axis of size 1, whose stride the wrapper
     sends as 0 whatever the tensor's own."""
     q, k, v, out = _map_stride_operands(case)
     strides = [t.stride(i) if t.shape[i] > 1 else 0 for t in (q, k, v, out) for i in range(3)]
@@ -437,7 +482,33 @@ def test_tensor_core_map_strides(case, want):
     got = tfa.tc_map_strides(strides, b, h, sq, k.shape[2])
     assert got == want
     assert all(x % 16 == 0 and x > 0 for x in got)
-    assert tfa.SIZE_ONE_STRIDE_BYTES == 128
+    assert tfa.size_one_stride_bytes(64) == 128
+
+
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+@pytest.mark.parametrize("case", ["bshd", "size_one"])
+def test_tensor_core_map_strides_at_head_dims(case, head_dim):
+    """tc_map_strides at each head dim the kernel serves: [B,S,H,D] views
+    (rows H*D*2 bytes apart, heads D*2, items S*H*D*2) and size-1 axes, which
+    take one row's bytes (size_one_stride_bytes: 2*D), each a multiple of 16
+    bytes as a tensor map needs."""
+    def bshd(bb, hh, ss):
+        return torch.zeros((bb, ss, hh, head_dim), dtype=torch.bfloat16).transpose(1, 2)
+
+    if case == "bshd":
+        q, k, v, out = bshd(2, 3, 12), bshd(2, 3, 40), bshd(2, 3, 40), bshd(2, 3, 12)
+        row, head = 3 * head_dim * 2, head_dim * 2
+        want = [12 * row, head, row, 40 * row, head, row, 40 * row, head, row,
+                12 * row, head, row]
+    else:
+        q, k, v, out = bshd(1, 1, 1), bshd(1, 1, 40), bshd(1, 1, 40), bshd(1, 1, 1)
+        one = 2 * head_dim
+        want = [one, one, one, one, one, head_dim * 2, one, one, head_dim * 2, one, one, one]
+    strides = [t.stride(i) if t.shape[i] > 1 else 0 for t in (q, k, v, out) for i in range(3)]
+    got = tfa.tc_map_strides(strides, q.shape[0], q.shape[1], q.shape[2], k.shape[2], head_dim)
+    assert got == want
+    assert tfa.size_one_stride_bytes(head_dim) == 2 * head_dim
+    assert all(x % 16 == 0 and x > 0 for x in got)
 
 
 def _launch_k2k3(dtype, width=128, heads=2):
@@ -475,16 +546,24 @@ def _launch_softmax_attention_tc():
 # the shared memory the stand-in reports, the call on CPU tensors)
 LAUNCHES = {
     "k2k3_cuda_core_one_shot": ("_lib", "t3d_rope_attention", 0,
-                                lambda: _launch_k2k3(torch.float32, heads=4)),
+                                lambda: _launch_k2k3(torch.float32, width=96, heads=4)),
     "k2k3_cuda_core_key_tile": ("_lib", "t3d_rope_attention_tiled", 1 << 30,
-                                lambda: _launch_k2k3(torch.float32, heads=4)),
+                                lambda: _launch_k2k3(torch.float32, width=96, heads=4)),
+    "k2k3_3xtf32_d32": ("_3xtf32_lib", "t3d_rope_attention_3xtf32", 0,
+                        lambda: _launch_k2k3(torch.float32, heads=4)),
+    "k2k3_tensor_core_d32": ("_tc_lib", "t3d_rope_attention_tc", 0,
+                             lambda: _launch_k2k3(torch.bfloat16, heads=4)),
     "k2k3_3xtf32": ("_3xtf32_lib", "t3d_rope_attention_3xtf32", 0,
                     lambda: _launch_k2k3(torch.float32)),
     "k2k3_tensor_core": ("_tc_lib", "t3d_rope_attention_tc", 0,
                          lambda: _launch_k2k3(torch.bfloat16)),
     "rope_attention_tc": ("_tc_lib", "t3d_rope_attention_tc", 0, _launch_rope_attention_tc),
     "k4k6_cuda_core": ("_attention_lib", "t3d_attention", 0,
-                       lambda: _launch_k4k6(torch.float32, d=32)),
+                       lambda: _launch_k4k6(torch.float32, d=24)),
+    "k4k6_tensor_core_d32": ("_attention_tc_lib", "t3d_softmax_attention_tc", 0,
+                             lambda: _launch_k4k6(torch.bfloat16, d=32)),
+    "k4k6_3xtf32_d128": ("_3xtf32_lib", "t3d_softmax_attention_3xtf32", 0,
+                         lambda: _launch_k4k6(torch.float32, d=128)),
     "k4k6_3xtf32": ("_3xtf32_lib", "t3d_softmax_attention_3xtf32", 0,
                     lambda: _launch_k4k6(torch.float32)),
     "k4k6_tensor_core": ("_attention_tc_lib", "t3d_softmax_attention_tc", 0,
@@ -563,6 +642,18 @@ def test_tensor_core_schedule(batch, heads, seq, want):
                                             or parts == row_tiles)
 
 
+@pytest.mark.parametrize("head_dim", [16, 32, 128])
+@pytest.mark.parametrize("batch,heads,seq", [(32, 16, 196), (1, 1, 1), (8, 8, 1024)])
+def test_tensor_core_schedule_at_other_head_dims(batch, heads, seq, head_dim):
+    """At head_dims 16, 32 and 128 the tensor-core K2/K3 kernel takes the
+    RoPE prologue and the key tiles at every S (the one-pass schedule is
+    head_dim 64's), as csrc/rope_attention_tc.cu's schedule query answers;
+    head_dim 64 keeps its schedule."""
+    assert tfa.tc_schedule(batch, heads, seq, H100_SMS, head_dim) == (tfa.KEY_TILE, 1)
+    assert tfa.tc_schedule(batch, heads, seq, H100_SMS, 64) == tfa.tc_schedule(
+        batch, heads, seq, H100_SMS)
+
+
 @pytest.mark.parametrize("sms", [1, 66, 132, 264, 100000])
 @pytest.mark.parametrize("seq", [1, 64, 196, 256])
 def test_tensor_core_schedule_fills_the_card(seq, sms):
@@ -584,8 +675,9 @@ class _RecordingTcLibrary:
         self.events = events
         self.args = []
 
-    def t3d_rope_attention_tc_scratch_bytes(self, batch, seq, heads):
-        return StandInLibrary(self.events).t3d_rope_attention_tc_scratch_bytes(batch, seq, heads)
+    def t3d_rope_attention_tc_scratch_bytes(self, batch, seq, heads, head_dim):
+        return StandInLibrary(self.events).t3d_rope_attention_tc_scratch_bytes(
+            batch, seq, heads, head_dim)
 
     def t3d_rope_attention_tc(self, *args):
         self.events.append(("call", "t3d_rope_attention_tc"))
@@ -641,6 +733,114 @@ def test_rope_attention_tc_scratch(monkeypatch, seq, library, scratch):
     assert args[8:12] == (b, seq, heads, 64)
     assert (args[6] != 0) == scratch
     assert sizes == ([b * heads * seq * 64] if scratch else [])
+
+
+@pytest.mark.parametrize("head_dim", [16, 32, 128])
+@pytest.mark.parametrize("seq", [1, 196, 1024])
+def test_rope_attention_tc_scratch_at_other_head_dims(monkeypatch, seq, head_dim):
+    """At head_dims 16, 32 and 128 rope_attention_tc allocates the roped-K
+    scratch, a bf16 [B, H, S, D], at every S (the key tiles run at every S),
+    of the size the library's query gives for the head_dim, and hands the
+    library the head_dim."""
+    events, sizes = [], []
+    record_device_blocks(monkeypatch, events)
+    empty = torch.empty
+
+    def recording_empty(*shape, **kw):
+        if kw.get("dtype") == torch.bfloat16 and len(shape) == 1:
+            sizes.append(shape[0])
+        return empty(*shape, **kw)
+
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    lib = _RecordingTcLibrary(events)
+    b, heads = 2, 3
+    c = head_dim * heads
+    x = empty((b, seq, 3 * c), dtype=torch.bfloat16)
+    out = empty((b, seq, c), dtype=torch.bfloat16)
+    cos = sin = empty((seq, head_dim))
+    tfa.rope_attention_tc(x.data_ptr(), x.data_ptr() + 2 * c, x.data_ptr() + 4 * c, 3 * c, cos,
+                          sin, out, heads, 0.125, stream=0, lib=lib)
+    (args,) = lib.args
+    assert args[8:12] == (b, seq, heads, head_dim) and args[6] != 0
+    assert sizes == [b * heads * seq * head_dim]
+
+
+# each query of chip_smoke.OLD_QUERIES as a build that serves head_dim 64
+# alone defines it (no head_dim), and the source of this checkout that
+# defines it now
+_HEAD_DIM_64_QUERIES = {
+    "t3d_rope_attention_tc_scratch_bytes": (
+        "unsigned long long t3d_rope_attention_tc_scratch_bytes(int batch, int seq, "
+        "int num_heads) {", "rope_attention_tc", (2, 300, 3, 64)),
+    "t3d_rope_attention_tc_schedule": (
+        "int t3d_rope_attention_tc_schedule(int batch, int seq, int num_heads, int sms) {",
+        "rope_attention_tc", (2, 196, 3, 64, 132)),
+    "t3d_softmax_attention_tc_map_strides": (
+        "void t3d_softmax_attention_tc_map_strides(const long long* strides, int batch,\n"
+        "    int heads, int sq, int sk, long long* bytes) {", "attention_tc",
+        ("strides", 1, 2, 3, 4, 64, "bytes")),
+    "t3d_attention_3xtf32_scratch_bytes": (
+        "unsigned long long t3d_attention_3xtf32_scratch_bytes(int batch, int heads, int seq) {",
+        "attention_3xtf32", (2, 3, 300, 64)),
+}
+
+
+class _QueryLibrary:
+    """A stand-in build with every query of chip_smoke.OLD_QUERIES and one
+    entry, each recording the arguments it gets."""
+
+    def __init__(self):
+        self.calls = []
+        for name in (*_HEAD_DIM_64_QUERIES, "t3d_softmax_attention_tc"):
+            setattr(self, name, self._recording(name))
+
+    def _recording(self, name):
+        def fn(*args):
+            self.calls.append((name, args))
+            return 0
+        return fn
+
+
+@pytest.mark.parametrize("query", sorted(_HEAD_DIM_64_QUERIES))
+def test_other_build_drops_head_dim_for_a_head_dim_64_build(query):
+    """chip_smoke.OtherBuild over a build whose source defines the query
+    without head_dim (the compare modes' parent builds): the query takes
+    this checkout's arguments, reaches the build without the head_dim, with
+    the argument types of chip_smoke.OLD_QUERIES declared, and raises at
+    another head_dim; the entries are the build's own."""
+    import chip_smoke
+
+    source, _, args = _HEAD_DIM_64_QUERIES[query]
+    lib = _QueryLibrary()
+    other = chip_smoke.OtherBuild(lib, source)
+    at = chip_smoke.OLD_QUERIES[query][2]
+    assert args[at] == 64
+    getattr(other, query)(*args)
+    assert lib.calls == [(query, args[:at] + args[at + 1:])]
+    assert getattr(lib, query).argtypes == chip_smoke.OLD_QUERIES[query][0]
+    with pytest.raises(ValueError, match="head_dim 64 alone"):
+        getattr(other, query)(*args[:at], 32, *args[at + 1:])
+    assert other.t3d_softmax_attention_tc is lib.t3d_softmax_attention_tc
+
+
+@pytest.mark.parametrize("query", sorted(_HEAD_DIM_64_QUERIES))
+def test_other_build_passes_this_checkouts_queries_through(query):
+    """chip_smoke.OtherBuild over a build of this checkout's source: each
+    query defines head_dim (chip_smoke.takes_head_dim) and is the build's
+    own, untouched."""
+    from pathlib import Path
+
+    import chip_smoke
+
+    _, name, args = _HEAD_DIM_64_QUERIES[query]
+    source = (Path(tfa.__file__).parent / "csrc" / f"{name}.cu").read_text()
+    assert chip_smoke.takes_head_dim(source, query)
+    assert not chip_smoke.takes_head_dim(_HEAD_DIM_64_QUERIES[query][0], query)
+    lib = _QueryLibrary()
+    other = chip_smoke.OtherBuild(lib, source)
+    assert getattr(other, query) is getattr(lib, query)
+    getattr(other, query)(*args)
+    assert lib.calls == [(query, args)]
 
 
 def _one_pass_recipe(q, k, v, scale):
@@ -705,6 +905,46 @@ def test_one_pass_recipe_matches_pallas_interpret(kernel, dtype, limit):
     assert torch.equal(out, tfa.rope_attention_plain(q, k, v, tc, ts, nh, scale))
 
 
+@pytest.mark.parametrize("head_dim,side", [(16, 14), (32, 14), (128, 10)])
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+def test_exp2_key_tile_recipe_matches_k2_k3_interpret(kernel, head_dim, side):
+    """bf16 K2/K3 at head_dims 16, 32 and 128 (the key tiles at every S, with
+    K4-K6's exp2 step masked on the last tile, csrc/rope_attention_tc.cu)
+    on the roped q/k, against the fused Pallas kernel it replaces in
+    interpret mode on the same inputs rounded to bf16, one head at small S:
+    within the 2^-6 chip_smoke.py holds the kernel to (an output ulp plus a
+    flipped rounding of p)."""
+    nh, d = 1, head_dim
+    xs, cos, sin = _rope_inputs(2, side, side, nh, d, 1 if kernel == "K2" else 3, seed=d)
+    jx = [jnp.asarray(a).astype(jnp.bfloat16) for a in xs]
+    scale = 1.0 / math.sqrt(d)
+    tx = [torch.from_numpy(a).to(torch.bfloat16) for a in xs]
+    tc, ts = torch.from_numpy(cos), torch.from_numpy(sin)
+    if kernel == "K2":
+        ref = jfa.fused_rope_attention(jx[0], jnp.asarray(cos), jnp.asarray(sin), nh, scale, 4,
+                                       True)
+        q, k, v = (tx[0][..., i * d:(i + 1) * d] for i in range(3))
+    else:
+        ref = jfa.fused_rope_cross_attention(*jx, jnp.asarray(cos), jnp.asarray(sin), nh,
+                                             scale, 4, True)
+        q, k, v = tx
+    b, s, _ = q.shape
+
+    def heads(t):
+        return t.reshape(b, s, nh, d).transpose(1, 2).to(torch.float32)
+
+    def rope(t):
+        return (t * tc + tfa.rot_lanes(t) * ts).to(torch.bfloat16)
+
+    out = _online_softmax_recipe(rope(heads(q)), rope(heads(k)), heads(v).to(torch.bfloat16),
+                                 scale, tile=64, mask="last", exp2=True)
+    out = out.transpose(1, 2).reshape(b, s, d)
+    err = np.abs(out.to(torch.float32).numpy() - np.asarray(ref.astype(jnp.float32))).max()
+    assert err <= 2.0 ** -6, err
+    plain = tfa.rope_attention_plain(q, k, v, tc, ts, nh, scale)
+    assert (out.to(torch.float32) - plain.to(torch.float32)).abs().max().item() <= 2.0 ** -6
+
+
 # ---------------------------------------------------------------------------
 # the 3xTF32 float32 kernels (csrc/attention_3xtf32.cu)
 # ---------------------------------------------------------------------------
@@ -731,12 +971,12 @@ def test_tf32_round_is_nearest_ties_away():
     assert got[-2] == 2.0
 
 
-def _3xtf32_case(kernel, seq, products):
-    """One K2/K3/K4 call at head_dim 64 with two heads: the 3xTF32
-    emulation with `products` tf32 passes, and the JAX kernel in interpret
-    mode, on the same float32 inputs."""
+def _3xtf32_case(kernel, seq, products, d=64):
+    """One K2/K3/K4 call at head_dim d (64: two heads; else one) with a batch
+    of one: the 3xTF32 emulation with `products` tf32 passes, and the JAX
+    kernel in interpret mode, on the same float32 inputs."""
     side = int(math.isqrt(seq))
-    nh, d = 2, 64
+    nh = 2 if d == 64 else 1
     scale = 1.0 / math.sqrt(d)
     if kernel == "K4":
         q, k, v = _qkv((1, nh, seq, d), (1, nh, seq, d), seed=seq + 7)
@@ -761,15 +1001,20 @@ def _3xtf32_case(kernel, seq, products):
     return out, ref
 
 
-@pytest.mark.parametrize("seq", [196, 1024])
+@pytest.mark.parametrize("seq,head_dim", [
+    pytest.param(196, 64, id="196"), pytest.param(1024, 64, id="1024"),
+    # the 3xTF32 kernels' other head dims, one head at small S
+    pytest.param(196, 16, id="196-d16"), pytest.param(144, 32, id="144-d32"),
+    pytest.param(100, 128, id="100-d128"),
+])
 @pytest.mark.parametrize("kernel", ["K2", "K3", "K4"])
-def test_3xtf32_arithmetic_matches_pallas_interpret(kernel, seq):
+def test_3xtf32_arithmetic_matches_pallas_interpret(kernel, seq, head_dim):
     """The float32 kernels' 3xTF32 products (tf32 hi and lo by mantissa
     masking, hi*lo + lo*hi + hi*hi in float32), restated in PyTorch, against
     the JAX kernel they replace in interpret mode, at the serving S=196 and
-    the pseudo-GT's S=1024: within the 2e-5 chip_smoke.py holds the kernel
-    to against the float32 plain version."""
-    out, ref = _3xtf32_case(kernel, seq, products=3)
+    the pseudo-GT's S=1024, and at head_dims 16, 32 and 128: within the 2e-5
+    chip_smoke.py holds the kernel to against the float32 plain version."""
+    out, ref = _3xtf32_case(kernel, seq, products=3, d=head_dim)
     err = np.abs(out.numpy() - np.asarray(ref)).max()
     assert err <= F32_LIMIT, err
 
@@ -814,9 +1059,10 @@ def test_3xtf32_launch_arguments(monkeypatch):
 
     class Lib:
         @staticmethod
-        def t3d_attention_3xtf32_scratch_bytes(batch, heads, seq):
-            sizes.append((batch, heads, seq))
-            return 4 * (2 * batch * heads * seq * 64 + 2 * batch * heads * 64 * (-(-seq // 8) * 8))
+        def t3d_attention_3xtf32_scratch_bytes(batch, heads, seq, head_dim):
+            sizes.append((batch, heads, seq, head_dim))
+            return StandInLibrary([]).t3d_attention_3xtf32_scratch_bytes(batch, heads, seq,
+                                                                        head_dim)
 
         @staticmethod
         def t3d_softmax_attention_3xtf32(*args):
@@ -838,13 +1084,13 @@ def test_3xtf32_launch_arguments(monkeypatch):
     assert tfa.softmax_attention_3xtf32.launches == before + 1
     (args,) = calls
     assert list(args[4]) == [0, 64, 128, 0, 64, 128, 0, 64, 128, 0, 64, 128]
-    assert args[6:12] == (1, 2, 12, 40, 64, 0.125) and sizes == [(1, 2, 40)]
+    assert args[6:12] == (1, 2, 12, 40, 64, 0.125) and sizes == [(1, 2, 40, 64)]
     x = torch.zeros((2, 9, 3 * 128))
     before = tfa.rope_attention_3xtf32.launches
     tfa._launch(x, x.data_ptr(), x.data_ptr() + 512, x.data_ptr() + 1024, 384,
                 torch.zeros(9, 64), torch.zeros(9, 64), torch.empty((2, 9, 128)), 2, 0.125, "K2")
     assert tfa.rope_attention_3xtf32.launches == before + 1
-    assert calls[1][8:12] == (2, 9, 2, 64) and sizes[1] == (2, 2, 9)
+    assert calls[1][8:12] == (2, 9, 2, 64) and sizes[1] == (2, 2, 9, 64)
 
 
 def test_every_csrc_source_is_built():

@@ -195,9 +195,9 @@ class StandInLibrary:
     appends ("call", its name) to `events` and returns 0 (no CUDA error);
     the one-shot K2/K3 kernel's shared-memory query returns `smem`, and the
     tensor-core K2/K3 kernel's scratch query answers as
-    csrc/rope_attention_tc.cu does (a bf16 [B, H, S, 64] past S = 256, else
-    0), and the 3xTF32 kernels' as csrc/attention_3xtf32.cu does. No query
-    is recorded."""
+    csrc/rope_attention_tc.cu does (a bf16 [B, H, S, D] past S = 256 or at
+    a head_dim other than 64, else 0), and the 3xTF32 kernels' as
+    csrc/attention_3xtf32.cu does. No query is recorded."""
 
     def __init__(self, events: list, smem: int = 0):
         self.events = events
@@ -206,11 +206,12 @@ class StandInLibrary:
     def t3d_rope_attention_smem_bytes(self, *args) -> int:
         return self.smem
 
-    def t3d_rope_attention_tc_scratch_bytes(self, batch, seq, heads) -> int:
-        return batch * heads * seq * 64 * 2 if seq > 256 else 0
+    def t3d_rope_attention_tc_scratch_bytes(self, batch, seq, heads, head_dim) -> int:
+        return batch * heads * seq * head_dim * 2 if seq > 256 or head_dim != 64 else 0
 
-    def t3d_attention_3xtf32_scratch_bytes(self, batch, heads, seq) -> int:
-        return 4 * (2 * batch * heads * seq * 64 + 2 * batch * heads * 64 * (-(-seq // 8) * 8))
+    def t3d_attention_3xtf32_scratch_bytes(self, batch, heads, seq, head_dim) -> int:
+        return 4 * (2 * batch * heads * seq * head_dim
+                    + 2 * batch * heads * head_dim * (-(-seq // 8) * 8))
 
     def __getattr__(self, name):
         if not name.startswith("t3d_"):

@@ -7,12 +7,14 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_common import TINY_KW, configs, jax_model_params, to_np, torch_state
+from tests.test_torch_common import (PROD_DEPTH1_KW, TINY_KW, configs, jax_model_params, to_np,
+                                     torch_state)
 from thermal3d.convert.flax_to_torch import export_state_dict
 from thermal3d.core.config import HeadConfig as JaxHeadConfig
 from thermal3d.models import heads as jheads
 from thermal3d.models import layers as jlayers
 from thermal3d.models import rope as jrope
+from thermal3d.models.dustr import AsymmetricCroCo3DStereo as JaxModel
 from thermal3d.models.thermal_wrap import ThermalPreprocessHead as JaxThermalHead
 from thermal3d_torch.convert.from_jax import state_dict_from_jax
 from thermal3d_torch.core.config import HeadConfig
@@ -198,3 +200,35 @@ def test_from_jax_rejects_unported_params():
 def test_from_jax_rejects_unknown_paths(tree):
     with pytest.raises(KeyError, match="no module of the port"):
         state_dict_from_jax(tree)
+
+
+# production encoder widths with the decoder at CroCo v2's small-decoder
+# widths, 512 wide with 16 heads (head_dim 32), one block each
+SMALL_DECODER_KW = dict(PROD_DEPTH1_KW, dec_embed_dim=512, dec_num_heads=16)
+
+
+def test_small_decoder_slice_matches_jax():
+    """The whole model at SMALL_DECODER_KW (the encoder at head_dim 64, every
+    decoder attention at head_dim 32, which the card serves on the tensor
+    cores), f32, two 224² views, on weights carried from the Flax init by
+    convert/from_jax: the port's forward against the Flax forward. Each
+    output within 1e-4 of its own scale, as the whole-slice tests: f32
+    rounding of two libraries through the trunk, amplified by the exp
+    heads."""
+    jcfg, tcfg = configs(**SMALL_DECODER_KW)
+    assert tcfg.dec_embed_dim // tcfg.dec_num_heads == 32
+    params = jax_model_params(jcfg, seed=4)
+    rgb1, rgb2 = (_rng(s).uniform(0, 1, (1, 224, 224, 3)).astype(np.float32) for s in (8, 9))
+    ref1, ref2 = JaxModel(jcfg).apply({"params": params}, jnp.asarray(rgb1), jnp.asarray(rgb2))
+    model = AsymmetricCroCo3DStereo(tcfg)
+    model.load_state_dict(torch_state(params), strict=True)
+    with torch.no_grad():
+        out1, out2 = model(torch.from_numpy(rgb1), torch.from_numpy(rgb2))
+    assert sorted(out1) == sorted(ref1) and sorted(out2) == sorted(ref2)
+    for ref, out in ((ref1, out1), (ref2, out2)):
+        for k in ref:
+            want = np.asarray(ref[k])
+            got = to_np(out[k])
+            assert got.shape == want.shape and np.isfinite(got).all(), k
+            scale = float(np.abs(want).max())
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * scale, err_msg=k)

@@ -2,13 +2,20 @@
 // sm_90a: rope_attention_tc.cu (K2/K3, fused RoPE) and attention_tc.cu
 // (K4-K6, softmax attention on q/k that are already roped), whose key-tile
 // loop is key_tile_attention.cuh, in bf16; attention_3xtf32.cu (K2-K6 in
-// float32) on the same loop. head_dim 64.
+// float32) on the same loop. Head dims 16, 32, 64 and 128 (the constants
+// kD, kRowBytes and kTileBytes below are head_dim 64's, the one-pass K2/K3
+// kernel's).
 //
 // Operands in shared memory use the 128-byte swizzle (rows of 128 bytes,
 // 8-row atoms of 1024 bytes, chunk c of row r at chunk c ^ (r % 8)), the
 // layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B: Q and K as K-major
 // operands of S = Q K^T (wgmma m64n64k16), V as the MN-major B operand of
-// O += P V with P from the score registers converted to bf16.
+// O += P V with P from the score registers converted to bf16. A row wider
+// than 128 bytes (bf16 head_dim 128, float32 64 and 128) is split into
+// panels of 128-byte rows, one after the other; a row narrower (bf16
+// head_dim 16 and 32, float32 16) is one panel of 32- or 64-byte rows in
+// the swizzle of that width (Rows below: CU_TENSOR_MAP_SWIZZLE_32B / 64B,
+// the descriptor's layout types 3 and 2), so no operand carries padding.
 //
 // float32 (3xTF32): each operand x is split into hi = tf32(x) and lo =
 // tf32(x - hi) (cvt.rna.tf32.f32), and each product is hi*hi + hi*lo +
@@ -30,6 +37,13 @@ constexpr int kD = 64;            // head_dim
 constexpr int kTile = 64;         // keys a tile (wgmma N of Q K^T, K of P V), query rows a warpgroup
 constexpr int kRowBytes = kD * 2;                      // one bf16 row, 128 B
 constexpr int kTileBytes = kTile * kRowBytes;          // 8 KB
+
+// The head dims the tensor-core and 3xTF32 kernels are built for (mirrored
+// by flash_attention.py::TC_HEAD_DIMS); their entries reject any other with
+// cudaErrorInvalidValue.
+inline bool serves_head_dim(int head_dim) {
+  return head_dim == 16 || head_dim == 32 || head_dim == 64 || head_dim == 128;
+}
 
 // ---- PTX wrappers ---------------------------------------------------------
 
@@ -53,24 +67,41 @@ __device__ __forceinline__ void st_shared16(uint32_t addr, uint4 v) {
                : "memory");
 }
 
+__device__ __forceinline__ void st_shared8(uint32_t addr, uint2 v) {
+  asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(addr), "r"(v.x), "r"(v.y) : "memory");
+}
+
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// wgmma shared-memory matrix descriptor, 128-byte swizzle: rows of 128 bytes,
-// 8-row atoms of 1024 bytes (1024-byte aligned), chunk c of row r stored at
-// chunk c ^ (r % 8). The stride between atoms (8 rows on, or 8 k-rows on for
-// the MN-major operand) is 1024 bytes; it goes into both offset fields, so
-// the descriptor reads the same for the K-major (SBO) and MN-major (SBO or
-// LBO, a single 64-wide atom along N) uses below.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  constexpr uint64_t kAtom = 1024 >> 4;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (kAtom << 16) | (kAtom << 32) | (1ull << 62);
-}
+// Rows of RB bytes (32, 64 or 128) in the RB-byte swizzle: 16-byte chunk c of
+// row r stored at chunk c ^ ((r * RB / 128) % (RB / 16)), the pattern that
+// repeats every 8 rows (an atom of 8 * RB bytes, aligned to its size).
+template <int RB>
+struct Rows {
+  static_assert(RB == 32 || RB == 64 || RB == 128, "a swizzle of 32, 64 or 128 bytes");
+  static constexpr uint64_t kLayout = RB == 128 ? 1 : RB == 64 ? 2 : 3;  // descriptor's type
 
-__device__ __forceinline__ uint32_t swizzle(int row, int chunk) {
-  return (uint32_t)(row * kRowBytes + ((chunk ^ (row & 7)) << 4));
-}
+  // the byte offset of chunk c of row r
+  static __device__ __forceinline__ uint32_t at(int row, int chunk) {
+    return (uint32_t)(row * RB + ((chunk ^ ((row * RB >> 7) & (RB / 16 - 1))) << 4));
+  }
+  // a wgmma shared-memory matrix descriptor of 8-row atoms RB bytes wide,
+  // 8 * RB bytes apart (SBO: 8 rows on, or 8 k-rows on for an MN-major
+  // operand); `lbo`: the distance of two atoms along N of an MN-major
+  // operand wider than one atom (unused otherwise)
+  static __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo = 8 * RB) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+           ((uint64_t)(8 * RB >> 4) << 32) | (kLayout << 62);
+  }
+};
+
+// head_dim 64's rows (128 bytes, 1024-byte atoms, chunk c of row r at chunk
+// c ^ (r % 8)): the descriptor reads the same for the K-major and the
+// MN-major use (one 64-wide atom along N)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) { return Rows<128>::desc(addr); }
+__device__ __forceinline__ uint32_t swizzle(int row, int chunk) { return Rows<128>::at(row, chunk); }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() {
@@ -82,9 +113,10 @@ __device__ __forceinline__ void wgmma_wait_all() {
 
 // Pin the accumulator registers at this point of the program: reads after a
 // wgmma wait may not move above it, writes before a wgmma may not sink below.
-__device__ __forceinline__ void reg_fence(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define T3D_ACC32(d)                                                                          \
@@ -140,6 +172,116 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a
       ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
       : T3D_ACC32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// m64nNk16 bf16 and m64nNk8 tf32 products with A from registers, for N in
+// {16, 32, 64, 128}: the PV of a head dim D = N (N / 2 accumulators a
+// thread, the fragment layout of m64n64 continued over N / 8 column groups).
+// N = 64 is wgmma_rs and wgmma_tf32_rs above.
+
+// d += A B, m64n16k16, A from registers (4 x bf16x2), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A B, m64n32k16, A from registers (4 x bf16x2), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A B, m64n128k16, A from registers (4 x bf16x2), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (+)= A B, m64n16k8 tf32, A from registers (wgmma_tf32_rs's layout), B
+// K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_rs_n16(float (&d)[8], const uint32_t (&a)[4],
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d (+)= A B, m64n32k8 tf32, A from registers (wgmma_tf32_rs's layout), B
+// K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs_n(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 16) {
+    wgmma_rs_n16(d, a, b);
+  } else if constexpr (N == 32) {
+    wgmma_rs_n32(d, a, b);
+  } else if constexpr (N == 64) {
+    wgmma_rs(d, a, b);
+  } else {
+    static_assert(N == 128, "PV of 16, 32, 64 or 128 columns");
+    wgmma_rs_n128(d, a, b);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs_n(float (&d)[N / 2], const uint32_t (&a)[4],
+                                                uint64_t b, int accumulate) {
+  if constexpr (N == 16) {
+    wgmma_tf32_rs_n16(d, a, b, accumulate);
+  } else if constexpr (N == 32) {
+    wgmma_tf32_rs_n32(d, a, b, accumulate);
+  } else {
+    static_assert(N == 64, "a tf32 PV of 16, 32 or 64 columns");
+    wgmma_tf32_rs(d, a, b, accumulate);
+  }
 }
 
 // x rounded to tf32, nearest with ties away from zero (its low 13 bits 0).

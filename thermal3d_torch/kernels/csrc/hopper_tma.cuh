@@ -47,70 +47,81 @@ inline EncodeTiledFn encode_tiled_fn() {
 
 // A map of `rank` dimensions (innermost first) with `dims`, byte `strides`
 // of the outer ones and `box`, of 2-byte bf16 or 4-byte float32 elements,
-// with the 128-byte swizzle of the wgmma operands (box[0] elements must fill
-// at most 128 bytes). Elements of a box outside `dims` read as zeros and are
-// not written.
+// with the swizzle of the wgmma operands as wide as a box row (box[0]
+// elements fill 32, 64 or 128 bytes: attention_tc.cuh's Rows). Elements of a
+// box outside `dims` read as zeros and are not written.
 inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
                               cuuint32_t rank, const cuuint64_t* dims, const cuuint64_t* strides,
                               const cuuint32_t* box) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const uint32_t row_bytes = box[0] * (type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2);
+  const CUtensorMapSwizzle swizzle = row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                     : row_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                                       : CU_TENSOR_MAP_SWIZZLE_NONE;
+  if (swizzle == CU_TENSOR_MAP_SWIZZLE_NONE) return cudaErrorInvalidValue;
   const CUresult r = fn(map, type, rank, const_cast<void*>(base), dims, strides, box,
-                        elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // A 3-D bf16 map over `batch` items of `rows` rows of `width` elements, rows
 // `row_stride` elements apart and items rows * row_stride apart, read and
-// written in boxes of 64 elements x box_rows rows x 1 item with the 128-byte
-// swizzle of the wgmma operands. Rows >= `rows` of a box read as zeros and
-// are not written: an item's box never reaches into the next item.
+// written in boxes of box_cols elements (16, 32 or 64: one swizzled row of
+// 32, 64 or 128 bytes) x box_rows rows x 1 item. Rows >= `rows` of a box
+// read as zeros and are not written: an item's box never reaches into the
+// next item.
 inline cudaError_t encode_bf16_rows(CUtensorMap* map, const void* base, uint64_t width,
                                     uint64_t rows, uint64_t batch, uint64_t row_stride,
-                                    uint32_t box_rows) {
+                                    uint32_t box_rows, uint32_t box_cols = 64) {
   const cuuint64_t dims[3] = {width, rows, batch};
   const cuuint64_t strides[2] = {row_stride * 2, rows * row_stride * 2};  // bytes
-  const cuuint32_t box[3] = {64, box_rows, 1};
+  const cuuint32_t box[3] = {box_cols, box_rows, 1};
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, 3, dims, strides, box);
 }
 
-// A 4-D bf16 map over a [batch, heads, rows, 64] operand given by its
+// A 4-D bf16 map over a [batch, heads, rows, width] operand given by its
 // (batch, head, row) strides in bytes, which may come in any order (a
 // [B,S,H,D] buffer read as [B,H,S,D] has its rows farther apart than its
-// heads), read and written in boxes of 64 elements x box_rows rows x 1 head
-// x 1 item with the 128-byte swizzle of the wgmma operands. Rows >= `rows`
-// of a box read as zeros and are not written: a box never reaches into the
-// next head or item.
+// heads), read and written in boxes of box_cols elements x box_rows rows x 1
+// head x 1 item, swizzled as encode_bf16_rows. Rows >= `rows` of a box read
+// as zeros and are not written: a box never reaches into the next head or
+// item.
 inline cudaError_t encode_bf16_heads(CUtensorMap* map, const void* base, uint64_t rows,
                                      uint64_t heads, uint64_t batch, uint64_t batch_bytes,
-                                     uint64_t head_bytes, uint64_t row_bytes, uint32_t box_rows) {
-  const cuuint64_t dims[4] = {64, rows, heads, batch};
+                                     uint64_t head_bytes, uint64_t row_bytes, uint32_t box_rows,
+                                     uint64_t width = 64, uint32_t box_cols = 64) {
+  const cuuint64_t dims[4] = {width, rows, heads, batch};
   const cuuint64_t strides[3] = {row_bytes, head_bytes, batch_bytes};
-  const cuuint32_t box[4] = {64, box_rows, 1, 1};
+  const cuuint32_t box[4] = {box_cols, box_rows, 1, 1};
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, 4, dims, strides, box);
 }
 
-// The float32 forms of the two maps above: boxes of 32 elements (128 bytes,
-// one swizzle atom wide) x 64 rows, so a 64-wide row of a tile takes two
-// boxes. encode_f32_rows: `batch` items of `rows` rows of `width` elements,
-// rows `row_stride` elements apart, items `item_stride` elements apart.
+// The float32 forms of the two maps above: boxes of box_cols elements (32:
+// 128 bytes; 16: 64 bytes) x box_rows rows, so a 64-wide row of a tile takes
+// two boxes. encode_f32_rows: `batch` items of `rows` rows of `width`
+// elements, rows `row_stride` elements apart, items `item_stride` elements
+// apart.
 inline cudaError_t encode_f32_rows(CUtensorMap* map, const void* base, uint64_t width,
                                    uint64_t rows, uint64_t batch, uint64_t row_stride,
-                                   uint64_t item_stride) {
+                                   uint64_t item_stride, uint32_t box_cols = 32,
+                                   uint32_t box_rows = 64) {
   const cuuint64_t dims[3] = {width, rows, batch};
   const cuuint64_t strides[2] = {row_stride * 4, item_stride * 4};  // bytes
-  const cuuint32_t box[3] = {32, 64, 1};
+  const cuuint32_t box[3] = {box_cols, box_rows, 1};
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, 3, dims, strides, box);
 }
 
 inline cudaError_t encode_f32_heads(CUtensorMap* map, const void* base, uint64_t rows,
                                     uint64_t heads, uint64_t batch, uint64_t batch_bytes,
-                                    uint64_t head_bytes, uint64_t row_bytes) {
-  const cuuint64_t dims[4] = {64, rows, heads, batch};
+                                    uint64_t head_bytes, uint64_t row_bytes, uint64_t width = 64,
+                                    uint32_t box_cols = 32) {
+  const cuuint64_t dims[4] = {width, rows, heads, batch};
   const cuuint64_t strides[3] = {row_bytes, head_bytes, batch_bytes};
-  const cuuint32_t box[4] = {32, 64, 1, 1};
+  const cuuint32_t box[4] = {box_cols, 64, 1, 1};
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, 4, dims, strides, box);
 }
 

@@ -1,14 +1,21 @@
 // The key-tile core of the tensor-core attention kernels, CUDA C++ for
 // sm_90a: one loop over 64-key tiles that rope_attention_tc.cu (K2/K3 at
-// S > 256, K roped by a prologue) and attention_tc.cu (K4-K6, q/k already
-// roped) instantiate in bf16 (Bf16Tiles), and attention_3xtf32.cu (K2-K6
-// in float32, K and V split by a prologue) in 3xTF32 (Tf32x3Tiles). head_dim
-// 64.
+// S > 256, and at every S for head dims other than 64; K roped by a
+// prologue) and attention_tc.cu (K4-K6, q/k already roped) instantiate in
+// bf16 (Bf16Tiles<D>), and attention_3xtf32.cu (K2-K6 in float32, K and V
+// split by a prologue) in 3xTF32 (Tf32x3Tiles<D>). Head dims D = 16, 32, 64
+// and 128, each a compile-time instantiation.
 //
 // Block: 128 query rows of one (batch item, head), two warpgroups of 64
-// rows, no producer warp; bf16 two blocks an SM (128 registers a thread; a
-// ninth warp would cap every thread at 168 and leave one block an SM),
-// 3xTF32 one (its Q and stages take 192 KB of shared memory).
+// rows, no producer warp; bf16 two blocks an SM up to D = 64 (128 registers
+// a thread; a ninth warp would cap every thread at 168 and leave one block
+// an SM), one at D = 128 (O alone is 64 registers a thread); 3xTF32 one
+// (its Q and stages take 96-192 KB of shared memory). 3xTF32 at D = 128 is
+// one warpgroup of 64 rows: Q hi and lo of 128 rows would take 128 KB and
+// leave no room for a K and a V stage (64 KB each); its one K stage is
+// released as soon as its QK^T is done (one warpgroup waits for no other),
+// and its PV runs in two halves of 64 columns into one 32-register tile
+// accumulator (64 more would not fit beside O, the scores and P).
 //   * K and V tiles stream by TMA through rings of stages, each stage with a
 //     "full" mbarrier (the TMA's bytes landed) and an "empty" one (every
 //     thread of the block is done with it). Thread 0 fills the first
@@ -24,8 +31,8 @@
 //     as soon as its QK^T is done stalls a warpgroup, whose refilling thread
 //     waits there for the other warpgroup's QK^T.)
 //   * Each warpgroup issues tile t's QK^T (Q and K from shared memory,
-//     128-byte swizzle) together with tile t-1's PV (P from registers, V
-//     from shared memory), and runs tile t's online softmax in place on the
+//     swizzled rows) together with tile t-1's PV (P from registers, V from
+//     shared memory), and runs tile t's online softmax in place on the
 //     float32 scores while that PV runs. Only after the PV's wait does it
 //     turn p into P's registers (bf16, or tf32 hi and lo) and rescale O by
 //     the step's alpha: a write to a register that an issued wgmma still
@@ -35,10 +42,18 @@
 //   * O / l goes through the warpgroup's Q rows in shared memory and out by
 //     TMA stores that drop rows past the query count.
 //
-// The tile policy (Tiles) supplies the arithmetic of a precision: the sizes
-// of a warpgroup's Q rows and of a stage, QK^T and PV of a stage, P from the
-// float32 p, and the output's staging. The kernel's operands (an Op) supply
-// what differs between kernels:
+// Operand layout at head dim D (attention_tc.cuh's Rows): a 64-row tile of
+// Q, K (and bf16 V) is ceil(D * size / 128) panels of 64 rows of
+// min(128, D * size) bytes, each panel one TMA box and swizzled as wide as
+// its rows; QK^T walks D/16 (bf16) or D/8 (tf32) k-steps of 32 bytes across
+// the panels; PV is m64nDk16 (bf16, V MN-major, panels one 64-column atom
+// apart) or m64nDk8 (tf32, V^T K-major: D rows of 64 keys in two panels of
+// 32 keys).
+//
+// The tile policy (Tiles) supplies the arithmetic of a precision at a head
+// dim: the block's shape, the sizes of a warpgroup's Q rows and of a stage,
+// QK^T and PV of a stage, P from the float32 p, and the output's staging.
+// The kernel's operands (an Op) supply what differs between kernels:
 //   * Op::kQBytes, load_q: Q rows that arrive by TMA on the first stage's
 //     full barrier (K4-K6), or none (0; K2/K3);
 //   * stage_q: Q rows staged by the warpgroup's threads before the first
@@ -48,10 +63,10 @@
 //     masked past `valid` keys, the running max and float32 sum moved, p in
 //     float32 where the score was, alpha for the rescale of O);
 //   * store_o: the warpgroup's output boxes.
-// Fragment layout of a warpgroup's 64 x 64 tile: the thread owns rows g and
-// g + 8 of its warp's 16 (g = lane / 4), columns 8i + 2t + {0, 1} (t = lane
-// % 4); o[4i + e] is row g + 8*(e >> 1), column 8i + 2t + (e & 1); l[r] and
-// m[r] belong to row g + 8r.
+// Fragment layout of a warpgroup's 64 x N tile (N = 64 keys for the scores,
+// D columns for O): the thread owns rows g and g + 8 of its warp's 16 (g =
+// lane / 4), columns 8i + 2t + {0, 1} (t = lane % 4); o[4i + e] is row g +
+// 8*(e >> 1), column 8i + 2t + (e & 1); l[r] and m[r] belong to row g + 8r.
 #pragma once
 
 #include "attention_tc.cuh"
@@ -60,20 +75,19 @@
 namespace {
 namespace key_tiles {
 
-constexpr int kWgs = 2;                         // warpgroups, 64 query rows each
-constexpr int kBlockThreads = 128 * kWgs;
-constexpr int kBlockRows = kWgs * kTile;        // query rows a block
-
-// The shared-memory plan of a tile policy: both warpgroups' Q rows (then
+// The shared-memory plan of a tile policy: the warpgroups' Q rows (then
 // their output), the K ring (each stage a tile's K, and its V where RingV is
 // 0), the V ring, then the barriers (full and empty of each K stage, then of
 // each V stage) and the claim counts.
-template <int RingK, int RingV, int BlocksPerSm, int WgQBytes, int KBytes, int VBytes>
+template <int Wgs, int RingK, int RingV, int BlocksPerSm, int WgQBytes, int KBytes, int VBytes>
 struct TileShape {
+  static constexpr int kWgs = Wgs;                  // warpgroups, 64 query rows each
+  static constexpr int kBlockThreads = 128 * Wgs;
+  static constexpr int kBlockRows = Wgs * kTile;    // query rows a block
   static constexpr int kRingK = RingK, kRingV = RingV;  // K stages, V stages (0: in K's)
   static constexpr int kBlocksPerSm = BlocksPerSm;
   static constexpr int kWgQBytes = WgQBytes;        // a warpgroup's Q rows
-  static constexpr int kQArea = kWgs * WgQBytes;    // the block's Q rows, then its output
+  static constexpr int kQArea = Wgs * WgQBytes;     // the block's Q rows, then its output
   static constexpr int kKBytes = KBytes, kVBytes = VBytes;  // one tile's K, V
   static constexpr int kKStage = RingV ? KBytes : KBytes + VBytes;
   static constexpr int kVRingAt = kQArea + RingK * kKStage;
@@ -82,34 +96,68 @@ struct TileShape {
   static_assert(kSmem * BlocksPerSm <= 232448, "more shared memory than an H100 SM has");
 };
 
-// bf16: Q, K and V tiles of 64 rows of 128 bytes (8 KB), QK^T and PV
-// m64n64k16, P rounded to bf16, the output rounded to bf16.
-struct Bf16Tiles : TileShape<4, 0, 2, kTileBytes, kTileBytes, kTileBytes> {
+// A 64-row operand tile of D elements of `Size` bytes a row, K-major: panels
+// of 64 rows of kRowBytes = min(128, D * Size) bytes (attention_tc.cuh's
+// Rows), one after the other.
+template <int D, int Size>
+struct RowTile {
+  static constexpr int kRowBytes = D * Size < 128 ? D * Size : 128;
+  static constexpr int kPanels = D * Size / kRowBytes;
+  static constexpr int kPanel = kTile * kRowBytes;      // bytes of a panel
+  static constexpr int kBytes = kPanels * kPanel;       // of the tile
+  static constexpr int kBoxCols = kRowBytes / Size;     // elements of a panel row (a TMA box)
+  using R = Rows<kRowBytes>;
+
+  // the byte offset of element `col` of row `row` (col * Size a multiple of 8)
+  static __device__ __forceinline__ uint32_t at(int row, int col) {
+    const int byte = col * Size;
+    return (uint32_t)((byte / kRowBytes) * kPanel) + R::at(row, (byte % kRowBytes) >> 4) +
+           (byte & 15);
+  }
+  // descriptor offset (16-byte units) of the 32-byte k-step kk of a K-major use
+  static __device__ __forceinline__ constexpr uint64_t k_step(int kk) {
+    return (uint64_t)((((32 * kk) / kRowBytes) * kPanel + (32 * kk) % kRowBytes) >> 4);
+  }
+};
+
+// bf16 at head dim D: Q, K and V tiles of 64 rows (RowTile<D, 2>), QK^T D/16
+// k-steps of m64n64k16, PV m64nDk16 into O, P rounded to bf16, the output
+// rounded to bf16.
+template <int D>
+struct Bf16Tiles : TileShape<2, 4, 0, D <= 64 ? 2 : 1, 2 * kTile * D, 2 * kTile * D,
+                             2 * kTile * D> {
+  using Tile = RowTile<D, 2>;
   using P = uint32_t[4][4];  // P of a tile, PV's A operand
+  static constexpr int kO = D / 2;        // O's accumulators a thread
+  static constexpr int kPv = 1;           // no tile accumulator
   static constexpr bool kTilePv = false;  // PV accumulates into O itself
+  static constexpr bool kSplitPv = false, kEarlyK = false;
 
   static __device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t q, uint32_t k) {
-    const uint64_t q_desc = smem_desc(q), k_desc = smem_desc(k);
+    const uint64_t q_desc = Tile::R::desc(q), k_desc = Tile::R::desc(k);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sc, q_desc + 2 * kk, k_desc + 2 * kk, kk);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(sc, q_desc + Tile::k_step(kk), k_desc + Tile::k_step(kk), kk);
   }
-  // O += P V, into O itself (pv unused)
-  static __device__ __forceinline__ void issue_pv(float (&o)[32], float (&)[32], const P& p,
+  // O += P V, into O itself (pv unused); V MN-major, its panels the 64-column
+  // atoms along N
+  static __device__ __forceinline__ void issue_pv(float (&o)[kO], float (&)[kPv], const P& p,
                                                   uint32_t v) {
-    const uint64_t v_desc = smem_desc(v);
+    const uint64_t v_desc =
+        Tile::R::desc(v, Tile::kPanels > 1 ? Tile::kPanel : 8 * Tile::kRowBytes);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs(o, p[kk], v_desc + (uint64_t)((16 * kRowBytes * kk) >> 4));
+      wgmma_rs_n<D>(o, p[kk], v_desc + (uint64_t)((16 * Tile::kRowBytes * kk) >> 4));
   }
   // after the PV's wait: O *= alpha (the next tile's rescale); at the end, nothing
-  static __device__ __forceinline__ void rescale(float (&o)[32], const float (&)[32],
+  static __device__ __forceinline__ void rescale(float (&o)[kO], const float (&)[kPv],
                                                  const float (&alpha)[2]) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < D / 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[4 * i + e] *= alpha[e >> 1];
   }
-  static __device__ __forceinline__ void add_last(float (&)[32], const float (&)[32]) {}
+  static __device__ __forceinline__ void add_last(float (&)[kO], const float (&)[kPv]) {}
   // P, bf16, from the float32 p in sc: columns 16kk + {2t, 2t+1} (i = 2kk)
   // and 16kk + 8 + {2t, 2t+1} (i = 2kk + 1), rows g, g+8 -> a0, a1, then
   // a2, a3
@@ -121,84 +169,118 @@ struct Bf16Tiles : TileShape<4, 0, 2, kTileBytes, kTileBytes, kTileBytes> {
     }
   }
   // o / l rounded to bf16 into the warpgroup's Q rows (one 64-row tile)
-  static __device__ __forceinline__ void stage_out(unsigned char* tile, const float (&o)[32],
+  static __device__ __forceinline__ void stage_out(unsigned char* tile, const float (&o)[kO],
                                                    const float (&l)[2], int ctid) {
     const int warp = ctid >> 5, g = (ctid & 31) >> 2, tq = ctid & 3;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = 16 * warp + g + 8 * r;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < D / 8; ++i) {
         const float x = o[4 * i + 2 * r] / l[r];
         const float y = o[4 * i + 2 * r + 1] / l[r];
-        *reinterpret_cast<__nv_bfloat162*>(tile + swizzle(row, i) + 4 * tq) =
+        *reinterpret_cast<__nv_bfloat162*>(tile + Tile::at(row, 8 * i) + 4 * tq) =
             __floats2bfloat162_rn(x, y);
       }
     }
   }
 };
 
-// 3xTF32 (float32 operands): a 64 x 64 float32 tile is two halves of 64
-// rows of 128 bytes (kF32Half), d (or keys, for V^T) 0-31 then 32-63. A
+// 3xTF32 (float32 operands) at head dim D: Q and K are RowTile<D, 4> (a
 // warpgroup's Q is its hi tile then its lo tile; a K stage holds K hi and K
-// lo, a V stage V^T hi and V^T lo, split by the prologue
-// (attention_3xtf32.cu), each a K-major operand. Every product is hi*lo +
-// lo*hi, then hi*hi, over 8 k8 steps; k-step kk lies in half kk / 4 at byte
-// 32 (kk % 4) of each row. P = p split into tf32 hi and lo; the output o / l
-// in float32.
-constexpr int kF32Half = kTile * 128;       // 8 KB: 64 rows of 32 floats
-constexpr int kF32Tile = 2 * kF32Half;      // 16 KB: 64 rows of 64 floats
-
-struct Tf32x3Tiles : TileShape<2, 2, 1, 2 * kF32Tile, 2 * kF32Tile, 2 * kF32Tile> {
+// lo); a V stage holds V^T hi and V^T lo, split by the prologue
+// (attention_3xtf32.cu), each D rows of 64 keys in two panels of 32 keys
+// (128-byte rows, D * 128 bytes a panel), K-major. Every product is hi*lo +
+// lo*hi, then hi*hi. P = p split into tf32 hi and lo; the output o / l in
+// float32. D = 128 runs one warpgroup a block, its K stage released early
+// and its PV in two halves (the header).
+template <int D>
+struct Tf32x3Tiles
+    : TileShape<D <= 64 ? 2 : 1, D <= 64 ? 2 : 1, D <= 64 ? 2 : 1, 1, 2 * RowTile<D, 4>::kBytes,
+                2 * RowTile<D, 4>::kBytes, 2 * 2 * D * 128> {
+  using Tile = RowTile<D, 4>;
+  static constexpr int kVtPanel = D * 128;      // 32 keys of V^T
+  static constexpr int kVtTile = 2 * kVtPanel;  // 64 keys of V^T (hi or lo)
   struct P {
     uint32_t hi[8][4], lo[8][4];  // k-step kk: keys 8kk + 2t (a0, a1), 8kk + 2t + 1 (a2, a3)
   };
-  static constexpr bool kTilePv = true;  // a tile's PV into pv, added to O (issue_pv)
+  static constexpr bool kTilePv = true;   // a tile's PV into pv, added to O (issue_pv)
+  static constexpr bool kSplitPv = D > 64;  // PV in two halves of 64 columns
+  static constexpr bool kEarlyK = D > 64;   // one warpgroup: K(t) free after its QK^T
+  static constexpr int kPvCols = kSplitPv ? 64 : D;  // columns of one PV product
+  static constexpr int kO = D / 2, kPv = kPvCols / 2;
 
-  // descriptor offset of k-step kk in a two-half operand
-  static __device__ __forceinline__ uint64_t k_step(int kk) {
-    return (uint64_t)((kk >> 2) * (kF32Half >> 4) + (kk & 3) * 2);
+  // descriptor offset of k-step kk (8 keys) in a V^T operand
+  static __device__ __forceinline__ constexpr uint64_t vt_step(int kk) {
+    return (uint64_t)(((kk >> 2) * kVtPanel + (kk & 3) * 32) >> 4);
   }
   // (The ragged last tile's products run whole: skipping its empty k-steps
   // behind a branch made ptxas insert warpgroup.arrive around the wgmma
   // (C7519) and measured 1.1-1.3x slower on an H100.)
   static __device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t q, uint32_t k) {
-    const uint64_t qh = smem_desc(q), ql = smem_desc(q + kF32Tile);
-    const uint64_t kh = smem_desc(k), kl = smem_desc(k + kF32Tile);
+    const uint64_t qh = Tile::R::desc(q), ql = Tile::R::desc(q + Tile::kBytes);
+    const uint64_t kh = Tile::R::desc(k), kl = Tile::R::desc(k + Tile::kBytes);
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      wgmma_tf32_ss(sc, qh + k_step(kk), kl + k_step(kk), kk);
-      wgmma_tf32_ss(sc, ql + k_step(kk), kh + k_step(kk), 1);
+    for (int kk = 0; kk < D / 8; ++kk) {
+      wgmma_tf32_ss(sc, qh + Tile::k_step(kk), kl + Tile::k_step(kk), kk);
+      wgmma_tf32_ss(sc, ql + Tile::k_step(kk), kh + Tile::k_step(kk), 1);
     }
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) wgmma_tf32_ss(sc, qh + k_step(kk), kh + k_step(kk), 1);
+    for (int kk = 0; kk < D / 8; ++kk)
+      wgmma_tf32_ss(sc, qh + Tile::k_step(kk), kh + Tile::k_step(kk), 1);
   }
-  // One tile's P V into pv, a fresh accumulator (O is not a wgmma operand):
-  // the tensor cores round a float32 accumulator toward zero at each step,
-  // so O's 24 steps a tile over every tile biased it by hundreds of ulps at
-  // S = 1024; a tile's 24 steps into pv, added to O by round-to-nearest
-  // (rescale, add_last), keep that to a tile's few.
-  static __device__ __forceinline__ void issue_pv(float (&)[32], float (&pv)[32], const P& p,
-                                                  uint32_t v) {
-    const uint64_t vh = smem_desc(v), vl = smem_desc(v + kF32Tile);
+  // One tile's P V (columns 64 * half on, kPvCols of them) into pv, a fresh
+  // accumulator (O is not a wgmma operand): the tensor cores round a float32
+  // accumulator toward zero at each step, so O's 24 steps a tile over every
+  // tile biased it by hundreds of ulps at S = 1024; a tile's 24 steps into
+  // pv, added to O by round-to-nearest (rescale, add_last), keep that to a
+  // tile's few.
+  static __device__ __forceinline__ void issue_pv_cols(float (&pv)[kPv], const P& p, uint32_t v,
+                                                       int half) {
+    const uint32_t rows = v + half * 64 * 128;  // V^T rows 64 * half on
+    const uint64_t vh = Rows<128>::desc(rows), vl = Rows<128>::desc(rows + kVtTile);
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
-      wgmma_tf32_rs(pv, p.hi[kk], vl + k_step(kk), kk);
-      wgmma_tf32_rs(pv, p.lo[kk], vh + k_step(kk), 1);
+      wgmma_tf32_rs_n<kPvCols>(pv, p.hi[kk], vl + vt_step(kk), kk);
+      wgmma_tf32_rs_n<kPvCols>(pv, p.lo[kk], vh + vt_step(kk), 1);
     }
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) wgmma_tf32_rs(pv, p.hi[kk], vh + k_step(kk), 1);
+    for (int kk = 0; kk < 8; ++kk) wgmma_tf32_rs_n<kPvCols>(pv, p.hi[kk], vh + vt_step(kk), 1);
+  }
+  // the PV the loop issues with the next tile's QK^T: all columns, or the
+  // first half (finish_split issues the second)
+  static __device__ __forceinline__ void issue_pv(float (&)[kO], float (&pv)[kPv], const P& p,
+                                                  uint32_t v) {
+    issue_pv_cols(pv, p, v, 0);
   }
   // after the PV's wait: O = (O + pv) * alpha (pv the last tile's, 0 before
   // the first); at the end O += pv
-  static __device__ __forceinline__ void rescale(float (&o)[32], const float (&pv)[32],
+  static __device__ __forceinline__ void rescale(float (&o)[kO], const float (&pv)[kPv],
                                                  const float (&alpha)[2]) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = (o[i] + pv[i]) * alpha[(i >> 1) & 1];
-  }
-  static __device__ __forceinline__ void add_last(float (&o)[32], const float (&pv)[32]) {
+    for (int i = 0; i < kPv; ++i) o[i] = (o[i] + pv[i]) * alpha[(i >> 1) & 1];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] += pv[i];
+    for (int i = kPv; i < kO; ++i) o[i] *= alpha[(i >> 1) & 1];  // split PV: before the first
+  }
+  static __device__ __forceinline__ void add_last(float (&o)[kO], const float (&pv)[kPv]) {
+#pragma unroll
+    for (int i = 0; i < kPv; ++i) o[i] += pv[i];
+  }
+  // split PV, after the first half's wait (pv: columns 0-63): those columns
+  // moved into O, then the second half's PV (P and V of the same tile) run
+  // and waited for, and moved in; alpha = 1 at the end (add_last)
+  static __device__ __forceinline__ void finish_split(float (&o)[kO], float (&pv)[kPv],
+                                                      const float (&alpha)[2], const P& p,
+                                                      uint32_t v) {
+#pragma unroll
+    for (int i = 0; i < kPv; ++i) o[i] = (o[i] + pv[i]) * alpha[(i >> 1) & 1];
+    wgmma_fence();
+    issue_pv_cols(pv, p, v, 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(pv);
+#pragma unroll
+    for (int i = 0; i < kPv; ++i) o[kPv + i] = (o[kPv + i] + pv[i]) * alpha[(i >> 1) & 1];
   }
   // The A fragment of k-step kk from the scores' 8-column group kk. A tf32
   // A fragment holds columns t and t + 4 (rows g, g+8, g, g+8: a0-a3), the
@@ -212,19 +294,17 @@ struct Tf32x3Tiles : TileShape<2, 2, 1, 2 * kF32Tile, 2 * kF32Tile, 2 * kF32Tile
       split_tf32(sc[i], p.hi[i >> 2][e], p.lo[i >> 2][e]);
     }
   }
-  // o / l in float32 into the warpgroup's Q hi tile (two halves)
-  static __device__ __forceinline__ void stage_out(unsigned char* tile, const float (&o)[32],
+  // o / l in float32 into the warpgroup's Q hi tile
+  static __device__ __forceinline__ void stage_out(unsigned char* tile, const float (&o)[kO],
                                                    const float (&l)[2], int ctid) {
     const int warp = ctid >> 5, g = (ctid & 31) >> 2, tq = ctid & 3;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = 16 * warp + g + 8 * r;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < D / 8; ++i) {
         const float2 xy = make_float2(o[4 * i + 2 * r] / l[r], o[4 * i + 2 * r + 1] / l[r]);
-        const int chunk = 2 * (i & 3) + (tq >> 1);  // 16-byte chunk of the 128-byte row
-        *reinterpret_cast<float2*>(tile + (i >> 2) * kF32Half + swizzle(row, chunk) +
-                                   8 * (tq & 1)) = xy;
+        *reinterpret_cast<float2*>(tile + Tile::at(row, 8 * i + 2 * tq)) = xy;
       }
     }
   }
@@ -266,6 +346,42 @@ __device__ __forceinline__ void online_softmax_tile(float (&sc)[32], int valid, 
   }
 }
 
+// The online softmax of one 64-key tile on raw scores s (QK^T, unscaled),
+// in place: with c = scale * log2(e), the running max m of s, p = 2^(s*c -
+// m*c) in one FFMA and a MUFU op (exp(s*scale - max) up to rounding), alpha
+// = 2^((m_old - m_new)*c), 0 on the first tile; keys past `valid` masked
+// where kMask (the last tile only), p = 0 there. The float32 sum l moves
+// with alpha; p's rounding to bf16 and O's rescale are the caller's.
+template <bool kMask>
+__device__ __forceinline__ void exp2_softmax_tile(float (&sc)[32], int valid, float c, int tq,
+                                                  float (&m)[2], float (&l)[2], float (&alpha)[2]) {
+  float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (kMask && 8 * i + 2 * tq + (e & 1) >= valid) sc[4 * i + e] = -INFINITY;
+      tmax[e >> 1] = fmaxf(tmax[e >> 1], sc[4 * i + e]);
+    }
+  }
+  float mc[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+    const float m_new = fmaxf(m[r], tmax[r]);  // finite: every tile has a key
+    alpha[r] = exp2_approx((m[r] - m_new) * c);  // 2^-inf = 0 on the first tile
+    m[r] = m_new;
+    mc[r] = m_new * c;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    sc[i] = exp2_approx(fmaf(sc[i], c, -mc[(i >> 1) & 1]));  // masked: 2^-inf = 0
+    l[(i >> 1) & 1] += sc[i];
+  }
+}
+
 // One block's attention over `seq` keys (see the header comment): smem_raw
 // is the kernel's dynamic shared memory (Tiles::kSmem bytes), op its operands.
 template <class Tiles, class Op>
@@ -288,7 +404,7 @@ __device__ __forceinline__ void attend(unsigned char* smem_raw, const Op& op, in
   const int w = tid / 128;
   const int ctid = tid - 128 * w;
   const int tq = ctid & 3;
-  const int block_row0 = blockIdx.x * kBlockRows;
+  const int block_row0 = blockIdx.x * Tiles::kBlockRows;
   const int ntiles = (seq + kTile - 1) / kTile;
   auto k_stage = [&](int t) { return k_ring + (t % RK) * Tiles::kKStage; };
   auto v_stage = [&](int t) {
@@ -310,7 +426,7 @@ __device__ __forceinline__ void attend(unsigned char* smem_raw, const Op& op, in
     for (int st = 0; st < RK + RV; ++st) {  // the K stages' barriers, then the V stages'
       const uint32_t full = st < RK ? full_k + 8 * st : full_v + 8 * (st - RK);
       mbar_init(full, 1);
-      mbar_init(full + 8 * (st < RK ? RK : RV), kBlockThreads);
+      mbar_init(full + 8 * (st < RK ? RK : RV), Tiles::kBlockThreads);
       claims_k[st] = 0;
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -320,22 +436,29 @@ __device__ __forceinline__ void attend(unsigned char* smem_raw, const Op& op, in
   __syncthreads();
   // every thread is done with tile t's stage of a ring (empty, claims, its
   // length R); of the two warpgroups' thread 0, the second to get here
-  // refills it with tile t + R
+  // (with one warpgroup, its thread 0) refills it with tile t + R
   auto release = [&](uint32_t empty, unsigned int* claims, int R, int t, auto&& refill) {
     const int st = t % R;
     mbar_arrive(empty + 8 * st);
-    if (ctid == 0 && (atomicAdd(&claims[st], 1u) & 1u)) {
-      mbar_wait_or_trap(empty + 8 * st, (t / R) & 1);
-      if (t + R < ntiles) refill(t + R);
+    if constexpr (Tiles::kWgs == 1) {
+      if (ctid == 0) {
+        mbar_wait_or_trap(empty + 8 * st, (t / R) & 1);
+        if (t + R < ntiles) refill(t + R);
+      }
+    } else {
+      if (ctid == 0 && (atomicAdd(&claims[st], 1u) & 1u)) {
+        mbar_wait_or_trap(empty + 8 * st, (t / R) & 1);
+        if (t + R < ntiles) refill(t + R);
+      }
     }
   };
   auto release_k = [&](int t) { release(empty_k, claims_k, RK, t, load_k); };
   auto release_v = [&](int t) { release(empty_v, claims_v, RV1, t, load_v); };
-  // the end of iteration t: K(t) and V(t-1) with rings of their own, else
-  // the stage of tile t-1
+  // the end of iteration t: K(t) (unless released after its QK^T, kEarlyK)
+  // and V(t-1) with rings of their own, else the stage of tile t-1
   auto release_tiles = [&](int t) {
     if constexpr (RV > 0) {
-      release_k(t);
+      if constexpr (!Tiles::kEarlyK) release_k(t);
       release_v(t - 1);
     } else {
       release_k(t - 1);
@@ -346,9 +469,13 @@ __device__ __forceinline__ void attend(unsigned char* smem_raw, const Op& op, in
   const int row_base = block_row0 + w * kTile;
   op.stage_q(my_q, row_base, ctid, w, full_k);
 
-  float sc[32], o[32], pv[32];  // pv: a tile's P V where the policy keeps one
+  float sc[32], o[Tiles::kO], pv[Tiles::kPv];  // pv: a tile's P V where the policy keeps one
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = sc[i] = pv[i] = 0.0f;
+  for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < Tiles::kO; ++i) o[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < Tiles::kPv; ++i) pv[i] = 0.0f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, alpha[2];
   typename Tiles::P p;  // P of the last tile, PV's A operand
 
@@ -358,10 +485,11 @@ __device__ __forceinline__ void attend(unsigned char* smem_raw, const Op& op, in
   wgmma_commit();
   wgmma_wait_all();
   reg_fence(sc);
+  if constexpr (Tiles::kEarlyK) release_k(0);
   op.softmax(sc, seq, tq, m, l, alpha);
   Tiles::pack(p, sc);
   Tiles::rescale(o, pv, alpha);
-  if constexpr (RV > 0) release_k(0);
+  if constexpr (RV > 0 && !Tiles::kEarlyK) release_k(0);
   for (int t = 1; t < ntiles; ++t) {
     mbar_wait_or_trap(full_k + 8 * (t % RK), (t / RK) & 1);
     if constexpr (RV > 0) mbar_wait_or_trap(full_v + 8 * ((t - 1) % RV1), ((t - 1) / RV1) & 1);
@@ -372,12 +500,18 @@ __device__ __forceinline__ void attend(unsigned char* smem_raw, const Op& op, in
     wgmma_commit();
     asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // QK^T of tile t
     reg_fence(sc);
+    if constexpr (Tiles::kEarlyK) release_k(t);
     op.softmax(sc, seq - kTile * t, tq, m, l, alpha);  // in sc: PV reads p
     wgmma_wait_all();  // PV of tile t - 1
     reg_fence(o);
     if constexpr (Tiles::kTilePv) reg_fence(pv);
-    Tiles::pack(p, sc);
-    Tiles::rescale(o, pv, alpha);
+    if constexpr (Tiles::kSplitPv) {
+      Tiles::finish_split(o, pv, alpha, p, v_stage(t - 1));  // reads P(t - 1): pack after
+      Tiles::pack(p, sc);
+    } else {
+      Tiles::pack(p, sc);
+      Tiles::rescale(o, pv, alpha);
+    }
     release_tiles(t);
   }
   if constexpr (RV > 0)
@@ -388,7 +522,12 @@ __device__ __forceinline__ void attend(unsigned char* smem_raw, const Op& op, in
   wgmma_wait_all();
   reg_fence(o);
   if constexpr (Tiles::kTilePv) reg_fence(pv);
-  Tiles::add_last(o, pv);
+  if constexpr (Tiles::kSplitPv) {
+    const float one[2] = {1.0f, 1.0f};
+    Tiles::finish_split(o, pv, one, p, v_stage(ntiles - 1));
+  } else {
+    Tiles::add_last(o, pv);
+  }
   if constexpr (RV > 0) {
     release_v(ntiles - 1);
   } else {

@@ -1,17 +1,19 @@
 // K2 + K3 on Hopper tensor cores: fused 2-D RoPE + softmax attention for
-// bf16 with head_dim 64, CUDA C++ for sm_90a (wgmma, TMA, mbarriers).
+// bf16 with head_dim 16, 32, 64 or 128, CUDA C++ for sm_90a (wgmma, TMA,
+// mbarriers).
 //
 // Replaces the Pallas TPU kernel thermal3d/kernels/flash_attention.py::
 // _fused_rope_kernel, reached through _fused_rope_attention_fwd (K2: the
 // packed [B,S,3C] qkv projection, row stride 3C) and _fused_rope_xattn_fwd
 // (K3: separate [B,S,C] q/k/v projections, row stride C). q, k and v are
-// base pointers with a common row stride; head h sits at column h*64; the
+// base pointers with a common row stride; head h sits at column h*D; the
 // output is [B,S,C]. q and k are roped in float32 from the cos/sin tables
-// [S,64] (each product and the sum rounded separately, no FMA), then
-// rounded to bf16. Two schedules, chosen by S (t3d_rope_attention_tc_schedule):
+// [S,D] (quarters of D/4: element d of an even quarter pairs with d + D/4;
+// each product and the sum rounded separately, no FMA), then rounded to
+// bf16. Two schedules, chosen by S and D (t3d_rope_attention_tc_schedule):
 //
-// One pass, S <= 256 (every serving, training and tensor-parallel call:
-// S = 196). What bounds it on an H100: the bytes, q, k, v read once and the
+// One pass, head_dim 64 and S <= 256 (every serving, training and
+// tensor-parallel call of the configured models: S = 196). What bounds it on an H100: the bytes, q, k, v read once and the
 // output written once (51.4 MB, 15.4 us at 3.35 TB/s for [32,196,3072] H16;
 // the products take about a third of that at 989 TFLOP/s), and, as built,
 // the CUDA cores' RoPE and softmax, which run longer than either (their L2
@@ -44,34 +46,45 @@
 //   * The output goes through the warpgroup's shared-memory tile and out by
 //     a TMA store, rows >= S dropped.
 //
-// Key tiles, S > 256 (the pseudo-GT's S = 1024). What bounds it: the
-// operations (4*S^2*64 a head, about 250x the bytes' time), and the CUDA
-// cores' online softmax between a tile's two products. The arithmetic is
-// the 64-key online softmax of attention_common.cuh's key-tile loop (expf,
-// running max and sum, rescale before each PV, every tile masked), step for
-// step. Design (rope_attention_key_tile_kernel, an instantiation of
+// Key tiles, S > 256 at head_dim 64 (the pseudo-GT's S = 1024), and every S
+// at head_dims 16, 32 and 128 (e.g. a decoder of 512 wide and 16 heads).
+// What bounds it: the operations (4*S^2*D a head, about 250x the bytes' time
+// at S = 1024 and D = 64), and the CUDA cores' online softmax between a
+// tile's two products, whose work a score does not shrink with D. The
+// arithmetic at head_dim 64 is the 64-key online softmax of
+// attention_common.cuh's key-tile loop (expf, running max and sum, rescale
+// before each PV, every tile masked), step for step, so its S > 256 outputs
+// equal older builds'; at the other head dims, which have no older outputs
+// to keep, it is K4-K6's step (attention_tc.cu: scale * log2(e) folded into
+// one FFMA a score, 2^x on the MUFU unit, only the last tile masked), which
+// read 0.80x the expf kernel's time at head_dim 32 and S = 196 (and 0.88x
+// at 128, S = 1024) on an H100. Design (rope_attention_key_tile_kernel, an instantiation of
 // key_tile_attention.cuh's core, which K4-K6 share):
 //   * K is roped once per head by a prologue kernel launched just before
-//     on the same stream (rope_k_kernel: [B,S,*] rows -> a bf16 [B,H,S,64]
+//     on the same stream (rope_k_kernel: [B,S,*] rows -> a bf16 [B,H,S,D]
 //     scratch the caller allocates, t3d_rope_attention_tc_scratch_bytes).
 //     Roping K tiles in the block instead repeats the RoPE for every 128
 //     query rows (8 times a head at S=1024) and measured slower at S=1024
 //     on an H100.
 //   * A block is 128 query rows of one head, two warpgroups of 64, no
-//     producer warp, two blocks an SM (128 registers a thread): K and V
-//     tiles stream by TMA through two rings of 4 stages, each stage refilled
-//     by the warpgroup that releases it last.
+//     producer warp, two blocks an SM (128 registers a thread; one at head
+//     dim 128): K and V tiles stream by TMA through a ring of 4 stages, each
+//     stage refilled by the warpgroup that releases it last. Each head dim
+//     is an instantiation of key_tile_attention.cuh's Bf16Tiles<D>.
 //   * Each warpgroup issues tile t's QK^T together with tile t-1's PV, runs
 //     tile t's softmax while that PV runs, then rounds p to bf16 and
 //     rescales O once the PV is done.
 //   * O goes out through shared memory (the block's Q rows) by a TMA store.
+#include <type_traits>
+
 #include "key_tile_attention.cuh"
 
 namespace {
 
 // ---- RoPE -----------------------------------------------------------------
 
-// The cos/sin entries of one row's chunk pair (c, c + 2), c in {0, 1, 4, 5}.
+// The cos/sin entries of one row's chunk pair: 8 (or 4) elements from a of
+// an even quarter and from b of the odd quarter after it.
 struct PairTables {
   float ca[8], sa[8], cb[8], sb[8];
 };
@@ -83,36 +96,39 @@ __device__ __forceinline__ void put4(float* dst, float4 v) {
   dst[3] = v.w;
 }
 
-// The entries of chunk pair (c, c + 2) of a row's cos and sin, through the
-// read-only path.
+// The entries of elements a .. a+N-1 and b .. b+N-1 (N = 8 or 4) of a row's
+// cos and sin, through the read-only path.
+template <int N = 8>
 __device__ __forceinline__ void load_tables(PairTables& t, const float* __restrict__ cos_row,
-                                            const float* __restrict__ sin_row, int c) {
-  const float4* ca = reinterpret_cast<const float4*>(cos_row + 8 * c);
-  const float4* sa = reinterpret_cast<const float4*>(sin_row + 8 * c);
-  const float4* cb = reinterpret_cast<const float4*>(cos_row + 8 * c + 16);
-  const float4* sb = reinterpret_cast<const float4*>(sin_row + 8 * c + 16);
+                                            const float* __restrict__ sin_row, int a, int b) {
+  const float4* ca = reinterpret_cast<const float4*>(cos_row + a);
+  const float4* sa = reinterpret_cast<const float4*>(sin_row + a);
+  const float4* cb = reinterpret_cast<const float4*>(cos_row + b);
+  const float4* sb = reinterpret_cast<const float4*>(sin_row + b);
   put4(t.ca, __ldg(ca));
-  put4(t.ca + 4, __ldg(ca + 1));
+  if constexpr (N == 8) put4(t.ca + 4, __ldg(ca + 1));
   put4(t.sa, __ldg(sa));
-  put4(t.sa + 4, __ldg(sa + 1));
+  if constexpr (N == 8) put4(t.sa + 4, __ldg(sa + 1));
   put4(t.cb, __ldg(cb));
-  put4(t.cb + 4, __ldg(cb + 1));
+  if constexpr (N == 8) put4(t.cb + 4, __ldg(cb + 1));
   put4(t.sb, __ldg(sb));
-  put4(t.sb + 4, __ldg(sb + 1));
+  if constexpr (N == 8) put4(t.sb + 4, __ldg(sb + 1));
 }
 
-// RoPE of one row's chunk pair: a holds chunk c, b chunk c + 2, of 8
-// elements each; element d of chunk c (an even quarter of the head) pairs
-// with d + 16 (the odd quarter that follows). Rounded as rope_at in
+// RoPE of one row's chunk pair: a holds elements of an even quarter of the
+// head, b the elements a quarter on (the odd quarter that follows), 8 of
+// each in a uint4 or 4 in a uint2 (V). Rounded as rope_at in
 // attention_common.cuh.
-__device__ __forceinline__ void rope_chunks(const uint4 a, const uint4 b, const PairTables& tab,
-                                            uint4& lo, uint4& hi) {
+template <class V>
+__device__ __forceinline__ void rope_chunks(const V a, const V b, const PairTables& tab, V& lo,
+                                            V& hi) {
+  constexpr int kElems = sizeof(V) / 2;
   const __nv_bfloat16* ta = reinterpret_cast<const __nv_bfloat16*>(&a);
   const __nv_bfloat16* tb = reinterpret_cast<const __nv_bfloat16*>(&b);
   uint32_t* ol = reinterpret_cast<uint32_t*>(&lo);
   uint32_t* oh = reinterpret_cast<uint32_t*>(&hi);
 #pragma unroll
-  for (int i = 0; i < 8; i += 2) {
+  for (int i = 0; i < kElems; i += 2) {
     float rl[2], rh[2];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
@@ -126,15 +142,16 @@ __device__ __forceinline__ void rope_chunks(const uint4 a, const uint4 b, const 
   }
 }
 
-// RoPE of the chunk pair (c, c + 2) of a row in device memory.
-__device__ __forceinline__ void rope_pair(const __nv_bfloat16* row, const PairTables& tab, int c,
-                                          uint4& lo, uint4& hi) {
-  rope_chunks(*reinterpret_cast<const uint4*>(row + 8 * c),
-              *reinterpret_cast<const uint4*>(row + 8 * c + 16), tab, lo, hi);
+// RoPE of the chunk pair at elements a and b of a row in device memory.
+template <class V>
+__device__ __forceinline__ void rope_pair(const __nv_bfloat16* row, const PairTables& tab, int a,
+                                          int b, V& lo, V& hi) {
+  rope_chunks(*reinterpret_cast<const V*>(row + a), *reinterpret_cast<const V*>(row + b), tab, lo,
+              hi);
 }
 
 // RoPE in place of the chunk pair (c, c + 2) of row r of a swizzled bf16
-// operand buffer in shared memory.
+// operand buffer in shared memory (head_dim 64).
 __device__ __forceinline__ void rope_swizzled(unsigned char* buf, int r, int c,
                                               const PairTables& tab) {
   uint4* a = reinterpret_cast<uint4*>(buf + swizzle(r, c));
@@ -142,69 +159,99 @@ __device__ __forceinline__ void rope_swizzled(unsigned char* buf, int r, int c,
   rope_chunks(*a, *b, tab, *a, *b);
 }
 
-// Rope rows [row0, row0 + 64) of one head into a swizzled bf16 operand
-// buffer of 64 rows; rows >= seq are zero. 128 threads, tid in [0, 128).
+// The chunk pairs of a row at head dim D: a task ropes kGroup elements of an
+// even quarter (from `col(pair)`) and the kGroup a quarter (D/4) on; kGroup
+// = 8 (a 16-byte chunk) but 4 at D = 16, whose quarter is 4 wide. kPairs
+// tasks cover a row: at D = 64, chunks (0, 2), (1, 3), (4, 6), (5, 7).
+template <int D>
+struct RopePairs {
+  static constexpr int kQuarter = D / 4;
+  static constexpr int kGroup = kQuarter < 8 ? kQuarter : 8;
+  static constexpr int kPairs = D / (2 * kGroup);
+  using V = typename std::conditional<kGroup == 8, uint4, uint2>::type;
+  static __device__ __forceinline__ int col(int pair) {
+    constexpr int per_quarter = kQuarter / kGroup;
+    return (pair / per_quarter) * 2 * kQuarter + (pair % per_quarter) * kGroup;
+  }
+};
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint4 v) { st_shared16(addr, v); }
+__device__ __forceinline__ void st_shared(uint32_t addr, uint2 v) { st_shared8(addr, v); }
+
+// Rope rows [row0, row0 + 64) of one head (head dim D) into a swizzled bf16
+// operand tile of 64 rows (key_tiles::RowTile<D, 2>); rows >= seq are zero.
+// 128 threads, tid in [0, 128).
+template <int D>
 __device__ __forceinline__ void rope_rows(const __nv_bfloat16* __restrict__ x, long long row_stride,
                                           const float* __restrict__ cos_t,
                                           const float* __restrict__ sin_t, int row0, int seq,
                                           uint32_t dst, int tid) {
+  using R = RopePairs<D>;
+  using Tile = key_tiles::RowTile<D, 2>;
+  using V = typename R::V;
 #pragma unroll
-  for (int it = 0; it < 2; ++it) {
-    const int task = tid + 128 * it;  // 64 rows x 4 chunk pairs
-    const int r = task >> 2;
-    const int pair = task & 3;
-    const int c = (pair & 1) | ((pair & 2) << 1);  // 0, 1, 4, 5
+  for (int it = 0; it < 64 * R::kPairs / 128; ++it) {
+    const int task = tid + 128 * it;  // 64 rows x kPairs chunk pairs
+    const int r = task / R::kPairs;
+    const int a = R::col(task % R::kPairs);
+    const int b = a + R::kQuarter;
     const int row = row0 + r;
-    uint4 lo = make_uint4(0, 0, 0, 0), hi = lo;
+    V lo{}, hi{};
     if (row < seq) {
       PairTables tables;
-      load_tables(tables, cos_t + (size_t)row * kD, sin_t + (size_t)row * kD, c);
-      rope_pair(x + (long long)row * row_stride, tables, c, lo, hi);
+      load_tables<R::kGroup>(tables, cos_t + (size_t)row * D, sin_t + (size_t)row * D, a, b);
+      rope_pair(x + (long long)row * row_stride, tables, a, b, lo, hi);
     }
-    st_shared16(dst + swizzle(r, c), lo);
-    st_shared16(dst + swizzle(r, c + 2), hi);
+    st_shared(dst + Tile::at(r, a), lo);
+    st_shared(dst + Tile::at(r, b), hi);
   }
 }
 
-// ---- key tiles (S > 256): the RoPE prologue ---------------------------------
+// ---- key tiles: the RoPE prologue -------------------------------------------
 
-// RoPE of K into k_roped [B,H,S,64] bf16 (rows 128 bytes apart). Block: 64
-// rows of one batch item and kPrologueHeads heads, 256 threads, one chunk
-// pair a thread, which loads its cos/sin entries once for those heads.
+// RoPE of K into k_roped [B,H,S,D] bf16 (rows 2D bytes apart). Block: 64
+// rows of one batch item and kPrologueHeads heads, 64 * kPairs threads (256
+// at D = 64), one chunk pair a thread, which loads its cos/sin entries once
+// for those heads.
 constexpr int kPrologueHeads = 4;
 
-__global__ void __launch_bounds__(256)
+template <int D>
+__global__ void __launch_bounds__(64 * RopePairs<D>::kPairs)
 rope_attention_tc_rope_k_kernel(const __nv_bfloat16* __restrict__ k, long long row_stride,
                                 const float* __restrict__ cos_t, const float* __restrict__ sin_t,
                                 __nv_bfloat16* __restrict__ k_roped, int seq, int num_heads) {
+  using R = RopePairs<D>;
+  using V = typename R::V;
   const int b = blockIdx.y;
-  const int row = blockIdx.x * 64 + (threadIdx.x >> 2);
+  const int row = blockIdx.x * 64 + threadIdx.x / R::kPairs;
   if (row >= seq) return;
-  const int pair = threadIdx.x & 3;
-  const int c = (pair & 1) | ((pair & 2) << 1);  // 0, 1, 4, 5
+  const int a = R::col(threadIdx.x % R::kPairs);
+  const int bcol = a + R::kQuarter;
   PairTables tables;
-  load_tables(tables, cos_t + (size_t)row * kD, sin_t + (size_t)row * kD, c);
+  load_tables<R::kGroup>(tables, cos_t + (size_t)row * D, sin_t + (size_t)row * D, a, bcol);
   const __nv_bfloat16* src = k + ((long long)b * seq + row) * row_stride;
 #pragma unroll
   for (int i = 0; i < kPrologueHeads; ++i) {
     const int h = blockIdx.z * kPrologueHeads + i;
     if (h >= num_heads) break;
-    uint4 lo, hi;
-    rope_pair(src + h * kD, tables, c, lo, hi);
-    __nv_bfloat16* dst = k_roped + (((long long)b * num_heads + h) * seq + row) * kD;
-    *reinterpret_cast<uint4*>(dst + 8 * c) = lo;
-    *reinterpret_cast<uint4*>(dst + 8 * c + 16) = hi;
+    V lo, hi;
+    rope_pair(src + h * D, tables, a, bcol, lo, hi);
+    __nv_bfloat16* dst = k_roped + (((long long)b * num_heads + h) * seq + row) * D;
+    *reinterpret_cast<V*>(dst + a) = lo;
+    *reinterpret_cast<V*>(dst + bcol) = hi;
   }
 }
 
-// ---- key tiles (S > 256): the attention kernel -------------------------------
+// ---- key tiles: the attention kernel ----------------------------------------
 
-// K2/K3's operands of the key-tile core (key_tile_attention.cuh): the roped
-// K tiles of the prologue's scratch (tm_k: [B*H, S, 64]) and V (tm_v: the
-// [B, S, *] rows) by TMA, Q roped by the warpgroup from device memory
-// (rope_rows), key_tiles::online_softmax_tile's expf step, masked on every
-// tile, and the [B, S, C] output (tm_o).
+// K2/K3's operands of the key-tile core (key_tile_attention.cuh) at head dim
+// D: the roped K tiles of the prologue's scratch (tm_k: [B*H, S, D]) and V
+// (tm_v: the [B, S, *] rows) by TMA, a box a panel, Q roped by the
+// warpgroup from device memory (rope_rows), key_tiles::online_softmax_tile's
+// expf step, masked on every tile, and the [B, S, C] output (tm_o).
+template <int D>
 struct RopeKeyTileOperands {
+  using Tile = typename key_tiles::Bf16Tiles<D>::Tile;
   const CUtensorMap* tm_k;
   const CUtensorMap* tm_v;
   const CUtensorMap* tm_o;
@@ -214,32 +261,51 @@ struct RopeKeyTileOperands {
   const float* sin_t;
   int seq, num_heads, h, b;
   float scale;
+  float c;  // scale * log2(e)
 
   static constexpr uint32_t kQBytes = 0;  // Q does not come by TMA
   __device__ void load_q(uint32_t, uint32_t, int) const {}
   __device__ void load_k(uint32_t stage, uint32_t bar, int t) const {
-    tma_load_3d(stage, tm_k, bar, 0, kTile * t, b * num_heads + h);
+#pragma unroll
+    for (int j = 0; j < Tile::kPanels; ++j)
+      tma_load_3d(stage + j * Tile::kPanel, tm_k, bar, j * Tile::kBoxCols, kTile * t,
+                  b * num_heads + h);
   }
   __device__ void load_v(uint32_t stage, uint32_t bar, int t) const {
-    tma_load_3d(stage, tm_v, bar, h * kD, kTile * t, b);
+#pragma unroll
+    for (int j = 0; j < Tile::kPanels; ++j)
+      tma_load_3d(stage + j * Tile::kPanel, tm_v, bar, h * D + j * Tile::kBoxCols, kTile * t, b);
   }
   __device__ void stage_q(uint32_t my_q, int row_base, int ctid, int w, uint32_t) const {
-    rope_rows(q, row_stride, cos_t, sin_t, row_base, seq, my_q, ctid);
+    rope_rows<D>(q, row_stride, cos_t, sin_t, row_base, seq, my_q, ctid);
     fence_async_shared();
     named_barrier(1 + w, 128);
   }
+  // head_dim 64: attention_common.cuh's expf step, masked on every tile (the
+  // S > 256 outputs of older builds, bit for bit); other head dims: K4-K6's
+  // exp2 step, masked on the last tile only
   __device__ void softmax(float (&sc)[32], int valid, int tq, float (&m)[2], float (&l)[2],
                           float (&alpha)[2]) const {
-    key_tiles::online_softmax_tile(sc, valid, scale, tq, m, l, alpha);
+    if constexpr (D == 64) {
+      key_tiles::online_softmax_tile(sc, valid, scale, tq, m, l, alpha);
+    } else if (valid < kTile) {
+      key_tiles::exp2_softmax_tile<true>(sc, valid, c, tq, m, l, alpha);
+    } else {
+      key_tiles::exp2_softmax_tile<false>(sc, valid, c, tq, m, l, alpha);
+    }
   }
   __device__ void store_o(uint32_t src, int row_base) const {
-    tma_store_3d(tm_o, src, h * kD, row_base, b);
+#pragma unroll
+    for (int j = 0; j < Tile::kPanels; ++j)
+      tma_store_3d(tm_o, src + j * Tile::kPanel, h * D + j * Tile::kBoxCols, row_base, b);
   }
 };
 
 // One block a 128 query rows of one (batch item, head): the key-tile core
 // over the prologue's roped K tiles and V.
-__global__ void __launch_bounds__(key_tiles::kBlockThreads, key_tiles::Bf16Tiles::kBlocksPerSm)
+template <int D>
+__global__ void __launch_bounds__(key_tiles::Bf16Tiles<D>::kBlockThreads,
+                                  key_tiles::Bf16Tiles<D>::kBlocksPerSm)
 rope_attention_key_tile_kernel(const __grid_constant__ CUtensorMap tm_k,
                                const __grid_constant__ CUtensorMap tm_v,
                                const __grid_constant__ CUtensorMap tm_o,
@@ -248,10 +314,11 @@ rope_attention_key_tile_kernel(const __grid_constant__ CUtensorMap tm_k,
                                int seq, int num_heads, float scale) {
   extern __shared__ unsigned char smem_raw[];
   const int h = blockIdx.y, b = blockIdx.z;
-  const RopeKeyTileOperands op{&tm_k, &tm_v, &tm_o,
-                               q + (long long)b * seq * row_stride + (long long)h * kD,
-                               row_stride, cos_t, sin_t, seq, num_heads, h, b, scale};
-  key_tiles::attend<key_tiles::Bf16Tiles>(smem_raw, op, seq);
+  const RopeKeyTileOperands<D> op{&tm_k, &tm_v, &tm_o,
+                                  q + (long long)b * seq * row_stride + (long long)h * D,
+                                  row_stride, cos_t, sin_t, seq, num_heads, h, b, scale,
+                                  scale * kLog2e};
+  key_tiles::attend<key_tiles::Bf16Tiles<D>>(smem_raw, op, seq);
 }
 
 // ---- one pass (S <= 256) ----------------------------------------------------
@@ -302,9 +369,10 @@ __device__ __forceinline__ void rope_item(unsigned char* q, unsigned char* k, co
     for (int u = 0; u < kRopeBatch; ++u) {
       const int task = task0 + 128 * u;
       const int r = task >> 2;
-      if (task < tasks)
-        load_tables(tab[u], cos_t + (size_t)r * kD, sin_t + (size_t)r * kD,
-                    (task & 1) | ((task & 2) << 1));
+      if (task < tasks) {
+        const int a = 8 * ((task & 1) | ((task & 2) << 1));  // chunks 0, 1, 4, 5
+        load_tables(tab[u], cos_t + (size_t)r * kD, sin_t + (size_t)r * kD, a, a + 16);
+      }
     }
 #pragma unroll
     for (int u = 0; u < kRopeBatch; ++u) {
@@ -643,31 +711,42 @@ cudaError_t launch_one_pass(const OnePassLaunch& a) {
   return a.seq - kTile * (KT - 1) <= 8 ? launch_one_pass<KT, 8>(a) : launch_one_pass<KT, 64>(a);
 }
 
-// The key-tile kernel over the prologue's roped K (k_roped) and V, its
-// dynamic shared memory set once a device.
-cudaError_t launch_key_tiles(const void* q, const void* v, long long row_stride,
-                             const float* cos_t, const float* sin_t, const void* k_roped,
-                             void* out, int batch, int seq, int num_heads, float scale,
-                             cudaStream_t st, int device) {
+// The RoPE prologue and the key-tile kernel at head dim D over the
+// prologue's roped K (k_roped) and V, the kernel's dynamic shared memory set
+// once a device.
+template <int D>
+cudaError_t launch_key_tiles(const void* q, const void* k, const void* v, long long row_stride,
+                             const float* cos_t, const float* sin_t, void* k_roped, void* out,
+                             int batch, int seq, int num_heads, float scale, cudaStream_t st,
+                             int device) {
+  using Tiles = key_tiles::Bf16Tiles<D>;
+  using Tile = typename Tiles::Tile;
   static bool ready[kMaxDevices];
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   cudaError_t err;
   if (!ready[device]) {
-    err = cudaFuncSetAttribute(rope_attention_key_tile_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               key_tiles::Bf16Tiles::kSmem);
+    err = cudaFuncSetAttribute(rope_attention_key_tile_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, Tiles::kSmem);
     if (err != cudaSuccess) return err;
     ready[device] = true;
   }
-  const uint64_t c = (uint64_t)num_heads * kD;
-  CUtensorMap tm_k, tm_v, tm_o;
-  err = encode_bf16_rows(&tm_k, k_roped, kD, seq, (uint64_t)batch * num_heads, kD, kTile);
-  if (err == cudaSuccess) err = encode_bf16_rows(&tm_v, v, c, seq, batch, row_stride, kTile);
-  if (err == cudaSuccess) err = encode_bf16_rows(&tm_o, out, c, seq, batch, c, kTile);
+  const dim3 rope_grid((seq + 63) / 64, batch, (num_heads + kPrologueHeads - 1) / kPrologueHeads);
+  rope_attention_tc_rope_k_kernel<D><<<rope_grid, 64 * RopePairs<D>::kPairs, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(k), row_stride, cos_t, sin_t,
+      static_cast<__nv_bfloat16*>(k_roped), seq, num_heads);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid((seq + 2 * kTile - 1) / (2 * kTile), num_heads, batch);
-  rope_attention_key_tile_kernel<<<grid, key_tiles::kBlockThreads, key_tiles::Bf16Tiles::kSmem,
-                                   st>>>(
+  const uint64_t c = (uint64_t)num_heads * D;
+  CUtensorMap tm_k, tm_v, tm_o;
+  err = encode_bf16_rows(&tm_k, k_roped, D, seq, (uint64_t)batch * num_heads, D, kTile,
+                         Tile::kBoxCols);
+  if (err == cudaSuccess)
+    err = encode_bf16_rows(&tm_v, v, c, seq, batch, row_stride, kTile, Tile::kBoxCols);
+  if (err == cudaSuccess)
+    err = encode_bf16_rows(&tm_o, out, c, seq, batch, c, kTile, Tile::kBoxCols);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq + Tiles::kBlockRows - 1) / Tiles::kBlockRows, num_heads, batch);
+  rope_attention_key_tile_kernel<D><<<grid, Tiles::kBlockThreads, Tiles::kSmem, st>>>(
       tm_k, tm_v, tm_o, static_cast<const __nv_bfloat16*>(q), row_stride, cos_t, sin_t, seq,
       num_heads, scale);
   return cudaGetLastError();
@@ -678,12 +757,12 @@ cudaError_t launch_key_tiles(const void* q, const void* v, long long row_stride,
 extern "C" {
 
 // The schedule of a call on a card of `sms` SMs: 0 for the key-tile kernel
-// (seq > 256), else the parts each head's query rows are cut into for the
-// one-pass kernel: 1 (all rows an item) where B*H items fill every SM, else
-// parts of two 64-row tiles, else of one. Mirrored by flash_attention.py::
-// tc_schedule.
-int t3d_rope_attention_tc_schedule(int batch, int seq, int num_heads, int sms) {
-  if (seq > one_pass::kMaxSeq) return 0;
+// (head_dim other than 64, or seq > 256), else the parts each head's query
+// rows are cut into for the one-pass kernel: 1 (all rows an item) where
+// B*H items fill every SM, else parts of two 64-row tiles, else of one.
+// Mirrored by flash_attention.py::tc_schedule.
+int t3d_rope_attention_tc_schedule(int batch, int seq, int num_heads, int head_dim, int sms) {
+  if (head_dim != kD || seq > one_pass::kMaxSeq) return 0;
   const int row_tiles = (seq + kTile - 1) / kTile;
   for (int tiles = one_pass::kMaxTiles; tiles > 1; tiles /= 2) {
     const int parts = (row_tiles + tiles - 1) / tiles;
@@ -693,34 +772,37 @@ int t3d_rope_attention_tc_schedule(int batch, int seq, int num_heads, int sms) {
 }
 
 // Bytes of the roped-K scratch t3d_rope_attention_tc needs for a call: a
-// bf16 [batch, num_heads, seq, 64] for the key-tile kernel, 0 for the
+// bf16 [batch, num_heads, seq, head_dim] for the key-tile kernel, 0 for the
 // one-pass kernel (which ropes K in shared memory).
-unsigned long long t3d_rope_attention_tc_scratch_bytes(int batch, int seq, int num_heads) {
-  if (seq <= one_pass::kMaxSeq) return 0;
-  return (unsigned long long)batch * num_heads * seq * kD * 2;
+unsigned long long t3d_rope_attention_tc_scratch_bytes(int batch, int seq, int num_heads,
+                                                       int head_dim) {
+  if (head_dim == kD && seq <= one_pass::kMaxSeq) return 0;
+  return (unsigned long long)batch * num_heads * seq * head_dim * 2;
 }
 
 // q/k/v: bf16 base pointers of [batch, seq, *] rows `row_stride` elements
-// apart (head h at column h*64), 16-byte aligned, row_stride % 8 == 0;
-// cos/sin: float32 [seq, 64], 16-byte aligned; k_roped: the bf16 scratch of
-// t3d_rope_attention_tc_scratch_bytes, 16-byte aligned, written here (unused,
-// may be null, where that is 0); out: bf16 [batch, seq, num_heads*64]
-// contiguous, 16-byte aligned. head_dim must be 64. Launches on `stream`,
-// on the current device: seq <= 256 the one-pass kernel, else the RoPE
-// prologue and the key-tile kernel. Returns a cudaError_t code.
+// apart (head h at column h*head_dim), 16-byte aligned, row_stride % 8 == 0;
+// cos/sin: float32 [seq, head_dim], 16-byte aligned; k_roped: the bf16
+// scratch of t3d_rope_attention_tc_scratch_bytes, 16-byte aligned, written
+// here (unused, may be null, where that is 0); out: bf16 [batch, seq,
+// num_heads*head_dim] contiguous, 16-byte aligned. head_dim 16, 32, 64 or
+// 128. Launches on `stream`, on the current device: at head_dim 64 and seq
+// <= 256 the one-pass kernel, else the RoPE prologue and the key-tile
+// kernel. Returns a cudaError_t code.
 int t3d_rope_attention_tc(const void* q, const void* k, const void* v, long long row_stride,
                           const float* cos_t, const float* sin_t, void* k_roped, void* out,
                           int batch, int seq, int num_heads, int head_dim, float scale,
                           void* stream) {
-  if (head_dim != kD || seq <= 0 || row_stride % 8) return (int)cudaErrorInvalidValue;
+  if (!serves_head_dim(head_dim) || seq <= 0 || row_stride % 8)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   int device;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
-  if (seq <= one_pass::kMaxSeq) {
+  if (head_dim == kD && seq <= one_pass::kMaxSeq) {
     OnePassLaunch a;
     const int sms = sm_count(device);
-    a.parts = t3d_rope_attention_tc_schedule(batch, seq, num_heads, sms);
+    a.parts = t3d_rope_attention_tc_schedule(batch, seq, num_heads, head_dim, sms);
     const int row_tiles = (seq + kTile - 1) / kTile;
     a.part_tiles = (row_tiles + a.parts - 1) / a.parts;
     const uint64_t c = (uint64_t)num_heads * kD;
@@ -749,14 +831,20 @@ int t3d_rope_attention_tc(const void* q, const void* k, const void* v, long long
     }
   }
   if (k_roped == nullptr) return (int)cudaErrorInvalidValue;
-  const dim3 rope_grid((seq + 63) / 64, batch, (num_heads + kPrologueHeads - 1) / kPrologueHeads);
-  rope_attention_tc_rope_k_kernel<<<rope_grid, 256, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(k), row_stride, cos_t, sin_t,
-      static_cast<__nv_bfloat16*>(k_roped), seq, num_heads);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_key_tiles(q, v, row_stride, cos_t, sin_t, k_roped, out, batch, seq,
-                               num_heads, scale, st, device);
+  switch (head_dim) {
+    case 16:
+      return (int)launch_key_tiles<16>(q, k, v, row_stride, cos_t, sin_t, k_roped, out, batch,
+                                       seq, num_heads, scale, st, device);
+    case 32:
+      return (int)launch_key_tiles<32>(q, k, v, row_stride, cos_t, sin_t, k_roped, out, batch,
+                                       seq, num_heads, scale, st, device);
+    case 64:
+      return (int)launch_key_tiles<64>(q, k, v, row_stride, cos_t, sin_t, k_roped, out, batch,
+                                       seq, num_heads, scale, st, device);
+    default:
+      return (int)launch_key_tiles<128>(q, k, v, row_stride, cos_t, sin_t, k_roped, out, batch,
+                                        seq, num_heads, scale, st, device);
+  }
 }
 
 const char* t3d_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

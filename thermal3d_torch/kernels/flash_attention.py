@@ -4,10 +4,12 @@ K2 + K3, fused 2-D RoPE + attention: `fused_rope_attention` (K2,
 self-attention on the packed [B,S,3C] qkv projection) and
 `fused_rope_cross_attention` (K3, separate [B,S,C] q/k/v projections sharing
 one position grid) return [B,S,C]. `attention_route` picks their CUDA
-kernel by shape: bf16 with head_dim 64 runs on the tensor cores
-(csrc/rope_attention_tc.cu, counted by `rope_attention_tc.launches`; one
-pass over each head's whole rows at S <= 256, a 64-key online softmax
-above, `tc_schedule`); float32 with head_dim 64 runs 3xTF32 on the tensor
+kernel by shape: bf16 with a head_dim of TC_HEAD_DIMS (16, 32, 64, 128)
+runs on the tensor cores (csrc/rope_attention_tc.cu, counted by
+`rope_attention_tc.launches`; at head_dim 64 one pass over each head's
+whole rows at S <= 256, else a RoPE prologue and a 64-key online softmax,
+`tc_schedule`, whose step is expf at head_dim 64 and K4-K6's exp2 step at
+the other head dims); float32 with those head dims runs 3xTF32 on the tensor
 cores (csrc/attention_3xtf32.cu, counted by `rope_attention_3xtf32.launches`:
 a prologue that ropes K and splits K and V, then the 64-key online softmax
 at every S); other head dims run the CUDA-core kernels of
@@ -18,13 +20,15 @@ K4 + K5 + K6, softmax attention on q/k that are already roped:
 `flash_attention_grouped` (K5) and `flash_attention_multihead` (K6, both
 [B,H,S,D]) launch one kernel for the three functions the TPU tiled three
 ways; each keeps its own entry and launch count. `attention_route` picks
-the kernel by shape as for K2/K3: bf16 with head_dim 64 runs on the tensor
-cores (csrc/attention_tc.cu, counted by `softmax_attention_tc.launches`: the
-key-tile loop of csrc/key_tile_attention.cuh that K2/K3 share above S=256,
-fed by 4-D tensor maps of each operand's strides, `tc_map_strides`),
-float32 with head_dim 64 on the same loop in 3xTF32 (csrc/attention_3xtf32.cu,
+the kernel by shape as for K2/K3: bf16 with a head_dim of TC_HEAD_DIMS runs
+on the tensor cores (csrc/attention_tc.cu, counted by
+`softmax_attention_tc.launches`: the key-tile loop of
+csrc/key_tile_attention.cuh that K2/K3 share, fed by 4-D tensor maps of
+each operand's strides, `tc_map_strides`), float32 with those head dims on
+the same loop in 3xTF32 (csrc/attention_3xtf32.cu,
 `softmax_attention_3xtf32.launches`), other head dims on the CUDA cores
-(csrc/attention.cu).
+(csrc/attention.cu). Each head dim of TC_HEAD_DIMS is a compile-time
+instantiation of the tensor-core kernels; a build that lacks one raises.
 
 `attention_3xtf32_plain` and `rope_attention_3xtf32_plain` restate the
 3xTF32 arithmetic in PyTorch (tf32 rounding by masking the mantissa), for
@@ -62,6 +66,9 @@ SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel families, by the name attention_route gives them
 TENSOR_CORE, TF32X3, CUDA_CORE = "tensor_core", "tensor_core_3xtf32", "cuda_core"
+# the head dims the tensor-core and 3xTF32 kernels serve (csrc/attention_tc.cuh,
+# serves_head_dim); every other accepted head dim runs on the CUDA cores
+TC_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def rot_lanes(t: torch.Tensor) -> torch.Tensor:
@@ -175,20 +182,22 @@ def smem_bytes(seq: int, head_dim: int, dtype: torch.dtype) -> int:
 def attention_route(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel family of an attention call (K2-K6), by dtype and head
     dim, at any S; head_dim 64 is every call of the configured models
-    (DUSt3R-224, MASt3R-512):
-      * TENSOR_CORE for bf16 with head_dim 64 (wgmma: csrc/rope_attention_tc.cu
-        for K2/K3, csrc/attention_tc.cu for K4-K6, both on the key-tile loop
-        of csrc/key_tile_attention.cuh past S=256 for K2/K3 and at every S
-        for K4-K6);
-      * TF32X3 for float32 with head_dim 64: float32 attention runs 3xTF32
-        on the tensor cores (csrc/attention_3xtf32.cu, on the same key-tile
-        loop): each operand split into tf32 hi and lo, each product hi*hi +
-        hi*lo + lo*hi in float32, about 2^-21 relative a product, so its
-        products are no longer IEEE float32 ones;
+    (DUSt3R-224, MASt3R-512), 32 a decoder of 512 wide and 16 heads:
+      * TENSOR_CORE for bf16 with head_dim 16, 32, 64 or 128 (TC_HEAD_DIMS;
+        wgmma: csrc/rope_attention_tc.cu for K2/K3, csrc/attention_tc.cu
+        for K4-K6, both on the key-tile loop of csrc/key_tile_attention.cuh,
+        past S=256 for K2/K3 at head_dim 64 and at every S otherwise);
+      * TF32X3 for float32 with those head dims: float32 attention runs
+        3xTF32 on the tensor cores (csrc/attention_3xtf32.cu, on the same
+        key-tile loop): each operand split into tf32 hi and lo, each product
+        hi*hi + hi*lo + lo*hi in float32, about 2^-21 relative a product, so
+        its products are no longer IEEE float32 ones;
       * otherwise CUDA_CORE (csrc/rope_attention.cu, where `_launch` picks
-        one-shot or key-tile, and csrc/attention.cu), in float32 or bf16.
+        one-shot or key-tile, and csrc/attention.cu), in float32 or bf16:
+        every other head dim the wrappers accept (a multiple of 4 up to 256,
+        e.g. 24, 48, 80 or 160).
     A dispatch by shape: a kernel that fails to build or launch raises."""
-    if head_dim != 64:
+    if head_dim not in TC_HEAD_DIMS:
         return CUDA_CORE
     return {torch.bfloat16: TENSOR_CORE, torch.float32: TF32X3}.get(dtype, CUDA_CORE)
 
@@ -242,32 +251,49 @@ def _launch(x, q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale,
         rope_attention_3xtf32(q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale,
                               stream, what)
         return
+    rope_attention_cuda_core(q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale,
+                             stream, what)
+
+
+def rope_attention_cuda_core(q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale,
+                             stream, what="rope_attention_cuda_core"):
+    """Launch the CUDA-core K2/K3 kernel (csrc/rope_attention.cu, float32 or
+    bf16, any head_dim the wrappers accept) on base pointers with a common
+    row stride in elements; out [B, S, C] of the inputs' dtype. The switch
+    between its two kernels: the one-shot kernel holds K/V of a head in
+    shared memory; where they do not fit (float32 D=64 past S=411, bf16
+    D=32 past S=865) the key-tile loop runs instead. The library call runs
+    with out's card current. Counts its own calls in
+    `rope_attention_cuda_core.launches`."""
+    b, s, c = out.shape
+    d = c // num_heads
     lib = _lib()
-    # The switch between the two CUDA-core kernels: the one-shot kernel
-    # holds K/V of a head in shared memory; where they do not fit (float32
-    # D=64 past S=411, bf16 D=32 past S=865; so MASt3R-512's S=1024) the
-    # key-tile loop runs instead.
-    one_shot = smem_bytes(s, d, x.dtype) <= SMEM_LIMIT
+    one_shot = smem_bytes(s, d, out.dtype) <= SMEM_LIMIT
     fn = lib.t3d_rope_attention if one_shot else lib.t3d_rope_attention_tiled
     with torch.cuda.device(out.device):
-        rc = fn(_DTYPE_CODE[x.dtype], q_ptr, k_ptr, v_ptr, row_stride, cos.data_ptr(),
+        rc = fn(_DTYPE_CODE[out.dtype], q_ptr, k_ptr, v_ptr, row_stride, cos.data_ptr(),
                 sin.data_ptr(), out.data_ptr(), b, s, num_heads, d, float(scale), stream)
     _build.check(lib, rc, f"{what} launch")
+    _build.count_launch(rope_attention_cuda_core)
+
+
+rope_attention_cuda_core.launches = 0
 
 
 def rope_attention_tc(q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale,
                       stream, what="rope_attention_tc", lib=None):
-    """Launch the tensor-core K2/K3 kernel (bf16, head_dim 64) on base
-    pointers with a common row stride in elements; out [B, S, C] bf16. The
-    library call launches, on `stream`, the one-pass kernel at S <= 256 and
-    the RoPE prologue of K plus the key-tile kernel above (`tc_schedule`);
-    only the latter gets a roped-K scratch (`tc_scratch_bytes`). `lib`:
-    another build of csrc/rope_attention_tc.cu, loaded by `bind_tc_lib`
-    (this checkout's by default). The library call runs with out's card
-    current. Counts its own calls in `rope_attention_tc.launches`."""
+    """Launch the tensor-core K2/K3 kernel (bf16, a head_dim of
+    TC_HEAD_DIMS) on base pointers with a common row stride in elements; out
+    [B, S, C] bf16. The library call launches, on `stream`, the one-pass
+    kernel at head_dim 64 and S <= 256, else the RoPE prologue of K plus the
+    key-tile kernel (`tc_schedule`); only the latter gets a roped-K scratch
+    (`tc_scratch_bytes`). `lib`: another build of csrc/rope_attention_tc.cu,
+    loaded by `bind_tc_lib` (this checkout's by default). The library call
+    runs with out's card current. Counts its own calls in
+    `rope_attention_tc.launches`."""
     b, s, c = out.shape
     lib = lib or _tc_lib()
-    nbytes = tc_scratch_bytes(lib, b, s, num_heads)
+    nbytes = tc_scratch_bytes(lib, b, s, num_heads, c // num_heads)
     k_roped = (torch.empty(nbytes // out.element_size(), dtype=out.dtype, device=out.device)
                if nbytes else None)
     ptrs = (q_ptr, k_ptr, v_ptr, cos.data_ptr(), sin.data_ptr(),
@@ -288,15 +314,15 @@ ONE_PASS_MAX_SEQ = 256
 ONE_PASS, KEY_TILE = "one_pass", "key_tile"
 
 
-def tc_schedule(batch: int, heads: int, seq: int, sms: int):
+def tc_schedule(batch: int, heads: int, seq: int, sms: int, head_dim: int = 64):
     """The schedule the tensor-core K2/K3 kernel takes for a call on a card
     of `sms` SMs, as csrc/rope_attention_tc.cu's
-    t3d_rope_attention_tc_schedule chooses it: (KEY_TILE, 1) past
-    ONE_PASS_MAX_SEQ (the 64-key online softmax, 128 query rows a block);
-    else (ONE_PASS, parts), the parts each head's query rows are cut into:
-    1 where the B*H heads alone give every SM an item, else parts of two
-    64-row tiles if that does, else of one tile."""
-    if seq > ONE_PASS_MAX_SEQ:
+    t3d_rope_attention_tc_schedule chooses it: (KEY_TILE, 1) at a head_dim
+    other than 64 and past ONE_PASS_MAX_SEQ (the 64-key online softmax, 128
+    query rows a block); else (ONE_PASS, parts), the parts each head's query
+    rows are cut into: 1 where the B*H heads alone give every SM an item,
+    else parts of two 64-row tiles if that does, else of one tile."""
+    if head_dim != 64 or seq > ONE_PASS_MAX_SEQ:
         return KEY_TILE, 1
     row_tiles = -(-seq // 64)
     for tiles in (4, 2):
@@ -306,15 +332,16 @@ def tc_schedule(batch: int, heads: int, seq: int, sms: int):
     return ONE_PASS, row_tiles
 
 
-def tc_scratch_bytes(lib, batch: int, seq: int, heads: int) -> int:
+def tc_scratch_bytes(lib, batch: int, seq: int, heads: int, head_dim: int = 64) -> int:
     """Bytes of the roped-K scratch a build of csrc/rope_attention_tc.cu
     takes for a call: its own answer (t3d_rope_attention_tc_scratch_bytes:
-    0 at S <= ONE_PASS_MAX_SEQ), or a whole bf16 [B, H, S, 64] for a build
-    without that query, which ropes K into it on every call."""
+    0 at head_dim 64 and S <= ONE_PASS_MAX_SEQ, else a bf16 [B, H, S, D]),
+    or a whole bf16 [B, H, S, 64] for a build without that query, which
+    ropes K into it on every call."""
     query = getattr(lib, "t3d_rope_attention_tc_scratch_bytes", None)
     if query is None:
         return batch * heads * seq * 64 * 2
-    return int(query(batch, seq, heads))
+    return int(query(batch, seq, heads, head_dim))
 
 
 def _tc_lib() -> ctypes.CDLL:
@@ -331,9 +358,9 @@ def bind_tc_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
     if hasattr(lib, "t3d_rope_attention_tc_scratch_bytes"):
-        lib.t3d_rope_attention_tc_scratch_bytes.argtypes = [ctypes.c_int] * 3
+        lib.t3d_rope_attention_tc_scratch_bytes.argtypes = [ctypes.c_int] * 4
         lib.t3d_rope_attention_tc_scratch_bytes.restype = ctypes.c_ulonglong
-        lib.t3d_rope_attention_tc_schedule.argtypes = [ctypes.c_int] * 4
+        lib.t3d_rope_attention_tc_schedule.argtypes = [ctypes.c_int] * 5
         lib.t3d_rope_attention_tc_schedule.restype = ctypes.c_int
     return lib
 
@@ -354,15 +381,15 @@ def _lib() -> ctypes.CDLL:
 
 def rope_attention_3xtf32(q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale,
                           stream, what="rope_attention_3xtf32"):
-    """Launch the 3xTF32 K2/K3 kernel (float32, head_dim 64) on base
-    pointers with a common row stride in elements; out [B, S, C] float32.
-    The library call launches, on `stream`, the prologue (K roped, K and V
-    split into tf32 hi and lo in a scratch allocated here, `_tf32x3_scratch`)
-    and the key-tile kernel, with out's card
-    current. Counts its own calls in `rope_attention_3xtf32.launches`."""
+    """Launch the 3xTF32 K2/K3 kernel (float32, a head_dim of TC_HEAD_DIMS)
+    on base pointers with a common row stride in elements; out [B, S, C]
+    float32. The library call launches, on `stream`, the prologue (K roped,
+    K and V split into tf32 hi and lo in a scratch allocated here,
+    `_tf32x3_scratch`) and the key-tile kernel, with out's card current.
+    Counts its own calls in `rope_attention_3xtf32.launches`."""
     b, s, c = out.shape
     lib = _3xtf32_lib()
-    scratch = _tf32x3_scratch(lib, b, num_heads, s, out.device)
+    scratch = _tf32x3_scratch(lib, b, num_heads, s, c // num_heads, out.device)
     ptrs = (q_ptr, k_ptr, v_ptr, cos.data_ptr(), sin.data_ptr(), scratch.data_ptr(),
             out.data_ptr())
     check_alignment(what, ptrs, row_stride * out.element_size())
@@ -376,11 +403,11 @@ def rope_attention_3xtf32(q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_he
 rope_attention_3xtf32.launches = 0
 
 
-def _tf32x3_scratch(lib, batch, heads, seq, device) -> torch.Tensor:
+def _tf32x3_scratch(lib, batch, heads, seq, head_dim, device) -> torch.Tensor:
     """The scratch a 3xTF32 call takes, of the library's own size
-    (t3d_attention_3xtf32_scratch_bytes): K's tf32 hi and lo [B*H, S, 64]
-    and V's, transposed, [B*H, 64, S rounded up to 8]; S is Sk for K4-K6."""
-    nbytes = int(lib.t3d_attention_3xtf32_scratch_bytes(batch, heads, seq))
+    (t3d_attention_3xtf32_scratch_bytes): K's tf32 hi and lo [B*H, S, D]
+    and V's, transposed, [B*H, D, S rounded up to 8]; S is Sk for K4-K6."""
+    nbytes = int(lib.t3d_attention_3xtf32_scratch_bytes(batch, heads, seq, head_dim))
     return torch.empty(nbytes // 4, dtype=torch.float32, device=device)
 
 
@@ -398,7 +425,7 @@ def _3xtf32_lib() -> ctypes.CDLL:
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.t3d_attention_3xtf32_scratch_bytes.argtypes = [ctypes.c_int] * 3
+    lib.t3d_attention_3xtf32_scratch_bytes.argtypes = [ctypes.c_int] * 4
     lib.t3d_attention_3xtf32_scratch_bytes.restype = ctypes.c_ulonglong
     return lib
 
@@ -734,18 +761,33 @@ def _attend(what, q, k, v, scale):
     if route == TF32X3:
         softmax_attention_3xtf32(q, k, v, out, scale, stream, what)
         return out
+    softmax_attention_cuda_core(q, k, v, out, scale, stream, what)
+    return out
+
+
+def softmax_attention_cuda_core(q, k, v, out, scale, stream, what="softmax_attention_cuda_core"):
+    """Launch the CUDA-core K4-K6 kernel (csrc/attention.cu, float32 or
+    bf16, any head_dim the wrappers accept) on checked [B, H, S, D]
+    operands and out, each read by its strides. The library call runs with
+    out's card current. Counts its own calls in
+    `softmax_attention_cuda_core.launches`."""
+    b, h, sq, d = q.shape
     strides = (ctypes.c_longlong * 12)(*(t.stride(i) for t in (q, k, v, out) for i in range(3)))
     lib = _attention_lib()
     with torch.cuda.device(out.device):
         rc = lib.t3d_attention(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-                               v.data_ptr(), out.data_ptr(), strides, b, h, sq, sk, d,
+                               v.data_ptr(), out.data_ptr(), strides, b, h, sq, k.shape[2], d,
                                float(scale), stream)
     _build.check(lib, rc, f"{what} launch")
-    return out
+    _build.count_launch(softmax_attention_cuda_core)
+
+
+softmax_attention_cuda_core.launches = 0
 
 
 def softmax_attention_tc(q, k, v, out, scale, stream, what="softmax_attention_tc", lib=None):
-    """Launch the tensor-core K4-K6 kernel (bf16, head_dim 64) on checked
+    """Launch the tensor-core K4-K6 kernel (bf16, a head_dim of
+    TC_HEAD_DIMS) on checked
     [B, H, S, D] operands and out: one block per 128 query rows of a (batch
     item, head), K/V in 64-key tiles by TMA through the key-tile loop that
     K2/K3 share, each operand read and out written through a 4-D tensor map
@@ -772,20 +814,20 @@ softmax_attention_tc.launches = 0
 
 
 def softmax_attention_3xtf32(q, k, v, out, scale, stream, what="softmax_attention_3xtf32"):
-    """Launch the 3xTF32 K4-K6 kernel (float32, head_dim 64) on checked
-    [B, H, S, D] operands and out: the prologue splits K and V (read by
-    their strides) into tf32 hi and lo in a scratch allocated here, then the
-    key-tile kernel reads q and writes out through 4-D tensor maps of their
-    strides. Strides of axes of size 1 go to the kernel as 0; every other
-    stride, and every base pointer, must be a multiple of 16 bytes. The
-    library call runs with out's card current. Counts its own calls in
+    """Launch the 3xTF32 K4-K6 kernel (float32, a head_dim of TC_HEAD_DIMS)
+    on checked [B, H, S, D] operands and out: the prologue splits K and V
+    (read by their strides) into tf32 hi and lo in a scratch allocated here,
+    then the key-tile kernel reads q and writes out through 4-D tensor maps
+    of their strides. Strides of axes of size 1 go to the kernel as 0; every
+    other stride, and every base pointer, must be a multiple of 16 bytes.
+    The library call runs with out's card current. Counts its own calls in
     `softmax_attention_3xtf32.launches`."""
     b, h, sq, d = q.shape
     strides = [t.stride(i) if t.shape[i] > 1 else 0 for t in (q, k, v, out) for i in range(3)]
     check_alignment(what, [t.data_ptr() for t in (q, k, v, out)],
                     *(st * q.element_size() for st in strides))
     lib = _3xtf32_lib()
-    scratch = _tf32x3_scratch(lib, b, h, k.shape[2], out.device)
+    scratch = _tf32x3_scratch(lib, b, h, k.shape[2], d, out.device)
     with torch.cuda.device(out.device):
         rc = lib.t3d_softmax_attention_3xtf32(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                               out.data_ptr(), (ctypes.c_longlong * 12)(*strides),
@@ -797,23 +839,27 @@ def softmax_attention_3xtf32(q, k, v, out, scale, stream, what="softmax_attentio
 
 softmax_attention_3xtf32.launches = 0
 
-# the byte stride the tensor-core K4-K6 kernel's tensor maps take for an axis
-# of size 1 (csrc/attention_tc.cu, kSizeOneStrideBytes: one bf16 row of 64)
-SIZE_ONE_STRIDE_BYTES = 128
+
+def size_one_stride_bytes(head_dim: int) -> int:
+    """The byte stride the tensor-core K4-K6 kernel's tensor maps take for an
+    axis of size 1 (csrc/attention_tc.cu, size_one_stride_bytes): one bf16
+    row, 2 * head_dim bytes (128 at head_dim 64)."""
+    return 2 * head_dim
 
 
-def tc_map_strides(strides, batch: int, heads: int, sq: int, sk: int):
+def tc_map_strides(strides, batch: int, heads: int, sq: int, sk: int, head_dim: int = 64):
     """The byte strides of the tensor-core K4-K6 kernel's four tensor maps,
     as csrc/attention_tc.cu's t3d_softmax_attention_tc_map_strides computes
     them from the 12 element strides `softmax_attention_tc` passes ((batch,
     head, row) of q, k, v, out): 2 bytes an element, and
-    SIZE_ONE_STRIDE_BYTES for an axis of size 1 (whose stride arrives as 0,
-    which a tensor map need not take; the kernel never steps along it)."""
+    size_one_stride_bytes(head_dim) for an axis of size 1 (whose stride
+    arrives as 0, which a tensor map need not take; the kernel never steps
+    along it)."""
     out = []
     for i, st in enumerate(strides):
         rows = sk if i // 3 in (1, 2) else sq
         extent = (batch, heads, rows)[i % 3]
-        out.append(SIZE_ONE_STRIDE_BYTES if extent == 1 else 2 * st)
+        out.append(size_one_stride_bytes(head_dim) if extent == 1 else 2 * st)
     return out
 
 
@@ -831,8 +877,8 @@ def bind_attention_tc_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     if hasattr(lib, "t3d_softmax_attention_tc_map_strides"):
         query = lib.t3d_softmax_attention_tc_map_strides
-        query.argtypes = [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 4 + \
-            [ctypes.POINTER(ctypes.c_longlong)]
+        query.argtypes = [ctypes.POINTER(ctypes.c_longlong)] + \
+            [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
         query.restype = None
     return lib
 
