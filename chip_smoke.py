@@ -16,25 +16,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
      with Sq=196 against Sk=1024 and Sq=1024 against Sk=196, and K4 in bf16
      on a q whose size-1 axes have odd strides (the tensor-core kernel's
      map strides held against flash_attention.tc_map_strides in every
-     case); K2-K6 also in bf16 and float32 at head_dim 24,
-     both S, and K2/K3 at the shapes a tensor-parallel rank gives them in
-     phase 10 (tp=2: 8 and 6 heads) and in the multi-device phase (tp=4: 4
-     and 3 heads); then K2-K6 at head_dims 16, 32 and 128 (HEAD_DIM_K2K3,
-     HEAD_DIM_K4, HEAD_DIM_K5K6), each in bf16 and float32 with the
-     CUDA-core kernel it replaces held and timed beside it in turns, and the
-     size-1-axes K4 case at head_dims 16 and 32 in bf16 and float32
-     (SIZE_ONE_HEAD_DIMS). Each K2-K6 case records the kernel
-     that served it: bf16 with head_dim 16, 32, 64 or 128 the tensor-core
-     kernel (its own count moves; K2/K3 with its schedule, one_pass/N at
-     head_dim 64 and S=196, else key_tile, as the library chooses it),
-     float32 with those head dims the 3xTF32 kernel (its own count moves;
-     bound at 495/3 TFLOP/s, the CUDA cores' 67 beside it), head_dim 24 a
-     CUDA-core kernel (K2/K3: one-shot at S=196, key-tile at S=1024). Then,
-     on a host with two
-     cards or more, with cuda:0 current, K1-K6 (all three kernel families) and
-     one full-width InferenceEngine batch on the last card, each bit-equal
-     to the same call on cuda:0 (multi_card_check); on one card a line says
-     that this check did not run and why;
+     case); K2-K6 also in bf16 and float32 at head_dim 24, both S, and K2/K3
+     at the shapes a tensor-parallel rank gives them in phase 10 (tp=2: 8
+     and 6 heads) and in the multi-device phase (tp=4: 4 and 3 heads); then
+     K2-K6 at head_dims 16, 32 and 128 (HEAD_DIM_K2K3, HEAD_DIM_K4,
+     HEAD_DIM_K5K6) and the size-1-axes K4 case at head_dims 16 and 32
+     (SIZE_ONE_HEAD_DIMS), and the packed route at head dims 20, 48, 80,
+     96, 160 and 256 (PADDED_K2, PADDED_K4, PADDED_K5K6), each in bf16 and
+     float32, with a poison case at head dims 24 and 20 (every lane of the
+     other heads NaN or Inf: head 0's output bit-equal to the clean one's);
+     and flash_attention.padded_width against both libraries' own query at
+     every head dim. Each K2-K6 case records the kernel that served it: bf16
+     the tensor-core kernels (their own count moves; K2/K3 at head_dim 16,
+     32, 64 or 128 with its schedule, one_pass/N at head_dim 64 and S=196,
+     else key_tile, as the library chooses it; every other head dim
+     packed/Dp, the width it is padded to), float32 the 3xTF32 ones (its own
+     count moves; 3xtf32/key_tile or 3xtf32/packed/Dp; bound at 495/3
+     TFLOP/s, the CUDA cores' 67 beside it). Then, on a host with two
+     cards or more, with cuda:0 current, K1-K6 (both kernel families, the
+     packed route too) and one full-width InferenceEngine batch on the last
+     card, each bit-equal to the same call on cuda:0 (multi_card_check); on
+     one card a line says that this check did not run and why;
   4. drive the serving path: a full-width bf16 DUSt3R-224 InferenceEngine
      (seeded random weights) answers batches of synthetic raw thermal frames
      [32, 320, 416]; its depth is held against the same engine run with the
@@ -45,9 +47,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      device's idle share; then a float32 engine is held against its plain
      twin, with the tensor-core count 0 there and the 3xTF32 count K2 + K3;
      then the small-decoder engine (phase_small_decoder: the decoder 512
-     wide with 16 heads, head_dim 32) the same way in bf16 and float32, its
-     infer_async() frames/s beside the head_dim-64 engine's in turns, and
-     its K2-K4 autograd Functions at a training shape against float64;
+     wide with 16 heads, head_dim 32) and the ViT-H engine (phase_vit_h: a
+     ViT-Huge-wide encoder, 1280 wide, 32 blocks, 16 heads: head_dim 80 on
+     the packed route; K2 = 48·n, K3 = 16·n) the same way in bf16 and
+     float32, each one's infer_async() frames/s beside the head_dim-64
+     engine's in turns, and its autograd Functions at a training shape
+     against float64;
   5. drive the pseudo-GT path: a full-width, full-depth bf16
      MASt3R-512 PseudoGTGenerator (seeded random weights) turns batches of 4
      synthetic RGB pairs [4, 512, 512, 3] into the eight pseudo-GT arrays,
@@ -160,21 +165,27 @@ Without CUDA it exits non-zero before printing any result.
 Phase 2 logs each kernel's registers and spills and every ptxas C7513
 and C7519 line of the wgmma sources, and fails on a C7513.
 
-    python3 chip_smoke.py --only-head-dims
+    python3 chip_smoke.py --only-head-dims [OTHER_CSRC_DIR]
     python3 chip_smoke.py --only-small-decoder
+    python3 chip_smoke.py --only-vit-h
 
-build the kernels and run, alone, phase 3's cases at head_dims 16, 32 and
-128 (with the size-1-axes cases there and the head_dim-24 CUDA-core
-cases), or phase 4's small-decoder engine, and print their lines.
+build the kernels and run, alone, phase 3's head-dim cases (16, 32 and 128,
+the size-1-axes cases there, and the packed route's at head dims 20, 24,
+48, 80, 96, 160 and 256 with the poison cases and the padded-width check),
+or phase 4's small-decoder engine, or its ViT-H engine, and print their
+lines. With OTHER_CSRC_DIR (a checkout's kernels/csrc from before the packed
+route, which still has the CUDA-core csrc/rope_attention.cu and csrc/attention.cu)
+each packed-route case also runs that build's CUDA-core kernel on the same
+inputs, held against the plain version and timed in turns with the kernel.
 
     python3 chip_smoke.py --compare-k2k3 OTHER_CSRC_DIR
 
 holds this checkout's tensor-core K2/K3 kernel against a build of another
-checkout's csrc/rope_attention_tc.cu instead (a build from before its
-queries took the head_dim is seen through OtherBuild) (torch.equal and the largest
-difference on the bf16 K2/K3 shapes of both paths, times in turns), then
-its 3xTF32 kernels against the other's csrc/attention_3xtf32.cu on float32
-shapes, and exits non-zero if any differs. Two builds of the same schedule read equal;
+checkout's csrc/rope_attention_tc.cu instead (a build whose queries take
+the head_dim) (torch.equal and the largest difference on the bf16
+K2/K3 shapes of both paths and at head_dims 16, 32 and 128, times in
+turns), then its 3xTF32 kernels against the other's csrc/attention_3xtf32.cu
+on float32 shapes, and exits non-zero if any differs. Two builds of the same schedule read equal;
 the one-pass schedule (S <= 256) against the 64-key online softmax of an
 older build differs in p's rounding, by about an output ulp.
 
@@ -182,8 +193,9 @@ older build differs in p's rounding, by about an output ulp.
 
 does the same for the tensor-core K4-K6 kernel against a build of another
 checkout's csrc/attention_tc.cu, through the same wrapper on phase 3's
-seeded operands: every bf16 K4 shape of PLAIN_ATTENTION_SHAPES and the
-size-1-axes case (and the float32 K4 shapes on the 3xTF32 kernels). Two
+seeded operands: every bf16 K4 shape of PLAIN_ATTENTION_SHAPES and
+HEAD_DIM_K4 and the size-1-axes case (and those float32 K4 shapes on the
+3xTF32 kernels). Two
 builds of the same arithmetic read equal; the exp2 softmax against an older
 build's expf differs by about an output ulp.
 
@@ -214,6 +226,7 @@ lines.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
@@ -327,10 +340,24 @@ def card_line() -> str:
 WGMMA_SOURCES = ("rope_attention_tc", "attention_tc", "attention_3xtf32")
 
 
+def kernel_names(mangled: list) -> list:
+    """Short names of mangled kernel entries ("packed_attention_tc_kernel<128>"),
+    by c++filt; the mangled names where it is missing."""
+    import shutil
+
+    if not mangled or shutil.which("c++filt") is None:
+        return list(mangled)
+    res = subprocess.run(["c++filt"], input="\n".join(mangled), capture_output=True, text=True)
+    names = res.stdout.splitlines()
+    if res.returncode or len(names) != len(mangled):
+        return list(mangled)
+    return [n.split("::", 1)[-1].split("(", 1)[0] for n in names]
+
+
 def phase_build() -> dict:
     """Build every kernel library (one nvcc a source, all at once); log each
-    kernel's registers and spills and every C7513 and C7519 line of the
-    wgmma sources' ptxas output, and raise on any C7513."""
+    kernel's registers and spills by name and every C7513 and C7519 line of
+    the wgmma sources' ptxas output, and raise on any C7513."""
     from thermal3d_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -338,20 +365,30 @@ def phase_build() -> dict:
     seconds = time.perf_counter() - t0
     log(f"build: {seconds:.1f} s for {len(paths)} kernel libraries")
     flagged = {}  # source: its C7513 and C7519 lines
+    kernels = {}  # source: [(mangled entry, its ptxas lines)]
     for name in paths:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+            entry = re.search(r"Compiling entry function '([^']+)'", line)
+            if entry:
+                kernels.setdefault(name, []).append((entry.group(1), []))
+            elif ("registers" in line or "spill" in line) and kernels.get(name):
+                kernels[name][-1][1].append(line.split(":", 1)[-1].strip())
             if name in WGMMA_SOURCES and ("C7513" in line or "C7519" in line):
                 log(f"  {name}: ptxas {line.strip()}")
                 flagged.setdefault(name, []).append(line.strip())
+    registers = {}
+    for name, entries in kernels.items():
+        for short, (_, lines) in zip(kernel_names([e for e, _ in entries]), entries):
+            log(f"  {name}: {short}: {'; '.join(lines)}")
+            registers[f"{name}::{short}"] = "; ".join(lines)
     serialized = {n: [w for w in ws if "C7513" in w] for n, ws in flagged.items()}
     serialized = {n: ws for n, ws in serialized.items() if ws}
     log(f"build: ptxas C7513 lines {sum(map(len, serialized.values()))}, C7519 lines "
         f"{sum('C7519' in w for ws in flagged.values() for w in ws)} in {WGMMA_SOURCES}")
     if serialized:
         raise AssertionError(f"ptxas serialized the wgmma of {sorted(serialized)}: {serialized}")
-    return dict(seconds=seconds, libraries=len(paths), ptxas_c7513=0, ptxas_c7519=flagged)
+    return dict(seconds=seconds, libraries=len(paths), ptxas_c7513=0, ptxas_c7519=flagged,
+                registers=registers)
 
 
 # K1 shapes: the serving batch, full 640x512 Freiburg frames (over the
@@ -425,12 +462,20 @@ def tensor_core_schedule(torch, fa, batch: int, heads: int, seq: int, head_dim: 
 
 
 def expected_route(torch, fa, dt, d: int) -> str:
-    """The kernel family a K2-K6 call of dtype dt and head_dim d must take:
-    with d of 16, 32, 64 or 128 bf16 the tensor-core kernels, float32 the
-    3xTF32 ones; the CUDA-core kernels otherwise."""
-    if d not in (16, 32, 64, 128):
-        return fa.CUDA_CORE
+    """The kernel family a K2-K6 call of dtype dt must take, at every head
+    dim: bf16 the tensor-core kernels, float32 the 3xTF32 ones."""
     return fa.TENSOR_CORE if dt == torch.bfloat16 else fa.TF32X3
+
+
+def k2k3_served(torch, fa, route: str, batch: int, heads: int, seq: int, d: int) -> str:
+    """The kernel that serves a K2/K3 call: at head_dim 16, 32, 64 or 128
+    the tensor-core kernel's schedule (tensor_core_schedule) or
+    "3xtf32/key_tile"; at any other head dim the packed route at its padded
+    width, "packed/Dp" or "3xtf32/packed/Dp"."""
+    tf32 = "3xtf32/" if route == fa.TF32X3 else ""
+    if d not in fa.DIRECT_HEAD_DIMS:
+        return f"{tf32}packed/{fa.padded_width(d)}"
+    return "3xtf32/key_tile" if tf32 else tensor_core_schedule(torch, fa, batch, heads, seq, d)
 
 
 def in_turns(torch, fns: dict, reps: int) -> dict:
@@ -463,20 +508,18 @@ def route_bounds(nbytes: float, flops: float, dname: str, route: str, fa) -> dic
 
 
 def attention_cases(torch, cross: bool, batch: int = BATCH, grid=(14, 14), widths=None,
-                    reps: int = 20, dtypes=("bfloat16", "float32"), cuda_core_turns=False):
+                    reps: int = 20, dtypes=("bfloat16", "float32"), cuda_core=None):
     """K2 (K3 with cross=True) on a grid×grid patch grid: the serving
     shapes (S=196) by default, MASt3R-512's (S=1024) with grid (32, 32);
-    `widths` are (C, heads), D=64 by default. bf16 with D of 16, 32, 64 or
-    128 runs the tensor-core kernel, float32 with those D the 3xTF32 one (a
-    prologue and the key-tile loop); other head dims the CUDA-core one-shot
-    kernel, or the key-tile kernel where K/V of a head do not fit in shared
-    memory. Each case records the kernel that served it (for the
-    tensor-core kernel, its schedule: one_pass/N or key_tile), and the bound
-    at its route's peak (3xTF32 at 495/3 TFLOP/s, with the CUDA cores' 67
-    beside it). With cuda_core_turns, a case the tensor cores serve also
-    runs the CUDA-core kernel on the same inputs through its own entry
-    (flash_attention.rope_attention_cuda_core), held against the plain
-    version too and timed in turns with the kernel."""
+    `widths` are (C, heads), D=64 by default. bf16 runs the tensor-core
+    kernels, float32 the 3xTF32 ones (a prologue and the key-tile loop), at
+    head_dim 16, 32, 64 or 128 in place and at any other head dim on the
+    packed route. Each case records the kernel that served it
+    (k2k3_served), and the bound at its route's peak (3xTF32 at 495/3
+    TFLOP/s, with the CUDA cores' 67 beside it). With cuda_core (a
+    ParentCudaCore), a case also runs that build's CUDA-core kernel on the
+    same inputs, held against the plain version too and timed in turns with
+    the kernel."""
     import torch.nn.functional as F
 
     fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
@@ -528,18 +571,12 @@ def attention_cases(torch, cross: bool, batch: int = BATCH, grid=(14, 14), width
             if moved != (int(route == fa.TENSOR_CORE), int(route == fa.TF32X3)):
                 raise AssertionError(f"K2/K3 {dname} S={s} D={d} ({route}): tensor-core and "
                                      f"3xTF32 launches {moved}")
-            served = (tensor_core_schedule(torch, fa, batch, nh, s, d) if route == fa.TENSOR_CORE
-                      else "3xtf32/key_tile" if route == fa.TF32X3 else "one_shot"
-                      if fa.smem_bytes(s, d, dt) <= fa.SMEM_LIMIT else "key_tile")
+            served = k2k3_served(torch, fa, route, batch, nh, s, d)
             ref = plain()
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             del out, ref
-            # f32: summation order only; bf16: the output is rounded to bf16
-            # (1 ulp at |x| < 2 is 2^-7) and a flipped rounding of p adds one
-            # more (the key-tile loop rounds p against a running max; the
-            # one-pass schedule takes exp on the MUFU unit)
-            limit = 2e-5 if dt == torch.float32 else 2.0 ** -6
+            limit = ATTENTION_LIMIT[dname]
             name = ("K3 fused_rope_cross_attention" if cross else "K2 fused_rope_attention")
             check(f"{name} [{batch},{s},{c}] H={nh} D={d} {dname}", err, limit)
             ms = cuda_ms(kern, reps=reps)
@@ -553,20 +590,21 @@ def attention_cases(torch, cross: bool, batch: int = BATCH, grid=(14, 14), width
                 f"{library_ms:.4f} bound {bnd:.4f} ({bounds['bound_by']}); {tflops:.1f} TFLOP/s, "
                 f"{ms / bnd:.2f}x bound, {ms / library_ms:.2f}x sdpa, {ms / plain_ms:.2f}x plain")
             extra = {}
-            if cuda_core_turns and route != fa.CUDA_CORE:
+            if cuda_core is not None:
                 if cross:
                     ptrs, row_stride = (q.data_ptr(), k.data_ptr(), v.data_ptr()), c
                 else:
                     base, es = qkv.data_ptr(), qkv.element_size()
                     ptrs, row_stride = (base, base + c * es, base + 2 * c * es), 3 * c
                 cc_out = torch.empty((batch, s, c), dtype=dt, device="cuda")
-                cc = lambda: fa.rope_attention_cuda_core(  # noqa: E731
-                    *ptrs, row_stride, cos, sin, cc_out, nh, scale,
-                    torch.cuda.current_stream().cuda_stream)
+                cc = lambda: cuda_core.rope(*ptrs, row_stride, cos, sin, cc_out, nh,  # noqa: E731
+                                            scale)
                 extra = cuda_core_in_turns(torch, kern, cc, cc_out, plain, limit, reps,
                                            f"{name} [{batch},{s},{c}] H={nh} D={d} {dname}")
             cases.append(dict(shape=[batch, s, c], heads=nh, head_dim=d, dtype=dname,
-                              kernel=served, max_abs_err=err, limit=limit, ms=ms,
+                              kernel=served, launches_in_case=dict(zip(("tensor_core", "3xtf32"),
+                                                                       moved)),
+                              max_abs_err=err, limit=limit, ms=ms,
                               plain_ms=plain_ms, library_ms=library_ms, **bounds,
                               tflops=tflops, ms_over_bound=ms / bnd,
                               ms_over_library=ms / library_ms, **extra))
@@ -582,22 +620,28 @@ def attention_cases(torch, cross: bool, batch: int = BATCH, grid=(14, 14), width
 PLAIN_ATTENTION_SHAPES = ((8, 16, 1024, 1024, 64), (4, 12, 1024, 1024, 64),
                           (BATCH, 16, 196, 196, 64), (BATCH, 12, 196, 196, 64),
                           (4, 12, 196, 1024, 64), (4, 12, 1024, 196, 64))
-# head_dim 24 (no configured model, outside the tensor cores' head dims):
-# the CUDA-core kernel, bf16 and float32
+# head_dim 24 (no configured model, outside the direct head dims): the
+# packed route at width 32, bf16 and float32
 PLAIN_ATTENTION_D24 = ((BATCH, 16, 196, 196, 24), (PAIR_BATCH, 16, 1024, 1024, 24))
+# a K2-K6 output against its plain version: float32 differs in summation
+# order only (and, on the 3xTF32 kernels, by ~2^-21 a product); bf16 by the
+# output's rounding to bf16 (1 ulp at |x| < 2 is 2^-7) and a flipped
+# rounding of p (the key-tile loop rounds p against a running max; the
+# one-pass schedule takes exp on the MUFU unit)
+ATTENTION_LIMIT = {"float32": 2e-5, "bfloat16": 2.0 ** -6}
 
 
 def cuda_core_in_turns(torch, kern, cc, cc_out, plain, limit: float, reps: int,
                        what: str) -> dict:
-    """A case the tensor cores serve, on the CUDA-core kernel too: cc() (its
-    own entry, writing cc_out) held against the plain version at the case's
+    """A case, on an older build's CUDA-core kernel too (ParentCudaCore):
+    cc() (writing cc_out) held against the plain version at the case's
     limit, then kern and cc timed in turns (kern, cc, cc, kern)."""
     cc()
     ref = plain()
     torch.cuda.synchronize()
     err = (cc_out.float() - ref.float()).abs().max().item()
     del ref
-    check(f"{what} on the CUDA cores", err, limit)
+    check(f"{what} on the parent's CUDA cores", err, limit)
     turns = in_turns(torch, {"kernel": kern, "cuda_core": cc}, reps)
     log(f"    in turns: kernel {turns['kernel']} CUDA cores {turns['cuda_core']} ms; "
         f"{min(turns['cuda_core']) / min(turns['kernel']):.1f}x")
@@ -621,18 +665,16 @@ def tensor_core_map_strides(fa, q, k, v, out) -> list:
     return want
 
 
-def hold_attention_case(torch, fa, name: str, q, k, v, reps: int,
-                        cuda_core_turns: bool = False) -> dict:
+def hold_attention_case(torch, fa, name: str, q, k, v, reps: int, cuda_core=None) -> dict:
     """One K4/K5/K6 case (`name` the entry) on [B,H,S,D] operands: the
-    kernel that serves it (with D of 16, 32, 64 or 128 bf16 the tensor-core
-    one and float32 the 3xTF32 one, its count moving once; the rest the
-    CUDA-core one), the output against the plain version (2e-5 float32,
-    2^-6 bf16), the tensor-core kernel's map strides against
-    tc_map_strides, and the times of kernel, plain version and SDPA beside
-    the bound. With cuda_core_turns, a case the tensor cores serve also runs
-    the CUDA-core kernel on the same operands through its own entry
-    (flash_attention.softmax_attention_cuda_core), held and timed in turns
-    (cuda_core_in_turns)."""
+    kernel that serves it (bf16 the tensor-core one, float32 the 3xTF32
+    one, its count moving once; at a head dim outside 16, 32, 64, 128 their
+    packed route), the output against the plain version (ATTENTION_LIMIT),
+    the direct tensor-core kernel's map strides against tc_map_strides, and
+    the times of kernel, plain version and SDPA beside the bound (SDPA on
+    contiguous copies where it refuses the views). With cuda_core (a
+    ParentCudaCore), the case also runs that build's CUDA-core kernel on the
+    same operands, held and timed in turns (cuda_core_in_turns)."""
     import torch.nn.functional as F
 
     kern_fn = getattr(fa, name)
@@ -652,17 +694,24 @@ def hold_attention_case(torch, fa, name: str, q, k, v, reps: int,
             moved != (int(served == fa.TENSOR_CORE), int(served == fa.TF32X3)):
         raise AssertionError(f"{name} {dname} D={d}: launches {kern_fn.launches - fn_before}"
                              f", tensor-core and 3xTF32 {moved}")
-    map_strides = (tensor_core_map_strides(fa, q, k, v, out) if served == fa.TENSOR_CORE
-                   else None)
+    packed = d not in fa.DIRECT_HEAD_DIMS
+    map_strides = (tensor_core_map_strides(fa, q, k, v, out)
+                   if served == fa.TENSOR_CORE and not packed else None)
     ref = plain()
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     del out, ref
-    limit = 2e-5 if dt == torch.float32 else 2.0 ** -6  # as for K2/K3
+    limit = ATTENTION_LIMIT[dname]
     check(f"{name} [{b},{h},{sq},{d}] Sk={sk} {dname}", err, limit)
     ms = cuda_ms(kern, reps=reps)
     plain_ms = cuda_ms(plain, reps=reps)
-    library_ms = cuda_ms(library, reps=reps)
+    try:
+        library_ms, library_on = cuda_ms(library, reps=reps), "views"
+    except RuntimeError as e:  # SDPA takes no kernel for these strides: time it on copies
+        log(f"    sdpa on the views: {str(e).splitlines()[0][:120]}; on contiguous copies")
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        library_ms, library_on = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, scale=scale), reps=reps), "contiguous copies"
     nbytes = 2 * b * h * (sq + sk) * d * q.element_size()
     flops = 4 * b * h * sq * sk * d
     bounds = route_bounds(nbytes, flops, dname, served, fa)
@@ -672,14 +721,15 @@ def hold_attention_case(torch, fa, name: str, q, k, v, reps: int,
         f"{library_ms:.4f} bound {bnd:.4f} ({bounds['bound_by']}); {tflops:.1f} TFLOP/s, "
         f"{ms / bnd:.2f}x bound, {ms / library_ms:.2f}x sdpa, {ms / plain_ms:.2f}x plain")
     extra = {}
-    if cuda_core_turns and served != fa.CUDA_CORE:
+    if cuda_core is not None:
         cc_out = torch.empty_like(q.transpose(1, 2).contiguous()).transpose(1, 2)
-        cc = lambda: fa.softmax_attention_cuda_core(  # noqa: E731
-            q, k, v, cc_out, scale, torch.cuda.current_stream().cuda_stream)
+        cc = lambda: cuda_core.softmax(q, k, v, cc_out, scale)  # noqa: E731
         extra = cuda_core_in_turns(torch, kern, cc, cc_out, plain, limit, reps,
                                    f"{name} [{b},{h},{sq},{d}] Sk={sk} {dname}")
-    return dict(shape=[b, h, sq, d], sk=sk, dtype=dname, kernel=served, map_strides=map_strides,
+    return dict(shape=[b, h, sq, d], sk=sk, dtype=dname, kernel=served,
+                width=fa.padded_width(d), packed=packed, map_strides=map_strides,
                 max_abs_err=err, limit=limit, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                library_on=library_on,
                 **bounds, tflops=tflops, ms_over_bound=ms / bnd,
                 ms_over_library=ms / library_ms, **extra)
 
@@ -695,8 +745,7 @@ def bshd_operands(torch, b: int, h: int, sq: int, sk: int, d: int, dt):
 
 
 def plain_attention_cases(torch, name: str, shapes=PLAIN_ATTENTION_SHAPES,
-                          dtypes=("bfloat16", "float32"), reps: int = 10,
-                          cuda_core_turns: bool = False):
+                          dtypes=("bfloat16", "float32"), reps: int = 10, cuda_core=None):
     """One of K4 (flash_attention_pallas), K5 (flash_attention_grouped) or K6
     (flash_attention_multihead) on [B,S,H,D] q/k/v handed over as
     [B,H,S,D] views, as attention_bshd hands them on the main path
@@ -707,7 +756,7 @@ def plain_attention_cases(torch, name: str, shapes=PLAIN_ATTENTION_SHAPES,
     for b, h, sq, sk, d in shapes:
         for dname in dtypes:
             q, k, v = bshd_operands(torch, b, h, sq, sk, d, getattr(torch, dname))
-            cases.append(hold_attention_case(torch, fa, name, q, k, v, reps, cuda_core_turns))
+            cases.append(hold_attention_case(torch, fa, name, q, k, v, reps, cuda_core))
             del q, k, v
             torch.cuda.empty_cache()
     return cases
@@ -717,53 +766,137 @@ def fa_module():
     return importlib.import_module("thermal3d_torch.kernels.flash_attention")
 
 
-def d24_k2k3_cases(torch):
-    """K2/K3 in bf16 and float32 at head_dim 24 (C=384, 16 heads), outside the
-    tensor cores' head dims: the CUDA-core one-shot kernel at S=196 and its
-    key-tile kernel at S=1024."""
-    log("K2/K3 bf16 and float32 at head_dim 24 (the CUDA-core one-shot and key-tile "
-        "kernels):")
+def d24_k2k3_cases(torch, cuda_core=None):
+    """K2/K3 in bf16 and float32 at head_dim 24 (C=384, 16 heads), outside
+    the direct head dims: the packed route at width 32, at S=196 and
+    S=1024 (with cuda_core, the parent's CUDA-core kernel in turns)."""
+    log("K2/K3 bf16 and float32 at head_dim 24 (the packed route, width 32):")
     k2, k3 = [], []
-    d24 = dict(widths=[(384, 16)], dtypes=("bfloat16", "float32"))
+    d24 = dict(widths=[(384, 16)], dtypes=("bfloat16", "float32"), cuda_core=cuda_core)
     for kw in (dict(), dict(batch=PAIR_BATCH, grid=(32, 32), reps=10)):
         k2 += attention_cases(torch, cross=False, **d24, **kw)
         k3 += attention_cases(torch, cross=True, **d24, **kw)
     return k2, k3
 
 
-# phase 3's cases at the tensor cores' other head dims, each in bf16 and
-# float32, each with the CUDA-core kernel it replaces timed beside it in
-# turns. K2/K3 (kernel, batch, grid side, C, heads): head_dim 32, a decoder
+# phase 3's cases at the direct head dims other than 64, each in bf16 and
+# float32. K2/K3 (kernel, batch, grid side, C, heads): head_dim 32, a decoder
 # of 512 wide and 16 heads at the serving S (CroCo v2's small decoder);
-# head_dim 128 at S=1024; head_dim 16 small. K4 (B, H, Sq, Sk, D): the D=32
-# shape the CUDA-core kernel was timed at, D=128 at S=1024 and at S=196, D=16
-# small; K5 and K6 at the D=32 shape.
+# head_dim 128 at S=1024; head_dim 16 small. K4 (B, H, Sq, Sk, D): D=32 at
+# S=1024, D=128 at S=1024 and at S=196, D=16 small; K5 and K6 at the D=32
+# shape.
 HEAD_DIM_K2K3 = (("K2", BATCH, 14, 512, 16), ("K3", BATCH, 14, 512, 16),
                  ("K2", 8, 32, 1024, 8), ("K2", 4, 14, 256, 16))
 HEAD_DIM_K4 = ((4, 16, 1024, 1024, 32), (8, 8, 1024, 1024, 128), (BATCH, 8, 196, 196, 128),
                (4, 16, 196, 196, 16))
 HEAD_DIM_K5K6 = ((4, 16, 1024, 1024, 32),)
+# the packed route's cases beside head_dim 24's (d24_k2k3_cases,
+# PLAIN_ATTENTION_D24), each in bf16 and float32. K2 (batch, grid side, C,
+# heads): head_dim 80, the ViT-H encoder's serving call; 20 with 3 heads
+# (C=60: the qkv rows 360 bytes apart in bf16, head h at 40h bytes, so no
+# operand is 16-byte aligned); 160 and 256 at S=1024. K4 (B, H, Sq, Sk, D)
+# on [B,S,H,D] views: the same head dims, and 48 and 96 small; K5 and K6
+# at head_dim 256.
+PADDED_K2 = ((BATCH, 14, 1280, 16), (4, 14, 60, 3), (4, 32, 1280, 8), (4, 32, 1024, 4))
+PADDED_K4 = ((BATCH, 16, 196, 196, 80), (4, 3, 196, 196, 20), (4, 8, 1024, 1024, 160),
+             (4, 4, 1024, 1024, 256), (4, 8, 196, 196, 48), (4, 8, 196, 196, 96))
+PADDED_K5K6 = ((4, 4, 1024, 1024, 256),)
 
 
-def head_dim_cases(torch):
+def head_dim_cases(torch, cuda_core=None):
     """HEAD_DIM_K2K3, HEAD_DIM_K4 and HEAD_DIM_K5K6 (attention_cases and
-    plain_attention_cases with cuda_core_turns), and K4's size-1-axes case
-    at SIZE_ONE_HEAD_DIMS (size_one_axes_case): (K2 cases, K3 cases,
-    {K4-K6 entry: cases})."""
-    log("K2-K6 at head_dims 16, 32 and 128 on the tensor cores, bf16 and float32, the "
-        "CUDA-core kernels timed beside them in turns:")
+    plain_attention_cases), K4's size-1-axes case at SIZE_ONE_HEAD_DIMS
+    (size_one_axes_case), then the packed route: PADDED_K2, PADDED_K4 and
+    PADDED_K5K6 (with cuda_core, each beside the parent's CUDA-core kernel
+    in turns), the poison cases (poison_cases) and the padded-width check
+    (padded_width_check): (K2 cases, K3 cases, {K4-K6 entry: cases}, the
+    poison cases, the widths)."""
+    log("K2-K6 at head_dims 16, 32 and 128, bf16 and float32:")
     k2, k3 = [], []
     for kind, batch, side, c, heads in HEAD_DIM_K2K3:
         (k3 if kind == "K3" else k2).extend(attention_cases(
             torch, cross=kind == "K3", batch=batch, grid=(side, side), widths=[(c, heads)],
-            reps=10, cuda_core_turns=True))
+            reps=10))
     k456 = {"flash_attention_pallas": plain_attention_cases(
-        torch, "flash_attention_pallas", HEAD_DIM_K4, cuda_core_turns=True)}
+        torch, "flash_attention_pallas", HEAD_DIM_K4)}
     for d, dname in SIZE_ONE_HEAD_DIMS:
         k456["flash_attention_pallas"].append(size_one_axes_case(torch, d, getattr(torch, dname)))
     for name in ("flash_attention_grouped", "flash_attention_multihead"):
-        k456[name] = plain_attention_cases(torch, name, HEAD_DIM_K5K6, cuda_core_turns=True)
-    return k2, k3, k456
+        k456[name] = plain_attention_cases(torch, name, HEAD_DIM_K5K6)
+    log("K2-K6 on the packed route at head dims 20, 48, 80, 96, 160 and 256, bf16 and "
+        "float32" + (", the parent's CUDA-core kernels in turns:" if cuda_core else ":"))
+    for batch, side, c, heads in PADDED_K2:
+        k2 += attention_cases(torch, cross=False, batch=batch, grid=(side, side),
+                              widths=[(c, heads)], reps=10, cuda_core=cuda_core)
+    k456["flash_attention_pallas"] += plain_attention_cases(
+        torch, "flash_attention_pallas", PADDED_K4, cuda_core=cuda_core)
+    for name in ("flash_attention_grouped", "flash_attention_multihead"):
+        k456[name] += plain_attention_cases(torch, name, PADDED_K5K6, cuda_core=cuda_core)
+    return k2, k3, k456, poison_cases(torch), padded_width_check()
+
+
+# the poison cases: (kernel, B, S, heads, D), every lane of heads 1.. set to
+# NaN or Inf in every operand; head 0's output must not move
+POISON_CASES = (("K2", 4, 196, 16, 24), ("K2", 4, 196, 3, 20), ("K4", 4, 196, 16, 24),
+                ("K4", 4, 196, 3, 20))
+
+
+def poison_cases(torch) -> list:
+    """Each POISON_CASES call in bf16 and float32, once on seeded operands
+    and once with every lane of the other heads poisoned (NaN, +Inf and -Inf
+    in turn): head 0's output must be bit-equal to the clean call's (the
+    packed route reads no lane of another head). K4 on [B,S,H,D] views."""
+    from thermal3d_torch.models.rope import make_grid_positions, rope_tables
+
+    fa = fa_module()
+    results = []
+    for kind, b, s, h, d in POISON_CASES:
+        for dname in ("bfloat16", "float32"):
+            dt = getattr(torch, dname)
+            gen = torch.Generator(device="cuda").manual_seed(h * d)
+            scale = 1.0 / math.sqrt(d)
+            if kind == "K2":
+                cos, sin = rope_tables(make_grid_positions(14, 14, device="cuda"), d)
+                x = torch.randn((b, s, 3 * h * d), generator=gen, device="cuda").to(dt)
+                run = lambda t: fa.fused_rope_attention(t, cos, sin, h, scale)  # noqa: E731
+                head0 = lambda out: out[..., :d]  # noqa: E731
+            else:
+                x = torch.randn((3, b, s, h, d), generator=gen, device="cuda").to(dt)
+                run = lambda t: fa.flash_attention_pallas(  # noqa: E731
+                    *(t[i].transpose(1, 2) for i in range(3)), scale)
+                head0 = lambda out: out[:, 0]  # noqa: E731
+            clean = head0(run(x)).clone()
+            poisoned = x.clone()
+            pl = (poisoned.view(b, s, 3, h, d) if kind == "K2" else poisoned)[:, :, :, 1:]
+            pl.copy_(torch.tensor([math.nan, math.inf, -math.inf], device="cuda").to(dt)
+                     .repeat(pl.numel() // 3 + 1)[:pl.numel()].view(pl.shape))
+            got = head0(run(poisoned))
+            torch.cuda.synchronize()
+            equal = torch.equal(got, clean)
+            log(f"poison {kind} [{b},{s}] H={h} D={d} {dname}: head 0 "
+                f"{'bit-equal to' if equal else 'DIFFERS from'} the clean call's")
+            if not equal:
+                raise AssertionError(f"poison {kind} D={d} {dname}: head 0 read another head")
+            results.append(dict(kernel=kind, shape=[b, s, h, d], dtype=dname, head0_equal=True))
+    return results
+
+
+def padded_width_check() -> dict:
+    """flash_attention.padded_width against both libraries' own query
+    (t3d_attention_tc_padded_width, t3d_attention_3xtf32_padded_width) at
+    every head dim the wrappers accept and a few they refuse (0 from all)."""
+    fa = fa_module()
+    dims = list(range(0, 264, 4)) + [2, 6, 258, 260, -4]
+    queries = (fa._attention_tc_lib().t3d_attention_tc_padded_width,
+               fa._3xtf32_lib().t3d_attention_3xtf32_padded_width)
+    for query in queries:
+        query.argtypes, query.restype = [ctypes.c_int], ctypes.c_int
+    got = {d: tuple(query(d) for query in queries) for d in dims}
+    bad = {d: g for d, g in got.items() if g != (fa.padded_width(d),) * 2}
+    if bad:
+        raise AssertionError(f"padded_width disagrees with the libraries at {bad}")
+    log(f"padded_width: the mirror equals both libraries' query at {len(dims)} head dims")
+    return {str(d): g[0] for d, g in got.items()}
 
 
 # q [1,2,1,D] with strides (3, D, 5, 1) in bf16: its batch and row axes
@@ -810,7 +943,8 @@ MULTI_CARD_SEED = 3
 
 def multi_card_check(torch, np):
     """Each kernel launches on its tensors' card: with cuda:0 current, K1-K6
-    (tensor-core, 3xTF32 and CUDA-core kernels) on the last card and one
+    (tensor-core and 3xTF32 kernels, the packed route at head_dim 24) on the
+    last card and one
     InferenceEngine(device='cuda:<last>') batch of BATCH frames at full
     width, each bit-equal to the same call on cuda:0, and cuda:0 still
     current after them. On a host with one card it does not run, and says
@@ -847,7 +981,7 @@ def multi_card_check(torch, np):
          (rand(8, 196, 3072), *tables(14), 16, 0.125)),
         ("K2 f32 [2,1024,2304] (3xTF32)", fa.fused_rope_attention,
          (rand(2, 1024, 2304), *tables(32), 12, 0.125)),
-        ("K2 f32 D=24 [8,196,1152] (CUDA cores, one-shot)", fa.fused_rope_attention,
+        ("K2 f32 D=24 [8,196,1152] (3xTF32, packed to 32)", fa.fused_rope_attention,
          (rand(8, 196, 1152), *rope_tables(make_grid_positions(14, 14), 24), 16, 0.125)),
         ("K3 bf16 [32,196,768] (tensor cores)", fa.fused_rope_cross_attention,
          (*(rand(BATCH, 196, 768, dtype=bf16) for _ in range(3)), *tables(14), 12, 0.125)),
@@ -860,7 +994,7 @@ def multi_card_check(torch, np):
                       (*(rand(8, 16, 1024, 64, dtype=bf16) for _ in range(3)), 0.125)))
         cases.append((f"{name} f32 [2,16,196,64] (3xTF32)", fn,
                       (*(rand(2, 16, 196, 64) for _ in range(3)), 0.125)))
-        cases.append((f"{name} f32 [2,16,196,24] (CUDA cores)", fn,
+        cases.append((f"{name} f32 [2,16,196,24] (3xTF32, packed to 32)", fn,
                       (*(rand(2, 16, 196, 24) for _ in range(3)), 0.125)))
     cases += [  # the tensor cores' other head dims
         ("K2 bf16 D=32 [8,196,1536] (tensor cores, key tiles)", fa.fused_rope_attention,
@@ -870,6 +1004,9 @@ def multi_card_check(torch, np):
          fa.flash_attention_pallas, (*(rand(2, 8, 196, 128) for _ in range(3)), 0.125)),
         ("K4 bf16 D=16 [2,16,196,16] (tensor cores)", fa.flash_attention_pallas,
          (*(rand(2, 16, 196, 16, dtype=bf16) for _ in range(3)), 0.125)),
+        ("K2 bf16 D=80 [8,196,3840] (tensor cores, packed to 128)", fa.fused_rope_attention,
+         (rand(8, 196, 3840, dtype=bf16), *rope_tables(make_grid_positions(14, 14), 80), 16,
+          0.125)),
     ]
     results = []
     for what, fn, args in cases:
@@ -937,8 +1074,13 @@ def check_outputs(out, np):
 
 
 # device work by layer, matched on lower-cased kernel names (first match wins;
-# cuDNN's conv kernels carry "fprop"/"dgrad" and are matched before the GEMMs)
-LAYERS = (("K2-K6 3xTF32 prologue", ("attention_3xtf32_split",)),
+# cuDNN's conv kernels carry "fprop"/"dgrad" and are matched before the GEMMs).
+# "rope_attention" matches the tensor-core and 3xTF32 K2/K3 kernels at the
+# direct head dims; the packed route's pack and key-tile kernels (K2-K6 at
+# the other head dims) have a layer of their own.
+LAYERS = (("K2-K6 packed route (padded head dims)", ("packed_attention", "attention_pack",
+                                                     "attention_3xtf32_pack")),
+          ("K2-K6 3xTF32 prologue", ("attention_3xtf32_split",)),
           ("K2/K3 rope_attention", ("rope_attention",)),
           ("K4-K6 softmax_attention", ("softmax_attention",)),
           ("K1 percentile_enhance", ("percentile_enhance",)),
@@ -1000,11 +1142,9 @@ def profile_batch(torch, fn, what: str = f"one infer() of {BATCH} frames", layer
 def kernel_counters():
     """The launch counters of K1-K6, in order, then the tensor-core K2/K3
     kernel's own and the tensor-core K4-K6 kernel's own (every bf16 launch
-    with a head_dim of 16, 32, 64 or 128 goes through them), the 3xTF32
-    K2/K3 and K4-K6 kernels' own (every float32 launch with those head
-    dims), the CUDA-core K2/K3 and K4-K6 kernels' own (every other head dim:
-    0 on every path of a configured model), then the int8 product's
-    (torch._int_mm: 0 on every path that does not quantize)."""
+    goes through them), the 3xTF32 K2/K3 and K4-K6 kernels' own (every
+    float32 launch), then the int8 product's (torch._int_mm: 0 on every path
+    that does not quantize)."""
     fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
     from thermal3d_torch.kernels.image_ops import percentile_enhance
     from thermal3d_torch.kernels.quant import int_mm
@@ -1012,8 +1152,7 @@ def kernel_counters():
     return (percentile_enhance, fa.fused_rope_attention, fa.fused_rope_cross_attention,
             fa.flash_attention_pallas, fa.flash_attention_grouped,
             fa.flash_attention_multihead, fa.rope_attention_tc, fa.softmax_attention_tc,
-            fa.rope_attention_3xtf32, fa.softmax_attention_3xtf32,
-            fa.rope_attention_cuda_core, fa.softmax_attention_cuda_core, int_mm)
+            fa.rope_attention_3xtf32, fa.softmax_attention_3xtf32, int_mm)
 
 
 def run_counted(fn, want_by_name):
@@ -1116,6 +1255,12 @@ def phase_engine(torch, np):
 # 512 wide with 16 heads, so every decoder attention runs at head_dim 32 (the
 # encoder stays at 64)
 SMALL_DECODER = dict(dec_embed_dim=512, dec_num_heads=16)
+# phase 4's ViT-H part (alone: --only-vit-h): DUSt3R-224 with a ViT-Huge-wide
+# encoder (Dosovitskiy et al. 2021, "An Image is Worth 16x16 Words", Table 1:
+# 1280 wide, 32 blocks, 16 heads), so every encoder attention runs at
+# head_dim 80, on the packed route at width 128 (the decoder stays at 64):
+# K2 48 a batch (32 at head_dim 80, 16 at 64), K3 16
+VIT_H_ENCODER = dict(enc_embed_dim=1280, enc_depth=32, enc_num_heads=16)
 
 
 def serve_rates_in_turns(torch, engines: dict, frames) -> dict:
@@ -1136,83 +1281,98 @@ def serve_rates_in_turns(torch, engines: dict, frames) -> dict:
     return rates
 
 
-def phase_small_decoder(torch, np):
-    """The small-decoder engine (SMALL_DECODER on DUSTR_224_LINEAR, seeded
-    random weights), built here: in bf16, N_BATCHES batches of BATCH raw
-    frames held against its bf16 plain twin and a float32 twin at phase 4's
-    gates, launches K1 1, K2 40, K3 16 and the tensor-core K2/K3 count 56 a
-    batch (no CUDA-core launch); in float32 on 4 frames against its plain
-    twin within F32_ENGINE_REL_LIMIT, the 3xTF32 count 56; infer_async()
-    frames/s beside the head_dim-64 engine's on the same frames, in turns,
-    in both dtypes; then the K2-K4 autograd Functions at the training shape
-    of that decoder (TRAIN_BWD_D32_CASES) within phase 7's limits."""
+def engine_variant(torch, np, label: str, overrides: dict, k2: int, bwd_shapes):
+    """DUSTR_224_LINEAR with `overrides` (seeded random weights), built
+    here: in bf16, N_BATCHES batches of BATCH raw frames held against its
+    bf16 plain twin and a float32 twin at phase 4's gates, launches K1 1,
+    K2 k2, K3 16 and the tensor-core K2/K3 count k2 + 16 a batch; in float32
+    on 4 frames against its plain twin within F32_ENGINE_REL_LIMIT, the
+    3xTF32 count k2 + 16; infer_async() frames/s beside the head_dim-64
+    engine's on the same frames, in turns, in both dtypes; then the
+    autograd Functions at `bwd_shapes` (train_backward_cases) within phase
+    7's limits."""
     from thermal3d_torch.core.config import DUSTR_224_LINEAR
     from thermal3d_torch.infer.engine import InferenceEngine
 
     cfg64 = dataclasses.replace(DUSTR_224_LINEAR, compute_dtype="bfloat16")
-    cfg = dataclasses.replace(cfg64, **SMALL_DECODER)
+    cfg = dataclasses.replace(cfg64, **overrides)
     t0 = time.perf_counter()
     eng = InferenceEngine(cfg, params_dtype="bfloat16", seed=0)
     ref_eng = InferenceEngine(dataclasses.replace(cfg, attention_impl="torch"),
                               state_dict=eng.model.state_dict(), params_dtype="bfloat16",
                               enhance_impl="plain")
-    log(f"small decoder {SMALL_DECODER}: two full-width bf16 engines built in "
+    log(f"{label} {overrides}: two full-width bf16 engines built in "
         f"{time.perf_counter() - t0:.1f} s")
     frames = [raw_frames(np, seed) for seed in range(N_BATCHES)]
     check_outputs(eng.infer(frames[0]), np)  # warm-up
-    want = {"percentile_enhance": N_BATCHES, "fused_rope_attention": 40 * N_BATCHES,
-            "fused_rope_cross_attention": 16 * N_BATCHES, "rope_attention_tc": 56 * N_BATCHES}
+    want = {"percentile_enhance": N_BATCHES, "fused_rope_attention": k2 * N_BATCHES,
+            "fused_rope_cross_attention": 16 * N_BATCHES,
+            "rope_attention_tc": (k2 + 16) * N_BATCHES}
     outs, launches = run_counted(lambda: [eng.infer(f) for f in frames], want)
     for out in outs:
         check_outputs(out, np)
-    log(f"small decoder bf16: launches {launches}")
+    log(f"{label} bf16: launches {launches}")
     gold_eng = InferenceEngine(dataclasses.replace(DUSTR_224_LINEAR, attention_impl="torch",
-                                                   **SMALL_DECODER),
+                                                   **overrides),
                                state_dict=eng.model.state_dict(), enhance_impl="plain")
     ref = ref_eng.infer(frames[0])
     gold = gold_eng.infer(frames[0])
     errs = {k: rel_err(outs[0][k], ref[k], np) for k in ref}
     noise = {k: rel_err(ref[k], gold[k], np) for k in ref}
     kern_err = {k: rel_err(outs[0][k], gold[k], np) for k in ref}
-    log(f"small decoder bf16 kernels vs bf16 plain twin, max|Δ|/max|ref|: {errs} "
+    log(f"{label} bf16 kernels vs bf16 plain twin, max|Δ|/max|ref|: {errs} "
         f"(limit {BF16_ENGINE_REL_LIMIT}); vs f32: plain {noise}, kernels {kern_err} "
         f"(limit: kernels <= {BF16_NOISE_FACTOR} x plain + 1e-3)")
     if max(errs.values()) > BF16_ENGINE_REL_LIMIT or any(
             kern_err[k] > BF16_NOISE_FACTOR * noise[k] + 1e-3 for k in ref):
-        raise AssertionError(f"small-decoder bf16 engine disagrees with its plain twin: {errs}, "
+        raise AssertionError(f"{label} bf16 engine disagrees with its plain twin: {errs}, "
                              f"vs f32: plain {noise}, kernels {kern_err}")
     del ref_eng, gold_eng, outs
     eng64 = InferenceEngine(cfg64, params_dtype="bfloat16", seed=0)
-    fps = serve_rates_in_turns(torch, {"head_dim_64": eng64, "small_decoder": eng}, frames)
-    log(f"small decoder bf16: infer_async frames/s in turns {fps}")
+    fps = serve_rates_in_turns(torch, {"head_dim_64": eng64, label: eng}, frames)
+    log(f"{label} bf16: infer_async frames/s in turns {fps}")
     del eng, eng64
 
-    f32 = InferenceEngine(dataclasses.replace(DUSTR_224_LINEAR, **SMALL_DECODER), seed=1)
+    f32 = InferenceEngine(dataclasses.replace(DUSTR_224_LINEAR, **overrides), seed=1)
     f32_ref = InferenceEngine(dataclasses.replace(DUSTR_224_LINEAR, attention_impl="torch",
-                                                  **SMALL_DECODER),
+                                                  **overrides),
                               state_dict=f32.model.state_dict(), enhance_impl="plain")
     small = frames[1][:4]
     a, f32_launches = run_counted(lambda: f32.infer(small), {
-        "percentile_enhance": 1, "fused_rope_attention": 40, "fused_rope_cross_attention": 16,
-        "rope_attention_3xtf32": 56})
+        "percentile_enhance": 1, "fused_rope_attention": k2, "fused_rope_cross_attention": 16,
+        "rope_attention_3xtf32": k2 + 16})
     b = f32_ref.infer(small)
     errs32 = {k: rel_err(a[k], b[k], np) for k in b}
-    log(f"small decoder f32: launches {f32_launches}; vs plain twin, max|Δ|/max|ref|: "
+    log(f"{label} f32: launches {f32_launches}; vs plain twin, max|Δ|/max|ref|: "
         f"{errs32} (limit {F32_ENGINE_REL_LIMIT})")
     if max(errs32.values()) > F32_ENGINE_REL_LIMIT:
-        raise AssertionError(f"small-decoder f32 engine disagrees with its plain twin: {errs32}")
+        raise AssertionError(f"{label} f32 engine disagrees with its plain twin: {errs32}")
     del f32_ref
     f32_64 = InferenceEngine(DUSTR_224_LINEAR, seed=1)
-    fps32 = serve_rates_in_turns(torch, {"head_dim_64": f32_64, "small_decoder": f32}, frames)
-    log(f"small decoder f32: infer_async frames/s in turns {fps32}")
+    fps32 = serve_rates_in_turns(torch, {"head_dim_64": f32_64, label: f32}, frames)
+    log(f"{label} f32: infer_async frames/s in turns {fps32}")
     del f32, f32_64
     torch.cuda.empty_cache()
-    log("small decoder: the K2-K4 autograd Functions at its training shape (head_dim 32):")
-    grads, _ = train_backward_cases(torch, shapes=TRAIN_BWD_D32_CASES)
-    return dict(config=SMALL_DECODER, batch=BATCH, n_batches=N_BATCHES, launches=launches,
+    log(f"{label}: the autograd Functions at its training shape:")
+    grads, _ = train_backward_cases(torch, shapes=bwd_shapes)
+    return dict(config=overrides, batch=BATCH, n_batches=N_BATCHES, launches=launches,
                 f32_launches=f32_launches, bf16_rel_err=errs, bf16_plain_vs_f32=noise,
                 bf16_kernels_vs_f32=kern_err, f32_rel_err=errs32,
                 infer_async_fps=fps, infer_async_fps_f32=fps32, backward=grads)
+
+
+def phase_small_decoder(torch, np):
+    """The small-decoder engine (SMALL_DECODER; engine_variant): K2 40 a
+    batch, every decoder call at head_dim 32, and the K2-K4 Functions at that
+    decoder's training shape (TRAIN_BWD_D32_CASES)."""
+    return engine_variant(torch, np, "small_decoder", SMALL_DECODER, 40, TRAIN_BWD_D32_CASES)
+
+
+def phase_vit_h(torch, np):
+    """The ViT-H engine (VIT_H_ENCODER; engine_variant): K2 48 a batch, 32
+    of them at head_dim 80 on the packed route, and the K2 Function at the
+    encoder's training shape (TRAIN_BWD_VITH_CASES)."""
+    return engine_variant(torch, np, "vit_h", VIT_H_ENCODER, 48, TRAIN_BWD_VITH_CASES)
 
 
 def rgb_pairs(np, seed: int):
@@ -1861,6 +2021,9 @@ TRAIN_BWD_CASES = (("K2 encoder", "K2", 2 * TRAIN_BATCH, 1024, 16),
 TRAIN_BWD_D32_CASES = (("K2 small decoder", "K2", TRAIN_BATCH, 512, 16),
                        ("K3 small decoder", "K3", TRAIN_BATCH, 512, 16),
                        ("K4 'pallas' small decoder", "K4", TRAIN_BATCH, 512, 16))
+# ... and at the training shape of a ViT-H encoder (1280 wide, 16 heads:
+# head_dim 80, the packed route; phase_vit_h), both views at once
+TRAIN_BWD_VITH_CASES = (("K2 ViT-H encoder", "K2", 2 * TRAIN_BATCH, 1280, 16),)
 
 
 def train_backward_cases(torch, device: str = "cuda", shapes=TRAIN_BWD_CASES):
@@ -2962,10 +3125,10 @@ def phase_int8(torch, np, root: str):
 
 # --compare-k2k3: (K2 or K3, batch, grid side, width C, heads), the bf16
 # K2/K3 calls of the serving path (DUSt3R-224) and the pseudo-GT path
-# (MASt3R-512)
+# (MASt3R-512), and phase 3's at head_dims 32, 128 and 16 (HEAD_DIM_K2K3)
 COMPARE_CASES = (("K2", BATCH, 14, 1024, 16), ("K2", BATCH, 14, 768, 12),
                  ("K3", BATCH, 14, 768, 12), ("K2", 2 * PAIR_BATCH, 32, 1024, 16),
-                 ("K2", PAIR_BATCH, 32, 768, 12), ("K3", PAIR_BATCH, 32, 768, 12))
+                 ("K2", PAIR_BATCH, 32, 768, 12), ("K3", PAIR_BATCH, 32, 768, 12)) + HEAD_DIM_K2K3
 # the float32 cases of --compare-k2k3 (this checkout's 3xTF32 kernels against
 # the other checkout's build of them): COMPARE_CASES' serving and pseudo-GT
 # shapes, and a tensor-parallel rank's (tp=2); those of --compare-k4k6 are
@@ -3746,8 +3909,7 @@ def tp_attention_cases(torch, tp: int = 2):
 
 def build_other(other_csrc: str, name: str):
     """Build OTHER_CSRC/<name>.cu with this checkout's nvcc flags into the
-    build directory and load it, seen through this checkout's C signatures
-    (OtherBuild)."""
+    build directory and load it."""
     from pathlib import Path
 
     from thermal3d_torch.kernels import _build
@@ -3757,57 +3919,68 @@ def build_other(other_csrc: str, name: str):
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path), str(source)],
                    check=True, capture_output=True, text=True)
-    return OtherBuild(_build.load(lib_path), source.read_text())
+    return _build.load(lib_path)
 
 
-# the queries of the tensor-core sources whose arguments gained head_dim
-# when those kernels came to serve head dims other than 64: (argument types
-# before, result type, the index head_dim took)
-_LL_P = ctypes.POINTER(ctypes.c_longlong)
-OLD_QUERIES = {
-    "t3d_rope_attention_tc_scratch_bytes": ([ctypes.c_int] * 3, ctypes.c_ulonglong, 3),
-    "t3d_rope_attention_tc_schedule": ([ctypes.c_int] * 4, ctypes.c_int, 3),
-    "t3d_softmax_attention_tc_map_strides": ([_LL_P] + [ctypes.c_int] * 4 + [_LL_P], None, 5),
-    "t3d_attention_3xtf32_scratch_bytes": ([ctypes.c_int] * 3, ctypes.c_ulonglong, 3),
-}
+class ParentCudaCore:
+    """The CUDA-core K2/K3 and K4-K6 kernels of a checkout from before the
+    packed route (OTHER_CSRC's rope_attention.cu and attention.cu, built by
+    build_other in parallel), bound here with their C signatures, since this
+    checkout no longer has them. rope() launches the one-shot K2/K3 kernel where a
+    head's K and V fit in shared memory (the build's own query), else its
+    key-tile kernel; softmax() K4-K6 on q, k, v and out by their strides."""
 
+    DTYPE_CODE = {"torch.float32": 0, "torch.bfloat16": 1}
+    SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 
-def takes_head_dim(source: str, query: str) -> bool:
-    """Whether the C source's definition of `query` has a head_dim argument."""
-    return re.search(rf"\b{query}\([^)]*\bhead_dim\b", source) is not None
+    def __init__(self, other_csrc: str):
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            rope, attn = pool.map(lambda n: build_other(other_csrc, n),
+                                  ("rope_attention", "attention"))
+        for fn in (rope.t3d_rope_attention, rope.t3d_rope_attention_tiled):
+            fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_float, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        rope.t3d_rope_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
+        rope.t3d_rope_attention_smem_bytes.restype = ctypes.c_ulonglong
+        attn.t3d_attention.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                       ctypes.c_void_p, ctypes.c_void_p,
+                                       ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_float, ctypes.c_void_p]
+        attn.t3d_attention.restype = ctypes.c_int
+        self.rope_lib, self.attn_lib = rope, attn
 
+    def rope(self, q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale):
+        import torch
 
-class OtherBuild:
-    """Another checkout's build of a tensor-core source (build_other), seen
-    through this checkout's C signatures, so that flash_attention's wrappers
-    take it as they take this checkout's build. Its entries are the build's
-    own: their arguments have not changed. A query of OLD_QUERIES that the
-    source defines without head_dim (a build that serves head_dim 64 alone)
-    is declared here with its own arguments and stands here as a function
-    of this checkout's arguments, which drops the head_dim and raises
-    unless it is 64. flash_attention's bind functions set argtypes and
-    restype on what they find: on the entries that is what they already
-    take, and on such a function an attribute nothing reads."""
+        from thermal3d_torch.kernels import _build
 
-    def __init__(self, lib, source: str):
-        self._lib = lib
-        for name, (argtypes, restype, at) in OLD_QUERIES.items():
-            if hasattr(lib, name) and not takes_head_dim(source, name):
-                fn = getattr(lib, name)
-                fn.argtypes, fn.restype = argtypes, restype
-                setattr(self, name, self._without_head_dim(fn, at, name))
+        b, s, c = out.shape
+        d = c // num_heads
+        lib = self.rope_lib
+        one_shot = lib.t3d_rope_attention_smem_bytes(s, d, out.element_size()) <= self.SMEM_LIMIT
+        fn = lib.t3d_rope_attention if one_shot else lib.t3d_rope_attention_tiled
+        rc = fn(self.DTYPE_CODE[str(out.dtype)], q_ptr, k_ptr, v_ptr, row_stride, cos.data_ptr(),
+                sin.data_ptr(), out.data_ptr(), b, s, num_heads, d, float(scale),
+                torch.cuda.current_stream().cuda_stream)
+        _build.check(lib, rc, "the parent's CUDA-core K2/K3")
 
-    @staticmethod
-    def _without_head_dim(fn, at: int, name: str):
-        def query(*args):
-            if args[at] != 64:
-                raise ValueError(f"{name} of the other build serves head_dim 64 alone "
-                                 f"(asked for {args[at]})")
-            return fn(*args[:at], *args[at + 1:])
-        return query
+    def softmax(self, q, k, v, out, scale):
+        import torch
 
-    def __getattr__(self, name):
-        return getattr(self._lib, name)
+        from thermal3d_torch.kernels import _build
+
+        b, h, sq, d = q.shape
+        strides = (ctypes.c_longlong * 12)(*(t.stride(i) for t in (q, k, v, out)
+                                             for i in range(3)))
+        rc = self.attn_lib.t3d_attention(
+            self.DTYPE_CODE[str(q.dtype)], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), strides, b, h, sq, k.shape[2], d, float(scale),
+            torch.cuda.current_stream().cuda_stream)
+        _build.check(self.attn_lib, rc, "the parent's CUDA-core K4-K6")
 
 
 def compare_in_turns(torch, run, outs: dict, reps: int = 20) -> dict:
@@ -3828,8 +4001,7 @@ def compare_in_turns(torch, run, outs: dict, reps: int = 20) -> dict:
 def other_3xtf32_build(fa, lib):
     """float32 attention on another build of csrc/attention_3xtf32.cu (the
     other checkout's, by build_other): the 3xTF32 wrappers load `lib` in
-    place of this checkout's library (an OtherBuild: its queries take this
-    checkout's arguments)."""
+    place of this checkout's library."""
     from thermal3d_torch.kernels import _build
 
     saved = _build._libs.get("attention_3xtf32")
@@ -3891,9 +4063,8 @@ def compare_float32(torch, fa, other_csrc: str, cases, path_runs) -> dict:
 def compare_k2k3(torch, other_csrc: str) -> bool:
     """Build OTHER_CSRC/rope_attention_tc.cu with this checkout's nvcc flags
     and launch it and this checkout's build through the same wrapper on the
-    same seeded inputs (a build without the scratch query gets its roped-K
-    scratch on every call, as it was written for): torch.equal and the
-    largest difference on each of COMPARE_CASES, this build's schedule, and
+    same seeded inputs: torch.equal and the largest difference on each of
+    COMPARE_CASES (head dims 16, 32, 64 and 128), this build's schedule, and
     both timed as in phase 3, in turns (compare_in_turns). Then float32
     (compare_float32): this checkout's 3xTF32 K2/K3 against the other
     checkout's build of csrc/attention_3xtf32.cu on COMPARE_F32_K2K3, and the
@@ -3927,7 +4098,8 @@ def compare_k2k3(torch, other_csrc: str) -> bool:
 
         r = compare_in_turns(torch, run, outs)
         results.append(dict(kernel=kind, shape=[batch, s, c], heads=heads,
-                            schedule=tensor_core_schedule(torch, fa, batch, heads, s), **r))
+                            schedule=tensor_core_schedule(torch, fa, batch, heads, s,
+                                                          c // heads), **r))
         log(f"{kind} [{batch},{s},{c}] H={heads}: torch.equal {r['equal']} (max|diff| "
             f"{r['max_abs_diff']:.3e}); ms this {r['this_ms']} other {r['other_ms']}")
         del qkv, outs
@@ -3984,13 +4156,13 @@ def compare_k4k6(torch, other_csrc: str) -> bool:
     """Build OTHER_CSRC/attention_tc.cu with this checkout's nvcc flags and
     launch it and this checkout's build through the same wrapper
     (softmax_attention_tc) on the same seeded [B,S,H,D]-view operands as
-    phase 3: every bf16 K4 shape of PLAIN_ATTENTION_SHAPES (bshd_operands)
-    and the size-1-axes case (size_one_operands). torch.equal and the
+    phase 3: every bf16 K4 shape of PLAIN_ATTENTION_SHAPES and HEAD_DIM_K4
+    (bshd_operands) and the size-1-axes case (size_one_operands). torch.equal and the
     largest difference on each, and both timed as in phase 3, in turns
     (compare_in_turns). Prints one JSON line; returns whether every output
     was equal. Then float32 (compare_float32): this checkout's 3xTF32 K4
-    against the other checkout's build of csrc/attention_3xtf32.cu on every
-    K4 shape of PLAIN_ATTENTION_SHAPES, and the float32 'pallas' generator's
+    against the other checkout's build of csrc/attention_3xtf32.cu on those
+    K4 shapes, and the float32 'pallas' generator's
     run_pairs_async() pairs/s with each; it returns False also where a
     float32 output differs."""
     fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
@@ -4000,7 +4172,7 @@ def compare_k4k6(torch, other_csrc: str) -> bool:
     cases = [(f"[{b},{h},{sq},{d}] Sk={sk}",
               lambda b=b, h=h, sq=sq, sk=sk, d=d: bshd_operands(torch, b, h, sq, sk, d,
                                                                 torch.bfloat16))
-             for b, h, sq, sk, d in PLAIN_ATTENTION_SHAPES]
+             for b, h, sq, sk, d in PLAIN_ATTENTION_SHAPES + HEAD_DIM_K4]
     cases.append((f"size-1 axes [1,2,1,64] Sk={SIZE_ONE_SK}", lambda: size_one_operands(torch)))
     results = []
     for label, operands in cases:
@@ -4021,7 +4193,7 @@ def compare_k4k6(torch, other_csrc: str) -> bool:
         del q, k, v, outs
     all_equal = all(r["equal"] for r in results)
     f32_cases = []
-    for b, h, sq, sk, d in PLAIN_ATTENTION_SHAPES:
+    for b, h, sq, sk, d in PLAIN_ATTENTION_SHAPES + HEAD_DIM_K4:
         q, k, v = bshd_operands(torch, b, h, sq, sk, d, torch.float32)
         f32_cases.append((f"K4 [{b},{h},{sq},{d}] Sk={sk}",
                           functools.partial(fa.flash_attention_pallas, q, k, v,
@@ -5128,7 +5300,8 @@ def main(argv) -> int:
         return dist_worker_main(argv[1:])
     if argv and not ((len(argv) == 2 and argv[0] in ("--compare-k2k3", "--compare-k4k6"))
                      or argv in (["--only-multi-gpu"], ["--only-export"], ["--only-wrappers"],
-                                 ["--only-head-dims"], ["--only-small-decoder"])
+                                 ["--only-small-decoder"], ["--only-vit-h"])
+                     or (argv[0] == "--only-head-dims" and len(argv) <= 2)
                      or (argv[0] == "--only-multi-card"
                          and set(argv[1:]) <= set(MD_PARTS) | {"check"})):
         print(__doc__, file=sys.stderr)
@@ -5144,22 +5317,25 @@ def main(argv) -> int:
         return 0 if compare(torch, argv[1]) else 1
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     build = phase_build()
-    if argv == ["--only-head-dims"]:
-        k2_hd, k3_hd, k456_hd = head_dim_cases(torch)
-        k2_d24, k3_d24 = d24_k2k3_cases(torch)
-        k4_d24 = plain_attention_cases(torch, "flash_attention_pallas", PLAIN_ATTENTION_D24)
+    if argv[:1] == ["--only-head-dims"]:
+        cuda_core = ParentCudaCore(argv[1]) if len(argv) == 2 else None
+        k2_hd, k3_hd, k456_hd, poison, widths = head_dim_cases(torch, cuda_core)
+        k2_d24, k3_d24 = d24_k2k3_cases(torch, cuda_core)
+        k4_d24 = plain_attention_cases(torch, "flash_attention_pallas", PLAIN_ATTENTION_D24,
+                                       cuda_core=cuda_core)
         print(card, flush=True)
         print(json.dumps({"build": build}), flush=True)
         print(json.dumps({"head_dims": dict(K2=k2_hd, K3=k3_hd, **k456_hd,
-                                            cuda_core_d24=dict(K2=k2_d24, K3=k3_d24,
-                                                               K4=k4_d24))}), flush=True)
+                                            d24=dict(K2=k2_d24, K3=k3_d24, K4=k4_d24),
+                                            poison=poison, padded_width=widths)}), flush=True)
         print(json.dumps(device_line(torch)), flush=True)
         return 0
-    if argv == ["--only-small-decoder"]:
-        small_decoder = phase_small_decoder(torch, np)
+    if argv in (["--only-small-decoder"], ["--only-vit-h"]):
+        name = argv[0].removeprefix("--only-").replace("-", "_")
+        part = (phase_small_decoder if name == "small_decoder" else phase_vit_h)(torch, np)
         print(card, flush=True)
         print(json.dumps({"build": build}), flush=True)
-        print(json.dumps({"small_decoder": small_decoder}, default=float), flush=True)
+        print(json.dumps({name: part}, default=float), flush=True)
         print(json.dumps(device_line(torch)), flush=True)
         return 0
     if argv == ["--only-export"]:
@@ -5213,16 +5389,17 @@ def main(argv) -> int:
     k2_d24, k3_d24 = d24_k2k3_cases(torch)
     k2 += k2_d24
     k3 += k3_d24
-    log("K4-K6 (bf16 and float32 also at head_dim 24, on the CUDA-core kernel):")
+    log("K4-K6 (bf16 and float32 also at head_dim 24, on the packed route):")
     k456 = {name: plain_attention_cases(torch, name)
             + plain_attention_cases(torch, name, PLAIN_ATTENTION_D24)
             for name in ("flash_attention_pallas", "flash_attention_grouped",
                          "flash_attention_multihead")}
     k456["flash_attention_pallas"].append(size_one_axes_case(torch))
-    k2_hd, k3_hd, k456_hd = head_dim_cases(torch)
+    k2_hd, k3_hd, k456_hd, poison, widths = head_dim_cases(torch)
     multi_card = multi_card_check(torch, np)
     engine = phase_engine(torch, np)
     engine["small_decoder"] = phase_small_decoder(torch, np)
+    engine["vit_h"] = phase_vit_h(torch, np)
     pseudo_gt = phase_pseudo_gt(torch, np)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as root:
         files = phase_files(torch, np, card, engine, pseudo_gt, root)
@@ -5241,10 +5418,12 @@ def main(argv) -> int:
     # launches on each path's own run; `launches` is this slice's main path
     # (pseudo-GT) for K2-K6, the serving path for K1
     by_path = {}
-    small_decoder = engine["small_decoder"]
+    small_decoder, vit_h = engine["small_decoder"], engine["vit_h"]
     for path, counts in (("serving", engine["launches"]), ("serving_f32", engine["f32_launches"]),
                          ("serving_small_decoder", small_decoder["launches"]),
                          ("serving_small_decoder_f32", small_decoder["f32_launches"]),
+                         ("serving_vit_h", vit_h["launches"]),
+                         ("serving_vit_h_f32", vit_h["f32_launches"]),
                          ("pseudo_gt_auto", pseudo_gt["launches"]),
                          ("pseudo_gt_pallas", pseudo_gt["pallas"]["launches"]),
                          *((f"pseudo_gt_f32_{impl}", r["launches"])
@@ -5298,14 +5477,15 @@ def main(argv) -> int:
         tc_headers = [f"thermal3d_torch/kernels/csrc/{h}" for h in
                       ("key_tile_attention.cuh", "attention_tc.cuh", "hopper_tma.cuh")]
         tf32_src = "thermal3d_torch/kernels/csrc/attention_3xtf32.cu"
-        if name.startswith("fused_rope"):  # K2/K3: bf16 and f32 on tensor cores, D!=64 not
-            extra = dict(headers=tc_headers, source_3xtf32=tf32_src,
-                         source_cuda_core="thermal3d_torch/kernels/csrc/rope_attention.cu",
+        # the packed route (head dims outside 16, 32, 64, 128): bf16 and float32
+        packed = dict(bfloat16=f"{attn_src}::t3d_attention_tc_packed",
+                      float32=f"{tf32_src}::t3d_attention_3xtf32_packed")
+        if name.startswith("fused_rope"):  # K2/K3: bf16 and f32 on tensor cores
+            extra = dict(headers=tc_headers, source_3xtf32=tf32_src, sources_packed=packed,
                          tensor_core_launches_by_path=by_path["rope_attention_tc"],
                          tf32x3_launches_by_path=by_path["rope_attention_3xtf32"])
         elif name.startswith("flash_attention"):  # K4-K6: the same split
-            extra = dict(headers=tc_headers, source_3xtf32=tf32_src,
-                         source_cuda_core="thermal3d_torch/kernels/csrc/attention.cu",
+            extra = dict(headers=tc_headers, source_3xtf32=tf32_src, sources_packed=packed,
                          tensor_core_launches_by_path=by_path["softmax_attention_tc"],
                          tf32x3_launches_by_path=by_path["softmax_attention_3xtf32"])
         elif name.endswith("3xtf32"):  # the float32 family: its own counts
@@ -5356,6 +5536,7 @@ def main(argv) -> int:
     kernels[-1]["replaces_also"] = [f"{fa_src}:227", f"{fa_src}:164"]  # K5, K6
     print(card, flush=True)
     print(json.dumps({"build": build}), flush=True)
+    print(json.dumps({"packed_route": dict(poison=poison, padded_width=widths)}), flush=True)
     print(json.dumps({"engine": engine}), flush=True)
     print(json.dumps({"pseudo_gt": pseudo_gt}), flush=True)
     print(json.dumps({"files": files}), flush=True)

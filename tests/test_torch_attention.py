@@ -197,7 +197,7 @@ def test_key_tile_recipe_masked_on_the_last_tile_only(sq, sk, dtype):
 
 @pytest.mark.parametrize("dtype,limit", [(torch.float32, 2e-5), (torch.bfloat16, 2.0 ** -6)])
 @pytest.mark.parametrize("tile,seq,head_dim", [
-    pytest.param(128, 1024, 64, id="128-1024"),  # the CUDA-core key-tile loop at MASt3R-512's S
+    pytest.param(128, 1024, 64, id="128-1024"),  # 128-key tiles at MASt3R-512's S
     pytest.param(64, 1024, 64, id="64-1024"),    # the tensor-core kernel's 64-key tiles
     pytest.param(64, 196, 64, id="64-196"),      # ... at the serving S: the last tile holds 4 keys
     # the tensor-core kernels' other head dims, against the JAX kernel in
@@ -205,21 +205,34 @@ def test_key_tile_recipe_masked_on_the_last_tile_only(sq, sk, dtype):
     pytest.param(64, 196, 16, id="64-196-d16"),
     pytest.param(64, 196, 32, id="64-196-d32"),
     pytest.param(64, 100, 128, id="64-100-d128"),
+    # the packed route: zero-padded to widths 32, 128 and (unpadded) 256
+    pytest.param(64, 196, 24, id="64-196-d24"),
+    pytest.param(64, 100, 80, id="64-100-d80"),
+    pytest.param(64, 100, 256, id="64-100-d256"),
 ])
 def test_key_tile_recipe_within_kernel_limits(dtype, limit, tile, seq, head_dim):
     """The online softmax rounds p against a running max, so in bf16 it is
     not bit-equal to the one-shot plain version; with each kernel's key
     tile, at S=1024 and at a ragged S=196, it stays within the limits
     chip_smoke.py holds the tiled kernels to (2e-5 f32: summation order;
-    2^-6 bf16: an output ulp plus a flipped rounding of p). At head_dims 16,
-    32 and 128 (one head, S <= 196) it is held to the same limits against
+    2^-6 bf16: an output ulp plus a flipped rounding of p). At the other
+    head dims (one head, S <= 196) it is held to the same limits against
     the JAX K4 it replaces, in interpret mode on the same rounded inputs, as
-    well as against the plain version."""
+    well as against the plain version; at a head dim the packed route serves
+    (24, 80, 256) the recipe runs as that route does, on q, k and v
+    zero-padded to padded_width(head_dim), the output's first head_dim
+    columns kept."""
     heads = 2 if head_dim == 64 else 1
     q, k, v = (torch.from_numpy(a).to(dtype)
                for a in _qkv((2, heads, seq, head_dim), (2, heads, seq, head_dim), 9))
     scale = 1.0 / math.sqrt(head_dim)
-    out = _online_softmax_recipe(q, k, v, scale, tile=tile)
+    lanes = tfa.padded_width(head_dim) - head_dim
+
+    def padded(t):
+        return torch.nn.functional.pad(t, (0, lanes))
+
+    out = _online_softmax_recipe(padded(q), padded(k), padded(v), scale, tile=tile)
+    out = out[..., :head_dim]
     ref = tfa.attention_plain(q, k, v, scale)
     err = (out.to(torch.float32) - ref.to(torch.float32)).abs().max().item()
     assert err <= limit, err
@@ -246,15 +259,15 @@ def test_key_tile_recipe_within_kernel_limits(dtype, limit, tile, seq, head_dim)
     (torch.bfloat16, 1024, 128, tfa.TENSOR_CORE),
     (torch.float32, 196, 16, tfa.TF32X3),
     (torch.float32, 1024, 128, tfa.TF32X3),
-    (torch.bfloat16, 196, 24, tfa.CUDA_CORE),     # any other head_dim: CUDA cores
-    (torch.bfloat16, 1024, 160, tfa.CUDA_CORE),
-    (torch.float32, 196, 24, tfa.CUDA_CORE),
-    (torch.float32, 1024, 160, tfa.CUDA_CORE),
+    (torch.bfloat16, 196, 24, tfa.TENSOR_CORE),   # any other head_dim: the packed route
+    (torch.bfloat16, 1024, 160, tfa.TENSOR_CORE),
+    (torch.float32, 196, 24, tfa.TF32X3),
+    (torch.float32, 1024, 160, tfa.TF32X3),
 ])
 def test_rope_attention_route(dtype, seq, head_dim, want):
-    """The K2/K3 kernel family by shape, decided without the library: with
-    head_dim 16, 32, 64 or 128 bf16 on tensor cores and float32 3xTF32 on
-    tensor cores, at every S; other head dims on CUDA cores."""
+    """The K2/K3 kernel family by shape, decided without the library: bf16
+    on tensor cores and float32 3xTF32 on tensor cores, at every S and every
+    head dim (outside 16, 32, 64, 128 through the packed route)."""
     assert tfa.attention_route(dtype, head_dim) == want
 
 
@@ -323,13 +336,13 @@ def test_key_tile_recipe_matches_k4_k5_k6_interpret(impl, sq, sk, dtype, limit):
     (torch.bfloat16, 128, tfa.TENSOR_CORE),
     (torch.float32, 16, tfa.TF32X3),
     (torch.float32, 32, tfa.TF32X3),
-    (torch.float16, 64, tfa.CUDA_CORE),     # no tensor-core family (the wrappers refuse it)
+    (torch.float16, 64, None),              # no family (the wrappers refuse it)
     (torch.bfloat16, 16, tfa.TENSOR_CORE),
     (torch.float32, 128, tfa.TF32X3),
-    (torch.bfloat16, 24, tfa.CUDA_CORE),    # any other head_dim: CUDA cores
-    (torch.bfloat16, 160, tfa.CUDA_CORE),
-    (torch.float32, 24, tfa.CUDA_CORE),
-    (torch.float32, 160, tfa.CUDA_CORE),
+    (torch.bfloat16, 24, tfa.TENSOR_CORE),  # any other head_dim: the packed route
+    (torch.bfloat16, 160, tfa.TENSOR_CORE),
+    (torch.float32, 24, tfa.TF32X3),
+    (torch.float32, 160, tfa.TF32X3),
 ])
 def test_attention_route(dtype, head_dim, want):
     """The K4/K5/K6 kernel family by shape, decided without the library."""
@@ -340,14 +353,39 @@ def test_attention_route(dtype, head_dim, want):
 def test_every_accepted_head_dim_has_one_route(head_dim):
     """Every head dim the wrappers accept (a multiple of 4 up to 256) has a
     family in both dtypes, the same for K2/K3 and K4-K6: the tensor cores
-    exactly at TC_HEAD_DIMS (16, 32, 64, 128; csrc/attention_tc.cuh's
-    serves_head_dim, by which the C entries reject any other), the CUDA
-    cores elsewhere."""
-    want_bf16, want_f32 = ((tfa.TENSOR_CORE, tfa.TF32X3) if head_dim in (16, 32, 64, 128)
-                           else (tfa.CUDA_CORE, tfa.CUDA_CORE))
-    assert tfa.TC_HEAD_DIMS == (16, 32, 64, 128)
-    assert tfa.attention_route(torch.bfloat16, head_dim) == want_bf16
-    assert tfa.attention_route(torch.float32, head_dim) == want_f32
+    in bf16, 3xTF32 on the tensor cores in float32; float16 has none. The
+    direct entries serve exactly DIRECT_HEAD_DIMS (16, 32, 64, 128;
+    csrc/attention_tc.cuh's serves_head_dim), the packed ones the rest."""
+    assert tfa.DIRECT_HEAD_DIMS == (16, 32, 64, 128)
+    assert tfa.attention_route(torch.bfloat16, head_dim) == tfa.TENSOR_CORE
+    assert tfa.attention_route(torch.float32, head_dim) == tfa.TF32X3
+    assert tfa.attention_route(torch.float16, head_dim) is None
+
+
+def _built_widths_in_source():
+    """kBuiltWidths as csrc/attention_tc.cuh defines it."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tfa.__file__).parent / "csrc" / "attention_tc.cuh").read_text()
+    found = re.search(r"constexpr int kBuiltWidths\[\] = \{([0-9, ]+)\};", src)
+    return tuple(int(w) for w in found.group(1).split(","))
+
+
+@pytest.mark.parametrize("head_dim", range(4, 257, 4))
+def test_padded_width_mirrors_the_library(head_dim):
+    """padded_width, the mirror of csrc/attention_tc.cuh's padded_width
+    (which chip_smoke.py holds against both libraries' own query at every
+    head dim): the smallest of the widths the source builds (kBuiltWidths,
+    read from it) at least as wide; a direct head dim and 256 run at their
+    own width; no lane of the padding reaches past 256."""
+    widths = _built_widths_in_source()
+    assert widths == tfa.BUILT_WIDTHS
+    dp = tfa.padded_width(head_dim)
+    assert dp == min(w for w in widths if w >= head_dim)
+    assert head_dim <= dp <= 256 and dp in widths
+    assert (dp == head_dim) == (head_dim in tfa.DIRECT_HEAD_DIMS + (256,))
+    assert [tfa.padded_width(d) for d in (0, 2, 6, 258, 260, -4)] == [0] * 6
 
 
 def _strided_operands(sq=8, sk=8):
@@ -543,32 +581,32 @@ def _launch_softmax_attention_tc():
 
 
 # launch function → (the library loader it calls, the entry it launches,
-# the shared memory the stand-in reports, the call on CPU tensors)
+# the call on CPU tensors)
 LAUNCHES = {
-    "k2k3_cuda_core_one_shot": ("_lib", "t3d_rope_attention", 0,
-                                lambda: _launch_k2k3(torch.float32, width=96, heads=4)),
-    "k2k3_cuda_core_key_tile": ("_lib", "t3d_rope_attention_tiled", 1 << 30,
-                                lambda: _launch_k2k3(torch.float32, width=96, heads=4)),
-    "k2k3_3xtf32_d32": ("_3xtf32_lib", "t3d_rope_attention_3xtf32", 0,
+    "k2k3_packed_d24": ("_packed_lib", "t3d_attention_tc_packed",
+                        lambda: _launch_k2k3(torch.bfloat16, width=96, heads=4)),
+    "k2k3_3xtf32_packed_d20": ("_packed_lib", "t3d_attention_3xtf32_packed",
+                               lambda: _launch_k2k3(torch.float32, width=60, heads=3)),
+    "k2k3_3xtf32_d32": ("_3xtf32_lib", "t3d_rope_attention_3xtf32",
                         lambda: _launch_k2k3(torch.float32, heads=4)),
-    "k2k3_tensor_core_d32": ("_tc_lib", "t3d_rope_attention_tc", 0,
+    "k2k3_tensor_core_d32": ("_tc_lib", "t3d_rope_attention_tc",
                              lambda: _launch_k2k3(torch.bfloat16, heads=4)),
-    "k2k3_3xtf32": ("_3xtf32_lib", "t3d_rope_attention_3xtf32", 0,
+    "k2k3_3xtf32": ("_3xtf32_lib", "t3d_rope_attention_3xtf32",
                     lambda: _launch_k2k3(torch.float32)),
-    "k2k3_tensor_core": ("_tc_lib", "t3d_rope_attention_tc", 0,
+    "k2k3_tensor_core": ("_tc_lib", "t3d_rope_attention_tc",
                          lambda: _launch_k2k3(torch.bfloat16)),
-    "rope_attention_tc": ("_tc_lib", "t3d_rope_attention_tc", 0, _launch_rope_attention_tc),
-    "k4k6_cuda_core": ("_attention_lib", "t3d_attention", 0,
-                       lambda: _launch_k4k6(torch.float32, d=24)),
-    "k4k6_tensor_core_d32": ("_attention_tc_lib", "t3d_softmax_attention_tc", 0,
+    "rope_attention_tc": ("_tc_lib", "t3d_rope_attention_tc", _launch_rope_attention_tc),
+    "k4k6_packed_d24": ("_packed_lib", "t3d_attention_tc_packed",
+                        lambda: _launch_k4k6(torch.bfloat16, d=24)),
+    "k4k6_tensor_core_d32": ("_attention_tc_lib", "t3d_softmax_attention_tc",
                              lambda: _launch_k4k6(torch.bfloat16, d=32)),
-    "k4k6_3xtf32_d128": ("_3xtf32_lib", "t3d_softmax_attention_3xtf32", 0,
+    "k4k6_3xtf32_d128": ("_3xtf32_lib", "t3d_softmax_attention_3xtf32",
                          lambda: _launch_k4k6(torch.float32, d=128)),
-    "k4k6_3xtf32": ("_3xtf32_lib", "t3d_softmax_attention_3xtf32", 0,
+    "k4k6_3xtf32": ("_3xtf32_lib", "t3d_softmax_attention_3xtf32",
                     lambda: _launch_k4k6(torch.float32)),
-    "k4k6_tensor_core": ("_attention_tc_lib", "t3d_softmax_attention_tc", 0,
+    "k4k6_tensor_core": ("_attention_tc_lib", "t3d_softmax_attention_tc",
                          lambda: _launch_k4k6(torch.bfloat16)),
-    "softmax_attention_tc": ("_attention_tc_lib", "t3d_softmax_attention_tc", 0,
+    "softmax_attention_tc": ("_attention_tc_lib", "t3d_softmax_attention_tc",
                              _launch_softmax_attention_tc),
 }
 
@@ -581,12 +619,11 @@ def test_attention_launches_run_on_their_tensors_device(monkeypatch, case):
     torch.cuda.device block of its output's device (so a call on cuda:1
     runs there whichever card is current), never before or after it. Stand-in
     libraries and a recorder for torch.cuda.device, on CPU tensors."""
-    loader, entry, smem, launch = LAUNCHES[case]
+    loader, entry, launch = LAUNCHES[case]
     events = []
     record_device_blocks(monkeypatch, events)
-    lib = StandInLibrary(events, smem)
-    monkeypatch.setattr(tfa, "_lib", lambda: lib)
-    monkeypatch.setattr(tfa, loader, lambda: lib)
+    lib = StandInLibrary(events)
+    monkeypatch.setattr(tfa, loader, lambda *name: lib)
     out = launch()
     assert events == [("enter", out.device), ("call", entry), ("exit", out.device)]
 
@@ -685,29 +722,17 @@ class _RecordingTcLibrary:
         return 0
 
 
-class _OldTcLibrary(_RecordingTcLibrary):
-    """A build without the scratch query, which ropes K into the scratch on
-    every call."""
-
-    def __getattribute__(self, name):
-        if name == "t3d_rope_attention_tc_scratch_bytes":
-            raise AttributeError(name)
-        return super().__getattribute__(name)
-
-
-@pytest.mark.parametrize("seq,library,scratch", [
-    (196, _RecordingTcLibrary, False),   # one pass: no scratch
-    (256, _RecordingTcLibrary, False),
-    (257, _RecordingTcLibrary, True),    # key tiles: the roped-K scratch
-    (1024, _RecordingTcLibrary, True),
-    (196, _OldTcLibrary, True),          # an old build: always the scratch
-    (1024, _OldTcLibrary, True),
+@pytest.mark.parametrize("seq,scratch", [
+    (196, False),   # one pass: no scratch
+    (256, False),
+    (257, True),    # key tiles: the roped-K scratch
+    (1024, True),
 ])
-def test_rope_attention_tc_scratch(monkeypatch, seq, library, scratch):
+def test_rope_attention_tc_scratch(monkeypatch, seq, scratch):
     """rope_attention_tc allocates the [B, H, S, 64] bf16 roped-K scratch
-    only where the library asks for it (or always, for a library without the
-    query), and calls the same C entry once, inside one torch.cuda.device
-    block of the output's device, with a null scratch pointer otherwise."""
+    only where the library asks for it, and calls the same C entry once,
+    inside one torch.cuda.device block of the output's device, with a null
+    scratch pointer otherwise."""
     events, sizes = [], []
     record_device_blocks(monkeypatch, events)
     empty = torch.empty
@@ -718,7 +743,7 @@ def test_rope_attention_tc_scratch(monkeypatch, seq, library, scratch):
         return empty(*shape, **kw)
 
     monkeypatch.setattr(torch, "empty", recording_empty)
-    lib = library(events)
+    lib = _RecordingTcLibrary(events)
     b, heads = 2, 3
     x = empty((b, seq, 3 * 64 * heads), dtype=torch.bfloat16)
     out = empty((b, seq, 64 * heads), dtype=torch.bfloat16)
@@ -765,82 +790,106 @@ def test_rope_attention_tc_scratch_at_other_head_dims(monkeypatch, seq, head_dim
     assert sizes == [b * heads * seq * head_dim]
 
 
-# each query of chip_smoke.OLD_QUERIES as a build that serves head_dim 64
-# alone defines it (no head_dim), and the source of this checkout that
-# defines it now
-_HEAD_DIM_64_QUERIES = {
-    "t3d_rope_attention_tc_scratch_bytes": (
-        "unsigned long long t3d_rope_attention_tc_scratch_bytes(int batch, int seq, "
-        "int num_heads) {", "rope_attention_tc", (2, 300, 3, 64)),
-    "t3d_rope_attention_tc_schedule": (
-        "int t3d_rope_attention_tc_schedule(int batch, int seq, int num_heads, int sms) {",
-        "rope_attention_tc", (2, 196, 3, 64, 132)),
-    "t3d_softmax_attention_tc_map_strides": (
-        "void t3d_softmax_attention_tc_map_strides(const long long* strides, int batch,\n"
-        "    int heads, int sq, int sk, long long* bytes) {", "attention_tc",
-        ("strides", 1, 2, 3, 4, 64, "bytes")),
-    "t3d_attention_3xtf32_scratch_bytes": (
-        "unsigned long long t3d_attention_3xtf32_scratch_bytes(int batch, int heads, int seq) {",
-        "attention_3xtf32", (2, 3, 300, 64)),
-}
+class _PackedLibrary(StandInLibrary):
+    """A stand-in library that records the arguments of the packed entries
+    (csrc/attention_tc.cu, csrc/attention_3xtf32.cu)."""
+
+    def __init__(self, events):
+        super().__init__(events)
+        self.args = []
+
+    def _packed(self, name, *args):
+        self.events.append(("call", name))
+        self.args.append(args)
+        return 0
+
+    def t3d_attention_tc_packed(self, *args):
+        return self._packed("t3d_attention_tc_packed", *args)
+
+    def t3d_attention_3xtf32_packed(self, *args):
+        return self._packed("t3d_attention_3xtf32_packed", *args)
 
 
-class _QueryLibrary:
-    """A stand-in build with every query of chip_smoke.OLD_QUERIES and one
-    entry, each recording the arguments it gets."""
+@pytest.mark.parametrize("dtype,entry,counter", [
+    (torch.bfloat16, "t3d_attention_tc_packed", "rope_attention_tc"),
+    (torch.float32, "t3d_attention_3xtf32_packed", "rope_attention_3xtf32"),
+])
+@pytest.mark.parametrize("heads,head_dim", [(3, 20), (16, 24), (2, 80), (4, 256)])
+def test_k2k3_packed_launch_arguments(monkeypatch, dtype, entry, counter, heads, head_dim):
+    """K2 at a head dim outside 16, 32, 64, 128 takes its family's packed
+    entry once (its family's count moving once), inside one torch.cuda.device
+    block of the output's device: q, k, v as the base pointers of the packed
+    projection's thirds (any alignment: at bf16 head_dim 20 with 3 heads the
+    rows are 360 bytes apart), the (batch, head, row) strides of the [B, S,
+    3C] rows and of the [B, S, C] output, the cos/sin tables, a scratch of
+    the library's size, Sq = Sk = S and the head_dim."""
+    events, sizes = [], []
+    record_device_blocks(monkeypatch, events)
+    lib = _PackedLibrary(events)
+    monkeypatch.setattr(tfa, "_packed_lib", lambda name: lib)
+    empty = torch.empty
 
-    def __init__(self):
-        self.calls = []
-        for name in (*_HEAD_DIM_64_QUERIES, "t3d_softmax_attention_tc"):
-            setattr(self, name, self._recording(name))
+    def recording_empty(*shape, **kw):
+        if kw.get("dtype") == torch.uint8:
+            sizes.append(shape[0])
+        return empty(*shape, **kw)
 
-    def _recording(self, name):
-        def fn(*args):
-            self.calls.append((name, args))
-            return 0
-        return fn
-
-
-@pytest.mark.parametrize("query", sorted(_HEAD_DIM_64_QUERIES))
-def test_other_build_drops_head_dim_for_a_head_dim_64_build(query):
-    """chip_smoke.OtherBuild over a build whose source defines the query
-    without head_dim (the compare modes' parent builds): the query takes
-    this checkout's arguments, reaches the build without the head_dim, with
-    the argument types of chip_smoke.OLD_QUERIES declared, and raises at
-    another head_dim; the entries are the build's own."""
-    import chip_smoke
-
-    source, _, args = _HEAD_DIM_64_QUERIES[query]
-    lib = _QueryLibrary()
-    other = chip_smoke.OtherBuild(lib, source)
-    at = chip_smoke.OLD_QUERIES[query][2]
-    assert args[at] == 64
-    getattr(other, query)(*args)
-    assert lib.calls == [(query, args[:at] + args[at + 1:])]
-    assert getattr(lib, query).argtypes == chip_smoke.OLD_QUERIES[query][0]
-    with pytest.raises(ValueError, match="head_dim 64 alone"):
-        getattr(other, query)(*args[:at], 32, *args[at + 1:])
-    assert other.t3d_softmax_attention_tc is lib.t3d_softmax_attention_tc
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    b, s, c = 2, 9, heads * head_dim
+    qkv = torch.zeros((b, s, 3 * c), dtype=dtype)
+    cos, sin = torch.zeros(s, head_dim), torch.zeros(s, head_dim)
+    before = getattr(tfa, counter).launches
+    out = torch.empty((b, s, c), dtype=dtype)
+    es = qkv.element_size()
+    tfa._launch(qkv, qkv.data_ptr(), qkv.data_ptr() + c * es, qkv.data_ptr() + 2 * c * es,
+                3 * c, cos, sin, out, heads, 0.125, "K2")
+    assert getattr(tfa, counter).launches == before + 1
+    assert events == [("enter", out.device), ("call", entry), ("exit", out.device)]
+    (args,) = lib.args
+    assert args[0] == qkv.data_ptr() and args[2] == qkv.data_ptr() + 2 * c * es
+    assert list(args[4]) == [s * 3 * c, head_dim, 3 * c] * 3 + [s * c, head_dim, c]
+    assert args[5:7] == (cos.data_ptr(), sin.data_ptr())
+    assert args[8:13] == (b, heads, s, s, head_dim)
+    scratch_query = getattr(StandInLibrary([]), f"{entry}_scratch_bytes")
+    assert sizes == [scratch_query(b, heads, s, s, head_dim)]
 
 
-@pytest.mark.parametrize("query", sorted(_HEAD_DIM_64_QUERIES))
-def test_other_build_passes_this_checkouts_queries_through(query):
-    """chip_smoke.OtherBuild over a build of this checkout's source: each
-    query defines head_dim (chip_smoke.takes_head_dim) and is the build's
-    own, untouched."""
-    from pathlib import Path
+@pytest.mark.parametrize("dtype,entry,counter", [
+    (torch.bfloat16, "t3d_attention_tc_packed", "softmax_attention_tc"),
+    (torch.float32, "t3d_attention_3xtf32_packed", "softmax_attention_3xtf32"),
+])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_k4k6_packed_takes_any_alignment(monkeypatch, dtype, entry, counter, misaligned):
+    """K4 at head_dim 20 on [B,S,H,D] views takes its family's packed entry
+    with the (batch, head, row) strides of q, k, v and out (0 for an axis of
+    size 1), null tables, Sq and Sk apart: also where a view starts one
+    element into its buffer and its rows are 3*20 elements apart, which the
+    direct entries refuse (16-byte aligned pointers and strides) and the
+    packed route reads an element at a time."""
+    events = []
+    record_device_blocks(monkeypatch, events)
+    lib = _PackedLibrary(events)
+    monkeypatch.setattr(tfa, "_packed_lib", lambda name: lib)
+    d, h = 20, 3
 
-    import chip_smoke
+    def view(s):
+        buf = torch.zeros(1 + 2 * s * h * d, dtype=dtype)
+        start = 1 if misaligned else 0
+        return buf[start:start + 2 * s * h * d].view(2, s, h, d).transpose(1, 2)
 
-    _, name, args = _HEAD_DIM_64_QUERIES[query]
-    source = (Path(tfa.__file__).parent / "csrc" / f"{name}.cu").read_text()
-    assert chip_smoke.takes_head_dim(source, query)
-    assert not chip_smoke.takes_head_dim(_HEAD_DIM_64_QUERIES[query][0], query)
-    lib = _QueryLibrary()
-    other = chip_smoke.OtherBuild(lib, source)
-    assert getattr(other, query) is getattr(lib, query)
-    getattr(other, query)(*args)
-    assert lib.calls == [(query, args)]
+    q, k, v = view(12), view(40), view(40)
+    before = getattr(tfa, counter).launches
+    out = tfa._attend("K4", q, k, v, 0.125)
+    assert getattr(tfa, counter).launches == before + 1
+    assert events == [("enter", out.device), ("call", entry), ("exit", out.device)]
+    (args,) = lib.args
+    assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    assert list(args[4]) == [12 * h * d, d, h * d, 40 * h * d, d, h * d, 40 * h * d, d,
+                             h * d, 12 * h * d, d, h * d]
+    assert args[5:7] == (0, 0) and args[8:13] == (2, h, 12, 40, d)
+    if misaligned:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tfa._attend("K4", *(view(s)[..., :16] for s in (12, 40, 40)), 0.125)
 
 
 def _one_pass_recipe(q, k, v, scale):
@@ -1006,14 +1055,18 @@ def _3xtf32_case(kernel, seq, products, d=64):
     # the 3xTF32 kernels' other head dims, one head at small S
     pytest.param(196, 16, id="196-d16"), pytest.param(144, 32, id="144-d32"),
     pytest.param(100, 128, id="100-d128"),
+    # the packed route (widths 32 and 128) and width 256
+    pytest.param(196, 24, id="196-d24"), pytest.param(100, 80, id="100-d80"),
+    pytest.param(100, 256, id="100-d256"),
 ])
 @pytest.mark.parametrize("kernel", ["K2", "K3", "K4"])
 def test_3xtf32_arithmetic_matches_pallas_interpret(kernel, seq, head_dim):
     """The float32 kernels' 3xTF32 products (tf32 hi and lo by mantissa
     masking, hi*lo + lo*hi + hi*hi in float32), restated in PyTorch, against
     the JAX kernel they replace in interpret mode, at the serving S=196 and
-    the pseudo-GT's S=1024, and at head_dims 16, 32 and 128: within the 2e-5
-    chip_smoke.py holds the kernel to against the float32 plain version."""
+    the pseudo-GT's S=1024, and at head_dims 16, 32, 128, 24, 80 and 256:
+    within the 2e-5 chip_smoke.py holds the kernel to against the float32
+    plain version."""
     out, ref = _3xtf32_case(kernel, seq, products=3, d=head_dim)
     err = np.abs(out.numpy() - np.asarray(ref)).max()
     assert err <= F32_LIMIT, err

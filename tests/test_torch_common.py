@@ -193,18 +193,15 @@ def encode_png(arr: np.ndarray, color: str = "gray", depth: int = 8, filters=(0,
 class StandInLibrary:
     """A kernel library that launches nothing: each `t3d_*` entry point
     appends ("call", its name) to `events` and returns 0 (no CUDA error);
-    the one-shot K2/K3 kernel's shared-memory query returns `smem`, and the
-    tensor-core K2/K3 kernel's scratch query answers as
+    the tensor-core K2/K3 kernel's scratch query answers as
     csrc/rope_attention_tc.cu does (a bf16 [B, H, S, D] past S = 256 or at
-    a head_dim other than 64, else 0), and the 3xTF32 kernels' as
-    csrc/attention_3xtf32.cu does. No query is recorded."""
+    a head_dim other than 64, else 0), the 3xTF32 kernels' as
+    csrc/attention_3xtf32.cu does, and the packed entries' scratch queries
+    as csrc/attention_tc.cu and csrc/attention_3xtf32.cu do. No query is
+    recorded."""
 
-    def __init__(self, events: list, smem: int = 0):
+    def __init__(self, events: list):
         self.events = events
-        self.smem = smem
-
-    def t3d_rope_attention_smem_bytes(self, *args) -> int:
-        return self.smem
 
     def t3d_rope_attention_tc_scratch_bytes(self, batch, seq, heads, head_dim) -> int:
         return batch * heads * seq * head_dim * 2 if seq > 256 or head_dim != 64 else 0
@@ -212,6 +209,14 @@ class StandInLibrary:
     def t3d_attention_3xtf32_scratch_bytes(self, batch, heads, seq, head_dim) -> int:
         return 4 * (2 * batch * heads * seq * head_dim
                     + 2 * batch * heads * head_dim * (-(-seq // 8) * 8))
+
+    def t3d_attention_tc_packed_scratch_bytes(self, batch, heads, sq, sk, head_dim) -> int:
+        return 2 * batch * heads * (sq + 2 * sk) * _padded_width(head_dim)
+
+    def t3d_attention_3xtf32_packed_scratch_bytes(self, batch, heads, sq, sk, head_dim) -> int:
+        dp = _padded_width(head_dim)
+        return 4 * batch * heads * sq * dp + self.t3d_attention_3xtf32_scratch_bytes(
+            batch, heads, sk, dp)
 
     def __getattr__(self, name):
         if not name.startswith("t3d_"):
@@ -222,6 +227,12 @@ class StandInLibrary:
             return 0
 
         return entry
+
+
+def _padded_width(head_dim: int) -> int:
+    """The built width a head dim runs at (csrc/attention_tc.cuh's
+    padded_width), restated for the stand-in library."""
+    return next(w for w in (16, 32, 64, 128, 256) if head_dim <= w)
 
 
 def record_device_blocks(monkeypatch, events: list) -> None:

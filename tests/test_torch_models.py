@@ -232,3 +232,36 @@ def test_small_decoder_slice_matches_jax():
             assert got.shape == want.shape and np.isfinite(got).all(), k
             scale = float(np.abs(want).max())
             np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * scale, err_msg=k)
+
+
+# production decoder widths with the encoder at head_dim 80 (a ViT-Huge
+# encoder's: 1280 wide with 16 heads), cut to 160 wide with 2 heads, one
+# block each
+HEAD_DIM_80_KW = dict(PROD_DEPTH1_KW, enc_embed_dim=160, enc_num_heads=2)
+
+
+def test_head_dim_80_encoder_slice_matches_jax():
+    """The whole model at HEAD_DIM_80_KW (every encoder attention at
+    head_dim 80, which the card serves on the packed route at width 128;
+    the decoder at 64), f32, two 224² views, on weights carried from the
+    Flax init by convert/from_jax: the port's forward against the Flax
+    forward, each output within 1e-4 of its own scale (as the other
+    whole-slice tests: f32 rounding of two libraries through the trunk,
+    amplified by the exp heads)."""
+    jcfg, tcfg = configs(**HEAD_DIM_80_KW)
+    assert tcfg.enc_embed_dim // tcfg.enc_num_heads == 80
+    params = jax_model_params(jcfg, seed=5)
+    rgb1, rgb2 = (_rng(s).uniform(0, 1, (1, 224, 224, 3)).astype(np.float32) for s in (10, 11))
+    ref1, ref2 = JaxModel(jcfg).apply({"params": params}, jnp.asarray(rgb1), jnp.asarray(rgb2))
+    model = AsymmetricCroCo3DStereo(tcfg)
+    model.load_state_dict(torch_state(params), strict=True)
+    with torch.no_grad():
+        out1, out2 = model(torch.from_numpy(rgb1), torch.from_numpy(rgb2))
+    assert sorted(out1) == sorted(ref1) and sorted(out2) == sorted(ref2)
+    for ref, out in ((ref1, out1), (ref2, out2)):
+        for k in ref:
+            want = np.asarray(ref[k])
+            got = to_np(out[k])
+            assert got.shape == want.shape and np.isfinite(got).all(), k
+            scale = float(np.abs(want).max())
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * scale, err_msg=k)

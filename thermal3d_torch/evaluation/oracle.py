@@ -49,7 +49,7 @@ def rope2d_oracle(tokens: torch.Tensor, positions: torch.Tensor, base: float = 1
 def exact_float32():
     """IEEE float32 matmuls and convs from torch on the card (no TF32)
     inside the block; both settings restored after. The port's own float32
-    attention kernels (K2-K6 at head_dim 64, kernels/flash_attention.py)
+    attention kernels (K2-K6 at every head dim, kernels/flash_attention.py)
     run 3xTF32 on the tensor cores whatever these settings say: each
     operand split into tf32 hi and lo, each product hi*hi + hi*lo + lo*hi
     in float32, so their products are not IEEE float32 ones (about 2^-21

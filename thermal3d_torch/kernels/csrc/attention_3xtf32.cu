@@ -1,22 +1,23 @@
-// K2-K6 in float32 on Hopper tensor cores, 3xTF32, head_dim 16, 32, 64 or
-// 128, CUDA C++ for sm_90a (wgmma, TMA, mbarriers).
+// K2-K6 in float32 on Hopper tensor cores, 3xTF32, at every head dim the
+// wrappers accept (a multiple of 4 up to 256), CUDA C++ for sm_90a (wgmma,
+// TMA, mbarriers).
 //
-// Replaces, for float32 operands with those head dims (every call of a model
-// at its default compute_dtype), the Pallas TPU kernels of
+// Replaces, for float32 operands (every call of a model at its default
+// compute_dtype), the Pallas TPU kernels of
 // thermal3d/kernels/flash_attention.py: _fused_rope_kernel (K2 through
 // _fused_rope_attention_fwd on the packed [B,S,3C] projection, K3 through
 // _fused_rope_xattn_fwd on separate [B,S,C] ones) and the softmax attention
 // on q/k that are already roped, tiled three ways for the TPU: K4
-// _attention_kernel, K5 _grouped_kernel, K6 _multihead_kernel. Other head
-// dims run the CUDA-core kernels of rope_attention.cu and attention.cu
-// (flash_attention.py::attention_route).
+// _attention_kernel, K5 _grouped_kernel, K6 _multihead_kernel. Head dims
+// 16, 32, 64 and 128 take the direct entries below; every other head dim the
+// packed entry (t3d_attention_3xtf32_packed, the end of this file).
 //
 // Arithmetic. The products run on tensor cores as 3xTF32 (attention_tc.cuh:
 // x = hi + lo, each product hi*hi + hi*lo + lo*hi in float32, about 2^-21
-// relative a product); everything else is the CUDA-core kernels' float32
-// arithmetic: RoPE from the cos/sin tables [S,D] with each product and the
-// sum rounded separately (no FMA), scores times scale, the online softmax
-// of attention_common.cuh's key-tile loop (expf, running max and float32
+// relative a product); everything else is float32 arithmetic as the plain
+// version has it: RoPE from the cos/sin tables [S,D] with each product and
+// the sum rounded separately (no FMA), scores times scale, a 64-key online
+// softmax (key_tiles::online_softmax_tile: expf, running max and float32
 // sum, O rescaled when the max moves, every tile masked), p kept in float32
 // (split into hi and lo as PV's A operand), and the division after PV.
 //
@@ -63,10 +64,7 @@ namespace {
 using key_tiles::RowTile;
 using key_tiles::Tf32x3Tiles;
 
-// (batch, head, row) strides of an operand in elements; head_dim contiguous
-struct HeadStrides {
-  long long batch, head, row;
-};
+using key_tiles::HeadStrides;
 
 __device__ __forceinline__ void load4(float (&x)[4], const float* p) {
   const float4 v = *reinterpret_cast<const float4*>(p);
@@ -105,7 +103,7 @@ __device__ __forceinline__ int pair_col(int pair) {
 // RoPE in place of a row's chunk pair (a: d .. d+3, b: d+Q .. d+Q+3, Q =
 // D/4) from the row's cos/sin entries: t*cos + rot(t)*sin with rot(t) =
 // -t[d+Q] on the even quarter and t[d-Q] on the odd, each product and the
-// sum rounded separately (rope_at in attention_common.cuh).
+// sum rounded separately (as the plain version rounds them).
 template <int D>
 __device__ __forceinline__ void rope_pair4(float (&a)[4], float (&b)[4],
                                            const float* __restrict__ cos_row,
@@ -237,6 +235,7 @@ struct RopeF32Operands : SplitKvOperands<D> {
   int seq, h, b;
 
   static constexpr uint32_t kQBytes = 0;  // Q does not come by TMA
+  static constexpr bool kThreadStore = false;  // out by TMA (store_o)
   __device__ void load_q(uint32_t, uint32_t, int) const {}
   // rows [row_base, row_base + 64) roped, split into the hi and lo tiles at
   // my_q; rows >= seq zero. 64 rows x D/8 chunk pairs, D/16 a thread.
@@ -282,6 +281,7 @@ struct SoftmaxF32Operands : SplitKvOperands<D> {
   int h, b;
 
   static constexpr uint32_t kQBytes = Tiles::kWgs * Tile::kBytes;  // the warpgroups' hi tiles
+  static constexpr bool kThreadStore = false;                        // out by TMA (store_o)
   __device__ void load_q(uint32_t q_area, uint32_t bar, int block_row0) const {
 #pragma unroll
     for (int w = 0; w < Tiles::kWgs; ++w)
@@ -355,6 +355,195 @@ softmax_attention_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_kh,
                                  h,
                                  b};
   key_tiles::attend<Tf32x3Tiles<D>>(smem_raw, op, sk);
+}
+
+// ---- the packed route: every accepted head dim, zero-padded -----------------
+
+// The pack prologue at width Dp: q (where pack_q), k and v read by their
+// (batch, head, row) strides an element at a time (any alignment), q and k
+// roped where cos_t is not null (K2/K3); q into qp [B*H, Sq, Dp] float32, K
+// split into kh, kl [B*H, Sk, Dp] and V, transposed, into vth, vtl [B*H, Dp,
+// Sk8] (the split kernel's layout: keys of each 8-key group in P's
+// A-fragment order for attend, in their natural order for the width-256
+// schedule, whose P comes from shared memory); lanes d .. Dp - 1 and keys
+// past Sk zero. Block: 32 keys (and query rows) of one (batch item, head),
+// 256 threads, 4 elements a task. It reads no column of another head.
+constexpr int kPackKeys = 32;
+
+template <int Dp>
+__global__ void __launch_bounds__(256)
+attention_3xtf32_pack_kernel(const float* __restrict__ q, HeadStrides qs,
+                             const float* __restrict__ k, HeadStrides ks,
+                             const float* __restrict__ v, HeadStrides vs,
+                             const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+                             float* __restrict__ qp, uint32_t* __restrict__ kh,
+                             uint32_t* __restrict__ kl, uint32_t* __restrict__ vth,
+                             uint32_t* __restrict__ vtl, int heads, int sq, int sk, int sk8,
+                             int d, bool pack_q) {
+  constexpr bool kPermute = Dp <= 128;  // attend's P from registers
+  constexpr int kQuads = Dp / 4;        // tasks a row
+  constexpr int kTasks = (kPackKeys * kQuads + 255) / 256;  // tasks a thread
+  __shared__ float vt[kPackKeys][Dp + 1];
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long long bh = (long long)b * heads + h;
+  const int row0 = blockIdx.x * kPackKeys;
+  const float* qb = q + b * qs.batch + h * qs.head;
+  const float* kb = k + b * ks.batch + h * ks.head;
+  const float* vb = v + b * vs.batch + h * vs.head;
+  // every load of the thread's tasks first, then the stores (one round trip
+  // to memory, not one a task)
+  float xq[kTasks][4], xk[kTasks][4], xv[kTasks][4];
+#pragma unroll
+  for (int i = 0; i < kTasks; ++i) {
+    const int task = threadIdx.x + 256 * i;
+    const int row = row0 + task / kQuads, e = 4 * (task % kQuads);
+    const bool live = task < kPackKeys * kQuads;
+    const float* cos_row = cos_t == nullptr ? nullptr : cos_t + (size_t)row * d;
+    const float* sin_row = cos_t == nullptr ? nullptr : sin_t + (size_t)row * d;
+    if (live && pack_q && row < sq)
+      key_tiles::packed_quad(qb + row * qs.row, e, d, cos_row, sin_row, xq[i]);
+    if (live && row < sk) {
+      key_tiles::packed_quad(kb + row * ks.row, e, d, cos_row, sin_row, xk[i]);
+      key_tiles::packed_quad(vb + row * vs.row, e, d, nullptr, nullptr, xv[i]);
+    } else {
+      xv[i][0] = xv[i][1] = xv[i][2] = xv[i][3] = 0.0f;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kTasks; ++i) {
+    const int task = threadIdx.x + 256 * i;
+    if (task >= kPackKeys * kQuads) break;
+    const int r = task / kQuads, e = 4 * (task % kQuads);
+    const int row = row0 + r;
+    if (pack_q && row < sq)
+      *reinterpret_cast<float4*>(qp + (bh * sq + row) * Dp + e) =
+          make_float4(xq[i][0], xq[i][1], xq[i][2], xq[i][3]);
+    if (row < sk) {
+      uint4 hi, lo;
+      split4(xk[i], hi, lo);
+      *reinterpret_cast<uint4*>(kh + (bh * sk + row) * Dp + e) = hi;
+      *reinterpret_cast<uint4*>(kl + (bh * sk + row) * Dp + e) = lo;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) vt[r][e + j] = xv[i][j];
+  }
+  __syncthreads();
+  for (int task = threadIdx.x; task < Dp * (kPackKeys / 4); task += blockDim.x) {
+    const int e = task / (kPackKeys / 4), kq = (task % (kPackKeys / 4)) * 4;
+    if (row0 + kq >= sk8) continue;
+    // positions kq .. kq+3 of an 8-key group: its keys 0, 2, 4, 6 (kq % 8 ==
+    // 0) or 1, 3, 5, 7 where kPermute, else kq .. kq+3
+    const int k0 = kPermute ? (kq & ~7) + ((kq >> 2) & 1) : kq;
+    const int step = kPermute ? 2 : 1;
+    const float x[4] = {vt[k0][e], vt[k0 + step][e], vt[k0 + 2 * step][e], vt[k0 + 3 * step][e]};
+    uint4 hi, lo;
+    split4(x, hi, lo);
+    const long long at = (bh * Dp + e) * sk8 + row0 + kq;
+    *reinterpret_cast<uint4*>(vth + at) = hi;
+    *reinterpret_cast<uint4*>(vtl + at) = lo;
+  }
+}
+
+// Up to width 128: K4-K6's operands (attend, Tf32x3Tiles<Dp>) over the pack's
+// scratch (q by a 4-D map of the contiguous [B, H, Sq, Dp] buffer), the
+// output's first d columns stored by the threads (out: the head's row 0,
+// rows out_row elements apart).
+template <int Dp>
+struct PackedF32Operands : SoftmaxF32Operands<Dp> {
+  using Tile = typename SoftmaxF32Operands<Dp>::Tile;
+  float* out;
+  long long out_row;
+  int d, sq;
+
+  static constexpr bool kThreadStore = true;
+  __device__ void store_rows(const unsigned char* tile, int row_base, int ctid) const {
+    key_tiles::store_rows<Tile>(tile, out, out_row, d, row_base, sq, ctid);
+  }
+};
+
+// Width 256 (key_tiles::attend_wide): Q's hi tile, K's halves and V^T's
+// halves from the pack's scratch by 3-D maps, the expf online softmax, the
+// output stored by the threads.
+struct WideF32Operands {
+  using W = key_tiles::WideTf32;
+  const CUtensorMap* tm_q;
+  const CUtensorMap* tm_kh;
+  const CUtensorMap* tm_kl;
+  const CUtensorMap* tm_vh;
+  const CUtensorMap* tm_vl;
+  float* out;
+  long long out_row;
+  int h, b, bh, d, sq;
+  float scale;
+
+  // Q's hi tile by a 4-D map (q in place, or the pack's [B, H, Sq, 256])
+  __device__ void load_q(uint32_t q_hi, uint32_t bar, int row0) const {
+#pragma unroll
+    for (int p = 0; p < W::QTile::kPanels; ++p)
+      tma_load_4d(q_hi + p * W::QTile::kPanel, tm_q, bar, p * W::QTile::kBoxCols, row0, h, b);
+  }
+  // K hi and lo of key tile t, columns 128j .. 128j + 127
+  __device__ void load_k_half(uint32_t buf, uint32_t bar, int t, int j) const {
+#pragma unroll
+    for (int p = 0; p < W::KHalf::kPanels; ++p) {
+      const int col = 128 * j + p * W::KHalf::kBoxCols;
+      tma_load_3d(buf + p * W::KHalf::kPanel, tm_kh, bar, col, kTile * t, bh);
+      tma_load_3d(buf + W::KHalf::kBytes + p * W::KHalf::kPanel, tm_kl, bar, col, kTile * t, bh);
+    }
+  }
+  // V^T hi and lo of key tile t, rows 128j .. 128j + 127, in two panels of 32 keys
+  __device__ void load_vt_half(uint32_t buf, uint32_t bar, int t, int j) const {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      tma_load_3d(buf + p * W::kVtPanel, tm_vh, bar, kTile * t + 32 * p, 128 * j, bh);
+      tma_load_3d(buf + 2 * W::kVtPanel + p * W::kVtPanel, tm_vl, bar, kTile * t + 32 * p,
+                  128 * j, bh);
+    }
+  }
+  __device__ void softmax(float (&sc)[32], int valid, int tq, float (&m)[2], float (&l)[2],
+                          float (&alpha)[2]) const {
+    key_tiles::online_softmax_tile(sc, valid, scale, tq, m, l, alpha);
+  }
+  __device__ void store_rows(const unsigned char* tile, int row_base, int ctid) const {
+    key_tiles::store_rows<W::QTile>(tile, out, out_row, d, row_base, sq, ctid);
+  }
+};
+
+template <int Dp>
+__global__ void __launch_bounds__(Tf32x3Tiles<Dp>::kBlockThreads, Tf32x3Tiles<Dp>::kBlocksPerSm)
+packed_attention_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_kh,
+                               const __grid_constant__ CUtensorMap tm_kl,
+                               const __grid_constant__ CUtensorMap tm_vh,
+                               const __grid_constant__ CUtensorMap tm_vl,
+                               const __grid_constant__ CUtensorMap tm_q, float* out,
+                               long long out_batch, long long out_head, long long out_row,
+                               int heads, int sq, int sk, int d, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const int h = blockIdx.y, b = blockIdx.z;
+  const PackedF32Operands<Dp> op{
+      {{&tm_kh, &tm_kl, &tm_vh, &tm_vl, b * heads + h, scale}, &tm_q, nullptr, h, b},
+      out + b * out_batch + h * out_head,
+      out_row,
+      d,
+      sq};
+  key_tiles::attend<Tf32x3Tiles<Dp>>(smem_raw, op, sk);
+}
+
+__global__ void __launch_bounds__(key_tiles::WideTf32::kBlockThreads, 1)
+packed_attention_3xtf32_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                    const __grid_constant__ CUtensorMap tm_kh,
+                                    const __grid_constant__ CUtensorMap tm_kl,
+                                    const __grid_constant__ CUtensorMap tm_vh,
+                                    const __grid_constant__ CUtensorMap tm_vl, float* out,
+                                    long long out_batch, long long out_head, long long out_row,
+                                    int heads, int sq, int sk, int d, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const int h = blockIdx.y, b = blockIdx.z;
+  const WideF32Operands op{&tm_q,  &tm_kh, &tm_kl, &tm_vh,
+                           &tm_vl, out + b * out_batch + h * out_head,
+                           out_row, h,      b,     b * heads + h,
+                           d,      sq,      scale};
+  key_tiles::attend_wide(smem_raw, op, sk);
 }
 
 // ---- host -------------------------------------------------------------------
@@ -471,9 +660,141 @@ cudaError_t softmax_attention(const void* q, const void* k, const void* v, void*
   return cudaGetLastError();
 }
 
+// The packed route's scratch, in order: q [B*H, Sq, Dp] float32, then the
+// split kernel's four parts at width Dp for Sk keys.
+struct PackedScratch {
+  float* q;
+  Scratch kv;
+};
+
+PackedScratch packed_parts(void* scratch, int batch, int heads, int sq, int sk, int dp) {
+  float* q = static_cast<float*>(scratch);
+  return PackedScratch{q, scratch_parts(q + (long long)batch * heads * sq * dp, batch, heads, sk,
+                                        dp)};
+}
+
+// The packed route at width Dp: the pack (q only where it is roped or TMA
+// cannot read it in place: a 16-byte aligned base and strides), then the
+// key-tile kernel (attend at Dp <= 128, attend_wide at 256) on maps of the
+// scratch and, for an in-place q, a 4-D map of q whose innermost extent is
+// d (the boxes read zeros past it, never a lane of the next head).
+template <int Dp>
+cudaError_t launch_packed(const void* q, const void* k, const void* v, void* out,
+                          const long long* strides, const float* cos_t, const float* sin_t,
+                          void* scratch, int batch, int heads, int sq, int sk, int d, float scale,
+                          int device, cudaStream_t st) {
+  constexpr bool kWide = Dp > 128;
+  static bool ready[kMaxDevices];
+  cudaError_t err;
+  if constexpr (kWide) {
+    err = prepare(packed_attention_3xtf32_wide_kernel, key_tiles::WideTf32::kSmem, ready, device);
+  } else {
+    err = prepare(packed_attention_3xtf32_kernel<Dp>, Tf32x3Tiles<Dp>::kSmem, ready, device);
+  }
+  if (err != cudaSuccess) return err;
+  const PackedScratch s = packed_parts(scratch, batch, heads, sq, sk, Dp);
+  const int sk8 = seq8_of(sk);
+  const bool pack_q = cos_t != nullptr || !key_tiles::in_place(q, strides, 0, d, 4);
+  const dim3 pack_grid(((sq > sk ? sq : sk) + kPackKeys - 1) / kPackKeys, heads, batch);
+  attention_3xtf32_pack_kernel<Dp><<<pack_grid, 256, 0, st>>>(
+      static_cast<const float*>(q), HeadStrides{strides[0], strides[1], strides[2]},
+      static_cast<const float*>(k), HeadStrides{strides[3], strides[4], strides[5]},
+      static_cast<const float*>(v), HeadStrides{strides[6], strides[7], strides[8]}, cos_t,
+      sin_t, s.q, s.kv.kh, s.kv.kl, s.kv.vth, s.kv.vtl, heads, sq, sk, sk8, d, pack_q);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const uint64_t bh = (uint64_t)batch * heads;
+  constexpr uint32_t kBoxCols = Dp < 32 ? Dp : 32;  // a panel row: min(128 B, the row)
+  const uint32_t vt_rows = kWide ? 128 : Dp;         // V^T rows a box
+  CUtensorMap maps[5];  // kh, kl, vth, vtl, q
+  err = encode_f32_rows(&maps[0], s.kv.kh, Dp, sk, bh, Dp, (uint64_t)sk * Dp, kBoxCols);
+  if (err == cudaSuccess)
+    err = encode_f32_rows(&maps[1], s.kv.kl, Dp, sk, bh, Dp, (uint64_t)sk * Dp, kBoxCols);
+  if (err == cudaSuccess)
+    err = encode_f32_rows(&maps[2], s.kv.vth, sk8, Dp, bh, sk8, (uint64_t)Dp * sk8, 32, vt_rows);
+  if (err == cudaSuccess)
+    err = encode_f32_rows(&maps[3], s.kv.vtl, sk8, Dp, bh, sk8, (uint64_t)Dp * sk8, 32, vt_rows);
+  if (err != cudaSuccess) return err;
+  // q's map: 4-D over q in place (one row's bytes for an axis of size 1) or
+  // over the pack's contiguous [B, H, Sq, Dp]
+  uint64_t qb[3] = {4ull * heads * sq * Dp, 4ull * sq * Dp, 4ull * Dp};
+  if (!pack_q) key_tiles::operand_bytes(strides, 0, d, 4, qb);
+  err = encode_f32_heads(&maps[4], pack_q ? static_cast<const void*>(s.q) : q, sq, heads, batch,
+                         qb[0], qb[1], qb[2], pack_q ? Dp : d, kBoxCols);
+  if (err != cudaSuccess) return err;
+  float* o = static_cast<float*>(out);
+  if constexpr (kWide) {
+    const dim3 grid((sq + kTile - 1) / kTile, heads, batch);
+    packed_attention_3xtf32_wide_kernel<<<grid, key_tiles::WideTf32::kBlockThreads,
+                                          key_tiles::WideTf32::kSmem, st>>>(
+        maps[4], maps[0], maps[1], maps[2], maps[3], o, strides[9], strides[10], strides[11],
+        heads, sq, sk, d, scale);
+  } else {
+    using Tiles = Tf32x3Tiles<Dp>;
+    const dim3 grid((sq + Tiles::kBlockRows - 1) / Tiles::kBlockRows, heads, batch);
+    packed_attention_3xtf32_kernel<Dp><<<grid, Tiles::kBlockThreads, Tiles::kSmem, st>>>(
+        maps[0], maps[1], maps[2], maps[3], maps[4], o, strides[9], strides[10], strides[11],
+        heads, sq, sk, d, scale);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+// The built width a head dim runs at (attention_tc.cuh::padded_width); 0 for
+// a head dim the kernels do not take. Mirrored by
+// flash_attention.py::padded_width.
+int t3d_attention_3xtf32_padded_width(int head_dim) { return padded_width(head_dim); }
+
+// Bytes of the scratch t3d_attention_3xtf32_packed takes: float32 [batch *
+// heads, sq, Dp] for q, then t3d_attention_3xtf32_scratch_bytes at Dp for sk
+// keys, Dp the padded width.
+unsigned long long t3d_attention_3xtf32_packed_scratch_bytes(int batch, int heads, int sq, int sk,
+                                                             int head_dim) {
+  const unsigned long long dp = padded_width(head_dim), bh = (unsigned long long)batch * heads;
+  return 4ull * (bh * sq * dp + 2 * bh * sk * dp + 2 * bh * dp * seq8_of(sk));
+}
+
+// K2-K6 in float32 at any head_dim the kernels take (a multiple of 4 up to
+// 256), the operands packed first; the arguments as attention_tc.cu's
+// t3d_attention_tc_packed (q, k, v at any alignment; out 16-byte aligned,
+// its strides multiples of 4; cos/sin for K2/K3, sq == sk, or null), scratch
+// of t3d_attention_3xtf32_packed_scratch_bytes, 16-byte aligned. Launches
+// the pack and the key-tile kernel at the padded width on `stream`, on the
+// current device. Returns a cudaError_t code.
+int t3d_attention_3xtf32_packed(const void* q, const void* k, const void* v, void* out,
+                                const long long* strides, const float* cos_t,
+                                const float* sin_t, void* scratch, int batch, int heads, int sq,
+                                int sk, int head_dim, float scale, void* stream) {
+  const int dp = padded_width(head_dim);
+  if (dp == 0 || sq <= 0 || sk <= 0 || scratch == nullptr || (cos_t != nullptr && sq != sk))
+    return (int)cudaErrorInvalidValue;
+  for (int i = 9; i < 12; ++i)
+    if (strides[i] % 4) return (int)cudaErrorInvalidValue;
+  int device;
+  const cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (dp) {
+    case 16:
+      return (int)launch_packed<16>(q, k, v, out, strides, cos_t, sin_t, scratch, batch, heads,
+                                    sq, sk, head_dim, scale, device, st);
+    case 32:
+      return (int)launch_packed<32>(q, k, v, out, strides, cos_t, sin_t, scratch, batch, heads,
+                                    sq, sk, head_dim, scale, device, st);
+    case 64:
+      return (int)launch_packed<64>(q, k, v, out, strides, cos_t, sin_t, scratch, batch, heads,
+                                    sq, sk, head_dim, scale, device, st);
+    case 128:
+      return (int)launch_packed<128>(q, k, v, out, strides, cos_t, sin_t, scratch, batch, heads,
+                                     sq, sk, head_dim, scale, device, st);
+    default:
+      return (int)launch_packed<256>(q, k, v, out, strides, cos_t, sin_t, scratch, batch, heads,
+                                     sq, sk, head_dim, scale, device, st);
+  }
+}
 
 // Bytes of the scratch a call takes: K hi and lo, [batch*heads, seq,
 // head_dim] each, then V^T hi and lo, [batch*heads, head_dim, seq rounded
@@ -488,7 +809,8 @@ unsigned long long t3d_attention_3xtf32_scratch_bytes(int batch, int heads, int 
 // elements apart (head h at column h*head_dim), 16-byte aligned, row_stride
 // % 4 == 0; cos/sin float32 [seq, head_dim]; scratch of
 // t3d_attention_3xtf32_scratch_bytes, 16-byte aligned; out float32 [batch,
-// seq, heads*head_dim] contiguous. head_dim 16, 32, 64 or 128. Launches, on
+// seq, heads*head_dim] contiguous. head_dim 16, 32, 64 or 128 (every other:
+// t3d_attention_3xtf32_packed). Launches, on
 // `stream` and the current device, the prologue and the key-tile kernel.
 // Returns a cudaError_t code.
 int t3d_rope_attention_3xtf32(const void* q, const void* k, const void* v, long long row_stride,
@@ -521,7 +843,8 @@ int t3d_rope_attention_3xtf32(const void* q, const void* k, const void* v, long 
 // out like q, float32, each by its base pointer (16-byte aligned) and, in
 // `strides` (12 values, host memory), the (batch, head, row) strides in
 // elements of q, k, v, out, multiples of 4 (the wrapper sends 0 for an axis
-// of size 1); head_dim (16, 32, 64 or 128) contiguous. scratch as for K2/K3
+// of size 1); head_dim (16, 32, 64 or 128; every other:
+// t3d_attention_3xtf32_packed) contiguous. scratch as for K2/K3
 // with seq = sk. sq, sk >= 1. Launches, on `stream` and the current device,
 // the prologue and the key-tile kernel. Returns a cudaError_t code.
 int t3d_softmax_attention_3xtf32(const void* q, const void* k, const void* v, void* out,

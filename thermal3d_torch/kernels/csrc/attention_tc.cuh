@@ -2,9 +2,10 @@
 // sm_90a: rope_attention_tc.cu (K2/K3, fused RoPE) and attention_tc.cu
 // (K4-K6, softmax attention on q/k that are already roped), whose key-tile
 // loop is key_tile_attention.cuh, in bf16; attention_3xtf32.cu (K2-K6 in
-// float32) on the same loop. Head dims 16, 32, 64 and 128 (the constants
-// kD, kRowBytes and kTileBytes below are head_dim 64's, the one-pass K2/K3
-// kernel's).
+// float32) on the same loop. Widths 16, 32, 64, 128 and 256 (kBuiltWidths;
+// every other head dim zero-padded to one of them by the packed entries; the
+// constants kD, kRowBytes and kTileBytes below are head_dim 64's, the
+// one-pass K2/K3 kernel's).
 //
 // Operands in shared memory use the 128-byte swizzle (rows of 128 bytes,
 // 8-row atoms of 1024 bytes, chunk c of row r at chunk c ^ (r % 8)), the
@@ -38,11 +39,29 @@ constexpr int kTile = 64;         // keys a tile (wgmma N of Q K^T, K of P V), q
 constexpr int kRowBytes = kD * 2;                      // one bf16 row, 128 B
 constexpr int kTileBytes = kTile * kRowBytes;          // 8 KB
 
-// The head dims the tensor-core and 3xTF32 kernels are built for (mirrored
-// by flash_attention.py::TC_HEAD_DIMS); their entries reject any other with
-// cudaErrorInvalidValue.
+// The head dims the direct entries serve, reading the operands in place
+// (mirrored by flash_attention.py::DIRECT_HEAD_DIMS); they reject any other
+// with cudaErrorInvalidValue.
 inline bool serves_head_dim(int head_dim) {
   return head_dim == 16 || head_dim == 32 || head_dim == 64 || head_dim == 128;
+}
+
+// The widths the key-tile loop is instantiated at. Every other accepted
+// head dim (a multiple of 4 up to 256) runs the packed entries at the
+// smallest of these at least as wide, its operands zero-padded to it
+// (mirrored by flash_attention.py::BUILT_WIDTHS and padded_width). Above
+// 128 only 256 is built: a width of 192 (three bf16 panels, six float32
+// ones) would cut D = 160's padding from 1.6x to 1.2x but was neither
+// built nor measured, and D = 96 pads to 128 (192 bytes of bf16 is not a
+// whole number of 128-byte panels, which key_tiles::RowTile needs).
+constexpr int kBuiltWidths[] = {16, 32, 64, 128, 256};
+
+// The built width a head dim runs at; 0 for one the kernels do not take.
+inline int padded_width(int head_dim) {
+  if (head_dim <= 0 || head_dim % 4) return 0;
+  for (int w : kBuiltWidths)
+    if (head_dim <= w) return w;
+  return 0;
 }
 
 // ---- PTX wrappers ---------------------------------------------------------
@@ -174,8 +193,8 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
-// m64nNk16 bf16 and m64nNk8 tf32 products with A from registers, for N in
-// {16, 32, 64, 128}: the PV of a head dim D = N (N / 2 accumulators a
+// m64nNk16 bf16 products (N in {16, 32, 64, 128, 256}) and m64nNk8 tf32
+// ones (N in {16, 32, 64}) with A from registers: the PV of a head dim D = N (N / 2 accumulators a
 // thread, the fragment layout of m64n64 continued over N / 8 column groups).
 // N = 64 is wgmma_rs and wgmma_tf32_rs above.
 
@@ -228,6 +247,47 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d += A B, m64n256k16, A from registers (4 x bf16x2), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, "
+      "%126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // d (+)= A B, m64n16k8 tf32, A from registers (wgmma_tf32_rs's layout), B
 // K-major in shared memory.
 __device__ __forceinline__ void wgmma_tf32_rs_n16(float (&d)[8], const uint32_t (&a)[4],
@@ -265,9 +325,11 @@ __device__ __forceinline__ void wgmma_rs_n(float (&d)[N / 2], const uint32_t (&a
     wgmma_rs_n32(d, a, b);
   } else if constexpr (N == 64) {
     wgmma_rs(d, a, b);
-  } else {
-    static_assert(N == 128, "PV of 16, 32, 64 or 128 columns");
+  } else if constexpr (N == 128) {
     wgmma_rs_n128(d, a, b);
+  } else {
+    static_assert(N == 256, "PV of 16, 32, 64, 128 or 256 columns");
+    wgmma_rs_n256(d, a, b);
   }
 }
 

@@ -3,13 +3,17 @@
 // S > 256, and at every S for head dims other than 64; K roped by a
 // prologue) and attention_tc.cu (K4-K6, q/k already roped) instantiate in
 // bf16 (Bf16Tiles<D>), and attention_3xtf32.cu (K2-K6 in float32, K and V
-// split by a prologue) in 3xTF32 (Tf32x3Tiles<D>). Head dims D = 16, 32, 64
-// and 128, each a compile-time instantiation.
+// split by a prologue) in 3xTF32 (Tf32x3Tiles<D>). Widths D = 16, 32, 64,
+// 128 and (bf16) 256, each a compile-time instantiation; the packed entries
+// run every other head dim at one of them, zero-padded, their output stored
+// by the threads (store_rows); 3xTF32 at 256 runs its own schedule
+// (attend_wide, below).
 //
 // Block: 128 query rows of one (batch item, head), two warpgroups of 64
 // rows, no producer warp; bf16 two blocks an SM up to D = 64 (128 registers
 // a thread; a ninth warp would cap every thread at 168 and leave one block
-// an SM), one at D = 128 (O alone is 64 registers a thread); 3xTF32 one
+// an SM), one at D = 128 (O alone is 64 registers a thread), one warpgroup
+// of 64 rows at D = 256 (O alone is 128 registers; Bf16Tiles); 3xTF32 one
 // (its Q and stages take 96-192 KB of shared memory). 3xTF32 at D = 128 is
 // one warpgroup of 64 rows: Q hi and lo of 128 rows would take 128 KB and
 // leave no room for a K and a V stage (64 KB each); its one K stage is
@@ -69,6 +73,8 @@
 // 8*(e >> 1), column 8i + 2t + (e & 1); l[r] and m[r] belong to row g + 8r.
 #pragma once
 
+#include <type_traits>
+
 #include "attention_tc.cuh"
 #include "hopper_tma.cuh"
 
@@ -122,16 +128,20 @@ struct RowTile {
 
 // bf16 at head dim D: Q, K and V tiles of 64 rows (RowTile<D, 2>), QK^T D/16
 // k-steps of m64n64k16, PV m64nDk16 into O, P rounded to bf16, the output
-// rounded to bf16.
+// rounded to bf16. Up to D = 128 two warpgroups and one 4-stage ring of K
+// and V; at D = 256 (O alone is 128 registers a thread) one warpgroup of 64
+// rows under the 255-register cap, with K and V in 2-stage rings of their
+// own and K(t) released after its QK^T (kEarlyK): each load is issued an
+// iteration ahead (Q 32 KB, each stage 32 KB: 160 KB).
 template <int D>
-struct Bf16Tiles : TileShape<2, 4, 0, D <= 64 ? 2 : 1, 2 * kTile * D, 2 * kTile * D,
-                             2 * kTile * D> {
+struct Bf16Tiles : TileShape<D <= 128 ? 2 : 1, D <= 128 ? 4 : 2, D <= 128 ? 0 : 2,
+                             D <= 64 ? 2 : 1, 2 * kTile * D, 2 * kTile * D, 2 * kTile * D> {
   using Tile = RowTile<D, 2>;
   using P = uint32_t[4][4];  // P of a tile, PV's A operand
   static constexpr int kO = D / 2;        // O's accumulators a thread
   static constexpr int kPv = 1;           // no tile accumulator
   static constexpr bool kTilePv = false;  // PV accumulates into O itself
-  static constexpr bool kSplitPv = false, kEarlyK = false;
+  static constexpr bool kSplitPv = false, kEarlyK = D > 128;
 
   static __device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t q, uint32_t k) {
     const uint64_t q_desc = Tile::R::desc(q), k_desc = Tile::R::desc(k);
@@ -310,8 +320,8 @@ struct Tf32x3Tiles
   }
 };
 
-// K2/K3's online softmax of one 64-key tile (the recipe of
-// attention_common.cuh's key-tile loop: expf, every tile masked): scores
+// K2/K3's online softmax of one 64-key tile (expf, every tile masked, as
+// older builds took it at head_dim 64; the 3xTF32 kernels' step): scores
 // scaled and masked past `valid` keys, the running max and sum moved, p =
 // exp(s - m) in place of the scores. Its rounding to bf16 as PV's A operand
 // and the output's rescale by alpha are left to the caller (after the
@@ -539,16 +549,332 @@ __device__ __forceinline__ void attend(unsigned char* smem_raw, const Op& op, in
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
 
-  // o / l into the warpgroup's Q rows, out by TMA stores; rows past the
-  // query count are dropped
+  // o / l into the warpgroup's Q rows, out by TMA stores (or by the
+  // threads, Op::kThreadStore); rows past the query count are dropped
   Tiles::stage_out(base + w * Tiles::kWgQBytes, o, l, ctid);
   fence_async_shared();
   named_barrier(1 + w, 128);
-  if (ctid == 0) {
+  if constexpr (Op::kThreadStore) {
+    op.store_rows(base + w * Tiles::kWgQBytes, row_base, ctid);
+  } else if (ctid == 0) {
     op.store_o(my_q, row_base);
     bulk_commit();
     bulk_wait();
   }
+}
+
+// The warpgroup's output tile staged at `tile` (a RowTile of the output's
+// element type T, bf16 or float32) out by its 128 threads: the first d
+// columns (d a multiple of 4) of each of its 64 rows below `rows`, 4
+// elements a store (8 or 16 bytes), to out (the head's row 0) rows
+// `row_stride` elements apart. Where a head's row is not a whole number of
+// 16-byte chunks (bf16 d = 4 mod 8), or narrower than the staged row, a TMA
+// store of the tile's boxes would write past it into the next head.
+template <class Tile, class T>
+__device__ __forceinline__ void store_rows(const unsigned char* tile, T* out,
+                                           long long row_stride, int d, int row_base,
+                                           int rows, int ctid) {
+  static_assert(sizeof(T) == 2 || sizeof(T) == 4, "bf16 or float32");
+  using V = typename std::conditional<sizeof(T) == 2, uint2, uint4>::type;
+  const int chunks = d / 4;
+  for (int task = ctid; task < kTile * chunks; task += 128) {
+    const int r = task / chunks;
+    const int c = 4 * (task - r * chunks);
+    if (row_base + r >= rows) break;  // tasks run row by row
+    *reinterpret_cast<V*>(out + (long long)(row_base + r) * row_stride + c) =
+        *reinterpret_cast<const V*>(tile + Tile::at(r, c));
+  }
+}
+
+// ---- the packed route's prologues ------------------------------------------
+
+// (batch, head, row) strides of an operand in elements; head_dim contiguous
+struct HeadStrides {
+  long long batch, head, row;
+};
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// Four consecutive elements of p in float32: one 8-byte (bf16) or 16-byte
+// (float32) load where p is aligned to it, else four scalar loads.
+__device__ __forceinline__ void load_quad(const __nv_bfloat16* __restrict__ p, float (&x)[4]) {
+  if ((reinterpret_cast<uintptr_t>(p) & 7) == 0) {
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&w.x);
+    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&w.y);
+    x[0] = __low2float(lo);
+    x[1] = __high2float(lo);
+    x[2] = __low2float(hi);
+    x[3] = __high2float(hi);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = __bfloat162float(p[i]);
+  }
+}
+
+__device__ __forceinline__ void load_quad(const float* __restrict__ p, float (&x)[4]) {
+  if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    const float4 w = *reinterpret_cast<const float4*>(p);
+    x[0] = w.x;
+    x[1] = w.y;
+    x[2] = w.z;
+    x[3] = w.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = p[i];
+  }
+}
+
+// Elements e .. e + 3 (e a multiple of 4, d too, so the four lie all below
+// d or all at or past it) of a packed row: 0 past d, else the source row's,
+// roped where cos_row is not null: t[c] cos[c] + rot(t)[c] sin[c], rot(t)[c]
+// = -t[c + d/4] on the even quarters and t[c - d/4] on the odd
+// (flash_attention.py::rot_lanes), each product and the sum rounded
+// separately, as in the direct kernels. The row may start at any element
+// (load_quad); where d/4 is a multiple of 4 the four lie in one quarter and
+// their partners are four consecutive elements too.
+template <class T>
+__device__ __forceinline__ void packed_quad(const T* __restrict__ row, int e, int d,
+                                            const float* __restrict__ cos_row,
+                                            const float* __restrict__ sin_row, float (&x)[4]) {
+  if (e >= d) {
+    x[0] = x[1] = x[2] = x[3] = 0.0f;
+    return;
+  }
+  load_quad(row + e, x);
+  if (cos_row == nullptr) return;
+  const int quarter = d >> 2;
+  float c[4], s[4], y[4];
+  load_quad(cos_row + e, c);
+  load_quad(sin_row + e, s);
+  bool odd[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    odd[i] = ((e + i >= quarter) + (e + i >= 2 * quarter) + (e + i >= 3 * quarter)) & 1;
+  if ((quarter & 3) == 0) {
+    load_quad(row + (odd[0] ? e - quarter : e + quarter), y);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) y[i] = to_float(row[odd[i] ? e + i - quarter : e + i + quarter]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    x[i] = __fadd_rn(__fmul_rn(x[i], c[i]), __fmul_rn(odd[i] ? y[i] : -y[i], s[i]));
+}
+
+// The byte strides of a 4-D map of operand i (0 q, 1 k, 2 v, 3 out) of a
+// packed call, from its element strides (0 for an axis of size 1, which the
+// kernel never steps along and a map takes as one row's bytes) and the
+// element size. Host code.
+inline void operand_bytes(const long long* strides, int i, int d, int es, uint64_t (&bytes)[3]) {
+  for (int j = 0; j < 3; ++j)
+    bytes[j] = strides[3 * i + j] ? (uint64_t)strides[3 * i + j] * es : (uint64_t)d * es;
+}
+
+// Whether TMA can read operand i of a packed call in place: a 16-byte
+// aligned base, rows of d elements a whole number of 16-byte chunks, every
+// stride a multiple of 16 bytes. Its map's innermost extent is then d, so
+// the boxes of a padded width read zeros past d and never a lane of the
+// next head. Host code.
+inline bool in_place(const void* base, const long long* strides, int i, int d, int es) {
+  if (reinterpret_cast<uintptr_t>(base) % 16 || (d * es) % 16) return false;
+  for (int j = 0; j < 3; ++j)
+    if ((strides[3 * i + j] * es) % 16) return false;
+  return true;
+}
+
+// ---- 3xTF32 at width 256 ----------------------------------------------------
+//
+// attend's Tf32x3Tiles cannot reach D = 256: Q hi and lo of 64 rows take 128
+// KB, and one 64-key stage of K hi and lo another 128 KB. So this schedule
+// keeps Q hi and lo resident in one warpgroup's block (64 query rows), P hi
+// and lo in shared memory (32 KB: PV an SS product, P's keys in their
+// natural order, and no P registers beside O's 128), and streams each key
+// tile through one 64 KB buffer in four loads, each waited for and used
+// before the next is issued:
+//   1-2. K hi and lo, columns 0-127, then 128-255: QK^T in two halves over D
+//        into one score tile;
+//   then the online softmax (Op::softmax), O rescaled, P split into hi and lo
+//   and stored;
+//   3-4. V^T hi and lo, rows (output columns) 0-127, then 128-255: PV in
+//        four parts of 64 columns, each into a fresh accumulator added to O
+//        (as Tf32x3Tiles does a tile at a time).
+// Nothing overlaps: the tensor cores wait for each load. The operands (an
+// Op): load_q (Q's hi tile by TMA), load_k_half, load_vt_half, softmax and
+// store_rows.
+struct WideTf32 {
+  static constexpr int kD = 256;
+  using QTile = RowTile<256, 4>;  // 64 rows: 8 panels of 32 columns, 64 KB
+  using KHalf = RowTile<128, 4>;  // 64 keys x 128 columns: 4 panels, 32 KB
+  using PTile = RowTile<64, 4>;   // P: 64 rows x 64 keys, 2 panels, 16 KB
+  static constexpr int kVtPanel = 128 * 128;  // V^T: 128 rows of 32 keys
+  static constexpr int kBuf = 2 * KHalf::kBytes;  // 64 KB: hi, then lo
+  static_assert(kBuf == 2 * 2 * kVtPanel, "a K half and a V^T half fill the buffer");
+  static constexpr int kBlockThreads = 128, kBlockRows = kTile;
+  static constexpr int kPAt = 2 * QTile::kBytes;
+  static constexpr int kBufAt = kPAt + 2 * PTile::kBytes;
+  static constexpr int kBarAt = kBufAt + kBuf;
+  static constexpr int kSmem = 1024 + kBarAt + 8;
+  static_assert(kSmem <= 232448, "more shared memory than an H100 block may use");
+
+  // descriptor offset of the 8-key k-step kk in a V^T half (two panels of 32
+  // keys)
+  static __device__ __forceinline__ constexpr uint64_t vt_step(int kk) {
+    return (uint64_t)(((kk >> 2) * kVtPanel + (kk & 3) * 32) >> 4);
+  }
+};
+
+template <class Op>
+__device__ __forceinline__ void attend_wide(unsigned char* smem_raw, const Op& op, int seq) {
+  using W = WideTf32;
+  using QTile = W::QTile;
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  unsigned char* base = smem_raw + (((raw + 1023) & ~1023u) - raw);  // 1024-byte aligned
+  const uint32_t sbase = raw + (uint32_t)(base - smem_raw);
+  const uint32_t q_hi = sbase, q_lo = sbase + QTile::kBytes;
+  const uint32_t p_hi = sbase + W::kPAt, p_lo = p_hi + W::PTile::kBytes;
+  const uint32_t buf = sbase + W::kBufAt;
+  const uint32_t bar = sbase + W::kBarAt;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, g = (tid & 31) >> 2, tq = tid & 3;
+  const int row_base = blockIdx.x * kTile;
+  const int ntiles = (seq + kTile - 1) / kTile;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_arrive_expect_tx(bar, QTile::kBytes + W::kBuf);
+    op.load_q(q_hi, bar, row_base);
+    op.load_k_half(buf, bar, 0, 0);
+  }
+  __syncthreads();
+  uint32_t parity = 0;
+  // the buffer's next load, once every thread is done with it (the wgmma
+  // that read it waited for)
+  auto refill = [&](auto&& load) {
+    named_barrier(1, 128);
+    if (tid == 0) {
+      mbar_arrive_expect_tx(bar, W::kBuf);
+      load();
+    }
+  };
+  mbar_wait_or_trap(bar, parity);
+  parity ^= 1;
+  // Q's hi tile split in place into hi and lo (element by element: the two
+  // tiles share a layout)
+#pragma unroll 4
+  for (int it = 0; it < QTile::kBytes / 16 / 128; ++it) {
+    const uint32_t at = q_hi + 16 * (tid + 128 * it);
+    uint4 x;
+    asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(x.x), "=r"(x.y), "=r"(x.z), "=r"(x.w)
+                 : "r"(at)
+                 : "memory");
+    uint4 hi, lo;
+    split_tf32(__uint_as_float(x.x), hi.x, lo.x);
+    split_tf32(__uint_as_float(x.y), hi.y, lo.y);
+    split_tf32(__uint_as_float(x.z), hi.z, lo.z);
+    split_tf32(__uint_as_float(x.w), hi.w, lo.w);
+    st_shared16(at, hi);
+    st_shared16(at + QTile::kBytes, lo);
+  }
+  fence_async_shared();
+  named_barrier(1, 128);
+
+  float sc[32], o[128], pv[32];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) o[i] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, alpha[2];
+  const uint64_t qh = QTile::R::desc(q_hi), ql = QTile::R::desc(q_lo);
+  for (int t = 0; t < ntiles; ++t) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {  // QK^T over columns 128j .. 128j + 127
+      if (t > 0 || j > 0) {
+        refill([&] { op.load_k_half(buf, bar, t, j); });
+        mbar_wait_or_trap(bar, parity);
+        parity ^= 1;
+      }
+      const uint64_t kh = W::KHalf::R::desc(buf), kl = W::KHalf::R::desc(buf + W::KHalf::kBytes);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 16; ++kk) {
+        const uint64_t qs = QTile::k_step(16 * j + kk), ks = W::KHalf::k_step(kk);
+        wgmma_tf32_ss(sc, qh + qs, kl + ks, j > 0 || kk > 0);
+        wgmma_tf32_ss(sc, ql + qs, kh + ks, 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 16; ++kk)
+        wgmma_tf32_ss(sc, qh + QTile::k_step(16 * j + kk), kh + W::KHalf::k_step(kk), 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(sc);
+    }
+    op.softmax(sc, seq - kTile * t, tq, m, l, alpha);
+#pragma unroll
+    for (int i = 0; i < 128; ++i) o[i] *= alpha[(i >> 1) & 1];
+    // P hi and lo (K-major rows of 64 keys) for PV's A operand; the last PV
+    // read the previous tile's P before its wait
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * warp + g + 8 * r;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        uint2 hi, lo;
+        split_tf32(sc[4 * i + 2 * r], hi.x, lo.x);
+        split_tf32(sc[4 * i + 2 * r + 1], hi.y, lo.y);
+        const uint32_t at = W::PTile::at(row, 8 * i + 2 * tq);
+        st_shared8(p_hi + at, hi);
+        st_shared8(p_lo + at, lo);
+      }
+    }
+    fence_async_shared();
+    const uint64_t ph = W::PTile::R::desc(p_hi), pl = W::PTile::R::desc(p_lo);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {  // PV for output columns 128j .. 128j + 127
+      refill([&] { op.load_vt_half(buf, bar, t, j); });  // its barrier also orders P's stores
+      mbar_wait_or_trap(bar, parity);
+      parity ^= 1;
+#pragma unroll
+      for (int part = 0; part < 2; ++part) {
+        const uint32_t rows = buf + part * 64 * 128;  // V^T rows 64 * part on
+        const uint64_t vh = Rows<128>::desc(rows), vl = Rows<128>::desc(rows + 2 * W::kVtPanel);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          wgmma_tf32_ss(pv, ph + W::PTile::k_step(kk), vl + W::vt_step(kk), kk);
+          wgmma_tf32_ss(pv, pl + W::PTile::k_step(kk), vh + W::vt_step(kk), 1);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          wgmma_tf32_ss(pv, ph + W::PTile::k_step(kk), vh + W::vt_step(kk), 1);
+        wgmma_commit();
+        wgmma_wait_all();
+        reg_fence(pv);
+        const int at = 32 * (2 * j + part);  // O's accumulators of those 64 columns
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[at + i] += pv[i];
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  // o / l in float32 into Q's hi tile (every wgmma that read it is done),
+  // out by the threads
+  named_barrier(1, 128);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = 16 * warp + g + 8 * r;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float2 xy = make_float2(o[4 * i + 2 * r] / l[r], o[4 * i + 2 * r + 1] / l[r]);
+      *reinterpret_cast<float2*>(base + QTile::at(row, 8 * i + 2 * tq)) = xy;
+    }
+  }
+  named_barrier(1, 128);
+  op.store_rows(base, row_base, tid);
 }
 
 }  // namespace key_tiles

@@ -1,6 +1,7 @@
 // K2 + K3 on Hopper tensor cores: fused 2-D RoPE + softmax attention for
 // bf16 with head_dim 16, 32, 64 or 128, CUDA C++ for sm_90a (wgmma, TMA,
-// mbarriers).
+// mbarriers). Every other head dim the wrappers accept runs attention_tc.cu's
+// packed entry, which ropes q and k in its prologue.
 //
 // Replaces the Pallas TPU kernel thermal3d/kernels/flash_attention.py::
 // _fused_rope_kernel, reached through _fused_rope_attention_fwd (K2: the
@@ -51,10 +52,10 @@
 // What bounds it: the operations (4*S^2*D a head, about 250x the bytes' time
 // at S = 1024 and D = 64), and the CUDA cores' online softmax between a
 // tile's two products, whose work a score does not shrink with D. The
-// arithmetic at head_dim 64 is the 64-key online softmax of
-// attention_common.cuh's key-tile loop (expf, running max and sum, rescale
-// before each PV, every tile masked), step for step, so its S > 256 outputs
-// equal older builds'; at the other head dims, which have no older outputs
+// arithmetic at head_dim 64 is a 64-key online softmax with expf (running
+// max and sum, rescale before each PV, every tile masked), step for step as
+// older builds took it, so its S > 256 outputs equal theirs; at the other
+// head dims, which have no older outputs
 // to keep, it is K4-K6's step (attention_tc.cu: scale * log2(e) folded into
 // one FFMA a score, 2^x on the MUFU unit, only the last tile masked), which
 // read 0.80x the expf kernel's time at head_dim 32 and S = 196 (and 0.88x
@@ -117,8 +118,8 @@ __device__ __forceinline__ void load_tables(PairTables& t, const float* __restri
 
 // RoPE of one row's chunk pair: a holds elements of an even quarter of the
 // head, b the elements a quarter on (the odd quarter that follows), 8 of
-// each in a uint4 or 4 in a uint2 (V). Rounded as rope_at in
-// attention_common.cuh.
+// each in a uint4 or 4 in a uint2 (V). Each product and the sum rounded
+// separately, as the plain version rounds them.
 template <class V>
 __device__ __forceinline__ void rope_chunks(const V a, const V b, const PairTables& tab, V& lo,
                                             V& hi) {
@@ -264,6 +265,7 @@ struct RopeKeyTileOperands {
   float c;  // scale * log2(e)
 
   static constexpr uint32_t kQBytes = 0;  // Q does not come by TMA
+  static constexpr bool kThreadStore = false;  // out by TMA (store_o)
   __device__ void load_q(uint32_t, uint32_t, int) const {}
   __device__ void load_k(uint32_t stage, uint32_t bar, int t) const {
 #pragma unroll
@@ -281,8 +283,8 @@ struct RopeKeyTileOperands {
     fence_async_shared();
     named_barrier(1 + w, 128);
   }
-  // head_dim 64: attention_common.cuh's expf step, masked on every tile (the
-  // S > 256 outputs of older builds, bit for bit); other head dims: K4-K6's
+  // head_dim 64: the expf step, masked on every tile (the S > 256 outputs of
+  // older builds, bit for bit); other head dims: K4-K6's
   // exp2 step, masked on the last tile only
   __device__ void softmax(float (&sc)[32], int valid, int tq, float (&m)[2], float (&l)[2],
                           float (&alpha)[2]) const {

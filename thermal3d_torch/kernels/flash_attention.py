@@ -3,32 +3,38 @@
 K2 + K3, fused 2-D RoPE + attention: `fused_rope_attention` (K2,
 self-attention on the packed [B,S,3C] qkv projection) and
 `fused_rope_cross_attention` (K3, separate [B,S,C] q/k/v projections sharing
-one position grid) return [B,S,C]. `attention_route` picks their CUDA
-kernel by shape: bf16 with a head_dim of TC_HEAD_DIMS (16, 32, 64, 128)
-runs on the tensor cores (csrc/rope_attention_tc.cu, counted by
-`rope_attention_tc.launches`; at head_dim 64 one pass over each head's
-whole rows at S <= 256, else a RoPE prologue and a 64-key online softmax,
-`tc_schedule`, whose step is expf at head_dim 64 and K4-K6's exp2 step at
-the other head dims); float32 with those head dims runs 3xTF32 on the tensor
-cores (csrc/attention_3xtf32.cu, counted by `rope_attention_3xtf32.launches`:
-a prologue that ropes K and splits K and V, then the 64-key online softmax
-at every S); other head dims run the CUDA-core kernels of
-csrc/rope_attention.cu.
+one position grid) return [B,S,C]. K4 + K5 + K6, softmax attention on q/k
+that are already roped: `flash_attention_pallas` (K4, [N,S,D] or
+[B,H,S,D]), `flash_attention_grouped` (K5) and `flash_attention_multihead`
+(K6, both [B,H,S,D]) launch one kernel for the three functions the TPU tiled
+three ways; each keeps its own entry and launch count.
 
-K4 + K5 + K6, softmax attention on q/k that are already roped:
-`flash_attention_pallas` (K4, [N,S,D] or [B,H,S,D]),
-`flash_attention_grouped` (K5) and `flash_attention_multihead` (K6, both
-[B,H,S,D]) launch one kernel for the three functions the TPU tiled three
-ways; each keeps its own entry and launch count. `attention_route` picks
-the kernel by shape as for K2/K3: bf16 with a head_dim of TC_HEAD_DIMS runs
-on the tensor cores (csrc/attention_tc.cu, counted by
-`softmax_attention_tc.launches`: the key-tile loop of
-csrc/key_tile_attention.cuh that K2/K3 share, fed by 4-D tensor maps of
-each operand's strides, `tc_map_strides`), float32 with those head dims on
-the same loop in 3xTF32 (csrc/attention_3xtf32.cu,
-`softmax_attention_3xtf32.launches`), other head dims on the CUDA cores
-(csrc/attention.cu). Each head dim of TC_HEAD_DIMS is a compile-time
-instantiation of the tensor-core kernels; a build that lacks one raises.
+`attention_route` names the kernel family of a call by its dtype: bf16 runs
+wgmma on the tensor cores (TENSOR_CORE), float32 3xTF32 on the tensor cores
+(TF32X3), at every head dim the wrappers accept (a multiple of 4 up to 256),
+all on the key-tile loop of csrc/key_tile_attention.cuh. Within a family the
+head dim picks the entry:
+  * head dims of DIRECT_HEAD_DIMS (16, 32, 64, 128) read their operands in
+    place: K2/K3 csrc/rope_attention_tc.cu (bf16; at head_dim 64 one pass over
+    each head's whole rows at S <= 256, else a RoPE prologue and a 64-key
+    online softmax, `tc_schedule`, whose step is expf at head_dim 64 and
+    K4-K6's exp2 step at the other head dims), K4-K6 csrc/attention_tc.cu
+    (bf16, 4-D tensor maps of each operand's strides, `tc_map_strides`), and
+    csrc/attention_3xtf32.cu (float32: a prologue that ropes K for K2/K3 and
+    splits K and V into tf32 hi and lo, then the key tiles);
+  * every other head dim takes the packed entries (t3d_attention_tc_packed in
+    csrc/attention_tc.cu, t3d_attention_3xtf32_packed in
+    csrc/attention_3xtf32.cu) at `padded_width(head_dim)`, the smallest of
+    BUILT_WIDTHS (16, 32, 64, 128, 256) at least as wide: a prologue reads q,
+    k and v by their strides at any alignment (roping q and k for K2/K3) into
+    a scratch zero-padded to that width, so QK^T is exact and no lane of
+    another head is read; the key-tile kernel at that width runs K4-K6's
+    softmax step (exp2 in bf16, the expf step in float32) and its threads
+    store each row's head_dim columns.
+Counts: `rope_attention_tc.launches` (bf16 K2/K3), `softmax_attention_tc.
+launches` (bf16 K4-K6), `rope_attention_3xtf32.launches` and
+`softmax_attention_3xtf32.launches` (float32), at every head dim. A kernel
+that fails to build or launch raises; float16 has no family and is refused.
 
 `attention_3xtf32_plain` and `rope_attention_3xtf32_plain` restate the
 3xTF32 arithmetic in PyTorch (tf32 rounding by masking the mantissa), for
@@ -62,13 +68,26 @@ import torch
 
 from thermal3d_torch.kernels import _build
 
-SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 # the kernel families, by the name attention_route gives them
-TENSOR_CORE, TF32X3, CUDA_CORE = "tensor_core", "tensor_core_3xtf32", "cuda_core"
-# the head dims the tensor-core and 3xTF32 kernels serve (csrc/attention_tc.cuh,
-# serves_head_dim); every other accepted head dim runs on the CUDA cores
-TC_HEAD_DIMS = (16, 32, 64, 128)
+TENSOR_CORE, TF32X3 = "tensor_core", "tensor_core_3xtf32"
+# the head dims whose kernels read the operands in place (csrc/attention_tc.cuh,
+# serves_head_dim); every other accepted head dim takes the packed entries
+DIRECT_HEAD_DIMS = (16, 32, 64, 128)
+# the widths the key-tile loop is built at (csrc/attention_tc.cuh, kBuiltWidths)
+BUILT_WIDTHS = (16, 32, 64, 128, 256)
+
+
+def padded_width(head_dim: int) -> int:
+    """The width a call of head dim `head_dim` runs at: the smallest of
+    BUILT_WIDTHS at least as wide (head_dim itself for DIRECT_HEAD_DIMS and
+    256), as csrc/attention_tc.cuh's padded_width computes it (the libraries'
+    t3d_attention_tc_padded_width / t3d_attention_3xtf32_padded_width); 0 for
+    a head dim the kernels do not take (not a positive multiple of 4, or
+    above 256)."""
+    if head_dim <= 0 or head_dim % 4:
+        return 0
+    return next((w for w in BUILT_WIDTHS if head_dim <= w), 0)
 
 
 def rot_lanes(t: torch.Tensor) -> torch.Tensor:
@@ -172,40 +191,29 @@ def _fused_rope_cross_attention_fwd(q, k, v, cos, sin, num_heads, scale):
 fused_rope_cross_attention.launches = 0
 
 
-def smem_bytes(seq: int, head_dim: int, dtype: torch.dtype) -> int:
-    """Shared memory one block of the one-shot K2/K3 kernel needs (K/V of one
-    head, whole sequence). Needs the built library."""
-    fn = _lib().t3d_rope_attention_smem_bytes
-    return int(fn(seq, head_dim, torch.tensor([], dtype=dtype).element_size()))
-
-
-def attention_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel family of an attention call (K2-K6), by dtype and head
-    dim, at any S; head_dim 64 is every call of the configured models
-    (DUSt3R-224, MASt3R-512), 32 a decoder of 512 wide and 16 heads:
-      * TENSOR_CORE for bf16 with head_dim 16, 32, 64 or 128 (TC_HEAD_DIMS;
-        wgmma: csrc/rope_attention_tc.cu for K2/K3, csrc/attention_tc.cu
-        for K4-K6, both on the key-tile loop of csrc/key_tile_attention.cuh,
-        past S=256 for K2/K3 at head_dim 64 and at every S otherwise);
-      * TF32X3 for float32 with those head dims: float32 attention runs
-        3xTF32 on the tensor cores (csrc/attention_3xtf32.cu, on the same
-        key-tile loop): each operand split into tf32 hi and lo, each product
-        hi*hi + hi*lo + lo*hi in float32, about 2^-21 relative a product, so
-        its products are no longer IEEE float32 ones;
-      * otherwise CUDA_CORE (csrc/rope_attention.cu, where `_launch` picks
-        one-shot or key-tile, and csrc/attention.cu), in float32 or bf16:
-        every other head dim the wrappers accept (a multiple of 4 up to 256,
-        e.g. 24, 48, 80 or 160).
+def attention_route(dtype: torch.dtype, head_dim: int) -> Optional[str]:
+    """The kernel family of an attention call (K2-K6), by dtype, at any S
+    and at every head dim the wrappers accept (a multiple of 4 up to 256;
+    64 is every call of the configured models, DUSt3R-224 and MASt3R-512):
+      * TENSOR_CORE for bf16: wgmma, csrc/rope_attention_tc.cu for K2/K3 and
+        csrc/attention_tc.cu for K4-K6 at DIRECT_HEAD_DIMS, the packed entry
+        of csrc/attention_tc.cu at every other head dim;
+      * TF32X3 for float32: 3xTF32 on the tensor cores
+        (csrc/attention_3xtf32.cu): each operand split into tf32 hi and lo,
+        each product hi*hi + hi*lo + lo*hi in float32, about 2^-21 relative
+        a product, so its products are no longer IEEE float32 ones;
+      * None for any other dtype (float16) or head dim: no kernel takes it,
+        and the wrappers refuse it.
     A dispatch by shape: a kernel that fails to build or launch raises."""
-    if head_dim not in TC_HEAD_DIMS:
-        return CUDA_CORE
-    return {torch.bfloat16: TENSOR_CORE, torch.float32: TF32X3}.get(dtype, CUDA_CORE)
+    if padded_width(head_dim) == 0:
+        return None
+    return {torch.bfloat16: TENSOR_CORE, torch.float32: TF32X3}.get(dtype)
 
 
 def check_alignment(what: str, pointers, *stride_bytes: int) -> None:
     """Raise ValueError unless every base pointer and every stride (in
-    bytes) is a multiple of 16 (the tensor-core kernels read rows in 16-byte
-    vectors and copies)."""
+    bytes) is a multiple of 16 (the direct tensor-core kernels read rows in
+    16-byte vectors and copies)."""
     bad = [hex(p) for p in pointers if p % 16]
     bad_strides = [st for st in stride_bytes if st % 16]
     if bad or bad_strides:
@@ -218,7 +226,7 @@ def _check(what, tensors, cos, sin, num_heads, c, s):
     x = tensors[0]
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
-    if x.dtype not in _DTYPE_CODE:
+    if x.dtype not in _DTYPES:
         raise ValueError(f"{what}: dtype {x.dtype} not supported (float32, bfloat16)")
     for t in tensors:
         if t.device != x.device or t.dtype != x.dtype or not t.is_contiguous():
@@ -240,68 +248,92 @@ def _launch(x, q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale,
     b, s, c = out.shape
     if b == 0 or s == 0:
         return
-    d = c // num_heads
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    route = attention_route(x.dtype, d)
-    if route == TENSOR_CORE:
-        rope_attention_tc(q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale,
-                          stream, what)
-        return
-    if route == TF32X3:
-        rope_attention_3xtf32(q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale,
-                              stream, what)
-        return
-    rope_attention_cuda_core(q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale,
-                             stream, what)
+    launcher = rope_attention_tc if x.dtype == torch.bfloat16 else rope_attention_3xtf32
+    launcher(q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale, stream, what)
 
 
-def rope_attention_cuda_core(q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale,
-                             stream, what="rope_attention_cuda_core"):
-    """Launch the CUDA-core K2/K3 kernel (csrc/rope_attention.cu, float32 or
-    bf16, any head_dim the wrappers accept) on base pointers with a common
-    row stride in elements; out [B, S, C] of the inputs' dtype. The switch
-    between its two kernels: the one-shot kernel holds K/V of a head in
-    shared memory; where they do not fit (float32 D=64 past S=411, bf16
-    D=32 past S=865) the key-tile loop runs instead. The library call runs
-    with out's card current. Counts its own calls in
-    `rope_attention_cuda_core.launches`."""
-    b, s, c = out.shape
-    d = c // num_heads
-    lib = _lib()
-    one_shot = smem_bytes(s, d, out.dtype) <= SMEM_LIMIT
-    fn = lib.t3d_rope_attention if one_shot else lib.t3d_rope_attention_tiled
+def _rope_strides(row_stride: int, seq: int, head_dim: int, width: int) -> list:
+    """The 12 (batch, head, row) element strides the packed entries take for
+    a K2/K3 call: q, k and v rows `row_stride` apart (head h at column
+    h*head_dim), then the [B, S, C] output's."""
+    rows = [seq * row_stride, head_dim, row_stride]
+    return rows * 3 + [seq * width, head_dim, width]
+
+
+def _packed_lib(name: str) -> ctypes.CDLL:
+    """This checkout's build of csrc/<name>.cu (attention_tc or
+    attention_3xtf32) with its packed entry t3d_<name>_packed and scratch
+    query t3d_<name>_packed_scratch_bytes declared."""
+    lib = _build.library(name)
+    query = getattr(lib, f"t3d_{name}_packed_scratch_bytes")
+    query.argtypes = [ctypes.c_int] * 5
+    query.restype = ctypes.c_ulonglong
+    fn = getattr(lib, f"t3d_{name}_packed")
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch_packed(name: str, q_ptr: int, k_ptr: int, v_ptr: int, strides, cos, sin,
+                   out: torch.Tensor, batch: int, heads: int, sq: int, sk: int, head_dim: int,
+                   scale: float, stream, what: str) -> None:
+    """One call of csrc/<name>.cu's packed entry, t3d_<name>_packed (the pack
+    prologue and the key-tile kernel at padded_width(head_dim)): q, k, v by
+    their 12 (batch, head, row) element strides at any alignment, out
+    16-byte aligned, cos/sin (K2/K3) or None (K4-K6), a scratch of the
+    library's own size (t3d_<name>_packed_scratch_bytes) allocated here.
+    The library call runs with out's card current."""
+    lib = _packed_lib(name)
+    fn = getattr(lib, f"t3d_{name}_packed")
+    nbytes = int(getattr(lib, f"t3d_{name}_packed_scratch_bytes")(batch, heads, sq, sk,
+                                                                   head_dim))
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=out.device)
+    check_alignment(what, (out.data_ptr(), scratch.data_ptr()))
+    tables = (0, 0) if cos is None else (cos.data_ptr(), sin.data_ptr())
     with torch.cuda.device(out.device):
-        rc = fn(_DTYPE_CODE[out.dtype], q_ptr, k_ptr, v_ptr, row_stride, cos.data_ptr(),
-                sin.data_ptr(), out.data_ptr(), b, s, num_heads, d, float(scale), stream)
+        rc = fn(q_ptr, k_ptr, v_ptr, out.data_ptr(), (ctypes.c_longlong * 12)(*strides),
+                *tables, scratch.data_ptr(), batch, heads, sq, sk, head_dim, float(scale),
+                stream)
     _build.check(lib, rc, f"{what} launch")
-    _build.count_launch(rope_attention_cuda_core)
-
-
-rope_attention_cuda_core.launches = 0
 
 
 def rope_attention_tc(q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale,
                       stream, what="rope_attention_tc", lib=None):
-    """Launch the tensor-core K2/K3 kernel (bf16, a head_dim of
-    TC_HEAD_DIMS) on base pointers with a common row stride in elements; out
-    [B, S, C] bf16. The library call launches, on `stream`, the one-pass
-    kernel at head_dim 64 and S <= 256, else the RoPE prologue of K plus the
-    key-tile kernel (`tc_schedule`); only the latter gets a roped-K scratch
-    (`tc_scratch_bytes`). `lib`: another build of csrc/rope_attention_tc.cu,
-    loaded by `bind_tc_lib` (this checkout's by default). The library call
-    runs with out's card current. Counts its own calls in
-    `rope_attention_tc.launches`."""
+    """Launch the tensor-core K2/K3 kernel (bf16) on base pointers with a
+    common row stride in elements; out [B, S, C] bf16. At DIRECT_HEAD_DIMS
+    the library call launches, on `stream`, the one-pass kernel at head_dim
+    64 and S <= 256, else the RoPE prologue of K plus the key-tile kernel
+    (`tc_schedule`); only the latter gets a roped-K scratch (of the
+    library's t3d_rope_attention_tc_scratch_bytes: 0 at head_dim 64 and S <=
+    ONE_PASS_MAX_SEQ, else a bf16 [B, H, S, D]), and every pointer and the
+    row stride must be 16-byte aligned. `lib`: another build of
+    csrc/rope_attention_tc.cu,
+    loaded by `bind_tc_lib` (this checkout's by default). Every other head
+    dim takes csrc/attention_tc.cu's packed entry (any alignment;
+    `_launch_packed`). The library call runs with out's card current.
+    Counts its own calls in `rope_attention_tc.launches`."""
     b, s, c = out.shape
+    d = c // num_heads
+    if d not in DIRECT_HEAD_DIMS:
+        _launch_packed("attention_tc", q_ptr, k_ptr, v_ptr,
+                       _rope_strides(row_stride, s, d, c), cos, sin, out, b, num_heads, s, s, d,
+                       scale, stream, what)
+        _build.count_launch(rope_attention_tc)
+        return
     lib = lib or _tc_lib()
-    nbytes = tc_scratch_bytes(lib, b, s, num_heads, c // num_heads)
+    nbytes = int(lib.t3d_rope_attention_tc_scratch_bytes(b, s, num_heads, d))
     k_roped = (torch.empty(nbytes // out.element_size(), dtype=out.dtype, device=out.device)
                if nbytes else None)
     ptrs = (q_ptr, k_ptr, v_ptr, cos.data_ptr(), sin.data_ptr(),
             0 if k_roped is None else k_roped.data_ptr(), out.data_ptr())
     check_alignment(what, ptrs, row_stride * out.element_size())
     with torch.cuda.device(out.device):
-        rc = lib.t3d_rope_attention_tc(*ptrs[:3], row_stride, *ptrs[3:], b, s, num_heads,
-                                       c // num_heads, float(scale), stream)
+        rc = lib.t3d_rope_attention_tc(*ptrs[:3], row_stride, *ptrs[3:], b, s, num_heads, d,
+                                       float(scale), stream)
     _build.check(lib, rc, f"{what} launch")
     _build.count_launch(rope_attention_tc)
 
@@ -332,70 +364,53 @@ def tc_schedule(batch: int, heads: int, seq: int, sms: int, head_dim: int = 64):
     return ONE_PASS, row_tiles
 
 
-def tc_scratch_bytes(lib, batch: int, seq: int, heads: int, head_dim: int = 64) -> int:
-    """Bytes of the roped-K scratch a build of csrc/rope_attention_tc.cu
-    takes for a call: its own answer (t3d_rope_attention_tc_scratch_bytes:
-    0 at head_dim 64 and S <= ONE_PASS_MAX_SEQ, else a bf16 [B, H, S, D]),
-    or a whole bf16 [B, H, S, 64] for a build without that query, which
-    ropes K into it on every call."""
-    query = getattr(lib, "t3d_rope_attention_tc_scratch_bytes", None)
-    if query is None:
-        return batch * heads * seq * 64 * 2
-    return int(query(batch, seq, heads, head_dim))
-
-
 def _tc_lib() -> ctypes.CDLL:
     return bind_tc_lib(_build.library("rope_attention_tc"))
 
 
 def bind_tc_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C signatures of a rope_attention_tc library's entries
-    (the scratch and schedule queries where the build has them)."""
+    """Declare the C signatures of a rope_attention_tc library's entry and
+    its scratch and schedule queries."""
     fn = lib.t3d_rope_attention_tc
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    if hasattr(lib, "t3d_rope_attention_tc_scratch_bytes"):
-        lib.t3d_rope_attention_tc_scratch_bytes.argtypes = [ctypes.c_int] * 4
-        lib.t3d_rope_attention_tc_scratch_bytes.restype = ctypes.c_ulonglong
-        lib.t3d_rope_attention_tc_schedule.argtypes = [ctypes.c_int] * 5
-        lib.t3d_rope_attention_tc_schedule.restype = ctypes.c_int
-    return lib
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("rope_attention")
-    for fn in (lib.t3d_rope_attention, lib.t3d_rope_attention_tiled):
-        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    sm = lib.t3d_rope_attention_smem_bytes
-    sm.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    sm.restype = ctypes.c_ulonglong
+    lib.t3d_rope_attention_tc_scratch_bytes.argtypes = [ctypes.c_int] * 4
+    lib.t3d_rope_attention_tc_scratch_bytes.restype = ctypes.c_ulonglong
+    lib.t3d_rope_attention_tc_schedule.argtypes = [ctypes.c_int] * 5
+    lib.t3d_rope_attention_tc_schedule.restype = ctypes.c_int
     return lib
 
 
 def rope_attention_3xtf32(q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads, scale,
                           stream, what="rope_attention_3xtf32"):
-    """Launch the 3xTF32 K2/K3 kernel (float32, a head_dim of TC_HEAD_DIMS)
-    on base pointers with a common row stride in elements; out [B, S, C]
-    float32. The library call launches, on `stream`, the prologue (K roped,
-    K and V split into tf32 hi and lo in a scratch allocated here,
-    `_tf32x3_scratch`) and the key-tile kernel, with out's card current.
-    Counts its own calls in `rope_attention_3xtf32.launches`."""
+    """Launch the 3xTF32 K2/K3 kernel (float32) on base pointers with a
+    common row stride in elements; out [B, S, C] float32. At DIRECT_HEAD_DIMS
+    the library call launches, on `stream`, the prologue (K roped, K and V
+    split into tf32 hi and lo in a scratch allocated here, `_tf32x3_scratch`)
+    and the key-tile kernel, every pointer and the row stride 16-byte
+    aligned; every other head dim takes the library's packed entry (any
+    alignment; `_launch_packed`). The library call runs with out's card
+    current. Counts its own calls in `rope_attention_3xtf32.launches`."""
     b, s, c = out.shape
+    d = c // num_heads
+    if d not in DIRECT_HEAD_DIMS:
+        _launch_packed("attention_3xtf32", q_ptr, k_ptr, v_ptr,
+                       _rope_strides(row_stride, s, d, c), cos, sin, out, b, num_heads, s, s, d,
+                       scale, stream, what)
+        _build.count_launch(rope_attention_3xtf32)
+        return
+    check_alignment(what, (q_ptr, k_ptr, v_ptr, cos.data_ptr(), sin.data_ptr(),
+                           out.data_ptr()), row_stride * out.element_size())
     lib = _3xtf32_lib()
-    scratch = _tf32x3_scratch(lib, b, num_heads, s, c // num_heads, out.device)
+    scratch = _tf32x3_scratch(lib, b, num_heads, s, d, out.device)
     ptrs = (q_ptr, k_ptr, v_ptr, cos.data_ptr(), sin.data_ptr(), scratch.data_ptr(),
             out.data_ptr())
-    check_alignment(what, ptrs, row_stride * out.element_size())
     with torch.cuda.device(out.device):
         rc = lib.t3d_rope_attention_3xtf32(*ptrs[:3], row_stride, *ptrs[3:], b, s, num_heads,
-                                           c // num_heads, float(scale), stream)
+                                           d, float(scale), stream)
     _build.check(lib, rc, f"{what} launch")
     _build.count_launch(rope_attention_3xtf32)
 
@@ -732,7 +747,7 @@ def _attend(what, q, k, v, scale):
     """Check [B, H, S, D] operands and launch the K4-K6 kernel that
     attention_route names. The output is laid out as q is (so a
     [B, S, H, D] view in gives one out)."""
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in _DTYPES:
         raise ValueError(f"{what}: dtype {q.dtype} not supported (float32, bfloat16)")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or q.shape[:2] != k.shape[:2] \
             or q.shape[3] != k.shape[3]:
@@ -754,51 +769,37 @@ def _attend(what, q, k, v, scale):
     if out.numel() == 0:
         return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    route = attention_route(q.dtype, d)
-    if route == TENSOR_CORE:
-        softmax_attention_tc(q, k, v, out, scale, stream, what)
-        return out
-    if route == TF32X3:
-        softmax_attention_3xtf32(q, k, v, out, scale, stream, what)
-        return out
-    softmax_attention_cuda_core(q, k, v, out, scale, stream, what)
+    launcher = softmax_attention_tc if q.dtype == torch.bfloat16 else softmax_attention_3xtf32
+    launcher(q, k, v, out, scale, stream, what)
     return out
 
 
-def softmax_attention_cuda_core(q, k, v, out, scale, stream, what="softmax_attention_cuda_core"):
-    """Launch the CUDA-core K4-K6 kernel (csrc/attention.cu, float32 or
-    bf16, any head_dim the wrappers accept) on checked [B, H, S, D]
-    operands and out, each read by its strides. The library call runs with
-    out's card current. Counts its own calls in
-    `softmax_attention_cuda_core.launches`."""
-    b, h, sq, d = q.shape
-    strides = (ctypes.c_longlong * 12)(*(t.stride(i) for t in (q, k, v, out) for i in range(3)))
-    lib = _attention_lib()
-    with torch.cuda.device(out.device):
-        rc = lib.t3d_attention(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-                               v.data_ptr(), out.data_ptr(), strides, b, h, sq, k.shape[2], d,
-                               float(scale), stream)
-    _build.check(lib, rc, f"{what} launch")
-    _build.count_launch(softmax_attention_cuda_core)
-
-
-softmax_attention_cuda_core.launches = 0
+def _head_strides(q, k, v, out) -> list:
+    """The (batch, head, row) element strides of q, k, v and out that the
+    K4-K6 entries take: 0 for an axis of size 1 (never stepped along)."""
+    return [t.stride(i) if t.shape[i] > 1 else 0 for t in (q, k, v, out) for i in range(3)]
 
 
 def softmax_attention_tc(q, k, v, out, scale, stream, what="softmax_attention_tc", lib=None):
-    """Launch the tensor-core K4-K6 kernel (bf16, a head_dim of
-    TC_HEAD_DIMS) on checked
-    [B, H, S, D] operands and out: one block per 128 query rows of a (batch
-    item, head), K/V in 64-key tiles by TMA through the key-tile loop that
-    K2/K3 share, each operand read and out written through a 4-D tensor map
-    of its own strides (`tc_map_strides`). Strides of axes of size 1 are
+    """Launch the tensor-core K4-K6 kernel (bf16) on checked [B, H, S, D]
+    operands and out. At DIRECT_HEAD_DIMS: one block per 128 query rows of a
+    (batch item, head), K/V in 64-key tiles by TMA through the key-tile loop
+    that K2/K3 share, each operand read and out written through a 4-D tensor
+    map of its own strides (`tc_map_strides`); strides of axes of size 1 are
     never read and go to the kernel as 0; every other batch, head and row
     stride, and every base pointer, must be a multiple of 16 bytes. `lib`:
     another build of csrc/attention_tc.cu, loaded by `bind_attention_tc_lib`
-    (this checkout's by default). The library call runs with out's card
-    current. Counts its own calls in `softmax_attention_tc.launches`."""
+    (this checkout's by default). Every other head dim takes the library's
+    packed entry (any alignment; `_launch_packed`). The library call runs
+    with out's card current. Counts its own calls in
+    `softmax_attention_tc.launches`."""
     b, h, sq, d = q.shape
-    strides = [t.stride(i) if t.shape[i] > 1 else 0 for t in (q, k, v, out) for i in range(3)]
+    strides = _head_strides(q, k, v, out)
+    if d not in DIRECT_HEAD_DIMS:
+        _launch_packed("attention_tc", q.data_ptr(), k.data_ptr(), v.data_ptr(), strides,
+                       None, None, out, b, h, sq, k.shape[2], d, scale, stream, what)
+        _build.count_launch(softmax_attention_tc)
+        return
     es = q.element_size()
     check_alignment(what, [t.data_ptr() for t in (q, k, v, out)], *(st * es for st in strides))
     lib = lib or _attention_tc_lib()
@@ -814,16 +815,22 @@ softmax_attention_tc.launches = 0
 
 
 def softmax_attention_3xtf32(q, k, v, out, scale, stream, what="softmax_attention_3xtf32"):
-    """Launch the 3xTF32 K4-K6 kernel (float32, a head_dim of TC_HEAD_DIMS)
-    on checked [B, H, S, D] operands and out: the prologue splits K and V
-    (read by their strides) into tf32 hi and lo in a scratch allocated here,
-    then the key-tile kernel reads q and writes out through 4-D tensor maps
-    of their strides. Strides of axes of size 1 go to the kernel as 0; every
+    """Launch the 3xTF32 K4-K6 kernel (float32) on checked [B, H, S, D]
+    operands and out. At DIRECT_HEAD_DIMS the prologue splits K and V (read
+    by their strides) into tf32 hi and lo in a scratch allocated here, then
+    the key-tile kernel reads q and writes out through 4-D tensor maps of
+    their strides; strides of axes of size 1 go to the kernel as 0; every
     other stride, and every base pointer, must be a multiple of 16 bytes.
-    The library call runs with out's card current. Counts its own calls in
-    `softmax_attention_3xtf32.launches`."""
+    Every other head dim takes the library's packed entry (any alignment;
+    `_launch_packed`). The library call runs with out's card current. Counts
+    its own calls in `softmax_attention_3xtf32.launches`."""
     b, h, sq, d = q.shape
-    strides = [t.stride(i) if t.shape[i] > 1 else 0 for t in (q, k, v, out) for i in range(3)]
+    strides = _head_strides(q, k, v, out)
+    if d not in DIRECT_HEAD_DIMS:
+        _launch_packed("attention_3xtf32", q.data_ptr(), k.data_ptr(), v.data_ptr(), strides,
+                       None, None, out, b, h, sq, k.shape[2], d, scale, stream, what)
+        _build.count_launch(softmax_attention_3xtf32)
+        return
     check_alignment(what, [t.data_ptr() for t in (q, k, v, out)],
                     *(st * q.element_size() for st in strides))
     lib = _3xtf32_lib()
@@ -868,27 +875,15 @@ def _attention_tc_lib() -> ctypes.CDLL:
 
 
 def bind_attention_tc_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C signatures of an attention_tc library's entries (the
-    map-stride query where the build has it)."""
+    """Declare the C signatures of an attention_tc library's entry and its
+    map-stride query (the packed entry: `_packed_lib`)."""
     fn = lib.t3d_softmax_attention_tc
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    if hasattr(lib, "t3d_softmax_attention_tc_map_strides"):
-        query = lib.t3d_softmax_attention_tc_map_strides
-        query.argtypes = [ctypes.POINTER(ctypes.c_longlong)] + \
-            [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
-        query.restype = None
-    return lib
-
-
-def _attention_lib() -> ctypes.CDLL:
-    lib = _build.library("attention")
-    fn = lib.t3d_attention
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    query = lib.t3d_softmax_attention_tc_map_strides
+    query.argtypes = [ctypes.POINTER(ctypes.c_longlong)] + \
+        [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+    query.restype = None
     return lib
