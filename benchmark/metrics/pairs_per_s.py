@@ -1,0 +1,11 @@
+"""Pairs whose eight outputs reached host memory in the window, a second
+(the window from the completion that opened it to its last completion)."""
+
+UNIT = "pairs/s"
+SOURCE = "host_clock"
+
+
+def read(run):
+    if run.units_name != "pairs":
+        return None
+    return run.window.rate
