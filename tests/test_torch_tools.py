@@ -170,6 +170,194 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert any(e.key == "matmul" for e in prof.key_averages())
 
 
+# The span tree of one request (core/profiling.py): span → its parent.
+ENGINE_SPANS = {"pipeline.stage": None, "engine.request": None,
+                "engine.preprocess": "engine.request", "engine.thermal_head": "engine.request",
+                "model.encoder": "engine.request", "model.decoder": "engine.request",
+                "model.heads": "engine.request", "pipeline.fetch_start": None,
+                "pipeline.fetch": None}
+PGT_SPANS = {"pipeline.stage": None, "pgt.request": None, "model.encoder": "pgt.request",
+             "model.decoder": "pgt.request", "model.heads": "pgt.request",
+             "pgt.geometry": "pgt.request", "geometry.intrinsics": "pgt.geometry",
+             "geometry.pose": "pgt.geometry", "pipeline.fetch_start": None,
+             "pipeline.fetch": None}
+
+
+def _tiny_program(path):
+    """(the program's async call, one request's inputs) at a tiny size."""
+    from thermal3d_torch.core.config import TINY, HeadConfig
+    from thermal3d_torch.infer.engine import InferenceEngine
+    from thermal3d_torch.pseudo_gt.generator import PseudoGTGenerator
+
+    rng = np.random.default_rng(0)
+    if path == "engine":
+        engine = InferenceEngine(TINY, device="cpu")
+        return engine.infer_async, {"frames": rng.uniform(0, 1, (2, 40, 48)).astype(np.float32)}
+    head = HeadConfig(head_type="catmlpdpt", feature_dim=32, last_dim=16,
+                      dpt_layer_dims=(8, 16, 24, 32), local_feat_dim=6)
+    gen = PseudoGTGenerator(dataclasses.replace(TINY, head=head), batch_size=2, device="cpu")
+    views = {k: rng.uniform(0, 1, (2, 32, 32, 3)).astype(np.float32) for k in ("a", "b")}
+    return (lambda a, b: gen.run_pairs_async(a, b)), views
+
+
+def test_annotate_is_a_shared_no_op_when_off():
+    from thermal3d_torch.core import profiling
+
+    profiling.clear()
+    off = profiling.annotate("a")
+    assert off is profiling.annotate("b", "cpu", request=profiling.NEW_REQUEST)
+    with off as span:
+        assert span is None
+    engine_call, inputs = _tiny_program("engine")
+    engine_call(inputs["frames"])
+    assert profiling.spans() == [] and profiling.current() is None
+
+
+@pytest.mark.parametrize("path", ["engine", "generator"])
+def test_spans_under_trace_follow_the_layers(path, tmp_path):
+    """Two requests through PinnedStage → the entry's async call →
+    PinnedFetch under trace(): each span once a request with its parent, the
+    request's id on every span but the staging, self time = host time less
+    the children's."""
+    from thermal3d_torch.core import profiling
+    from thermal3d_torch.data.pipeline import PinnedFetch, PinnedStage
+
+    call, inputs = _tiny_program(path)
+    expected = ENGINE_SPANS if path == "engine" else PGT_SPANS
+    cpu = torch.device("cpu")
+    stage, fetch = PinnedStage(cpu), PinnedFetch(cpu)
+    profiling.clear()
+    with profiling.trace(str(tmp_path / "trace")):
+        for _ in range(2):
+            fetch.finish(fetch.start(call(*stage.put(inputs).values())))
+    spans = profiling.spans()
+    assert len(spans) == 2 * len(expected)
+    assert [s.name for s in spans[:len(expected)]] == list(expected)
+    assert {s.name: s.parent and s.parent.name for s in spans} == expected
+    assert all(s.end_ns >= s.start_ns and s.events is None for s in spans)
+    n = len(expected)
+    ids = [{s.request for s in half if s.name != "pipeline.stage"}
+           for half in (spans[:n], spans[n:])]
+    assert [len(i) for i in ids] == [1, 1] and ids[0] != ids[1]
+    assert profiling.request_ids() == ids[0] | ids[1]
+    assert all(s.request is None for s in spans if s.name == "pipeline.stage")
+    totals = profiling.totals()
+    assert set(totals) == set(expected)
+    entry = "engine.request" if path == "engine" else "pgt.request"
+    kids = sum(s.host_ms for s in spans if s.parent is not None and s.parent.name == entry)
+    assert totals[entry]["self_ms"] == pytest.approx(totals[entry]["host_ms"] - kids, abs=1e-6)
+    assert 0 <= totals[entry]["self_ms"] < totals[entry]["host_ms"]
+    for name, t in totals.items():
+        assert t["count"] == 2 and t["device_ms"] is None
+        assert t["requests"] == (0 if name == "pipeline.stage" else 2)
+
+
+def test_span_ops_are_not_user_annotations(tmp_path):
+    """A span is a CPU op of the profiler that is no user annotation, so
+    Kineto copies nothing of it onto the device timeline."""
+    from torch.autograd import DeviceType
+
+    from thermal3d_torch.core.profiling import annotate, trace
+
+    with trace(str(tmp_path / "trace")) as prof:
+        with annotate("layer.outer"):
+            with annotate("layer.inner"):
+                _ = torch.ones(8, 8) @ torch.ones(8, 8)
+    events = [e for e in prof.events() if e.name.startswith("layer.")]
+    assert sorted(e.name for e in events) == ["layer.inner", "layer.outer"]
+    assert all(not e.is_user_annotation and e.device_type == DeviceType.CPU for e in events)
+
+
+def test_annotate_is_off_while_compiling():
+    """Inside a torch.export trace spans are off even under a profiler: the
+    exported program holds no profiler op."""
+    from thermal3d_torch.core import profiling
+
+    class M(torch.nn.Module):
+        def forward(self, x):
+            with profiling.annotate("layer.traced", x.device):
+                return x * 2
+
+    profiling.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        exported = torch.export.export(M(), (torch.ones(3),), strict=False)
+        assert profiling.spans() == []
+        with profiling.annotate("layer.eager"):
+            pass
+    assert [s.name for s in profiling.spans()] == ["layer.eager"]
+    assert "profiler" not in str(exported.graph)
+    torch.testing.assert_close(exported.module()(torch.ones(3)), torch.full((3,), 2.0))
+
+
+def test_spans_on_two_threads_keep_separate_parents():
+    """Threads handed the caller's span by within() record (torch's profiler
+    records on its own thread only) and nest their spans in stacks of their
+    own, while the caller opens spans of its own at the same time; all take
+    the caller's request id. A thread handed nothing records nothing."""
+    import threading
+
+    from thermal3d_torch.core import profiling
+
+    barrier = threading.Barrier(3, timeout=20)
+
+    def work(tag, root):
+        with profiling.within(root):
+            with profiling.annotate(f"outer.{tag}"):
+                barrier.wait()  # every thread's outer span is open at once
+                with profiling.annotate(f"inner.{tag}"):
+                    barrier.wait()
+
+    def unhanded():
+        with profiling.annotate("unhanded"):
+            pass
+
+    profiling.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with profiling.annotate("root", request=profiling.NEW_REQUEST) as root:
+            threads = [threading.Thread(target=work, args=(t, root)) for t in "ab"]
+            threads.append(threading.Thread(target=unhanded))
+            for t in threads:
+                t.start()
+            with profiling.annotate("main"):
+                barrier.wait()
+                barrier.wait()
+            for t in threads:
+                t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    by_name = {s.name: s for s in profiling.spans()}
+    assert set(by_name) == {"root", "main", "outer.a", "outer.b", "inner.a", "inner.b"}
+    for tag in "ab":
+        assert by_name[f"inner.{tag}"].parent is by_name[f"outer.{tag}"]
+        assert by_name[f"outer.{tag}"].parent is root
+    assert by_name["main"].parent is root and root.parent is None
+    assert {s.request for s in by_name.values()} == {root.request}
+    assert profiling.current() is None
+
+
+def test_mesh_chunk_spans_take_the_callers_request():
+    """Over [cpu, cpu:0, cpu, cpu:0] run_on_mesh runs a thread a device; the
+    chunks' spans still have engine.request as parent and share its id."""
+    from thermal3d_torch.core import profiling
+    from thermal3d_torch.core.config import TINY
+    from thermal3d_torch.core.mesh import make_mesh
+    from thermal3d_torch.infer.engine import InferenceEngine
+
+    devices = [torch.device("cpu"), torch.device("cpu", 0)] * 2
+    engine = InferenceEngine(TINY, device="cpu",
+                             mesh=make_mesh((4,), ("data",), devices=devices))
+    frames = np.random.default_rng(1).uniform(0, 1, (4, 40, 48)).astype(np.float32)
+    profiling.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        engine.infer_async(frames)
+    spans = profiling.spans()
+    (entry,) = [s for s in spans if s.name == "engine.request"]
+    chunks = [s for s in spans if s is not entry]
+    assert sorted({s.name for s in chunks}) == sorted(
+        n for n, parent in ENGINE_SPANS.items() if parent == "engine.request")
+    assert len(chunks) == 4 * 5
+    assert all(s.parent is entry and s.request == entry.request for s in chunks)
+
+
 def test_nan_guard_raises():
     from thermal3d_torch.core.profiling import nan_guard
 

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from thermal3d_torch.core import collectives
+from thermal3d_torch.core import collectives, profiling
 from thermal3d_torch.core.device import resolve_device
 
 Spec = Tuple[Optional[str], ...]
@@ -404,8 +404,10 @@ def run_on_mesh(positions: List[torch.device], batch: int, chunk) -> Dict[str, t
     the default stream unless set): a chunk's copy of its rows from an
     input on one card, and its work, follow what the caller queued there
     (an input still being staged), and the gather and what the caller
-    queues next (a fetch) follow the chunks. Returns the chunks' tensors
-    concatenated in position order, on the first position's device."""
+    queues next (a fetch) follow the chunks. The chunks' spans
+    (core/profiling.py) take the caller's open span as their parent, on any
+    thread. Returns the chunks' tensors concatenated in position order, on
+    the first position's device."""
     n = len(positions)
     if batch % n:
         raise ValueError(f"batch size {batch} not divisible by the mesh's "
@@ -415,9 +417,11 @@ def run_on_mesh(positions: List[torch.device], batch: int, chunk) -> Dict[str, t
     for i, d in enumerate(positions):
         by_device.setdefault(d, []).append(i)
     streams = [torch.cuda.current_stream(d) for d in by_device if d.type == "cuda"]
+    caller = profiling.current()  # the chunks' spans belong to the caller's request
 
     def run(device):
         with contextlib.ExitStack() as ctx:
+            ctx.enter_context(profiling.within(caller))
             for s in streams:
                 ctx.enter_context(torch.cuda.stream(s))
             if device.type == "cuda":

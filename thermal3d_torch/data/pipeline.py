@@ -14,6 +14,8 @@ from typing import Callable, Dict, Iterator, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from thermal3d_torch.core.profiling import LAST_REQUEST, annotate
+
 # buffer sets of PinnedStage/PinnedFetch, used in turn: pipelined_batches has
 # one batch in flight while it starts the next
 N_SETS = 2
@@ -82,22 +84,24 @@ class PinnedStage:
         self._next = 0
 
     def put(self, arrays: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        if self.device.type != "cuda":
-            return {k: torch.from_numpy(np.ascontiguousarray(a)) for k, a in arrays.items()}
-        i = self._next
-        self._next = (i + 1) % len(self._sets)
-        if self._events[i] is not None:
-            self._events[i].synchronize()
-        bufs, out = self._sets[i], {}
-        for k, a in arrays.items():
-            buf = bufs.get(k)
-            if buf is None or tuple(buf.shape) != a.shape or buf.numpy().dtype != a.dtype:
-                buf = bufs[k] = torch.from_numpy(np.empty_like(a)).pin_memory()
-            np.copyto(buf.numpy(), a)
-            out[k] = buf.to(self.device, non_blocking=True)
-        self._events[i] = torch.cuda.Event()
-        self._events[i].record(torch.cuda.current_stream(self.device))
-        return out
+        with annotate("pipeline.stage"):
+            if self.device.type != "cuda":
+                return {k: torch.from_numpy(np.ascontiguousarray(a)) for k, a in arrays.items()}
+            i = self._next
+            self._next = (i + 1) % len(self._sets)
+            if self._events[i] is not None:
+                with annotate("pipeline.stage.wait"):
+                    self._events[i].synchronize()
+            bufs, out = self._sets[i], {}
+            for k, a in arrays.items():
+                buf = bufs.get(k)
+                if buf is None or tuple(buf.shape) != a.shape or buf.numpy().dtype != a.dtype:
+                    buf = bufs[k] = torch.from_numpy(np.empty_like(a)).pin_memory()
+                np.copyto(buf.numpy(), a)
+                out[k] = buf.to(self.device, non_blocking=True)
+            self._events[i] = torch.cuda.Event()
+            self._events[i].record(torch.cuda.current_stream(self.device))
+            return out
 
 
 class PinnedFetch:
@@ -123,46 +127,52 @@ class PinnedFetch:
         self._stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
     def start(self, tensors: Mapping[str, torch.Tensor]):
-        if self._stream is None:
-            return None, dict(tensors), None
-        i = self._next
-        if self._busy[i]:
-            raise RuntimeError("PinnedFetch: buffer set still holds an unfinished fetch")
-        self._next = (i + 1) % len(self._sets)
-        bufs, host = self._sets[i], {}
-        self._stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(self._stream):
-            for k, t in tensors.items():
-                buf = bufs.get(k)
-                if (buf is None or buf.dtype != t.dtype or buf.shape[1:] != t.shape[1:]
-                        or buf.shape[0] < t.shape[0]):
-                    buf = bufs[k] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                host[k] = buf[:t.shape[0]]
-                host[k].copy_(t, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(self._stream)
-        self._busy[i] = True
-        # the device tensors stay referenced by the token until the copies end
-        return i, host, (event, dict(tensors))
+        """A token for finish(); it carries the id of the request whose
+        outputs these are (the last this thread opened), for finish's span."""
+        with annotate("pipeline.fetch_start", request=LAST_REQUEST) as span:
+            request = None if span is None else span.request
+            if self._stream is None:
+                return None, dict(tensors), None, request
+            i = self._next
+            if self._busy[i]:
+                raise RuntimeError("PinnedFetch: buffer set still holds an unfinished fetch")
+            self._next = (i + 1) % len(self._sets)
+            bufs, host = self._sets[i], {}
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(self._stream):
+                for k, t in tensors.items():
+                    buf = bufs.get(k)
+                    if (buf is None or buf.dtype != t.dtype or buf.shape[1:] != t.shape[1:]
+                            or buf.shape[0] < t.shape[0]):
+                        buf = bufs[k] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    host[k] = buf[:t.shape[0]]
+                    host[k].copy_(t, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(self._stream)
+            self._busy[i] = True
+            # the device tensors stay referenced by the token until the copies end
+            return i, host, (event, dict(tensors)), request
 
     def finish(self, token, rows: Optional[int] = None,
                into: Optional[Mapping[str, np.ndarray]] = None) -> Dict[str, np.ndarray]:
         """Wait for the token's copies and return their first `rows` rows as
         numpy arrays: new ones, or `into`'s, which receive the copy."""
-        i, host, pending = token
-        if pending is not None:
-            pending[0].synchronize()
-        out = {}
-        for k, v in host.items():
-            src = v[:rows].numpy()
-            if into is None:
-                out[k] = np.array(src)
-            else:
-                np.copyto(into[k], src)
-                out[k] = into[k]
-        if i is not None:
-            self._busy[i] = False
-        return out
+        i, host, pending, request = token
+        with annotate("pipeline.fetch", request=request):
+            if pending is not None:
+                with annotate("pipeline.fetch.wait"):
+                    pending[0].synchronize()
+            out = {}
+            for k, v in host.items():
+                src = v[:rows].numpy()
+                if into is None:
+                    out[k] = np.array(src)
+                else:
+                    np.copyto(into[k], src)
+                    out[k] = into[k]
+            if i is not None:
+                self._busy[i] = False
+            return out
 
     @staticmethod
     def empty_like(token, rows: int) -> Dict[str, np.ndarray]:

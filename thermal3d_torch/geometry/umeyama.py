@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from thermal3d_torch.core.profiling import annotate
+
 
 class GeometryException(Exception):
     """Geometry-related errors (degenerate covariance, shape mismatch)."""
@@ -64,17 +66,18 @@ def extract_relative_pose(pointmap1: torch.Tensor, pointmap2: torch.Tensor) -> t
     taking view-1 points to view-2 points. Valid: both Z > 0 and every
     coordinate finite."""
     b = pointmap1.shape[0]
-    mask = (pointmap1[..., 2] > 0) & (pointmap2[..., 2] > 0)
-    mask &= torch.isfinite(pointmap1).all(-1) & torch.isfinite(pointmap2).all(-1)
-    p1 = torch.where(mask[..., None], pointmap1, torch.zeros_like(pointmap1))
-    p2 = torch.where(mask[..., None], pointmap2, torch.zeros_like(pointmap2))
-    w = mask.reshape(b, -1).to(torch.float32)
-    x = p1.reshape(b, -1, 3).transpose(1, 2)  # source
-    y = p2.reshape(b, -1, 3).transpose(1, 2)  # target
-    r, t, _, rank_ok = umeyama_core(x, y, w, with_scale=False)
-    ok = rank_ok & (w.sum(dim=-1) >= 10)
-    eye = torch.eye(4, dtype=torch.float32, device=pointmap1.device).expand(b, 4, 4)
-    transform = eye.clone()
-    transform[:, :3, :3] = r
-    transform[:, :3, 3] = t
-    return torch.where(ok[:, None, None], transform, eye)
+    with annotate("geometry.pose", pointmap1.device):
+        mask = (pointmap1[..., 2] > 0) & (pointmap2[..., 2] > 0)
+        mask &= torch.isfinite(pointmap1).all(-1) & torch.isfinite(pointmap2).all(-1)
+        p1 = torch.where(mask[..., None], pointmap1, torch.zeros_like(pointmap1))
+        p2 = torch.where(mask[..., None], pointmap2, torch.zeros_like(pointmap2))
+        w = mask.reshape(b, -1).to(torch.float32)
+        x = p1.reshape(b, -1, 3).transpose(1, 2)  # source
+        y = p2.reshape(b, -1, 3).transpose(1, 2)  # target
+        r, t, _, rank_ok = umeyama_core(x, y, w, with_scale=False)
+        ok = rank_ok & (w.sum(dim=-1) >= 10)
+        eye = torch.eye(4, dtype=torch.float32, device=pointmap1.device).expand(b, 4, 4)
+        transform = eye.clone()
+        transform[:, :3, :3] = r
+        transform[:, :3, 3] = t
+        return torch.where(ok[:, None, None], transform, eye)

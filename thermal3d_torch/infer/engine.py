@@ -26,6 +26,7 @@ import torch
 from thermal3d_torch.core.config import DUSTR_224_LINEAR, DustrModelConfig
 from thermal3d_torch.core.device import resolve_device, to_device
 from thermal3d_torch.core.mesh import mesh_positions, replicate, run_on_mesh
+from thermal3d_torch.core.profiling import NEW_REQUEST, annotate
 from thermal3d_torch.data.pipeline import PinnedFetch, PinnedStage, pipelined_batches
 from thermal3d_torch.kernels.quant import quantize_for_serving
 from thermal3d_torch.models.dustr import calibrate_act_absmax, frozen_model
@@ -130,15 +131,16 @@ class InferenceEngine:
         """Like infer() but returns device tensors without waiting for them
         (on the mesh's first device with a mesh); img* may also be float32
         tensors on the engine's device."""
-        if self.mesh is None:
-            return self._forward((self.model, self.thermal_head), self.device, img1, img2,
-                                 preprocessed)
+        with annotate("engine.request", self.device, request=NEW_REQUEST):
+            if self.mesh is None:
+                return self._forward((self.model, self.thermal_head), self.device, img1, img2,
+                                     preprocessed)
 
-        def chunk(device, rows):
-            return self._forward(self._replicas[device], device, img1[rows],
-                                 None if img2 is None else img2[rows], preprocessed)
+            def chunk(device, rows):
+                return self._forward(self._replicas[device], device, img1[rows],
+                                     None if img2 is None else img2[rows], preprocessed)
 
-        return run_on_mesh(self._positions, img1.shape[0], chunk)
+            return run_on_mesh(self._positions, img1.shape[0], chunk)
 
     def _forward(self, modules, device, img1, img2, preprocessed: bool
                  ) -> Dict[str, torch.Tensor]:
@@ -149,11 +151,13 @@ class InferenceEngine:
             if x1.shape[0] == 0:
                 raise ValueError("infer: empty batch")
             if not preprocessed:
-                x1 = self.preprocess(x1)
-                x2 = None if x2 is None else self.preprocess(x2)
+                with annotate("engine.preprocess", device):
+                    x1 = self.preprocess(x1)
+                    x2 = None if x2 is None else self.preprocess(x2)
             if self.use_thermal_head:
-                x1 = head(x1)
-                x2 = None if x2 is None else head(x2)
+                with annotate("engine.thermal_head", device):
+                    x1 = head(x1)
+                    x2 = None if x2 is None else head(x2)
             return serving_outputs(*model(x1, x2))
 
     def infer_paths(self, paths: List[str], batch_size: int = 36, pad_final: bool = True,

@@ -23,6 +23,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from thermal3d_torch.core.config import DustrModelConfig
+from thermal3d_torch.core.profiling import annotate
 from thermal3d_torch.models.heads import (CatMLPDPTHead, DPTPts3dHead, LinearPts3dHead,
                                           dpt_hook_indices)
 from thermal3d_torch.models.layers import (Dense, DecoderBlock, EncoderBlock,
@@ -110,11 +111,12 @@ class AsymmetricCroCo3DStereo(nn.Module):
     def encode(self, img: torch.Tensor):
         """img: [B, H, W, 3] → (tokens [B, S, enc_dim], patch grid)."""
         cfg = self.config
-        x, grid = self.patch_embed(img)
-        rope = self._rope(grid, cfg.enc_embed_dim // cfg.enc_num_heads, x.device)
-        for blk in self.enc_blocks:
-            x = self._block(blk, x, rope)
-        return self.enc_norm(x), grid
+        with annotate("model.encoder", img.device):
+            x, grid = self.patch_embed(img)
+            rope = self._rope(grid, cfg.enc_embed_dim // cfg.enc_num_heads, x.device)
+            for blk in self.enc_blocks:
+                x = self._block(blk, x, rope)
+            return self.enc_norm(x), grid
 
     def _block(self, blk, *args):
         """blk(*args), recomputed in the backward pass under config.remat."""
@@ -128,17 +130,18 @@ class AsymmetricCroCo3DStereo(nn.Module):
         dec_1, ..., dec_L], with dec_norm on the last entry only. Each branch
         cross-attends to the other branch's PREVIOUS tokens."""
         cfg = self.config
-        rope = self._rope(grid, cfg.dec_embed_dim // cfg.dec_num_heads, f1.device)
-        outs1, outs2 = [f1], [f2]
-        x1 = self.decoder_embed(f1)
-        x2 = self.decoder_embed(f2)
-        for blk1, blk2 in zip(self.dec_blocks, self.dec_blocks2):
-            x1, x2 = self._block(blk1, x1, x2, rope), self._block(blk2, x2, x1, rope)
-            outs1.append(x1)
-            outs2.append(x2)
-        outs1[-1] = self.dec_norm(outs1[-1])
-        outs2[-1] = self.dec_norm(outs2[-1])
-        return outs1, outs2
+        with annotate("model.decoder", f1.device):
+            rope = self._rope(grid, cfg.dec_embed_dim // cfg.dec_num_heads, f1.device)
+            outs1, outs2 = [f1], [f2]
+            x1 = self.decoder_embed(f1)
+            x2 = self.decoder_embed(f2)
+            for blk1, blk2 in zip(self.dec_blocks, self.dec_blocks2):
+                x1, x2 = self._block(blk1, x1, x2, rope), self._block(blk2, x2, x1, rope)
+                outs1.append(x1)
+                outs2.append(x2)
+            outs1[-1] = self.dec_norm(outs1[-1])
+            outs2[-1] = self.dec_norm(outs2[-1])
+            return outs1, outs2
 
     def _run_head(self, head, outs: List[torch.Tensor], grid, with_desc: bool):
         """The heads read the hook tokens in float32 (the JAX model casts the
@@ -157,8 +160,9 @@ class AsymmetricCroCo3DStereo(nn.Module):
         """Decoder + heads on encoder tokens f1/f2. with_desc=False skips the
         catmlpdpt local-feature branch (no desc/desc_conf in the results)."""
         outs1, outs2 = self.decode(f1, f2, grid)
-        pred1 = self._run_head(self.downstream_head1, outs1, grid, with_desc)
-        pred2 = dict(self._run_head(self.downstream_head2, outs2, grid, with_desc))
+        with annotate("model.heads", f1.device):
+            pred1 = self._run_head(self.downstream_head1, outs1, grid, with_desc)
+            pred2 = dict(self._run_head(self.downstream_head2, outs2, grid, with_desc))
         pred2["pts3d_in_other_view"] = pred2.pop("pts3d")
         return pred1, pred2
 

@@ -29,6 +29,7 @@ import torch
 from thermal3d_torch.core.config import MASTR_512_CATMLPDPT, DustrModelConfig
 from thermal3d_torch.core.device import resolve_device, to_device
 from thermal3d_torch.core.mesh import mesh_positions, replicate, run_on_mesh
+from thermal3d_torch.core.profiling import NEW_REQUEST, annotate
 from thermal3d_torch.data.pipeline import PinnedFetch, PinnedStage, pipelined_batches
 from thermal3d_torch.geometry.calibration import load_thermal_calibration
 from thermal3d_torch.geometry.intrinsics import estimate_camera_intrinsics
@@ -102,12 +103,14 @@ class PseudoGTGenerator:
         pm2 = pred2["pts3d_in_other_view"].to(torch.float32)
         d1 = pm1[..., 2]
         d2 = pm2[..., 2]
-        return {"pointmap1": pm1, "pointmap2": pm2,
-                "confidence1": pred1["conf"].to(torch.float32),
-                "confidence2": pred2["conf"].to(torch.float32),
-                "depth1": d1, "depth2": d2,
-                "intrinsics": estimate_camera_intrinsics(pm1, d1),
-                "poses": extract_relative_pose(pm1, pm2)}
+        out = {"pointmap1": pm1, "pointmap2": pm2,
+               "confidence1": pred1["conf"].to(torch.float32),
+               "confidence2": pred2["conf"].to(torch.float32),
+               "depth1": d1, "depth2": d2}
+        with annotate("pgt.geometry", pm1.device):
+            out["intrinsics"] = estimate_camera_intrinsics(pm1, d1)
+            out["poses"] = extract_relative_pose(pm1, pm2)
+        return out
 
     def run_pairs_async(self, rgb1, rgb2) -> Dict[str, torch.Tensor]:
         """rgb*: [B, H, W, 3] in [0, 1] (numpy, or float32 tensors on the
@@ -116,10 +119,11 @@ class PseudoGTGenerator:
         if tuple(rgb1.shape) != tuple(rgb2.shape) or rgb1.shape[0] == 0:
             raise ValueError(f"run_pairs: want two equal non-empty [B,H,W,3] batches, "
                              f"got {tuple(rgb1.shape)} and {tuple(rgb2.shape)}")
-        if self.mesh is None:
-            return self._step(self.model, self.device, rgb1, rgb2)
-        return run_on_mesh(self._positions, rgb1.shape[0], lambda device, rows: self._step(
-            self._replicas[device][0], device, rgb1[rows], rgb2[rows]))
+        with annotate("pgt.request", self.device, request=NEW_REQUEST):
+            if self.mesh is None:
+                return self._step(self.model, self.device, rgb1, rgb2)
+            return run_on_mesh(self._positions, rgb1.shape[0], lambda device, rows: self._step(
+                self._replicas[device][0], device, rgb1[rows], rgb2[rows]))
 
     def _step(self, model, device, rgb1, rgb2) -> Dict[str, torch.Tensor]:
         with torch.inference_mode():
