@@ -32,9 +32,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
      else key_tile, as the library chooses it; every other head dim
      packed/Dp, the width it is padded to), float32 the 3xTF32 ones (its own
      count moves; 3xtf32/key_tile or 3xtf32/packed/Dp; bound at 495/3
-     TFLOP/s, the CUDA cores' 67 beside it). Then, on a host with two
-     cards or more, with cuda:0 current, K1-K6 (both kernel families, the
-     packed route too) and one full-width InferenceEngine batch on the last
+     TFLOP/s, the CUDA cores' 67 beside it). Then the pseudo-GT pose's 3×3
+     kernel (kabsch_cases) against its plain sweeps on the card and on the
+     CPU and numpy's float64 SVD, on 12000 covariances of every kind
+     (random, reflections, planar, repeated singular values, rank 1, zero)
+     and at 4 and 8 of them: its µs a launch, and no host wait under
+     set_sync_debug_mode('error') (torch.linalg.svd raises there). Then, on
+     a host with two cards or more, with cuda:0 current, K1-K6 (both kernel
+     families, the packed route too), the 3×3 kernel and one full-width
+     InferenceEngine batch on the last
      card, each bit-equal to the same call on cuda:0 (multi_card_check); on
      one card a line says that this check did not run and why;
   4. drive the serving path: a full-width bf16 DUSt3R-224 InferenceEngine
@@ -57,8 +63,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      MASt3R-512 PseudoGTGenerator (seeded random weights) turns batches of 4
      synthetic RGB pairs [4, 512, 512, 3] into the eight pseudo-GT arrays,
      with launch counts K2 = 48·n, K3 = 24·n (all on the tensor-core
-     kernel: its count 72·n); pairs/s with and without the
-     host copies; the outputs against a plain twin (attention_impl='torch')
+     kernel: its count 72·n) and the pose's 3×3 kernel n (one a step on
+     every pseudo-GT path, one a chunk on a mesh, 0 on every other path);
+     pairs/s with and without the host copies; run_pairs_async at the
+     benchmark cell's 8 pairs under set_sync_debug_mode('error'): no host
+     wait, the card busy when the dispatches return (dispatch_without_waits);
+     the outputs against a plain twin (attention_impl='torch')
      and a float32 twin; the geometry against float64 numpy; one step under
      torch.profiler; then attention_impl='pallas' (K4 = 72·n) at full depth,
      with one step under torch.profiler,
@@ -445,6 +455,175 @@ def k1_cases(torch):
         log(f"    ms {ms:.4f} plain {plain_ms:.4f} library(kthvalue x2) {library_ms:.4f} "
             f"bound {bnd:.4f} ({by}); {ms / bnd:.2f}x bound")
         del x, q, out, ref
+    return cases
+
+
+# the pseudo-GT pose's 3×3 kernel (kernels/umeyama3x3.py::kabsch3x3) against
+# its plain sweeps: the rotation within KABSCH_R_LIMIT, the signed singular
+# values within KABSCH_SIG_LIMIT of the largest, rank_ok equal (where rank_ok
+# is false the pose is the identity, so only a finite rotation is asked)
+KABSCH_N = 12000  # covariances of every kind (kabsch_covariances)
+KABSCH_BATCHES = (PAIR_BATCH, 8)  # a step of this script's generator, of the benchmark cell
+KABSCH_R_LIMIT = 1e-5
+KABSCH_SIG_LIMIT = 1e-5
+# float64 operations a covariance: 24 plane rotations of ~68 (three column
+# dot products, the angle, two 3×2 updates) and ~120 for the sort, U, the
+# singular values and R
+KABSCH_FLOPS = 24 * 68 + 120
+PEAK_FLOPS_F64 = 33.5e12  # H100 SXM, float64 on the CUDA cores
+
+
+def kabsch_covariances(np, n: int, seed: int = 0):
+    """n float32 covariances and each one's kind: random at scales 1e-3 to
+    1e3, reflections (det < 0), weighted covariances of planar point sets
+    (rank 2), repeated singular values, rank 1 (exact in float32) and zero."""
+    rng = np.random.default_rng(seed)
+
+    def rotations(m):
+        q = np.linalg.qr(rng.standard_normal((m, 3, 3)))[0]
+        return q * np.sign(np.linalg.det(q))[:, None, None]
+
+    def with_values(sv):
+        return rotations(len(sv)) @ (sv[:, :, None] * np.eye(3)) @ \
+            rotations(len(sv)).transpose(0, 2, 1)
+
+    k = max(1, n // 12)
+    parts = {"random": rng.standard_normal((n - 10 * k, 3, 3))
+             * 10.0 ** rng.uniform(-3, 3, (n - 10 * k, 1, 1))}
+    parts["reflection"] = with_values(
+        np.sort(rng.uniform(0.1, 4.0, (2 * k, 3)), axis=1)[:, ::-1] * [1, 1, -1])
+    x = rng.standard_normal((2 * k, 3, 64))
+    x[:, 2] = rng.standard_normal((2 * k, 1)) * x[:, 0] + rng.standard_normal((2 * k, 1)) * x[:, 1]
+    y = 1.3 * rotations(2 * k) @ x + rng.standard_normal((2 * k, 3, 1))
+    w = rng.uniform(0.0, 1.0, (2 * k, 1, 64))
+    w /= w.sum(-1, keepdims=True)
+    xc, yc = x - (x * w).sum(-1, keepdims=True), y - (y * w).sum(-1, keepdims=True)
+    parts["planar"] = (yc * w) @ xc.transpose(0, 2, 1)
+    sv = np.array([(2, 2, 1), (3, 1, 1), (1, 1, 1), (2, 2, -1), (5, 5, 5)], np.float64)
+    parts["repeated"] = with_values(sv[rng.integers(0, 5, 3 * k)]
+                                    * 10.0 ** rng.uniform(-2, 2, (3 * k, 1)))
+    a, b = rng.integers(-4, 5, (2, 2 * k, 3)).astype(np.float64)
+    a[:, 0] = np.where((a == 0).all(1), 1.0, a[:, 0])
+    parts["rank1"] = a[:, :, None] * b[:, None, :]
+    parts["zero"] = np.zeros((k, 3, 3))
+    cov = np.concatenate(list(parts.values())).astype(np.float32)
+    kinds = np.concatenate([[name] * len(v) for name, v in parts.items()])
+    return cov, kinds
+
+
+def kabsch_f64(np, cov):
+    """numpy's float64 SVD with the Kabsch sign fix: (R, signed singular
+    values, rank_ok by float32's eps)."""
+    u, d, vt = np.linalg.svd(cov.astype(np.float64))
+    s = np.sign(np.linalg.det(u) * np.linalg.det(vt))
+    fix = np.stack([np.ones_like(s), np.ones_like(s), s], -1)
+    return u @ (fix[:, :, None] * vt), d * fix, (d > np.finfo(np.float32).eps).sum(-1) >= 2
+
+
+def kabsch_gaps(np, got, want) -> dict:
+    """rank_ok disagreements, and the largest |ΔR| and |Δσ| / max|σ| where
+    both have rank_ok."""
+    (r, sig, ok), (r0, sig0, ok0) = got, want
+    both = ok & ok0
+    dr = np.abs(r - r0).reshape(len(r), -1).max(-1)
+    ds = np.abs(sig - sig0).max(-1) / np.maximum(np.abs(sig0).max(-1), 1e-30)
+    return dict(rank_ok_differs=int((ok != ok0).sum()), r_err=float(dr[both].max(initial=0.0)),
+                sig_err=float(ds[both].max(initial=0.0)))
+
+
+def host_us(torch, fn, n: int) -> float:
+    """Host µs a call of fn over n eager calls, the card idle before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / n
+    torch.cuda.synchronize()
+    return us
+
+
+def kabsch_cases(torch, np):
+    """The pose's 3×3 kernel against kabsch3x3_plain on the card and on the
+    CPU and against numpy's float64 SVD: on KABSCH_N covariances of every
+    kind in kabsch_covariances, then at KABSCH_BATCHES covariances spread
+    over those kinds; each case's device ms (graph replay), the plain sweeps'
+    on the card, torch.linalg.svd + two det (eager: it waits for the card)
+    and host µs a call. Under torch.cuda.set_sync_debug_mode('error') the
+    kernel raises nothing and svd raises; whether the plain sweeps wait for
+    the card is recorded."""
+    from thermal3d_torch.kernels.umeyama3x3 import kabsch3x3, kabsch3x3_plain
+
+    def host(out):
+        return tuple(t.cpu().numpy() for t in out)
+
+    def library(cov):
+        u, _, vt = torch.linalg.svd(cov)
+        return torch.linalg.det(u) * torch.linalg.det(vt)
+
+    cov_all, kinds_all = kabsch_covariances(np, KABSCH_N)
+    cases = []
+    for b in (KABSCH_N, *KABSCH_BATCHES):
+        pick = np.linspace(0, KABSCH_N - 1, b).astype(int)
+        cov, kinds = cov_all[pick], kinds_all[pick]
+        x = torch.from_numpy(cov).to("cuda")
+        got = host(kabsch3x3(x))
+        r, sig, ok = got
+        gaps = {name: kabsch_gaps(np, got, want) for name, want in (
+            ("plain_card", host(kabsch3x3_plain(x))),
+            ("plain_cpu", host(kabsch3x3_plain(torch.from_numpy(cov)))),
+            ("numpy_f64", kabsch_f64(np, cov)))}
+        rot = np.abs(r.astype(np.float64) @ r.transpose(0, 2, 1) - np.eye(3)).max(initial=0.0)
+        rot = max(rot, np.abs(np.linalg.det(r.astype(np.float64)) - 1).max(initial=0.0))
+        finite = bool(np.isfinite(r).all() and np.isfinite(sig).all())
+        degenerate = (kinds == "rank1") | (kinds == "zero")
+        what = f"kabsch3x3 [{b},3,3] ({', '.join(sorted(set(kinds)))})"
+        for name, g in gaps.items():
+            check(f"{what} R vs {name}", g["r_err"], KABSCH_R_LIMIT)
+            check(f"{what} sigma/max|sigma| vs {name}", g["sig_err"], KABSCH_SIG_LIMIT)
+            check(f"{what} rank_ok disagreements vs {name}", g["rank_ok_differs"], 0)
+        if not finite or rot > KABSCH_R_LIMIT or ok[degenerate].any():
+            raise AssertionError(f"{what}: R not a finite rotation everywhere ({rot}) or "
+                                 f"rank_ok true on a rank-1 or zero covariance")
+        waits = {}
+        for name, fn in (("kernel", kabsch3x3), ("plain", kabsch3x3_plain),
+                         ("svd", torch.linalg.svd)):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fn(x)
+                waits[name] = False
+            except RuntimeError:
+                waits[name] = True
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        if waits["kernel"] or not waits["svd"]:
+            raise AssertionError(f"{what}: under set_sync_debug_mode('error') the kernel "
+                                 f"raised, or svd did not: {waits}")
+        ms = cuda_ms(lambda: kabsch3x3(x))
+        if waits["plain"]:  # a host wait cannot be captured in a graph: eager
+            plain_ms = host_us(torch, lambda: kabsch3x3_plain(x), 20) * 1e-3
+        else:
+            plain_ms = cuda_ms(lambda: kabsch3x3_plain(x), reps=5)
+        library(x)
+        library_ms = host_us(torch, lambda: library(x), 20) * 1e-3
+        bnd, by = bound_ms(b * (9 + 9 + 3) * 4 + b, 0.0, "float32")
+        t_ops = b * KABSCH_FLOPS / PEAK_FLOPS_F64 * 1e3
+        if t_ops > bnd:
+            bnd, by = t_ops, "operations"
+        case = dict(shape=[b, 3, 3], dtype="float32", max_abs_err=max(
+                        gaps["plain_card"]["r_err"], gaps["plain_card"]["sig_err"]),
+                    limit=KABSCH_R_LIMIT, vs=gaps, rotation_err=float(rot),
+                    kinds={k: int((kinds == k).sum()) for k in sorted(set(kinds))},
+                    rank_ok_false={k: int((~ok[kinds == k]).sum()) for k in sorted(set(kinds))},
+                    ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bnd, bound_by=by,
+                    host_us=host_us(torch, lambda: kabsch3x3(x), 2000),
+                    plain_host_us=host_us(torch, lambda: kabsch3x3_plain(x), 50),
+                    library_host_us=library_ms * 1e3, waits_for_the_card=waits)
+        cases.append(case)
+        log(f"    ms {ms:.4f} plain {plain_ms:.4f} library(svd + 2 det, eager, waits) "
+            f"{library_ms:.4f} bound {bnd:.6f} ({by}); host us a call {case['host_us']:.1f}, "
+            f"plain {case['plain_host_us']:.1f}; waits for the card under the sync debug "
+            f"mode: {waits}")
+        del x
     return cases
 
 
@@ -943,8 +1122,8 @@ MULTI_CARD_SEED = 3
 
 def multi_card_check(torch, np):
     """Each kernel launches on its tensors' card: with cuda:0 current, K1-K6
-    (tensor-core and 3xTF32 kernels, the packed route at head_dim 24) on the
-    last card and one
+    (tensor-core and 3xTF32 kernels, the packed route at head_dim 24) and the
+    pose's 3×3 kernel on the last card and one
     InferenceEngine(device='cuda:<last>') batch of BATCH frames at full
     width, each bit-equal to the same call on cuda:0, and cuda:0 still
     current after them. On a host with one card it does not run, and says
@@ -958,6 +1137,7 @@ def multi_card_check(torch, np):
     from thermal3d_torch.core.config import DUSTR_224_LINEAR
     from thermal3d_torch.infer.engine import InferenceEngine
     from thermal3d_torch.kernels.image_ops import percentile_enhance
+    from thermal3d_torch.kernels.umeyama3x3 import kabsch3x3
     from thermal3d_torch.models.rope import make_grid_positions, rope_tables
 
     fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
@@ -970,6 +1150,9 @@ def multi_card_check(torch, np):
 
     def tables(side):
         return rope_tables(make_grid_positions(side, side), 64)
+
+    def kabsch_joined(cov):  # the kernel's three outputs as one tensor
+        return torch.cat([t.to(torch.float32).reshape(len(cov), -1) for t in kabsch3x3(cov)], 1)
 
     bf16 = torch.bfloat16
     cases = [
@@ -1007,6 +1190,8 @@ def multi_card_check(torch, np):
         ("K2 bf16 D=80 [8,196,3840] (tensor cores, packed to 128)", fa.fused_rope_attention,
          (rand(8, 196, 3840, dtype=bf16), *rope_tables(make_grid_positions(14, 14), 80), 16,
           0.125)),
+        ("kabsch3x3 [1200,3,3] (the pose's 3x3 solve, every kind of covariance)", kabsch_joined,
+         (torch.from_numpy(kabsch_covariances(np, 1200)[0]),)),
     ]
     results = []
     for what, fn, args in cases:
@@ -1144,15 +1329,17 @@ def kernel_counters():
     kernel's own and the tensor-core K4-K6 kernel's own (every bf16 launch
     goes through them), the 3xTF32 K2/K3 and K4-K6 kernels' own (every
     float32 launch), then the int8 product's (torch._int_mm: 0 on every path
-    that does not quantize)."""
+    that does not quantize) and the pseudo-GT pose's 3×3 kernel's (one a
+    generator step and a mesh chunk, 0 on every other path)."""
     fa = importlib.import_module("thermal3d_torch.kernels.flash_attention")
     from thermal3d_torch.kernels.image_ops import percentile_enhance
     from thermal3d_torch.kernels.quant import int_mm
+    from thermal3d_torch.kernels.umeyama3x3 import kabsch3x3
 
     return (percentile_enhance, fa.fused_rope_attention, fa.fused_rope_cross_attention,
             fa.flash_attention_pallas, fa.flash_attention_grouped,
             fa.flash_attention_multihead, fa.rope_attention_tc, fa.softmax_attention_tc,
-            fa.rope_attention_3xtf32, fa.softmax_attention_3xtf32, int_mm)
+            fa.rope_attention_3xtf32, fa.softmax_attention_3xtf32, int_mm, kabsch3x3)
 
 
 def run_counted(fn, want_by_name):
@@ -1464,6 +1651,53 @@ def check_geometry(out, np):
     return report
 
 
+CELL_PAIRS = 8  # pairs a step of the benchmark cell mastr512-pgt-b8
+NO_WAIT_STEPS = 3
+
+
+def dispatch_without_waits(torch, gen) -> dict:
+    """gen.run_pairs_async at the benchmark cell's shapes (CELL_PAIRS pairs
+    of 512² already on the card) under torch.cuda.set_sync_debug_mode
+    ('error'), which raises at any host wait: NO_WAIT_STEPS steps dispatched
+    back to back raise nothing, launch the pose's 3×3 kernel once a step and
+    return with the card still busy; host ms a dispatch beside device ms a
+    step."""
+    rgb = torch.rand((2, CELL_PAIRS, 512, 512, 3), device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(0))
+    gen.run_pairs_async(rgb[0], rgb[1])  # first use of this batch size
+    torch.cuda.synchronize()
+    n = NO_WAIT_STEPS
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        _, launches = run_counted(
+            lambda: [gen.run_pairs_async(rgb[0], rgb[1]) for _ in range(n)],
+            {"fused_rope_attention": 48 * n, "fused_rope_cross_attention": 24 * n,
+             "rope_attention_tc": 72 * n, "kabsch3x3": n})
+        host_ms = (time.perf_counter() - t0) * 1e3 / n
+        returned = torch.cuda.Event()
+        returned.record()
+        busy = not returned.query()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        gen.run_pairs_async(rgb[0], rgb[1])
+    end.record()
+    end.synchronize()
+    device_ms = start.elapsed_time(end) / n
+    log(f"pseudo-GT: {n} run_pairs_async steps of {CELL_PAIRS} pairs under "
+        f"set_sync_debug_mode('error'): no host wait, {host_ms:.2f} ms of host a dispatch "
+        f"against {device_ms:.2f} ms of device a step, card busy at return: {busy}; "
+        f"launches {launches}")
+    if not busy:
+        raise AssertionError("pseudo-GT: the card was idle when the dispatches returned")
+    return dict(pairs=CELL_PAIRS, steps=n, host_ms_a_dispatch=host_ms,
+                device_ms_a_step=device_ms, busy_at_return=busy, launches=launches)
+
+
 def phase_pseudo_gt(torch, np):
     from thermal3d_torch.core.config import MASTR_512_CATMLPDPT
     from thermal3d_torch.pseudo_gt.generator import PseudoGTGenerator
@@ -1487,7 +1721,7 @@ def phase_pseudo_gt(torch, np):
     (outs, elapsed), launches = run_counted(
         lambda: drive(gen),
         {"fused_rope_attention": 48 * n, "fused_rope_cross_attention": 24 * n,
-         "rope_attention_tc": 72 * n})
+         "rope_attention_tc": 72 * n, "kabsch3x3": n})
     pps = PAIR_BATCH * n / elapsed
     log(f"pseudo-GT: {n} steps of {PAIR_BATCH} pairs in {elapsed:.4f} s: {pps:.3f} pairs/s "
         f"(run_pairs, host copies included); launches {launches}")
@@ -1500,6 +1734,7 @@ def phase_pseudo_gt(torch, np):
     pps_device = PAIR_BATCH * n / (time.perf_counter() - t0)
     del dev_out
     log(f"pseudo-GT: run_pairs_async (no host copies) {pps_device:.3f} pairs/s")
+    no_wait = dispatch_without_waits(torch, gen)
     breakdown = profile_batch(torch, lambda: gen.run_pairs(*pairs[0]),
                               f"one run_pairs() of {PAIR_BATCH} pairs")
     geometry = check_geometry(outs[0], np)
@@ -1528,7 +1763,8 @@ def phase_pseudo_gt(torch, np):
             c = dataclasses.replace(config, attention_impl="torch",
                                     compute_dtype=dt or "float32")
             g = PseudoGTGenerator(c, state_dict=state, params_dtype=dt)
-            outs_.append(run_counted(lambda: g.run_pairs(*pairs[0]), {})[0])  # no kernel
+            # no attention kernel; the pose's 3×3 kernel once
+            outs_.append(run_counted(lambda: g.run_pairs(*pairs[0]), {"kabsch3x3": 1})[0])
             del g
             torch.cuda.empty_cache()
         return outs_
@@ -1544,7 +1780,8 @@ def phase_pseudo_gt(torch, np):
     gen_p.run_pairs(*pairs[0])  # warm-up
     torch.cuda.synchronize()
     (outs_p, elapsed_p), launches_p = run_counted(
-        lambda: drive(gen_p), {"flash_attention_pallas": 72 * n, "softmax_attention_tc": 72 * n})
+        lambda: drive(gen_p), {"flash_attention_pallas": 72 * n, "softmax_attention_tc": 72 * n,
+                               "kabsch3x3": n})
     pps_pallas = PAIR_BATCH * n / elapsed_p
     log(f"pseudo-GT 'pallas': {pps_pallas:.3f} pairs/s (run_pairs); launches {launches_p}")
     for out in outs_p:
@@ -1560,9 +1797,9 @@ def phase_pseudo_gt(torch, np):
     # generator's weights against the float32 plain twin on pairs[0]
     f32 = {}
     for impl, want in (("auto", {"fused_rope_attention": 48, "fused_rope_cross_attention": 24,
-                                 "rope_attention_3xtf32": 72}),
+                                 "rope_attention_3xtf32": 72, "kabsch3x3": 1}),
                        ("pallas", {"flash_attention_pallas": 72,
-                                   "softmax_attention_3xtf32": 72})):
+                                   "softmax_attention_3xtf32": 72, "kabsch3x3": 1})):
         g = PseudoGTGenerator(dataclasses.replace(cfg, compute_dtype="float32",
                                                   attention_impl=impl), state_dict=weights)
         g.run_pairs(*pairs[0])  # warm-up
@@ -1598,14 +1835,16 @@ def phase_pseudo_gt(torch, np):
         g = PseudoGTGenerator(dataclasses.replace(small, attention_impl=impl),
                               state_dict=small_weights, params_dtype="bfloat16")
         (out_s,), launches_s = run_counted(lambda: [g.run_pairs(*pairs[0])],
-                                           {counter: 10, "softmax_attention_tc": 10})
+                                           {counter: 10, "softmax_attention_tc": 10,
+                                            "kabsch3x3": 1})
         log(f"pseudo-GT {impl!r} at depth 2: launches {launches_s}")
         check_pgt_outputs(out_s, np)
         reduced[impl] = dict(launches=launches_s,
                              **hold(out_s, ref_small, gold_small, f"bf16 {impl!r} at depth 2"))
         del g
     return dict(pairs_per_s=pps, pairs_per_s_device=pps_device, batch_pairs=PAIR_BATCH,
-                n_steps=n, launches=launches, breakdown=breakdown, geometry=geometry,
+                n_steps=n, launches=launches, no_wait=no_wait, breakdown=breakdown,
+                geometry=geometry,
                 rel_err=held, pallas=dict(pairs_per_s=pps_pallas, launches=launches_p,
                                           breakdown=breakdown_p, rel_err=held_p),
                 float32=f32, reduced_depth=reduced)
@@ -1749,7 +1988,7 @@ def phase_files(torch, np, card: str, engine_result: dict, pseudo_gt_result: dic
                "fused_rope_cross_attention": 64, "rope_attention_tc": 224}
     n_steps = -(-(N_RGB - 1) // PAIR_BATCH)
     stepping = {"fused_rope_attention": 48 * n_steps, "fused_rope_cross_attention": 24 * n_steps,
-                "rope_attention_tc": 72 * n_steps}
+                "rope_attention_tc": 72 * n_steps, "kabsch3x3": n_steps}
     t0 = time.perf_counter()
     paths = write_tree(np, root)
     survivors = [p for i, p in enumerate(paths) if i != CORRUPT_AT]
@@ -2936,7 +3175,7 @@ def phase_int8_generator(torch, np):
     gemms = int8_gemm_launches(cfg)
     outs, launches = run_counted(lambda: [gen.run_pairs(*p) for p in pairs], {
         "fused_rope_attention": 48 * n, "fused_rope_cross_attention": 24 * n,
-        "rope_attention_tc": 72 * n, "int_mm": gemms * n})
+        "rope_attention_tc": 72 * n, "int_mm": gemms * n, "kabsch3x3": n})
     for out in outs:
         check_pgt_outputs(out, np)
     geometry = check_geometry(outs[0], np)
@@ -3019,7 +3258,7 @@ def phase_int8_files(torch, np, root: str):
         "--dataset_dir", os.path.join(root, "ds"), "--output_dir", ts_dir, "--test_set",
         "--batch_size", str(PAIR_BATCH), "--int8"]), {
             "fused_rope_attention": 48 * steps, "fused_rope_cross_attention": 24 * steps,
-            "rope_attention_tc": 72 * steps,
+            "rope_attention_tc": 72 * steps, "kabsch3x3": steps,
             "int_mm": int8_gemm_launches(MASTR_512_CATMLPDPT) * steps})
     if n_ts != N_RGB:
         raise AssertionError(f"cli.pseudo_gt --int8 --test_set: {n_ts} frames")
@@ -3708,7 +3947,7 @@ def mesh_generator_check(torch, np, root: str):
             return out, time.perf_counter() - t0
         (out, el), launches[name] = run_counted(run, {
             "fused_rope_attention": 48 * chunks * n, "fused_rope_cross_attention": 24 * chunks * n,
-            "rope_attention_tc": 72 * chunks * n})
+            "rope_attention_tc": 72 * chunks * n, "kabsch3x3": chunks * n})
         pps[name] = PAIR_BATCH * n / el
         outs[name] = out[0]
     check_pgt_outputs(outs["mesh"], np)
@@ -3734,7 +3973,7 @@ def mesh_generator_check(torch, np, root: str):
     written, files_launches = run_counted(lambda: generate_pseudo_gt(pairs, pgt_dir, meshed), {
         "fused_rope_attention": 48 * MESH2 * n_steps,
         "fused_rope_cross_attention": 24 * MESH2 * n_steps,
-        "rope_attention_tc": 72 * MESH2 * n_steps})
+        "rope_attention_tc": 72 * MESH2 * n_steps, "kabsch3x3": MESH2 * n_steps})
     for i in range(0, len(pairs), PAIR_BATCH):
         r1, r2, kept = decode_rgb_pairs(pairs[i:i + PAIR_BATCH], pcfg.img_size)
         ref = meshed.run_pairs(pad_batch(r1, PAIR_BATCH), pad_batch(r2, PAIR_BATCH))
@@ -4435,7 +4674,7 @@ def md_generator_check(torch, np, counts) -> dict:
         got, launches = run_counted(
             lambda: {k: v.cpu().numpy() for k, v in gen.run_pairs_async(rgb1, rgb2).items()},
             {"fused_rope_attention": 48 * n, "fused_rope_cross_attention": 24 * n,
-             "rope_attention_tc": 72 * n})
+             "rope_attention_tc": 72 * n, "kabsch3x3": n})
         want = one.run_pairs(rgb1, rgb2)
         got_sync = gen.run_pairs(rgb1, rgb2)
         unequal = [k for k in want if not np.array_equal(got[k], want[k], equal_nan=True)]
@@ -4554,7 +4793,7 @@ def md_cli_check(torch, np, counts, root: str) -> dict:
             "--dataset_dir", ds, "--output_dir", pgt_dir, "--frame_skip", "1",
             "--batch_size", str(PAIR_BATCH * n), "--ndev", str(n)],
             {"fused_rope_attention": 48 * n * steps, "fused_rope_cross_attention": 24 * n * steps,
-             "rope_attention_tc": 72 * n * steps})
+             "rope_attention_tc": 72 * n * steps, "kabsch3x3": n * steps})
         r["cli_pseudo_gt"] = dict(batch_size=PAIR_BATCH * n, launches=launches, seconds=sec,
                                   pairs_per_s=n_pairs / sec)
         bench_steps = 1 + 2 * MD_BENCH_ITERS
@@ -5082,10 +5321,13 @@ def record():
     counts = {}
     k1 = sys.modules.get("thermal3d_torch.kernels.image_ops")
     fa = sys.modules.get("thermal3d_torch.kernels.flash_attention")
+    pose = sys.modules.get("thermal3d_torch.kernels.umeyama3x3")
     if k1 is not None:
         counts["percentile_enhance"] = k1.percentile_enhance.launches
     if fa is not None:
         counts.update((name, getattr(fa, name).launches) for name in COUNTED)
+    if pose is not None:
+        counts["kabsch3x3"] = pose.kabsch3x3.launches
     with open(os.environ["WRAPPER_LAUNCH_LOG"], "a") as f:
         f.write(json.dumps(dict(argv=ARGS, launches={k: v for k, v in counts.items() if v}))
                 + "\n")
@@ -5197,7 +5439,8 @@ def phase_wrappers(torch, np, root: str):
     pgt, pgt_direct = os.path.join(wr, "pseudo_gt"), os.path.join(wr, "pseudo_gt_direct")
     run("generate_pseudo_gt", "torch_run_generate_pseudo_gt.sh",
         extra_env=dict(DATASET_DIR=ds, OUTPUT_DIR=pgt, WEIGHTS=mastr_pth),
-        want=("fused_rope_attention", "fused_rope_cross_attention", "rope_attention_tc"))
+        want=("fused_rope_attention", "fused_rope_cross_attention", "rope_attention_tc",
+              "kabsch3x3"))
     n_pairs = len(build_rgb_pair_index(ds, frame_skip=5))
     counts = {d: len(os.listdir(os.path.join(pgt, d))) for d in OUTPUT_DIRS}
     if set(counts.values()) != {n_pairs}:
@@ -5207,7 +5450,7 @@ def phase_wrappers(torch, np, root: str):
         "--dataset_dir", ds, "--output_dir", pgt_direct, "--weights", mastr_pth,
         "--img_size", "512", "512", "--frame_skip", "5"]),
         {"fused_rope_attention": 48 * n_steps, "fused_rope_cross_attention": 24 * n_steps,
-         "rope_attention_tc": 72 * n_steps})
+         "rope_attention_tc": 72 * n_steps, "kabsch3x3": n_steps})
     steps["generate_pseudo_gt"].update(pairs=n_pairs, files=same_tree(
         pgt, pgt_direct, "pseudo-GT wrapper"), direct_launches=direct_launches)
 
@@ -5396,6 +5639,8 @@ def main(argv) -> int:
                          "flash_attention_multihead")}
     k456["flash_attention_pallas"].append(size_one_axes_case(torch))
     k2_hd, k3_hd, k456_hd, poison, widths = head_dim_cases(torch)
+    log("the pseudo-GT pose's 3x3 kernel vs its plain sweeps and float64 numpy:")
+    kabsch = kabsch_cases(torch, np)
     multi_card = multi_card_check(torch, np)
     engine = phase_engine(torch, np)
     engine["small_decoder"] = phase_small_decoder(torch, np)
@@ -5531,9 +5776,13 @@ def main(argv) -> int:
         entry("softmax_attention_3xtf32", "thermal3d_torch/kernels/csrc/attention_3xtf32.cu",
               f"{fa_src}:91", f32_k4k6, main_index(f32_k4k6, [8, 16, 1024, 64]),
               "pseudo_gt_f32_pallas"),
+        # no TPU kernel: it stands for XLA's SVD and two det in the JAX pose;
+        # main case a step of phase 5's generator (PAIR_BATCH covariances)
+        entry("kabsch3x3", "thermal3d_torch/kernels/csrc/umeyama3x3.cu",
+              "thermal3d/geometry/umeyama.py:39", kabsch, 1, "pseudo_gt_auto"),
     ]
-    kernels[-2]["replaces_also"] = [f"{fa_src}:415"]  # K3 on the same kernel
-    kernels[-1]["replaces_also"] = [f"{fa_src}:227", f"{fa_src}:164"]  # K5, K6
+    kernels[-3]["replaces_also"] = [f"{fa_src}:415"]  # K3 on the same kernel
+    kernels[-2]["replaces_also"] = [f"{fa_src}:227", f"{fa_src}:164"]  # K5, K6
     print(card, flush=True)
     print(json.dumps({"build": build}), flush=True)
     print(json.dumps({"packed_route": dict(poison=poison, padded_width=widths)}), flush=True)

@@ -6,6 +6,8 @@ convert/from_jax.py."""
 
 import dataclasses
 import json
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -13,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_common import torch_state
+from tests.test_torch_common import StandInLibrary, record_device_blocks, torch_state
 from thermal3d.convert.flax_to_torch import export_state_dict
 from thermal3d.core.config import DustrModelConfig as JaxConfig
 from thermal3d.core.config import HeadConfig as JaxHeadConfig
@@ -29,6 +31,8 @@ from thermal3d_torch.geometry.calibration import load_thermal_calibration
 from thermal3d_torch.geometry.intrinsics import estimate_camera_intrinsics, nanmedian_midpoint
 from thermal3d_torch.geometry.umeyama import (GeometryException, extract_relative_pose,
                                               umeyama_alignment)
+from thermal3d_torch.kernels import umeyama3x3
+from thermal3d_torch.kernels.umeyama3x3 import kabsch3x3, kabsch3x3_plain
 from thermal3d_torch.models import heads
 from thermal3d_torch.models.dustr import AsymmetricCroCo3DStereo
 from thermal3d_torch.preprocess.resize import resize_bilinear_hwc
@@ -294,6 +298,126 @@ def test_umeyama_alignment_host_api_matches_jax():
         umeyama_alignment(x, y[:, :10])
     with pytest.raises(GeometryException):
         umeyama_alignment(np.zeros((3, 20)), np.zeros((3, 20)))
+
+
+def _rotation(rng):
+    q = np.linalg.qr(rng.standard_normal((3, 3)))[0]
+    return q * np.sign(np.linalg.det(q))
+
+
+def _covariances(kind, rng):
+    """[n, 3, 3] float32 covariances of one kind for the Kabsch solve."""
+    if kind == "random":
+        return rng.standard_normal((64, 3, 3))
+    if kind == "reflection":  # det C < 0
+        sv = np.array([(3.0, 2.0, -1.0), (1.0, 0.5, -0.25), (4.0, 1.0, -0.999)])
+        return np.stack([_rotation(rng) @ np.diag(sv[i % 3]) @ _rotation(rng).T
+                         for i in range(24)])
+    if kind == "planar":  # weighted covariances of point sets in a plane: rank 2
+        out = []
+        for _ in range(16):
+            x = rng.standard_normal((3, 200))
+            x[2] = 0.3 * x[0] - 0.7 * x[1] + 1.5
+            y = 1.3 * _rotation(rng) @ x + rng.standard_normal((3, 1))
+            w = rng.uniform(0.0, 1.0, 200)
+            w /= w.sum()
+            xc, yc = x - x @ w[:, None], y - y @ w[:, None]
+            out.append((yc * w) @ xc.T)
+        return np.stack(out)
+    if kind == "repeated":  # equal singular values where R stays unique
+        sv = [(2.0, 2.0, 1.0), (3.0, 1.0, 1.0), (1.0, 1.0, 1.0), (2.0, 2.0, -1.0),
+              (5.0, 5.0, 5.0)]
+        return np.stack([_rotation(rng) @ np.diag(sv[i % 5]) @ _rotation(rng).T
+                         for i in range(20)])
+    if kind == "rank1_zero":  # small whole numbers: exactly rank 1 in float32
+        a, b = rng.integers(1, 5, (2, 12, 3)) * rng.choice([-1, 1], (2, 12, 3))
+        return np.concatenate([a[:, :, None] * b[:, None, :], np.zeros((4, 3, 3))])
+    assert kind == "scales"
+    return np.stack([rng.standard_normal((3, 3)) * 10.0 ** k for k in np.linspace(-3, 3, 25)])
+
+
+def _kabsch_f64(c):
+    """numpy float64 SVD Kabsch of one covariance: (R, signed singular
+    values, rank_ok by float32's eps)."""
+    u, d, vt = np.linalg.svd(c.astype(np.float64))
+    s = np.sign(np.linalg.det(u) * np.linalg.det(vt))
+    return (u @ np.diag([1.0, 1.0, s]) @ vt, d * [1.0, 1.0, s],
+            (d > np.finfo(np.float32).eps).sum() >= 2)
+
+
+@pytest.mark.parametrize("kind", ["random", "reflection", "planar", "repeated",
+                                  "rank1_zero", "scales"])
+def test_kabsch_plain_matches_float64_svd(kind):
+    """The 3×3 solve of the pose (kernels/umeyama3x3.py, the CUDA kernel's
+    sweeps in PyTorch) against numpy's float64 SVD with the Kabsch sign fix:
+    R within 1e-5, the signed singular values within 1e-5 of the largest,
+    rank_ok equal. Of rank 1 and zero covariances only rank_ok (false) is
+    compared, R being any rotation there: it must be a finite one."""
+    cov = _covariances(kind, _rng(11)).astype(np.float32)
+    r, sig, rank_ok = (t.numpy() for t in kabsch3x3_plain(torch.from_numpy(cov)))
+    assert r.dtype == sig.dtype == np.float32 and rank_ok.dtype == np.bool_
+    assert np.isfinite(r).all() and np.isfinite(sig).all()
+    np.testing.assert_allclose(r @ r.transpose(0, 2, 1), np.broadcast_to(np.eye(3), r.shape),
+                               atol=1e-6)
+    np.testing.assert_allclose(np.linalg.det(r), 1.0, atol=1e-6)
+    assert (sig[:, :2] >= 0).all()
+    assert (np.diff(np.abs(sig), axis=1) <= 1e-6 * np.abs(sig[:, :1])).all()  # descending
+    for i, c in enumerate(cov):
+        ref_r, ref_sig, ref_ok = _kabsch_f64(c)
+        assert rank_ok[i] == ref_ok, i
+        if kind == "rank1_zero":
+            assert not ref_ok
+            continue
+        np.testing.assert_allclose(r[i], ref_r, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(sig[i], ref_sig, rtol=0, atol=1e-5 * np.abs(ref_sig).max())
+
+
+def test_kabsch_launch_runs_on_its_tensors_device(monkeypatch):
+    """The 3×3 solve's launch calls its library once, inside one
+    torch.cuda.device block of its output's device, and counts one launch.
+    A stand-in library and a recorder for torch.cuda.device, on CPU tensors;
+    the wrapper itself takes the plain sweeps on the CPU and counts none."""
+    events = []
+    record_device_blocks(monkeypatch, events)
+    monkeypatch.setattr(umeyama3x3, "_lib", lambda: StandInLibrary(events))
+    cov = torch.zeros((8, 3, 3))
+    r = torch.empty_like(cov)
+    before = kabsch3x3.launches
+    umeyama3x3._launch(cov, r, torch.empty((8, 3)), torch.empty((8,), dtype=torch.bool))
+    assert events == [("enter", r.device), ("call", "t3d_umeyama3x3"), ("exit", r.device)]
+    assert kabsch3x3.launches == before + 1
+    kabsch3x3(cov)
+    assert kabsch3x3.launches == before + 1
+
+
+def test_kabsch_plain_mirrors_the_kernel_constants():
+    """The plain sweeps use the kernel's number of sweeps and its least
+    share of b2 left off u1 (kSweeps, kLeft in csrc/umeyama3x3.cu), so the
+    CPU path is the card's arithmetic."""
+    src = (Path(umeyama3x3.__file__).parent / "csrc" / "umeyama3x3.cu").read_text()
+    sweeps = re.search(r"constexpr int kSweeps = (\d+);", src)
+    left = re.search(r"constexpr double kLeft = ([0-9.eE+-]+);", src)
+    assert sweeps and left
+    assert umeyama3x3.SWEEPS == int(sweeps.group(1))
+    assert umeyama3x3.LEFT == float(left.group(1))
+
+
+def test_pose_needs_no_library_svd(monkeypatch):
+    """umeyama_core solves without torch.linalg.svd or torch.linalg.det
+    (torch's CUDA SVD waits for the device): with both made to raise, the
+    pose still comes out, and equals the one before."""
+    pm1 = _pointmaps(2, 6, 7, seed=12)
+    pm2 = (pm1 @ _rotation(_rng(13)).T.astype(np.float32) + np.float32([0.1, 0.2, 4.0]))
+    want = extract_relative_pose(torch.from_numpy(pm1), torch.from_numpy(pm2))
+    assert not torch.allclose(want, torch.eye(4))
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a library SVD or determinant was called")
+
+    monkeypatch.setattr(torch.linalg, "svd", refuse)
+    monkeypatch.setattr(torch.linalg, "det", refuse)
+    got = extract_relative_pose(torch.from_numpy(pm1), torch.from_numpy(pm2))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_load_thermal_calibration_json(tmp_path):

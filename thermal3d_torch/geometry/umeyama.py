@@ -1,11 +1,14 @@
 """Umeyama/Kabsch rigid alignment and relative pose (counterpart of
 thermal3d/geometry/umeyama.py), batched over [B] on the device.
 
-The weighted closed form: weighted means, the 3×3 covariance, its SVD
-(torch.linalg.svd on [B,3,3]) and the Kabsch sign fix. Invalid points are
-zeroed before they enter the products (0·NaN would be NaN). Fewer than 10
-valid points, or a covariance of rank < 2 by the float32 eps test, give the
-identity pose.
+The weighted closed form: weighted means, the 3×3 covariance, and its
+Kabsch rotation with the signed singular values (kernels/umeyama3x3.py: a
+hand-written CUDA kernel on the card, its plain PyTorch sweeps on the CPU;
+U and V come out as rotations, so the sign fix is in the third singular
+value). Nothing is read back to the host, so a pseudo-GT step is dispatched
+without waiting for the device. Invalid points are zeroed before they enter
+the products (0·NaN would be NaN). Fewer than 10 valid points, or a
+covariance of rank < 2 by the float32 eps test, give the identity pose.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import numpy as np
 import torch
 
 from thermal3d_torch.core.profiling import annotate
+from thermal3d_torch.kernels.umeyama3x3 import kabsch3x3
 
 
 class GeometryException(Exception):
@@ -30,15 +34,9 @@ def umeyama_core(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor, with_scale: 
     yc = y - mean_y[..., None]
     sigma_x = torch.einsum("bdn,bn->b", xc * xc, wn)
     cov = torch.einsum("bdn,ben->bde", yc * wn[:, None, :], xc)
-    u, d, vt = torch.linalg.svd(cov)
-    eps = torch.finfo(d.dtype).eps
-    rank_ok = (d > eps).sum(dim=-1) >= x.shape[1] - 1
-    flip = torch.linalg.det(u) * torch.linalg.det(vt) < 0
-    s = torch.ones_like(d)
-    s[:, -1] = torch.where(flip, -1.0, 1.0)
-    r = u @ torch.diag_embed(s) @ vt
+    r, ds, rank_ok = kabsch3x3(cov.contiguous())
     if with_scale:
-        c = (1.0 / torch.clamp(sigma_x, min=1e-12)) * (d * s).sum(dim=-1)
+        c = (1.0 / torch.clamp(sigma_x, min=1e-12)) * ds.sum(dim=-1)
     else:
         c = torch.ones_like(sigma_x)
     t = mean_y - c[:, None] * torch.einsum("bde,be->bd", r, mean_x)

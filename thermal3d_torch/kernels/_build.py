@@ -34,7 +34,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("percentile_enhance", "rope_attention_tc", "attention_tc", "attention_3xtf32")
+SOURCES = ("percentile_enhance", "rope_attention_tc", "attention_tc", "attention_3xtf32",
+           "umeyama3x3")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -5,6 +5,9 @@ One step: both views through the shared encoder in one batch, the dual
 decoder, the catmlpdpt heads (pts3d/conf only: the generator returns no
 descriptors, so the local-feature MLP is not run), then on the device the
 intrinsics (median focal fit) and the Umeyama relative pose of each pair.
+Nothing in a step reads a result back to the host, so with inputs already
+on the device (data.pipeline.PinnedStage) run_pairs_async returns once the
+step's work is queued.
 
     gen = PseudoGTGenerator(MASTR_512_CATMLPDPT, params_dtype="bfloat16")
     out = gen.run_pairs(rgb1, rgb2)   # [B,512,512,3] in [0,1] → numpy dict
@@ -115,7 +118,10 @@ class PseudoGTGenerator:
     def run_pairs_async(self, rgb1, rgb2) -> Dict[str, torch.Tensor]:
         """rgb*: [B, H, W, 3] in [0, 1] (numpy, or float32 tensors on the
         generator's device) → the eight pseudo-GT tensors on the device (the
-        mesh's first), without waiting for them."""
+        mesh's first), without waiting for them: for inputs on the device
+        no call of the step waits for it, so the next step can be
+        dispatched while this one computes (numpy inputs are copied from
+        pageable memory, which waits for the stream's earlier work)."""
         if tuple(rgb1.shape) != tuple(rgb2.shape) or rgb1.shape[0] == 0:
             raise ValueError(f"run_pairs: want two equal non-empty [B,H,W,3] batches, "
                              f"got {tuple(rgb1.shape)} and {tuple(rgb2.shape)}")
