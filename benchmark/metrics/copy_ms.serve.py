@@ -6,7 +6,7 @@ from benchmark.trace import name_matcher
 UNIT = "ms"
 SOURCE = "device_trace"
 LAYER = "pipeline"
-MOVES = "latency_p95_ms"
+MOVES = "frames_per_s"
 KERNELS = name_matcher(("memcpy",))
 
 

@@ -25,6 +25,9 @@ from benchmark.inputs import generator, smooth
 from benchmark.compare import Gaps, nan_max
 
 UNITS = "pairs"
+# the traffic's parameters cut to a few small requests, for the CPU tests
+TINY = dict(pairs=2, size=64, max_shift=4, pool=3, warmup_requests=2, trace_requests=4,
+            checked_requests=2, scene_cells=[3, 3])
 
 
 def units(traffic) -> int:

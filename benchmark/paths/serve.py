@@ -19,6 +19,9 @@ from benchmark.compare import Gaps
 from benchmark.inputs import generator, smooth
 
 UNITS = "frames"
+# the traffic's parameters cut to a few small requests, for the CPU tests
+TINY = dict(frames=4, height=40, width=48, pool=3, warmup_requests=2, trace_requests=4,
+            checked_requests=2, scene_cells=[3, 4])
 
 
 def units(traffic) -> int:

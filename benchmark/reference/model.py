@@ -9,9 +9,13 @@ not run: the pseudo-GT path returns no descriptors). LayerNorm eps 1e-6,
 exact (erf) GELU. Images enter as NHWC in [0, 1], as the program's input
 contract states.
 
-`param_shapes(cfg)` is the dust3r checkpoint layout the benchmark makes its
-seeded weights in; `forward(params, cfg, img1, img2)` computes in float32
-from those weights (any stored dtype is up-cast), with TF32 off.
+The family's module of the benchmark (a configuration file names it by
+"reference": "model"): `param_shapes(cfg)` is the dust3r checkpoint layout
+the benchmark makes its seeded weights in, `head_out_weights(cfg)` and
+`z_channels(cfg)` the pointmap heads' tensors that the weights' `head_out_scale`
+and `z_bias` set, and `tiny_config(cfg, dtype)` the configuration cut to a
+width that a CPU test runs; `forward(params, cfg, img1, img2)` computes in
+float32 from those weights (any stored dtype is up-cast), with TF32 off.
 """
 
 from __future__ import annotations
@@ -110,6 +114,41 @@ def param_shapes(cfg) -> Shapes:
         else:
             raise ValueError(f"head_type {cfg['head_type']!r} is not modelled")
     return out
+
+
+def head_out_weights(cfg):
+    """The pointmap heads' last weights: a trained head puts points at a
+    scene's scale, where random DPT features would put them at expm1 of
+    several units (coordinates in the thousands, many overflowing)."""
+    for h in ("downstream_head1", "downstream_head2"):
+        yield f"{h}.proj.weight" if cfg["head_type"] == "linear" else f"{h}.dpt.head.4.weight"
+
+
+def z_channels(cfg):
+    """(name, index) of the pointmap heads' last biases that feed the Z
+    coordinate: a trained model puts its points in front of the camera, so
+    the seeded weights start Z at `z_bias`."""
+    p2 = cfg["patch_size"] ** 2
+    for h in ("downstream_head1", "downstream_head2"):
+        if cfg["head_type"] == "linear":  # channels (c, dy, dx): c = 2
+            yield f"{h}.proj.bias", slice(2 * p2, 3 * p2)
+        else:
+            yield f"{h}.dpt.head.4.bias", 2
+
+
+TINY_MODEL = dict(enc_embed_dim=64, enc_depth=2, enc_num_heads=2, dec_embed_dim=48,
+                  dec_depth=2, dec_num_heads=2)
+TINY_DPT = dict(feature_dim=32, last_dim=16, dpt_layer_dims=[8, 16, 24, 32])
+
+
+def tiny_config(cfg: dict, dtype: str) -> dict:
+    """The configuration at a width and image size that a CPU test runs."""
+    cfg = dict(cfg, dtype=dtype, **TINY_MODEL)
+    if cfg["head_type"] == "linear":
+        cfg["img_size"] = [32, 32]
+    else:
+        cfg.update(img_size=[64, 64], **TINY_DPT)
+    return cfg
 
 
 # --------------------------------------------------------------------------

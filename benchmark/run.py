@@ -3,10 +3,12 @@
     python -m benchmark.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 from the root of a checkout. The harness holds no name of a cell,
-configuration, traffic mix, path or metric: it reads the cell from
+configuration, family, traffic mix, path or metric: it reads the cell from
 BENCHMARK.json and finds, by name,
-  the configuration    the `file` of BENCHMARK.json's entry (dust3r's keys,
-                       the dtype, how the weights are made),
+  the configuration    the `file` of BENCHMARK.json's entry (the family's
+                       keys, the dtype, how the weights are made),
+  the family           benchmark/reference/<configuration's "reference">.py
+                       (the weights' layout, the plain reference),
   the traffic mix      benchmark/traffic/<traffic>.json (parameters only),
   the request path     benchmark/paths/<traffic's "path">.py (the pool, the
                        program's calls, the check against the reference),
@@ -29,7 +31,6 @@ PROCESS_START = time.perf_counter()
 
 import argparse  # noqa: E402
 import gc  # noqa: E402
-import importlib.util  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
@@ -40,6 +41,7 @@ from pathlib import Path  # noqa: E402
 from typing import Any, Dict, Optional  # noqa: E402
 
 from benchmark.imports import forbidden_loaded  # noqa: E402
+from benchmark.modules import load_module  # noqa: E402
 
 # every kernel and build cache the program or a library keeps, at fixed paths
 # inside the checkout
@@ -59,15 +61,6 @@ class Run:
     setup_seconds: float
     window: Any  # loop.Window
     trace: Any = None  # trace.Trace of the profiled slice, with --trace 1
-
-
-def load_module(path: Path, name: str):
-    spec = importlib.util.spec_from_file_location(name, path)
-    if spec is None or not path.is_file():
-        raise FileNotFoundError(f"benchmark: no module {path}")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
 
 
 def load_json(path: Path):
@@ -132,7 +125,7 @@ def run_cell(root: Path, spec: dict, cell: dict, seed: int, seconds: float, trac
             torch.cuda.synchronize(device)
 
     pool = path.make_pool(traffic, seed, device)
-    weights = make_weights(cfg, seed, device)
+    weights = make_weights(cfg, seed, device, root)
     program = path.Program(cfg, traffic, weights, device, variant)
     del weights  # the program holds its own copy; the reference makes them anew
     order = request_order(traffic, seed)
@@ -157,7 +150,7 @@ def run_cell(root: Path, spec: dict, cell: dict, seed: int, seconds: float, trac
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    params = make_weights(cfg, seed, device)
+    params = make_weights(cfg, seed, device, root)
     readings = path.check(cfg, traffic, params, sampler.items, pool, device, variant)
     if readings_out is not None:
         readings_out.update(readings)

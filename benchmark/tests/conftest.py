@@ -2,9 +2,10 @@
 benchmark/tests` from the repo root; CPU only, tiny sizes).
 
 `tiny_root` builds a checkout-shaped directory whose BENCHMARK.json has the
-real cells, paths, metrics and limits, with the configurations cut to a tiny
-width and the traffic to a few small requests, so that a whole run of the
-harness fits a CPU test.
+real cells, paths, metrics, families and limits, with the configurations cut
+to a tiny width by their family's `tiny_config` and the traffic to a few
+small requests by its path's `TINY`, so that a whole run of the harness fits
+a CPU test.
 """
 
 from __future__ import annotations
@@ -16,16 +17,9 @@ from pathlib import Path
 import pytest
 import torch
 
+from benchmark.modules import family, load_module
+
 REPO = Path(__file__).resolve().parents[2]
-TINY_MODEL = dict(enc_embed_dim=64, enc_depth=2, enc_num_heads=2, dec_embed_dim=48,
-                  dec_depth=2, dec_num_heads=2)
-TINY_DPT = dict(feature_dim=32, last_dim=16, dpt_layer_dims=[8, 16, 24, 32])
-TINY_TRAFFIC = {
-    "serve": dict(frames=4, height=40, width=48, pool=3, warmup_requests=2, trace_requests=4,
-                  checked_requests=2, scene_cells=[3, 4]),
-    "pseudo_gt": dict(pairs=2, size=64, max_shift=4, pool=3, warmup_requests=2,
-                      trace_requests=4, checked_requests=2, scene_cells=[3, 3]),
-}
 
 
 def pytest_configure(config):
@@ -41,19 +35,22 @@ def _few_threads():
 
 
 def tiny_config(cfg: dict, dtype: str) -> dict:
-    cfg = dict(cfg, dtype=dtype, **TINY_MODEL)
-    if cfg["head_type"] == "linear":
-        cfg["img_size"] = [32, 32]
-    else:
-        cfg.update(img_size=[64, 64], **TINY_DPT)
-    return cfg
+    """The configuration cut to a tiny width by its family's module."""
+    return family(REPO, cfg).tiny_config(cfg, dtype)
+
+
+def tiny_traffic(traffic: dict) -> dict:
+    """The traffic mix cut to a few small requests by its path's `TINY`."""
+    path = load_module(REPO / "benchmark" / "paths" / f"{traffic['path']}.py",
+                       "benchmark_path_" + traffic["path"])
+    return dict(traffic, **path.TINY)
 
 
 def build_tiny_root(tmp: Path, dtype: str = "float32", limits=None) -> dict:
     """A tiny copy of the benchmark under `tmp`; returns its BENCHMARK.json.
     `limits` ({cell: {number: limit}}) replaces the cells' limits files."""
     bench = tmp / "benchmark"
-    for sub in ("paths", "metrics"):
+    for sub in ("paths", "metrics", "reference"):
         shutil.copytree(REPO / "benchmark" / sub, bench / sub, dirs_exist_ok=True)
     for sub in ("configs", "traffic", "limits"):
         (bench / sub).mkdir(parents=True, exist_ok=True)
@@ -63,8 +60,7 @@ def build_tiny_root(tmp: Path, dtype: str = "float32", limits=None) -> dict:
         (tmp / c["file"]).write_text(json.dumps(tiny_config(cfg, dtype)))
     for w in spec["workloads"]:
         name = f"{w['traffic']}.json"
-        traffic = json.loads((REPO / "benchmark" / "traffic" / name).read_text())
-        traffic.update(TINY_TRAFFIC[traffic["path"]])
+        traffic = tiny_traffic(json.loads((REPO / "benchmark" / "traffic" / name).read_text()))
         (bench / "traffic" / name).write_text(json.dumps(traffic))
         lim = (limits or {}).get(w["name"])
         if lim is None:

@@ -13,7 +13,7 @@ import torch
 from benchmark.paths import pseudo_gt as pgt_path
 from benchmark.paths import serve as serve_path
 from benchmark.reference import geometry, model, preprocess
-from benchmark.tests.conftest import REPO, TINY_TRAFFIC, tiny_config
+from benchmark.tests.conftest import REPO, tiny_config, tiny_traffic
 from benchmark.weights import make_weights
 
 
@@ -23,9 +23,7 @@ def config(name: str) -> dict:
 
 
 def traffic(name: str) -> dict:
-    t = json.loads((REPO / "benchmark" / "traffic" / f"{name}.json").read_text())
-    t.update(TINY_TRAFFIC[t["path"]])
-    return t
+    return tiny_traffic(json.loads((REPO / "benchmark" / "traffic" / f"{name}.json").read_text()))
 
 
 @pytest.mark.parametrize("seed", [0, 2**31 + 11])

@@ -12,7 +12,7 @@ import torch
 
 from benchmark import loop
 from benchmark.run import load_module, metric_module
-from benchmark.tests.conftest import REPO, TINY_TRAFFIC, tiny_config
+from benchmark.tests.conftest import REPO, tiny_config, tiny_traffic
 from benchmark.weights import make_weights
 
 READERS = {"serve": ("dispatch_ms.serve", "host_copy_ms.serve"),
@@ -31,8 +31,8 @@ def traced_slice(path_name: str, n: int = 3, seed: int = 2**31 + 5):
     config, traffic_name = CELLS[path_name]
     cfg = tiny_config(json.loads((REPO / "benchmark" / "configs" / f"{config}.json")
                                  .read_text()), "float32")
-    traffic = json.loads((REPO / "benchmark" / "traffic" / f"{traffic_name}.json").read_text())
-    traffic.update(TINY_TRAFFIC[path_name])
+    traffic = tiny_traffic(json.loads((REPO / "benchmark" / "traffic" / f"{traffic_name}.json")
+                                      .read_text()))
     path = load_module(REPO / "benchmark" / "paths" / f"{path_name}.py", "spans_" + path_name)
     pool = path.make_pool(traffic, seed, "cpu")
     program = path.Program(cfg, traffic, make_weights(cfg, seed, "cpu"), "cpu")

@@ -103,6 +103,23 @@ def test_cell_files(cell):
     assert limits and all(v >= 0 for v in limits.values())
 
 
+@pytest.mark.parametrize("config", SPEC["configs"], ids=[c["name"] for c in SPEC["configs"]])
+def test_config_names_its_family(config):
+    """A configuration file names its family's module, which gives the
+    weights' layout, the tiny form of the tests and the tensors that the
+    weights' head_out_scale and z_bias set."""
+    from benchmark.modules import family
+
+    cfg = json.loads((REPO / config["file"]).read_text())
+    assert NAME.match(cfg["reference"])
+    module = family(REPO, cfg)
+    assert callable(module.param_shapes) and callable(module.tiny_config)
+    if "head_out_scale" in cfg["weights"]:
+        assert callable(module.head_out_weights)
+    if "z_bias" in cfg["weights"]:
+        assert callable(module.z_channels)
+
+
 def test_files_under_paths_are_named_from_name_characters():
     for p in (REPO / "benchmark").rglob("*"):
         if "__pycache__" in p.parts or p.suffix == ".pyc":

@@ -12,15 +12,13 @@ import pytest
 
 from benchmark.inputs import request_order
 from benchmark.run import load_module
-from benchmark.tests.conftest import REPO, TINY_TRAFFIC
+from benchmark.tests.conftest import REPO, tiny_traffic
 
 TRAFFIC = sorted(p.stem for p in (REPO / "benchmark" / "traffic").glob("*.json"))
 
 
 def small(name: str) -> dict:
-    t = json.loads((REPO / "benchmark" / "traffic" / f"{name}.json").read_text())
-    t.update(TINY_TRAFFIC[t["path"]])
-    return t
+    return tiny_traffic(json.loads((REPO / "benchmark" / "traffic" / f"{name}.json").read_text()))
 
 
 def path_of(t: dict):

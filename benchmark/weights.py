@@ -1,12 +1,14 @@
 """Seeded weights of a configuration, made on the device in the dtype they
 are served in, and handed alike to the program and to the reference.
 
-One draw of standard normals for every weight together, from a
-torch.Generator on the device seeded by --seed, then per tensor: matrices and
-conv kernels scaled by 1/sqrt(fan_in) (fan_in = the product of all but the
-first axis), biases by `bias_std`, LayerNorm scales 1 + `norm_std` times the
-draw; with `head_out_scale`, each pointmap head's last weights scaled by it,
-and with `z_bias`, the bias of each head's Z output set to it.
+The configuration's family (benchmark/reference/<its "reference">.py, loaded
+from the run's root) gives the layout, `param_shapes(cfg)`. One draw of
+standard normals for every weight together, from a torch.Generator on the
+device seeded by --seed, then per tensor: matrices and conv kernels scaled
+by 1/sqrt(fan_in) (fan_in = the product of all but the first axis), biases
+by `bias_std`, LayerNorm scales 1 + `norm_std` times the draw; with
+`head_out_scale`, the family's `head_out_weights(cfg)` scaled by it, and with
+`z_bias`, each of its `z_channels(cfg)` set to it.
 The same seed on the same device gives the same weights, so the
 reference after the window regenerates them instead of holding a copy
 through it.
@@ -15,13 +17,16 @@ through it.
 from __future__ import annotations
 
 import math
+from pathlib import Path
 from typing import Dict
 
 import torch
 
-from benchmark.reference.model import param_shapes
+from benchmark.modules import family
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# the checkout that holds this harness
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def torch_seed(seed: int, stream: int) -> int:
@@ -29,10 +34,11 @@ def torch_seed(seed: int, stream: int) -> int:
     return (seed * 1_000_003 + stream) % (1 << 63)
 
 
-def make_weights(cfg, seed: int, device) -> Dict[str, torch.Tensor]:
+def make_weights(cfg, seed: int, device, root: Path = ROOT) -> Dict[str, torch.Tensor]:
     spec = cfg["weights"]
     dtype = DTYPES[cfg["dtype"]]
-    shapes = param_shapes(cfg)
+    ref = family(root, cfg)
+    shapes = ref.param_shapes(cfg)
     total = sum(math.prod(s) for _, s in shapes)
     gen = torch.Generator(device=device)
     gen.manual_seed(torch_seed(seed, spec["stream"]))
@@ -50,32 +56,12 @@ def make_weights(cfg, seed: int, device) -> Dict[str, torch.Tensor]:
             t.mul_(spec["norm_std"]).add_(1.0)
         out[name] = t
     if "head_out_scale" in spec:
-        for name in _head_out_weights(cfg):
+        for name in ref.head_out_weights(cfg):
             out[name].mul_(spec["head_out_scale"])
     if "z_bias" in spec:
-        for name, channels in _z_channels(cfg):
+        for name, channels in ref.z_channels(cfg):
             out[name][channels] = spec["z_bias"]
     return out
-
-
-def _head_out_weights(cfg):
-    """The pointmap heads' last weights: a trained head puts points at a
-    scene's scale, where random DPT features would put them at expm1 of
-    several units (coordinates in the thousands, many overflowing)."""
-    for h in ("downstream_head1", "downstream_head2"):
-        yield f"{h}.proj.weight" if cfg["head_type"] == "linear" else f"{h}.dpt.head.4.weight"
-
-
-def _z_channels(cfg):
-    """(name, index) of the pointmap heads' last biases that feed the Z
-    coordinate: a trained model puts its points in front of the camera, so
-    the seeded weights start Z at `z_bias`."""
-    p2 = cfg["patch_size"] ** 2
-    for h in ("downstream_head1", "downstream_head2"):
-        if cfg["head_type"] == "linear":  # channels (c, dy, dx): c = 2
-            yield f"{h}.proj.bias", slice(2 * p2, 3 * p2)
-        else:
-            yield f"{h}.dpt.head.4.bias", 2
 
 
 def thermal_head_state(cfg, device) -> Dict[str, torch.Tensor]:
