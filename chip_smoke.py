@@ -78,7 +78,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
      default compute_dtype, at full width and depth on the same weights:
      'auto' (the 3xTF32 K2/K3 count 72) and 'pallas' (the 3xTF32 K4-K6
      count 72), each against the float32 plain twin, with run_pairs_async()
-     pairs/s;
+     pairs/s; then the VGGT-1B window path (phase_window): K2 in bf16 at a
+     frame block's [24, 1374, 3072] and a global block's [1, 32976, 3072]
+     (the frame's RoPE tables tiled 24 times, the special tokens at (0, 0))
+     and K4 at the DINOv2 trunk's [24, 16, 1374, 64] (bf16) and the camera
+     head's [1, 16, 24, 128] (float32, 3xTF32), each against its plain
+     version computed a block of query rows at a time; then a full-width,
+     full-depth bf16 WindowGenerator on 24-frame windows of 518² under
+     set_sync_debug_mode('error'): no host wait, the card busy at return,
+     K2 = 48·n and K4 = 40·n (24·n tensor-core, 16·n 3xTF32) and nothing
+     else counted, every output finite, device ms a window, memory peak;
   6. drive the file-driven entry points on a synthetic Freiburg tree written
      with the script's own PNG encoder (every row filter type): the port's
      decoder alone (frames/s on 1 and 8 threads); InferenceEngine.infer_paths
@@ -167,7 +176,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      ranks (DP, ZeRO-1, DP×TP, TP) under torchrun and --multihost, each
      layout's float32 step against the single-process step, timed bf16
      steps, a ZeRO-1 checkpoint restored bit-equal and resumed;
-  14. print JSON lines of the paths (engine, pseudo_gt, files, training,
+  14. print JSON lines of the paths (engine, pseudo_gt, window, files, training,
      the bench, fire, int8, multi_gpu, export, multi_card, multi_device,
      wrappers) and of the kernels and, last, the device line.
 Without CUDA it exits non-zero before printing any result.
@@ -220,6 +229,11 @@ cuda:0, the multi-device phase's NCCL job; run_dist_job launches them).
     python3 chip_smoke.py --only-export
 
 builds the kernels and runs phase 11 alone, and prints the export line.
+
+    python3 chip_smoke.py --only-window
+
+builds the kernels and runs phase 5's VGGT-1B window part alone (its K2 and
+K4 cases, then phase_window), and prints the window line.
 
     python3 chip_smoke.py --only-multi-card [PART ...]
     python3 chip_smoke.py --only-multi-card check [PART ...]
@@ -1848,6 +1862,187 @@ def phase_pseudo_gt(torch, np):
                 rel_err=held, pallas=dict(pairs_per_s=pps_pallas, launches=launches_p,
                                           breakdown=breakdown_p, rel_err=held_p),
                 float32=f32, reduced_depth=reduced)
+
+
+# VGGT-1B's window (the benchmark cell vggt1b-window-b24): WINDOW_FRAMES
+# frames of 518², each 1374 tokens (the camera token and 4 registers at RoPE
+# position (0, 0), the 37x37 patches at (y + 1, x + 1))
+WINDOW_FRAMES = 24
+WINDOW_GRID = (37, 37)
+WINDOW_SPECIALS = 5
+WINDOW_STEPS = 2  # windows dispatched back to back under set_sync_debug_mode('error')
+# the plain version's query rows at a time: the scores of a global block's
+# S = 32,976 (70 GB in float32 over 16 heads) do not fit the card at once
+PLAIN_QUERY_ROWS = 2048
+
+
+def blocked_attention_plain(fa, q, k, v, scale):
+    """fa.attention_plain on [B, H, S, D], PLAIN_QUERY_ROWS query rows at a
+    time (each row's softmax is over every key, so the blocks change
+    nothing)."""
+    import torch
+
+    return torch.cat([fa.attention_plain(q[:, :, i:i + PLAIN_QUERY_ROWS], k, v, scale)
+                      for i in range(0, q.shape[2], PLAIN_QUERY_ROWS)], dim=2)
+
+
+def window_k2_cases(torch, frames: int = WINDOW_FRAMES) -> list:
+    """K2 in bf16 at a VGGT frame block's [N, 1374, 3072] and a global
+    block's [1, N·1374, 3072] (16 heads of 64), on the frame's RoPE tables
+    and, for the global call, those tiled N times, as models/vggt.py makes
+    them: held against fused_rope_attention_plain's arithmetic (RoPE in
+    float32 rounded to bf16, then attention_plain) a block of query rows at
+    a time (ATTENTION_LIMIT), then timed beside SDPA on the pre-roped
+    operands. The plain version is not timed at these sizes."""
+    import torch.nn.functional as F
+
+    fa = fa_module()
+    from thermal3d_torch.models.rope import rope_tables
+    from thermal3d_torch.models.vggt import frame_positions
+
+    c, nh = 1024, 16
+    d = c // nh
+    cos, sin = rope_tables(frame_positions(WINDOW_GRID, WINDOW_SPECIALS, "cuda"), d, 100.0)
+    s = cos.shape[0]
+    scale = 1.0 / math.sqrt(d)
+    cases = []
+    for b, tiles, reps in ((frames, 1, 10), (1, frames, 2)):
+        seq = s * tiles
+        cs, sn = cos.repeat(tiles, 1), sin.repeat(tiles, 1)
+        gen = torch.Generator(device="cuda").manual_seed(seq)
+        qkv = torch.randn((b, seq, 3 * c), generator=gen, device="cuda").to(torch.bfloat16)
+        kern = lambda: fa.fused_rope_attention(qkv, cs, sn, nh, scale)  # noqa: E731
+        out, moved = launched_families(kern, fa.rope_attention_tc, fa.rope_attention_3xtf32)
+        if moved != (1, 0):
+            raise AssertionError(f"K2 VGGT [{b},{seq}]: tensor-core and 3xTF32 launches {moved}")
+        served = k2k3_served(torch, fa, fa.TENSOR_CORE, b, nh, seq, d)
+
+        def heads(t):
+            return t.reshape(b, seq, nh, d).transpose(1, 2)
+
+        def roped(t):
+            tf = heads(t).float()
+            return (tf * cs + fa.rot_lanes(tf) * sn).to(torch.bfloat16)
+
+        qr, kr, vh = roped(qkv[..., :c]), roped(qkv[..., c:2 * c]), heads(qkv[..., 2 * c:])
+        ref = blocked_attention_plain(fa, qr, kr, vh, scale).transpose(1, 2).reshape(b, seq, c)
+        err = (out.float() - ref.float()).abs().max().item()
+        del out, ref
+        limit = ATTENTION_LIMIT["bfloat16"]
+        check(f"K2 fused_rope_attention VGGT [{b},{seq},{3 * c}] H={nh} D={d} bfloat16", err,
+              limit)
+        vh = vh.contiguous()
+        ms = cuda_ms(kern, reps=reps)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, vh), reps=reps)
+        flops = 4 * b * seq * seq * c
+        bounds = route_bounds(4 * b * seq * c * 2 + 2 * seq * d * 4, flops, "bfloat16",
+                              fa.TENSOR_CORE, fa)
+        bnd = bounds["bound_ms"]
+        tflops = flops / ms / 1e9
+        log(f"    {served}: ms {ms:.4f} library(sdpa) {library_ms:.4f} bound {bnd:.4f} "
+            f"({bounds['bound_by']}); {tflops:.1f} TFLOP/s, {ms / bnd:.2f}x bound, "
+            f"{ms / library_ms:.2f}x sdpa")
+        cases.append(dict(shape=[b, seq, c], heads=nh, head_dim=d, dtype="bfloat16",
+                          kernel=served, launches_in_case={"tensor_core": 1, "3xtf32": 0},
+                          max_abs_err=err, limit=limit, ms=ms, plain_ms=None,
+                          library_ms=library_ms, **bounds, tflops=tflops,
+                          ms_over_bound=ms / bnd, ms_over_library=ms / library_ms,
+                          model="VGGT-1B " + ("global block" if tiles > 1 else "frame block")))
+        del qkv, qr, kr, vh
+        torch.cuda.empty_cache()
+    return cases
+
+
+def window_k4_cases(torch, frames: int = WINDOW_FRAMES) -> list:
+    """K4 at VGGT's two shapes, on [B, H, S, D] views of a packed [B, S, 3,
+    H, D] qkv as models/vggt.py::Attention hands them over: the DINOv2
+    trunk's [N, 16, 1374, 64] in bf16 and the camera head's [1, 16, N, 128]
+    in float32 (3xTF32), each held and timed by hold_attention_case."""
+    fa = fa_module()
+    s = WINDOW_SPECIALS + WINDOW_GRID[0] * WINDOW_GRID[1]  # the cls token and 4 registers
+    cases = []
+    for b, h, seq, d, dt in ((frames, 16, s, 64, torch.bfloat16),
+                             (1, 16, frames, 128, torch.float32)):
+        gen = torch.Generator(device="cuda").manual_seed(seq)
+        qkv = torch.randn((b, seq, 3, h, d), generator=gen, device="cuda").to(dt)
+        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+        case = hold_attention_case(torch, fa, "flash_attention_pallas", q, k, v, reps=10)
+        case["model"] = "VGGT-1B " + ("patch trunk" if d == 64 else "camera head")
+        cases.append(case)
+        del qkv, q, k, v
+        torch.cuda.empty_cache()
+    return cases
+
+
+def phase_window(torch, np):
+    """The VGGT-1B window path: a full-width, full-depth bf16
+    WindowGenerator (seeded random weights) on a window of WINDOW_FRAMES
+    frames [N, 518, 518, 3] already on the card. WINDOW_STEPS windows
+    dispatched back to back under torch.cuda.set_sync_debug_mode('error')
+    raise nothing, leave the card busy when they return, and launch K2 48
+    times a window (24 frame, 24 global blocks; all on the tensor-core
+    kernel), K4 40 (the DINOv2 trunk's 24 on the tensor-core kernel, the
+    float32 camera head's 16 on the 3xTF32 one) and nothing else counted;
+    every output finite at its shape; device ms a window by CUDA events; the
+    memory peak."""
+    from thermal3d_torch.core.config import VGGT_1B
+    from thermal3d_torch.pseudo_gt.window import OUTPUTS, WindowGenerator
+
+    cfg = dataclasses.replace(VGGT_1B, compute_dtype="bfloat16")
+    n, size = WINDOW_FRAMES, cfg.img_size
+    t0 = time.perf_counter()
+    gen = WindowGenerator(cfg, frames=n, params_dtype="bfloat16")
+    log(f"window: full-width bf16 VGGT-1B built in {time.perf_counter() - t0:.1f} s")
+    frames = torch.rand((n, size, size, 3), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    gen.run_window_async(frames)  # first use of the window's shapes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = WINDOW_STEPS
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        outs, launches = run_counted(
+            lambda: [gen.run_window_async(frames) for _ in range(steps)],
+            {"fused_rope_attention": 48 * steps, "rope_attention_tc": 48 * steps,
+             "flash_attention_pallas": 40 * steps, "softmax_attention_tc": 24 * steps,
+             "softmax_attention_3xtf32": 16 * steps})
+        host_ms = (time.perf_counter() - t0) * 1e3 / steps
+        returned = torch.cuda.Event()
+        returned.record()
+        busy = not returned.query()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    want = dict(depth=(n, size, size), depth_conf=(n, size, size),
+                world_points=(n, size, size, 3), world_points_conf=(n, size, size),
+                pose_enc=(n, 9))
+    for name in OUTPUTS:
+        t = outs[-1][name]
+        if tuple(t.shape) != want[name] or t.dtype != torch.float32 or \
+                not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"window: {name} {tuple(t.shape)} {t.dtype}, want "
+                                 f"{want[name]} float32 and finite")
+    del outs
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        gen.run_window_async(frames)
+    end.record()
+    end.synchronize()
+    device_ms = start.elapsed_time(end) / steps
+    log(f"window: {steps} run_window_async windows of {n} frames under "
+        f"set_sync_debug_mode('error'): no host wait, {host_ms:.1f} ms of host a dispatch "
+        f"against {device_ms:.1f} ms of device a window, card busy at return: {busy}; "
+        f"launches {launches}; memory peak {peak} bytes")
+    if not busy:
+        raise AssertionError("window: the card was idle when the dispatches returned")
+    del gen
+    torch.cuda.empty_cache()
+    return dict(frames=n, steps=steps, host_ms_a_dispatch=host_ms, device_ms_a_window=device_ms,
+                busy_at_return=busy, launches={k: v // steps for k, v in launches.items()},
+                memory_peak_bytes=peak)
 
 
 # the file-driven phase: N_FRAMES decodable Freiburg-size thermal frames (3
@@ -5543,7 +5738,7 @@ def main(argv) -> int:
         return dist_worker_main(argv[1:])
     if argv and not ((len(argv) == 2 and argv[0] in ("--compare-k2k3", "--compare-k4k6"))
                      or argv in (["--only-multi-gpu"], ["--only-export"], ["--only-wrappers"],
-                                 ["--only-small-decoder"], ["--only-vit-h"])
+                                 ["--only-small-decoder"], ["--only-vit-h"], ["--only-window"])
                      or (argv[0] == "--only-head-dims" and len(argv) <= 2)
                      or (argv[0] == "--only-multi-card"
                          and set(argv[1:]) <= set(MD_PARTS) | {"check"})):
@@ -5579,6 +5774,15 @@ def main(argv) -> int:
         print(card, flush=True)
         print(json.dumps({"build": build}), flush=True)
         print(json.dumps({name: part}, default=float), flush=True)
+        print(json.dumps(device_line(torch)), flush=True)
+        return 0
+    if argv == ["--only-window"]:
+        log("kernels vs plain versions at the VGGT-1B window shapes:")
+        cases = dict(K2=window_k2_cases(torch), K4=window_k4_cases(torch))
+        window = phase_window(torch, np)
+        print(card, flush=True)
+        print(json.dumps({"build": build}), flush=True)
+        print(json.dumps({"window": dict(window, cases=cases)}), flush=True)
         print(json.dumps(device_line(torch)), flush=True)
         return 0
     if argv == ["--only-export"]:
@@ -5632,12 +5836,16 @@ def main(argv) -> int:
     k2_d24, k3_d24 = d24_k2k3_cases(torch)
     k2 += k2_d24
     k3 += k3_d24
+    log("K2 and K4 at the VGGT-1B window shapes:")
+    k2 += window_k2_cases(torch)
+    k4_window = window_k4_cases(torch)
     log("K4-K6 (bf16 and float32 also at head_dim 24, on the packed route):")
     k456 = {name: plain_attention_cases(torch, name)
             + plain_attention_cases(torch, name, PLAIN_ATTENTION_D24)
             for name in ("flash_attention_pallas", "flash_attention_grouped",
                          "flash_attention_multihead")}
     k456["flash_attention_pallas"].append(size_one_axes_case(torch))
+    k456["flash_attention_pallas"] += k4_window
     k2_hd, k3_hd, k456_hd, poison, widths = head_dim_cases(torch)
     log("the pseudo-GT pose's 3x3 kernel vs its plain sweeps and float64 numpy:")
     kabsch = kabsch_cases(torch, np)
@@ -5646,6 +5854,7 @@ def main(argv) -> int:
     engine["small_decoder"] = phase_small_decoder(torch, np)
     engine["vit_h"] = phase_vit_h(torch, np)
     pseudo_gt = phase_pseudo_gt(torch, np)
+    window = phase_window(torch, np)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as root:
         files = phase_files(torch, np, card, engine, pseudo_gt, root)
         training = phase_training(torch, np, root)
@@ -5675,6 +5884,7 @@ def main(argv) -> int:
                            for impl, r in pseudo_gt["float32"].items()),
                          *((f"pseudo_gt_{impl}_depth2", r["launches"])
                            for impl, r in pseudo_gt["reduced_depth"].items()),
+                         ("window", window["launches"]),
                          ("files_infer_paths", files["infer_paths"]["launches"]),
                          ("files_cli_infer", files["cli_infer"]["launches"]),
                          ("files_cli_evaluate", files["cli_evaluate"]["launches"]),
@@ -5788,6 +5998,7 @@ def main(argv) -> int:
     print(json.dumps({"packed_route": dict(poison=poison, padded_width=widths)}), flush=True)
     print(json.dumps({"engine": engine}), flush=True)
     print(json.dumps({"pseudo_gt": pseudo_gt}), flush=True)
+    print(json.dumps({"window": window}), flush=True)
     print(json.dumps({"files": files}), flush=True)
     print(json.dumps({"training": training}), flush=True)
     print(fire["bench_line"], flush=True)

@@ -8,6 +8,14 @@ GEMMs in int8 (kernels/quant.py; --int8_scope, --int8_equalize, and
 batch of pairs that decode); --ndev N runs each batch over N devices
 (cli/common.py::make_dp_mesh); --scan_layers is accepted and the model runs
 unrolled (cli/common.py::apply_scan).
+
+--model vggt1b labels the drives' RGB frames (those with an aligned thermal
+frame, data.freiburg.build_rgb_thermal_index) in windows of --window
+consecutive frames with a frozen VGGT-1B (pseudo_gt/window.py): depth, world
+points, their confidences and a camera a frame, one npy file each. Its
+frames are 518x518 (the published position embedding's size), and it takes
+no size, pair, int8, mesh, calibration, test-set or figure option; its
+checkpoint has no loader yet, so it runs on seeded weights.
 """
 
 from __future__ import annotations
@@ -29,7 +37,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output_dir", type=str, required=True)
     p.add_argument("--weights", type=str, default=None,
                    help="MASt3R .pth checkpoint; random init if omitted")
-    p.add_argument("--img_size", type=int, nargs=2, default=[512, 512])
+    p.add_argument("--model", type=str, default="mastr512", choices=["mastr512", "vggt1b"],
+                   help="MASt3R-512 on RGB pairs, or VGGT-1B on windows of frames")
+    p.add_argument("--window", type=int, default=24,
+                   help="frames a VGGT-1B window (--model vggt1b)")
+    p.add_argument("--img_size", type=int, nargs=2, default=None,
+                   help="model input size (MASt3R: 512 512 by default; VGGT takes 518 "
+                        "518 only)")
     p.add_argument("--frame_skip", type=int, default=5)
     p.add_argument("--batch_size", type=int, default=4)
     p.add_argument("--visualize", action="store_true",
@@ -73,8 +87,10 @@ def main(argv=None):
     if not 0 <= args.shard_id < args.num_shards:
         parser.error(f"--shard_id {args.shard_id} out of range for "
                      f"--num_shards {args.num_shards}")
+    if args.model == "vggt1b":
+        return _windows(args, parser)
     mesh = make_dp_mesh(args.ndev, args.batch_size, parser.error, args.device)
-    config = apply_preset(MASTR_512_CATMLPDPT, args.model_preset, args.img_size,
+    config = apply_preset(MASTR_512_CATMLPDPT, args.model_preset, args.img_size or [512, 512],
                           args.compute_dtype)
     config = apply_scan(config, args.scan_layers)
     if args.dpt_f32:
@@ -111,6 +127,37 @@ def main(argv=None):
     else:
         n = generate_pseudo_gt(items, args.output_dir, gen, visualize=args.visualize,
                                max_pairs=args.max_pairs)
+    print(f"Pseudo-GT generation complete: {n} items -> {args.output_dir}")
+    return n
+
+
+def _windows(args, parser) -> int:
+    """--model vggt1b: windows of frames through WindowGenerator."""
+    from thermal3d_torch.core.config import VGGT_1B, VGGT_TINY
+    from thermal3d_torch.data.freiburg import build_rgb_thermal_index
+    from thermal3d_torch.pseudo_gt.window import (WindowGenerator, frame_windows,
+                                                  generate_window_pseudo_gt)
+
+    refused = [flag for flag, on in (
+        ("--weights", args.weights), ("--int8", args.int8), ("--test_set", args.test_set),
+        ("--visualize", args.visualize), ("--calib_file", args.calib_file),
+        ("--dpt_f32", args.dpt_f32), ("--ndev", args.ndev != 1),
+        ("--img_size", args.img_size is not None)) if on]
+    if refused:
+        parser.error(f"--model vggt1b takes none of {', '.join(refused)} (no VGGT "
+                     "checkpoint loader yet; its position embedding fixes 518x518 frames; "
+                     "windows run on one device)")
+    if args.window < 1:
+        parser.error("--window must be at least 1")
+    config = dataclasses.replace(VGGT_TINY if args.model_preset == "tiny" else VGGT_1B,
+                                 compute_dtype=args.compute_dtype)
+    frames = build_rgb_thermal_index(args.dataset_dir)
+    if args.num_shards > 1:  # whole windows a shard, each in its drive's order
+        windows = frame_windows(frames, args.window)[args.shard_id::args.num_shards]
+        frames = [f for w in windows for f in w]
+    print(f"{len(frames)} RGB frames")
+    gen = WindowGenerator(config, frames=args.window, device=args.device)
+    n = generate_window_pseudo_gt(frames, args.output_dir, gen, max_frames=args.max_pairs)
     print(f"Pseudo-GT generation complete: {n} items -> {args.output_dir}")
     return n
 

@@ -134,6 +134,59 @@ TINY = DustrModelConfig(
 
 
 @dataclasses.dataclass(frozen=True)
+class VGGTConfig:
+    """VGGT (Visual Geometry Grounded Transformer, Wang et al. 2025) without
+    its track head: a DINOv2 patch trunk with registers, an aggregator of
+    alternating frame and global blocks (QK-LayerNorm, 2-D RoPE, LayerScale),
+    two DPT heads on the aggregator layers `dpt_layers` and an adaLN camera
+    head refined `camera_iterations` times (models/vggt.py)."""
+
+    img_size: int = 518
+    patch_size: int = 14
+    embed_dim: int = 1024
+    num_heads: int = 16
+    mlp_ratio: float = 4.0
+    patch_depth: int = 24  # DINOv2 blocks
+    num_register_tokens: int = 4
+    depth: int = 24  # frame blocks, and as many global blocks
+    rope_base: float = 100.0
+    dpt_features: int = 256
+    dpt_out_channels: Tuple[int, int, int, int] = (256, 512, 1024, 1024)
+    dpt_layers: Tuple[int, int, int, int] = (4, 11, 17, 23)
+    camera_trunk_depth: int = 4
+    camera_num_heads: int = 16
+    camera_iterations: int = 4
+    compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
+
+    @property
+    def patch_grid(self) -> Tuple[int, int]:
+        n = self.img_size // self.patch_size
+        return n, n
+
+    @property
+    def special_tokens(self) -> int:
+        """The camera token and the registers ahead of each frame's patches."""
+        return 1 + self.num_register_tokens
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
+
+
+# facebook/VGGT-1B: 518² frames, patch 14, ViT-L widths, 24 frame and 24
+# global blocks, DPT heads on layers 4, 11, 17 and 23
+VGGT_1B = VGGTConfig()
+
+# CPU test preset (cli.pseudo_gt --model vggt1b --model_preset tiny): a 4x4
+# patch grid and every kind of layer, the benchmark reference's tiny form
+# (benchmark/reference/vggt.py::TINY)
+VGGT_TINY = VGGTConfig(img_size=56, embed_dim=32, num_heads=2, patch_depth=2, depth=4,
+                       dpt_layers=(0, 1, 2, 3), dpt_features=16,
+                       dpt_out_channels=(8, 16, 24, 32), camera_trunk_depth=2,
+                       camera_num_heads=2)
+
+
+@dataclasses.dataclass(frozen=True)
 class PreprocessConfig:
     """Thermal preprocessing constants (the reference's utils/preprocessing.py):
     the percentile window, the Freiburg raw-count window, the 16-bit scale,

@@ -99,18 +99,19 @@ class Dense(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm with eps 1e-6, output in the compute dtype."""
+    """LayerNorm (eps 1e-6 unless given), output in the compute dtype."""
 
-    def __init__(self, dim: int, dtype: torch.dtype):
+    def __init__(self, dim: int, dtype: torch.dtype, eps: float = 1e-6):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(dim))
         self.bias = nn.Parameter(torch.empty(dim))
         self.dtype = dtype
+        self.eps = eps
 
     def forward(self, x):
         x = x.to(self.dtype)
         return F.layer_norm(x, x.shape[-1:], self.weight.to(self.dtype),
-                            self.bias.to(self.dtype), 1e-6)
+                            self.bias.to(self.dtype), self.eps)
 
 
 class Mlp(nn.Module):
