@@ -729,10 +729,10 @@ class _RecordingTcLibrary:
     (1024, True),
 ])
 def test_rope_attention_tc_scratch(monkeypatch, seq, scratch):
-    """rope_attention_tc allocates the [B, H, S, 64] bf16 roped-K scratch
-    only where the library asks for it, and calls the same C entry once,
-    inside one torch.cuda.device block of the output's device, with a null
-    scratch pointer otherwise."""
+    """rope_attention_tc allocates the roped scratch, a bf16 [B, H, S, 64]
+    of K and one of Q after it, only where the library asks for it, and
+    calls the same C entry once, inside one torch.cuda.device block of the
+    output's device, with a null scratch pointer otherwise."""
     events, sizes = [], []
     record_device_blocks(monkeypatch, events)
     empty = torch.empty
@@ -757,7 +757,37 @@ def test_rope_attention_tc_scratch(monkeypatch, seq, scratch):
     (args,) = lib.args
     assert args[8:12] == (b, seq, heads, 64)
     assert (args[6] != 0) == scratch
-    assert sizes == ([b * heads * seq * 64] if scratch else [])
+    assert sizes == ([2 * b * heads * seq * 64] if scratch else [])
+
+
+@pytest.mark.parametrize("seq,head_dim,key_tile", [
+    (196, 64, False),   # one pass: a serving call
+    (256, 64, False),
+    (257, 64, True),    # key tiles at head_dim 64: the ping-pong schedule
+    (1024, 64, True),
+    (196, 32, True),    # key tiles at every S at the other head dims
+    (1024, 128, True),
+])
+def test_rope_attention_tc_counts_key_tile_calls(monkeypatch, seq, head_dim, key_tile):
+    """rope_attention_tc counts every call in `launches` and a call that
+    takes the key-tile schedule (tc_schedule's KEY_TILE) also in
+    `key_tile_launches`: 0 for a serving-shaped call, 1 for each key-tile
+    call. Through the stand-in library."""
+    events = []
+    record_device_blocks(monkeypatch, events)
+    lib = _RecordingTcLibrary(events)
+    b, heads = 2, 3
+    c = head_dim * heads
+    x = torch.empty((b, seq, 3 * c), dtype=torch.bfloat16)
+    out = torch.empty((b, seq, c), dtype=torch.bfloat16)
+    cos = sin = torch.empty((seq, head_dim))
+    before = (tfa.rope_attention_tc.launches, tfa.rope_attention_tc.key_tile_launches)
+    for _ in range(2):
+        tfa.rope_attention_tc(x.data_ptr(), x.data_ptr() + 2 * c, x.data_ptr() + 4 * c, 3 * c,
+                              cos, sin, out, heads, 0.125, stream=0, lib=lib)
+    assert tfa.rope_attention_tc.launches == before[0] + 2
+    assert tfa.rope_attention_tc.key_tile_launches == before[1] + 2 * key_tile
+    assert (tfa.tc_schedule(b, heads, seq, 132, head_dim)[0] == tfa.KEY_TILE) == key_tile
 
 
 @pytest.mark.parametrize("head_dim", [16, 32, 128])
@@ -954,12 +984,13 @@ def test_one_pass_recipe_matches_pallas_interpret(kernel, dtype, limit):
     assert torch.equal(out, tfa.rope_attention_plain(q, k, v, tc, ts, nh, scale))
 
 
-@pytest.mark.parametrize("head_dim,side", [(16, 14), (32, 14), (128, 10)])
+@pytest.mark.parametrize("head_dim,side", [(16, 14), (32, 14), (64, 17), (128, 10)])
 @pytest.mark.parametrize("kernel", ["K2", "K3"])
 def test_exp2_key_tile_recipe_matches_k2_k3_interpret(kernel, head_dim, side):
-    """bf16 K2/K3 at head_dims 16, 32 and 128 (the key tiles at every S, with
-    K4-K6's exp2 step masked on the last tile, csrc/rope_attention_tc.cu)
-    on the roped q/k, against the fused Pallas kernel it replaces in
+    """bf16 K2/K3 on the key tiles, with K4-K6's exp2 step masked on the last
+    tile (csrc/rope_attention_tc.cu): at head_dims 16, 32 and 128 at every S,
+    at head_dim 64 past S = 256 (here S = 289: five tiles, the last of 33
+    keys), on the roped q/k, against the fused Pallas kernel it replaces in
     interpret mode on the same inputs rounded to bf16, one head at small S:
     within the 2^-6 chip_smoke.py holds the kernel to (an output ulp plus a
     flipped rounding of p)."""

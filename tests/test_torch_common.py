@@ -194,8 +194,9 @@ class StandInLibrary:
     """A kernel library that launches nothing: each `t3d_*` entry point
     appends ("call", its name) to `events` and returns 0 (no CUDA error);
     the tensor-core K2/K3 kernel's scratch query answers as
-    csrc/rope_attention_tc.cu does (a bf16 [B, H, S, D] past S = 256 or at
-    a head_dim other than 64, else 0), the 3xTF32 kernels' as
+    csrc/rope_attention_tc.cu does (past S = 256 two bf16 [B, H, S, 64] at
+    head_dim 64, roped K and Q; one [B, H, S, D] at every S at another
+    head_dim; else 0), the 3xTF32 kernels' as
     csrc/attention_3xtf32.cu does, and the packed entries' scratch queries
     as csrc/attention_tc.cu and csrc/attention_3xtf32.cu do. No query is
     recorded."""
@@ -204,7 +205,9 @@ class StandInLibrary:
         self.events = events
 
     def t3d_rope_attention_tc_scratch_bytes(self, batch, seq, heads, head_dim) -> int:
-        return batch * heads * seq * head_dim * 2 if seq > 256 or head_dim != 64 else 0
+        if head_dim == 64:
+            return 2 * batch * heads * seq * head_dim * 2 if seq > 256 else 0
+        return batch * heads * seq * head_dim * 2
 
     def t3d_attention_3xtf32_scratch_bytes(self, batch, heads, seq, head_dim) -> int:
         return 4 * (2 * batch * heads * seq * head_dim

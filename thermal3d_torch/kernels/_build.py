@@ -49,11 +49,12 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _count_lock = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
-    """wrapper.launches += 1 under a lock: a mesh engine launches a card's
-    chunks from that card's thread (core/mesh.py::run_on_mesh)."""
+def count_launch(wrapper, count: str = "launches") -> None:
+    """wrapper.<count> += 1 (its `launches` by default) under a lock: a mesh
+    engine launches a card's chunks from that card's thread
+    (core/mesh.py::run_on_mesh)."""
     with _count_lock:
-        wrapper.launches += 1
+        setattr(wrapper, count, getattr(wrapper, count) + 1)
 
 
 def find_nvcc() -> str:

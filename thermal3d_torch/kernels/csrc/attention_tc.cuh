@@ -94,6 +94,24 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Arrive on named barrier `id` without waiting for it (the other side of a
+// bar.sync of `threads` threads).
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Hopper's register reallocation: every thread of a warpgroup runs it; a
+// warpgroup that needs few registers gives them back (regs_down), one that
+// needs many takes them (regs_up, which waits until they are free).
+template <int N>
+__device__ __forceinline__ void regs_down() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_up() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // Rows of RB bytes (32, 64 or 128) in the RB-byte swizzle: 16-byte chunk c of
 // row r stored at chunk c ^ ((r * RB / 128) % (RB / 16)), the pattern that
 // repeats every 8 rows (an atom of 8 * RB bytes, aligned to its size).
@@ -128,6 +146,13 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Wait until at most N of the warpgroup's committed wgmma groups, the newest,
+// are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Pin the accumulator registers at this point of the program: reads after a

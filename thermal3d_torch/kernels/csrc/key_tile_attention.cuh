@@ -7,7 +7,9 @@
 // 128 and (bf16) 256, each a compile-time instantiation; the packed entries
 // run every other head dim at one of them, zero-padded, their output stored
 // by the threads (store_rows); 3xTF32 at 256 runs its own schedule
-// (attend_wide, below).
+// (attend_wide, below), and so does K2/K3's bf16 at 64 (attend_ping_pong,
+// below: a producer warpgroup and three consumers in ping-pong). The rest of
+// this comment is attend's.
 //
 // Block: 128 query rows of one (batch item, head), two warpgroups of 64
 // rows, no producer warp; bf16 two blocks an SM up to D = 64 (128 registers
@@ -320,12 +322,11 @@ struct Tf32x3Tiles
   }
 };
 
-// K2/K3's online softmax of one 64-key tile (expf, every tile masked, as
-// older builds took it at head_dim 64; the 3xTF32 kernels' step): scores
-// scaled and masked past `valid` keys, the running max and sum moved, p =
-// exp(s - m) in place of the scores. Its rounding to bf16 as PV's A operand
-// and the output's rescale by alpha are left to the caller (after the
-// previous tile's PV).
+// The 3xTF32 kernels' online softmax of one 64-key tile (expf, every tile
+// masked): scores scaled and masked past `valid` keys, the running max and
+// sum moved, p = exp(s - m) in place of the scores. Its split into tf32 hi
+// and lo as PV's A operand and the output's rescale by alpha are left to the
+// caller (after the previous tile's PV).
 __device__ __forceinline__ void online_softmax_tile(float (&sc)[32], int valid, float scale,
                                                     int tq, float (&m)[2], float (&l)[2],
                                                     float (&alpha)[2]) {
@@ -361,7 +362,8 @@ __device__ __forceinline__ void online_softmax_tile(float (&sc)[32], int valid, 
 // m*c) in one FFMA and a MUFU op (exp(s*scale - max) up to rounding), alpha
 // = 2^((m_old - m_new)*c), 0 on the first tile; keys past `valid` masked
 // where kMask (the last tile only), p = 0 there. The float32 sum l moves
-// with alpha; p's rounding to bf16 and O's rescale are the caller's.
+// with alpha; p's rounding to bf16 and O's rescale are the caller's. K2-K6
+// in bf16 take it at every head dim.
 template <bool kMask>
 __device__ __forceinline__ void exp2_softmax_tile(float (&sc)[32], int valid, float c, int tq,
                                                   float (&m)[2], float (&l)[2], float (&alpha)[2]) {
@@ -561,6 +563,234 @@ __device__ __forceinline__ void attend(unsigned char* smem_raw, const Op& op, in
     bulk_commit();
     bulk_wait();
   }
+}
+
+// ---- bf16 at head dim 64: a producer and three consumers in ping-pong -------
+//
+// At head dim 64 a 64 x 64 tile's two products take about as long on an SM's
+// tensor cores (~256 clocks) as its 4,096 exponentials on the MUFU units, and
+// each product is a chain of four dependent wgmma, so attend's pace there is
+// set by how many warpgroups have a product or a softmax ready. This
+// schedule, after FlashAttention-3 (Shah et al., 2024, §3.1-3.2), keeps the
+// softmax off the tensor cores' critical path:
+//   * One block an SM, persistent: it walks work items (kBlockRows = 192
+//     query rows of one (batch item, head)) with a static stride, items of
+//     one head on neighbouring SMs at once, so K and V come from L2.
+//   * Warpgroup 0 is the producer: it gives registers back (regs_down), and
+//     one thread keeps a ring of kStages 64-key tiles full by TMA (a tile's K,
+//     then its V; "full" and "empty" mbarriers a stage) and each item's Q
+//     rows in one of two slots, loaded once the item two back has released
+//     its slot.
+//   * Warpgroups 1-3 are the consumers, 64 query rows each (regs_up). Named
+//     barriers pass the tensor cores from one to the next in turn (FA3's
+//     ping-pong, over three): a consumer issues tile t's QK^T with tile
+//     t-1's PV, hands the turn on, and runs tile t's softmax while the others'
+//     products run; P(t) is packed and O rescaled after PV(t-1)'s wait, so no
+//     issued wgmma reads a register being written (ptxas' C7513).
+//   * Each consumer's O / l goes out through a tile of its own by a TMA store
+//     that drops rows past the query count (a head's ragged last item
+//     computes them all the same); the next item's store waits only for this
+//     one to have read its tile.
+// Measured on an H100 at head dim 64 against attend's two blocks an SM (4
+// warpgroups): 0.86x at S = 32,976 (1.16x its rate), 1.00x at [24, 1374]
+// and [16, 1024] x 16 heads, 1.07-1.12x at 12 heads of S = 1024 (a ragged
+// sixth item a head, and a last wave a third full). Slower variants: two
+// consumers (8 math warps an SM) read 0.73-0.93x attend's rate whether their
+// products took turns or not; two score buffers (tile t+1's QK^T issued
+// before tile t's softmax) were no faster with two consumers and do not fit
+// three (128 registers a thread: ptxas does not raise its cap past
+// setmaxnreg.inc, and 128-key tiles spilled at two consumers' 168); turns
+// skipped by the consumers of a ragged item's rows past the query count
+// slowed every shape (1.06-1.08x). The operands (an Op): rows, keys, heads,
+// batch, c (scale * log2(e)), and load_q, load_k, load_v (64 rows each, onto
+// a full barrier) and store_o (64 rows), by (b, h, first row).
+struct PingPongTiles {
+  using Tile = RowTile<64, 2>;                   // 64 rows of 64 bf16, 8 KB
+  static constexpr int kStages = 8;              // the ring's 64-key tiles
+  static constexpr int kConsumers = 3;           // warpgroups of 64 query rows
+  static constexpr int kBlockThreads = 128 * (1 + kConsumers);
+  static constexpr int kBlockRows = kConsumers * kTile;
+  // setmaxnreg: 24 for the producer, the rest for the consumers, of the 128 a
+  // thread a block of 512 threads starts with
+  static constexpr int kProducerRegs = 24, kConsumerRegs = 160;
+  static_assert(kProducerRegs + kConsumers * kConsumerRegs <= 128 * (1 + kConsumers),
+                "more registers than the block holds");
+  static constexpr int kQSlot = kConsumers * Tile::kBytes;  // an item's Q rows
+  static constexpr int kStage = 2 * Tile::kBytes;           // a tile's K, then its V
+  static constexpr int kOAt = 2 * kQSlot;                   // two Q slots, then O tiles
+  static constexpr int kRingAt = kOAt + kConsumers * Tile::kBytes;
+  static constexpr int kBarsAt = kRingAt + kStages * kStage;
+  static constexpr int kSmem = 1024 + kBarsAt + 8 * (2 * kStages + 4);
+  static_assert(kSmem <= 232448, "more shared memory than an H100 block may use");
+};
+
+template <class Op>
+__device__ __forceinline__ void attend_ping_pong(unsigned char* smem_raw, const Op& op) {
+  using T = PingPongTiles;
+  using Tiles = Bf16Tiles<64>;  // a 64 x 64 tile's products, P and output staging
+  using Tile = T::Tile;
+  constexpr int S = T::kStages, C = T::kConsumers;
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  unsigned char* base = smem_raw + (((raw + 1023) & ~1023u) - raw);  // 1024-byte aligned
+  const uint32_t sbase = raw + (uint32_t)(base - smem_raw);
+  const uint32_t ring = sbase + T::kRingAt;
+  const uint32_t full = sbase + T::kBarsAt;  // stage s: its K and V landed
+  const uint32_t empty = full + 8 * S;       // stage s: every consumer is done with it
+  const uint32_t q_full = empty + 8 * S;     // Q slot j: the item's rows landed
+  const uint32_t q_empty = q_full + 16;      // Q slot j: every QK^T of its item is done
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int ctid = tid - 128 * wg;
+  const int row_blocks = (op.rows + T::kBlockRows - 1) / T::kBlockRows;
+  const int items = row_blocks * op.heads * op.batch;
+  const int ntiles = (op.keys + kTile - 1) / kTile;
+  auto decode = [&](int item, int& b, int& h, int& row0) {
+    const int bh = item / row_blocks;
+    row0 = (item - bh * row_blocks) * T::kBlockRows;
+    b = bh / op.heads;
+    h = bh - b * op.heads;
+  };
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 128 * C);
+    }
+    for (int j = 0; j < 2; ++j) {
+      mbar_init(q_full + 8 * j, 1);
+      mbar_init(q_empty + 8 * j, 128 * C);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // the producer
+    regs_down<T::kProducerRegs>();
+    if (ctid == 0) {
+      int it = 0;  // key tiles loaded so far
+      for (int item = blockIdx.x, n = 0; item < items; item += gridDim.x, ++n) {
+        int b, h, row0;
+        decode(item, b, h, row0);
+        const int slot = n & 1;
+        if (n >= 2) mbar_wait_or_trap(q_empty + 8 * slot, ((n >> 1) - 1) & 1);
+        mbar_arrive_expect_tx(q_full + 8 * slot, T::kQSlot);
+#pragma unroll
+        for (int w = 0; w < C; ++w)
+          op.load_q(sbase + slot * T::kQSlot + w * Tile::kBytes, q_full + 8 * slot, b, h,
+                    row0 + w * kTile);
+        for (int t = 0; t < ntiles; ++t, ++it) {
+          const int s = it % S;
+          if (it >= S) mbar_wait_or_trap(empty + 8 * s, ((it / S) - 1) & 1);
+          const uint32_t stage = ring + s * T::kStage, bar = full + 8 * s;
+          mbar_arrive_expect_tx(bar, T::kStage);
+          op.load_k(stage, bar, b, h, kTile * t);
+          op.load_v(stage + Tile::kBytes, bar, b, h, kTile * t);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer: query rows 64 w .. 64 w + 63 of each item
+  regs_up<T::kConsumerRegs>();
+  const int w = wg - 1;
+  const int tq = ctid & 3;
+  const uint32_t my_o = sbase + T::kOAt + w * Tile::kBytes;
+  // named barrier kTurn + w: consumer w's turn at the tensor cores, handed on
+  // by consumer w - 1 (consumer 0's by the last); consumer 0 goes first
+  constexpr int kTurn = 1 + C;
+  const int my_turn = kTurn + w, next_turn = kTurn + (w + 1) % C;
+  if (w == C - 1) named_barrier_arrive(kTurn, 256);
+  float sc[32], o[32], pv[Tiles::kPv];  // pv: unused (PV accumulates into O)
+  float m[2], l[2], alpha[2];
+  Tiles::P p;  // P of the last softmax, PV's A operand
+  int it = 0;  // key tiles consumed so far
+  for (int item = blockIdx.x, n = 0; item < items; item += gridDim.x, ++n) {
+    int b, h, row0;
+    decode(item, b, h, row0);
+    const int slot = n & 1;
+    const uint32_t my_q = sbase + slot * T::kQSlot + w * Tile::kBytes;
+    // the last turn of the block's last item hands nothing on: the last
+    // consumer started with one hand-over, so each barrier gets as many as
+    // it waits for
+    const bool hand_on_last = !(w == C - 1 && item + (int)gridDim.x >= items);
+    auto stage = [&](int t) { return ring + ((it + t) % S) * T::kStage; };
+    auto wait_tile = [&](int t) {
+      mbar_wait_or_trap(full + 8 * ((it + t) % S), ((it + t) / S) & 1);
+    };
+    auto release = [&](int t) { mbar_arrive(empty + 8 * ((it + t) % S)); };
+    auto take_turn = [&] {
+      named_barrier(my_turn, 256);
+      wgmma_fence();
+    };
+    auto hand_on = [&] { named_barrier_arrive(next_turn, 256); };
+    auto softmax = [&](int t) {
+      const int valid = op.keys - kTile * t;
+      if (valid < kTile) {
+        exp2_softmax_tile<true>(sc, valid, op.c, tq, m, l, alpha);
+      } else {
+        exp2_softmax_tile<false>(sc, valid, op.c, tq, m, l, alpha);
+      }
+    };
+    mbar_wait_or_trap(q_full + 8 * slot, (n >> 1) & 1);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.0f;
+    wait_tile(0);
+    take_turn();
+    Tiles::issue_qk(sc, my_q, stage(0));
+    wgmma_commit();
+    hand_on();
+    wgmma_wait<0>();
+    reg_fence(sc);
+    if (ntiles == 1) mbar_arrive(q_empty + 8 * slot);
+    softmax(0);
+    Tiles::pack(p, sc);  // O is 0: nothing to rescale
+    for (int t = 1; t < ntiles; ++t) {
+      wait_tile(t);
+      take_turn();
+      Tiles::issue_qk(sc, my_q, stage(t));
+      wgmma_commit();
+      Tiles::issue_pv(o, pv, p, stage(t - 1) + Tile::kBytes);
+      wgmma_commit();
+      hand_on();
+      wgmma_wait<1>();  // QK^T(t)
+      reg_fence(sc);
+      if (t == ntiles - 1) mbar_arrive(q_empty + 8 * slot);  // Q read by every QK^T
+      softmax(t);
+      wgmma_wait<0>();  // PV(t-1)
+      reg_fence(o);
+      release(t - 1);
+      Tiles::pack(p, sc);
+      Tiles::rescale(o, pv, alpha);
+    }
+    take_turn();
+    Tiles::issue_pv(o, pv, p, stage(ntiles - 1) + Tile::kBytes);
+    wgmma_commit();
+    if (hand_on_last) hand_on();
+    wgmma_wait<0>();
+    reg_fence(o);
+    release(ntiles - 1);
+    it += ntiles;
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    // o / l into this consumer's output tile, once its last store has read
+    // it, then out by TMA (rows past the query count dropped)
+    if (ctid == 0) bulk_wait_read();
+    named_barrier(1 + w, 128);
+    Tiles::stage_out(base + T::kOAt + w * Tile::kBytes, o, l, ctid);
+    fence_async_shared();
+    named_barrier(1 + w, 128);
+    if (ctid == 0) {
+      op.store_o(my_o, b, h, row0 + w * kTile);
+      bulk_commit();
+    }
+  }
+  if (ctid == 0) bulk_wait();
 }
 
 // The warpgroup's output tile staged at `tile` (a RowTile of the output's

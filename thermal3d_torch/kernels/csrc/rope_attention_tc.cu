@@ -47,35 +47,40 @@
 //   * The output goes through the warpgroup's shared-memory tile and out by
 //     a TMA store, rows >= S dropped.
 //
-// Key tiles, S > 256 at head_dim 64 (the pseudo-GT's S = 1024), and every S
-// at head_dims 16, 32 and 128 (e.g. a decoder of 512 wide and 16 heads).
-// What bounds it: the operations (4*S^2*D a head, about 250x the bytes' time
-// at S = 1024 and D = 64), and the CUDA cores' online softmax between a
-// tile's two products, whose work a score does not shrink with D. The
-// arithmetic at head_dim 64 is a 64-key online softmax with expf (running
-// max and sum, rescale before each PV, every tile masked), step for step as
-// older builds took it, so its S > 256 outputs equal theirs; at the other
-// head dims, which have no older outputs
-// to keep, it is K4-K6's step (attention_tc.cu: scale * log2(e) folded into
-// one FFMA a score, 2^x on the MUFU unit, only the last tile masked), which
-// read 0.80x the expf kernel's time at head_dim 32 and S = 196 (and 0.88x
-// at 128, S = 1024) on an H100. Design (rope_attention_key_tile_kernel, an instantiation of
-// key_tile_attention.cuh's core, which K4-K6 share):
-//   * K is roped once per head by a prologue kernel launched just before
-//     on the same stream (rope_k_kernel: [B,S,*] rows -> a bf16 [B,H,S,D]
-//     scratch the caller allocates, t3d_rope_attention_tc_scratch_bytes).
-//     Roping K tiles in the block instead repeats the RoPE for every 128
-//     query rows (8 times a head at S=1024) and measured slower at S=1024
-//     on an H100.
-//   * A block is 128 query rows of one head, two warpgroups of 64, no
-//     producer warp, two blocks an SM (128 registers a thread; one at head
-//     dim 128): K and V tiles stream by TMA through a ring of 4 stages, each
-//     stage refilled by the warpgroup that releases it last. Each head dim
-//     is an instantiation of key_tile_attention.cuh's Bf16Tiles<D>.
-//   * Each warpgroup issues tile t's QK^T together with tile t-1's PV, runs
-//     tile t's softmax while that PV runs, then rounds p to bf16 and
-//     rescales O once the PV is done.
-//   * O goes out through shared memory (the block's Q rows) by a TMA store.
+// Key tiles, S > 256 at head_dim 64 (the pseudo-GT's S = 1024, VGGT's 1374
+// and 32,976), and every S at head_dims 16, 32 and 128 (e.g. a decoder of 512
+// wide and 16 heads). What bounds it: the operations (4*S^2*D a head, about
+// 250x the bytes' time at S = 1024 and D = 64), and the CUDA cores' online
+// softmax between a tile's two products, whose work a score does not shrink
+// with D: at D = 64 a 64-key tile's 4,096 exponentials take the MUFU units
+// about as long as its two products take the tensor cores. The softmax step
+// is K4-K6's at every head dim (attention_tc.cu: scale * log2(e) folded into
+// one FFMA a score, 2^x on the MUFU unit, only the last tile masked); the
+// expf step that older builds took at head_dim 64 (accurate expf, a separate
+// scale, every tile masked) read 1.6x K4's time on the same loop on an H100.
+// Design (rope_attention_key_tile_kernel, on key_tile_attention.cuh's core,
+// which K4-K6 share):
+//   * A prologue kernel launched just before on the same stream ropes K once
+//     per head (rope_attention_tc_rope_kernel: [B,S,*] rows -> a bf16
+//     [B,H,S,D] scratch the caller allocates,
+//     t3d_rope_attention_tc_scratch_bytes), and at head_dim 64 Q too, into a
+//     second [B,H,S,D] after it. Roping K tiles in the block instead repeats
+//     the RoPE for every 128 query rows (8 times a head at S=1024) and
+//     measured slower at S=1024 on an H100.
+//   * Head dim 64 (kPingPong): key_tiles::attend_ping_pong, a persistent
+//     block an SM walking 192-row work items: a producer warpgroup whose one
+//     thread streams Q and the K and V tiles by TMA, and three consumer
+//     warpgroups of 64 rows whose products take turns at the tensor cores
+//     (named barriers), so their softmax runs while the others' products do
+//     (1.16x attend's rate at S = 32,976 on an H100, equal at 1374).
+//   * The other head dims: key_tiles::attend, a block a 128 query rows of one
+//     head, two warpgroups of 64, no producer warp, two blocks an SM (one at
+//     head dim 128), Q roped by the warpgroup from device memory, K and V
+//     tiles by TMA through a ring of 4 stages; each warpgroup issues tile t's
+//     QK^T together with tile t-1's PV, runs tile t's softmax while that PV
+//     runs, then rounds p to bf16 and rescales O once the PV is done. Each
+//     head dim is an instantiation of Bf16Tiles<D>.
+//   * O goes out through shared memory by a TMA store.
 #include <type_traits>
 
 #include "key_tile_attention.cuh"
@@ -210,17 +215,30 @@ __device__ __forceinline__ void rope_rows(const __nv_bfloat16* __restrict__ x, l
 
 // ---- key tiles: the RoPE prologue -------------------------------------------
 
-// RoPE of K into k_roped [B,H,S,D] bf16 (rows 2D bytes apart). Block: 64
-// rows of one batch item and kPrologueHeads heads, 64 * kPairs threads (256
-// at D = 64), one chunk pair a thread, which loads its cos/sin entries once
-// for those heads.
+// The schedule of the key-tile kernel at head dim D, chosen by the tile
+// policy: bf16 at width 64 runs key_tiles::attend_ping_pong (a producer
+// warpgroup, three consumers in ping-pong, a persistent block an SM, 64-key
+// tiles through an 8-stage ring), with Q roped by the prologue beside K; the
+// other widths run key_tiles::attend (two blocks an SM, one at D = 128), Q
+// roped in the kernel.
+template <int D>
+constexpr bool kPingPong = D == 64;
+using PingPong = key_tiles::PingPongTiles;
+
+// RoPE of K into k_roped [B,H,S,D] bf16 (rows 2D bytes apart), and of Q into
+// q_roped (the same layout) where q_roped is not null. Block: 64 rows of one
+// batch item and kPrologueHeads heads, 64 * kPairs threads (256 at D = 64),
+// one chunk pair a thread, which loads its cos/sin entries once for those
+// heads and both operands.
 constexpr int kPrologueHeads = 4;
 
 template <int D>
 __global__ void __launch_bounds__(64 * RopePairs<D>::kPairs)
-rope_attention_tc_rope_k_kernel(const __nv_bfloat16* __restrict__ k, long long row_stride,
-                                const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-                                __nv_bfloat16* __restrict__ k_roped, int seq, int num_heads) {
+rope_attention_tc_rope_kernel(const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ q, long long row_stride,
+                              const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+                              __nv_bfloat16* __restrict__ k_roped,
+                              __nv_bfloat16* __restrict__ q_roped, int seq, int num_heads) {
   using R = RopePairs<D>;
   using V = typename R::V;
   const int b = blockIdx.y;
@@ -230,16 +248,21 @@ rope_attention_tc_rope_k_kernel(const __nv_bfloat16* __restrict__ k, long long r
   const int bcol = a + R::kQuarter;
   PairTables tables;
   load_tables<R::kGroup>(tables, cos_t + (size_t)row * D, sin_t + (size_t)row * D, a, bcol);
-  const __nv_bfloat16* src = k + ((long long)b * seq + row) * row_stride;
+  const long long src_row = ((long long)b * seq + row) * row_stride;
 #pragma unroll
   for (int i = 0; i < kPrologueHeads; ++i) {
     const int h = blockIdx.z * kPrologueHeads + i;
     if (h >= num_heads) break;
+    const long long dst_row = (((long long)b * num_heads + h) * seq + row) * D;
     V lo, hi;
-    rope_pair(src + h * D, tables, a, bcol, lo, hi);
-    __nv_bfloat16* dst = k_roped + (((long long)b * num_heads + h) * seq + row) * D;
-    *reinterpret_cast<V*>(dst + a) = lo;
-    *reinterpret_cast<V*>(dst + bcol) = hi;
+    rope_pair(k + src_row + h * D, tables, a, bcol, lo, hi);
+    *reinterpret_cast<V*>(k_roped + dst_row + a) = lo;
+    *reinterpret_cast<V*>(k_roped + dst_row + bcol) = hi;
+    if (q_roped != nullptr) {
+      rope_pair(q + src_row + h * D, tables, a, bcol, lo, hi);
+      *reinterpret_cast<V*>(q_roped + dst_row + a) = lo;
+      *reinterpret_cast<V*>(q_roped + dst_row + bcol) = hi;
+    }
   }
 }
 
@@ -248,8 +271,8 @@ rope_attention_tc_rope_k_kernel(const __nv_bfloat16* __restrict__ k, long long r
 // K2/K3's operands of the key-tile core (key_tile_attention.cuh) at head dim
 // D: the roped K tiles of the prologue's scratch (tm_k: [B*H, S, D]) and V
 // (tm_v: the [B, S, *] rows) by TMA, a box a panel, Q roped by the
-// warpgroup from device memory (rope_rows), key_tiles::online_softmax_tile's
-// expf step, masked on every tile, and the [B, S, C] output (tm_o).
+// warpgroup from device memory (rope_rows), K4-K6's exp2 step, and the [B,
+// S, C] output (tm_o).
 template <int D>
 struct RopeKeyTileOperands {
   using Tile = typename key_tiles::Bf16Tiles<D>::Tile;
@@ -261,7 +284,6 @@ struct RopeKeyTileOperands {
   const float* cos_t;
   const float* sin_t;
   int seq, num_heads, h, b;
-  float scale;
   float c;  // scale * log2(e)
 
   static constexpr uint32_t kQBytes = 0;  // Q does not come by TMA
@@ -283,14 +305,10 @@ struct RopeKeyTileOperands {
     fence_async_shared();
     named_barrier(1 + w, 128);
   }
-  // head_dim 64: the expf step, masked on every tile (the S > 256 outputs of
-  // older builds, bit for bit); other head dims: K4-K6's
-  // exp2 step, masked on the last tile only
+  // K4-K6's exp2 step, masked on the last tile only
   __device__ void softmax(float (&sc)[32], int valid, int tq, float (&m)[2], float (&l)[2],
                           float (&alpha)[2]) const {
-    if constexpr (D == 64) {
-      key_tiles::online_softmax_tile(sc, valid, scale, tq, m, l, alpha);
-    } else if (valid < kTile) {
+    if (valid < kTile) {
       key_tiles::exp2_softmax_tile<true>(sc, valid, c, tq, m, l, alpha);
     } else {
       key_tiles::exp2_softmax_tile<false>(sc, valid, c, tq, m, l, alpha);
@@ -303,24 +321,66 @@ struct RopeKeyTileOperands {
   }
 };
 
-// One block a 128 query rows of one (batch item, head): the key-tile core
-// over the prologue's roped K tiles and V.
+// K2/K3's operands of the ping-pong schedule (head dim 64): Q and K roped by
+// the prologue ([B*H, S, 64] each: tm_q, tm_k), V (tm_v: the [B, S, *] rows)
+// and the [B, S, C] output (tm_o), 64 rows a box.
+struct RopePingPongOperands {
+  const CUtensorMap* tm_q;
+  const CUtensorMap* tm_k;
+  const CUtensorMap* tm_v;
+  const CUtensorMap* tm_o;
+  int rows, keys, heads, batch;
+  float c;  // scale * log2(e)
+
+  __device__ void load_q(uint32_t dst, uint32_t bar, int b, int h, int row0) const {
+    tma_load_3d(dst, tm_q, bar, 0, row0, b * heads + h);
+  }
+  __device__ void load_k(uint32_t dst, uint32_t bar, int b, int h, int key0) const {
+    tma_load_3d(dst, tm_k, bar, 0, key0, b * heads + h);
+  }
+  __device__ void load_v(uint32_t dst, uint32_t bar, int b, int h, int key0) const {
+    tma_load_3d(dst, tm_v, bar, h * kD, key0, b);
+  }
+  __device__ void store_o(uint32_t src, int b, int h, int row0) const {
+    tma_store_3d(tm_o, src, h * kD, row0, b);
+  }
+};
+
+// The key-tile kernel's block at head dim D: threads, blocks an SM, dynamic
+// shared memory.
 template <int D>
-__global__ void __launch_bounds__(key_tiles::Bf16Tiles<D>::kBlockThreads,
-                                  key_tiles::Bf16Tiles<D>::kBlocksPerSm)
-rope_attention_key_tile_kernel(const __grid_constant__ CUtensorMap tm_k,
+struct KeyTileBlock {
+  using Tiles = key_tiles::Bf16Tiles<D>;
+  static constexpr int kThreads = kPingPong<D> ? PingPong::kBlockThreads : Tiles::kBlockThreads;
+  static constexpr int kPerSm = kPingPong<D> ? 1 : Tiles::kBlocksPerSm;
+  static constexpr int kSmem = kPingPong<D> ? PingPong::kSmem : Tiles::kSmem;
+};
+
+// The key tiles over the prologue's roped K (and Q) and V: at head dim 64 a
+// persistent grid walking the work items (attend_ping_pong), else a block a
+// 128 query rows of one (batch item, head) (attend).
+template <int D>
+__global__ void __launch_bounds__(KeyTileBlock<D>::kThreads, KeyTileBlock<D>::kPerSm)
+rope_attention_key_tile_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
                                const __grid_constant__ CUtensorMap tm_v,
                                const __grid_constant__ CUtensorMap tm_o,
                                const __nv_bfloat16* __restrict__ q, long long row_stride,
                                const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-                               int seq, int num_heads, float scale) {
+                               int seq, int num_heads, int batch, float scale) {
   extern __shared__ unsigned char smem_raw[];
-  const int h = blockIdx.y, b = blockIdx.z;
-  const RopeKeyTileOperands<D> op{&tm_k, &tm_v, &tm_o,
-                                  q + (long long)b * seq * row_stride + (long long)h * D,
-                                  row_stride, cos_t, sin_t, seq, num_heads, h, b, scale,
+  if constexpr (kPingPong<D>) {
+    const RopePingPongOperands op{&tm_q, &tm_k, &tm_v, &tm_o, seq, seq, num_heads, batch,
                                   scale * kLog2e};
-  key_tiles::attend<key_tiles::Bf16Tiles<D>>(smem_raw, op, seq);
+    key_tiles::attend_ping_pong(smem_raw, op);
+  } else {
+    const int h = blockIdx.y, b = blockIdx.z;
+    const RopeKeyTileOperands<D> op{&tm_k, &tm_v, &tm_o,
+                                    q + (long long)b * seq * row_stride + (long long)h * D,
+                                    row_stride, cos_t, sin_t, seq, num_heads, h, b,
+                                    scale * kLog2e};
+    key_tiles::attend<key_tiles::Bf16Tiles<D>>(smem_raw, op, seq);
+  }
 }
 
 // ---- one pass (S <= 256) ----------------------------------------------------
@@ -714,43 +774,56 @@ cudaError_t launch_one_pass(const OnePassLaunch& a) {
 }
 
 // The RoPE prologue and the key-tile kernel at head dim D over the
-// prologue's roped K (k_roped) and V, the kernel's dynamic shared memory set
-// once a device.
+// prologue's scratch (roped K, then roped Q at head dim 64) and V, the
+// kernel's dynamic shared memory set once a device.
 template <int D>
 cudaError_t launch_key_tiles(const void* q, const void* k, const void* v, long long row_stride,
-                             const float* cos_t, const float* sin_t, void* k_roped, void* out,
+                             const float* cos_t, const float* sin_t, void* scratch, void* out,
                              int batch, int seq, int num_heads, float scale, cudaStream_t st,
                              int device) {
-  using Tiles = key_tiles::Bf16Tiles<D>;
-  using Tile = typename Tiles::Tile;
+  using Block = KeyTileBlock<D>;
+  using Tile = typename Block::Tiles::Tile;
   static bool ready[kMaxDevices];
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   cudaError_t err;
   if (!ready[device]) {
     err = cudaFuncSetAttribute(rope_attention_key_tile_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, Tiles::kSmem);
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, Block::kSmem);
     if (err != cudaSuccess) return err;
     ready[device] = true;
   }
+  const uint64_t rows = (uint64_t)batch * num_heads * seq;
+  __nv_bfloat16* k_roped = static_cast<__nv_bfloat16*>(scratch);
+  __nv_bfloat16* q_roped = kPingPong<D> ? k_roped + rows * D : nullptr;
   const dim3 rope_grid((seq + 63) / 64, batch, (num_heads + kPrologueHeads - 1) / kPrologueHeads);
-  rope_attention_tc_rope_k_kernel<D><<<rope_grid, 64 * RopePairs<D>::kPairs, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(k), row_stride, cos_t, sin_t,
-      static_cast<__nv_bfloat16*>(k_roped), seq, num_heads);
+  rope_attention_tc_rope_kernel<D><<<rope_grid, 64 * RopePairs<D>::kPairs, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(q), row_stride,
+      cos_t, sin_t, k_roped, q_roped, seq, num_heads);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const uint64_t c = (uint64_t)num_heads * D;
-  CUtensorMap tm_k, tm_v, tm_o;
+  CUtensorMap tm_q{}, tm_k, tm_v, tm_o;
   err = encode_bf16_rows(&tm_k, k_roped, D, seq, (uint64_t)batch * num_heads, D, kTile,
                          Tile::kBoxCols);
+  if (err == cudaSuccess && kPingPong<D>)
+    err = encode_bf16_rows(&tm_q, q_roped, D, seq, (uint64_t)batch * num_heads, D, kTile,
+                           Tile::kBoxCols);
   if (err == cudaSuccess)
     err = encode_bf16_rows(&tm_v, v, c, seq, batch, row_stride, kTile, Tile::kBoxCols);
   if (err == cudaSuccess)
     err = encode_bf16_rows(&tm_o, out, c, seq, batch, c, kTile, Tile::kBoxCols);
   if (err != cudaSuccess) return err;
-  const dim3 grid((seq + Tiles::kBlockRows - 1) / Tiles::kBlockRows, num_heads, batch);
-  rope_attention_key_tile_kernel<D><<<grid, Tiles::kBlockThreads, Tiles::kSmem, st>>>(
-      tm_k, tm_v, tm_o, static_cast<const __nv_bfloat16*>(q), row_stride, cos_t, sin_t, seq,
-      num_heads, scale);
+  dim3 grid;
+  if constexpr (kPingPong<D>) {
+    const int items = (seq + PingPong::kBlockRows - 1) / PingPong::kBlockRows * num_heads * batch;
+    const int sms = sm_count(device);
+    grid = dim3(items < sms ? items : sms);
+  } else {
+    grid = dim3((seq + Block::Tiles::kBlockRows - 1) / Block::Tiles::kBlockRows, num_heads, batch);
+  }
+  rope_attention_key_tile_kernel<D><<<grid, Block::kThreads, Block::kSmem, st>>>(
+      tm_q, tm_k, tm_v, tm_o, static_cast<const __nv_bfloat16*>(q), row_stride, cos_t, sin_t, seq,
+      num_heads, batch, scale);
   return cudaGetLastError();
 }
 
@@ -773,18 +846,20 @@ int t3d_rope_attention_tc_schedule(int batch, int seq, int num_heads, int head_d
   return row_tiles;
 }
 
-// Bytes of the roped-K scratch t3d_rope_attention_tc needs for a call: a
-// bf16 [batch, num_heads, seq, head_dim] for the key-tile kernel, 0 for the
-// one-pass kernel (which ropes K in shared memory).
+// Bytes of the roped scratch t3d_rope_attention_tc needs for a call: for the
+// key-tile kernel a bf16 [batch, num_heads, seq, head_dim] of roped K, and
+// at head_dim 64 (the ping-pong schedule) one of roped Q after it; 0 for the
+// one-pass kernel (which ropes Q and K in shared memory).
 unsigned long long t3d_rope_attention_tc_scratch_bytes(int batch, int seq, int num_heads,
                                                        int head_dim) {
   if (head_dim == kD && seq <= one_pass::kMaxSeq) return 0;
-  return (unsigned long long)batch * num_heads * seq * head_dim * 2;
+  const int operands = head_dim == kD && kPingPong<kD> ? 2 : 1;
+  return (unsigned long long)operands * batch * num_heads * seq * head_dim * 2;
 }
 
 // q/k/v: bf16 base pointers of [batch, seq, *] rows `row_stride` elements
 // apart (head h at column h*head_dim), 16-byte aligned, row_stride % 8 == 0;
-// cos/sin: float32 [seq, head_dim], 16-byte aligned; k_roped: the bf16
+// cos/sin: float32 [seq, head_dim], 16-byte aligned; scratch: the bf16
 // scratch of t3d_rope_attention_tc_scratch_bytes, 16-byte aligned, written
 // here (unused, may be null, where that is 0); out: bf16 [batch, seq,
 // num_heads*head_dim] contiguous, 16-byte aligned. head_dim 16, 32, 64 or
@@ -792,7 +867,7 @@ unsigned long long t3d_rope_attention_tc_scratch_bytes(int batch, int seq, int n
 // <= 256 the one-pass kernel, else the RoPE prologue and the key-tile
 // kernel. Returns a cudaError_t code.
 int t3d_rope_attention_tc(const void* q, const void* k, const void* v, long long row_stride,
-                          const float* cos_t, const float* sin_t, void* k_roped, void* out,
+                          const float* cos_t, const float* sin_t, void* scratch, void* out,
                           int batch, int seq, int num_heads, int head_dim, float scale,
                           void* stream) {
   if (!serves_head_dim(head_dim) || seq <= 0 || row_stride % 8)
@@ -832,19 +907,19 @@ int t3d_rope_attention_tc(const void* q, const void* k, const void* v, long long
       default: return (int)launch_one_pass<4>(a);
     }
   }
-  if (k_roped == nullptr) return (int)cudaErrorInvalidValue;
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
   switch (head_dim) {
     case 16:
-      return (int)launch_key_tiles<16>(q, k, v, row_stride, cos_t, sin_t, k_roped, out, batch,
+      return (int)launch_key_tiles<16>(q, k, v, row_stride, cos_t, sin_t, scratch, out, batch,
                                        seq, num_heads, scale, st, device);
     case 32:
-      return (int)launch_key_tiles<32>(q, k, v, row_stride, cos_t, sin_t, k_roped, out, batch,
+      return (int)launch_key_tiles<32>(q, k, v, row_stride, cos_t, sin_t, scratch, out, batch,
                                        seq, num_heads, scale, st, device);
     case 64:
-      return (int)launch_key_tiles<64>(q, k, v, row_stride, cos_t, sin_t, k_roped, out, batch,
+      return (int)launch_key_tiles<64>(q, k, v, row_stride, cos_t, sin_t, scratch, out, batch,
                                        seq, num_heads, scale, st, device);
     default:
-      return (int)launch_key_tiles<128>(q, k, v, row_stride, cos_t, sin_t, k_roped, out, batch,
+      return (int)launch_key_tiles<128>(q, k, v, row_stride, cos_t, sin_t, scratch, out, batch,
                                         seq, num_heads, scale, st, device);
   }
 }

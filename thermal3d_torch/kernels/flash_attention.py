@@ -17,8 +17,9 @@ head dim picks the entry:
   * head dims of DIRECT_HEAD_DIMS (16, 32, 64, 128) read their operands in
     place: K2/K3 csrc/rope_attention_tc.cu (bf16; at head_dim 64 one pass over
     each head's whole rows at S <= 256, else a RoPE prologue and a 64-key
-    online softmax, `tc_schedule`, whose step is expf at head_dim 64 and
-    K4-K6's exp2 step at the other head dims), K4-K6 csrc/attention_tc.cu
+    online softmax with K4-K6's exp2 step, `tc_schedule`; at head_dim 64 the
+    prologue ropes Q beside K and the key tiles run a producer warpgroup and
+    three consumers in ping-pong), K4-K6 csrc/attention_tc.cu
     (bf16, 4-D tensor maps of each operand's strides, `tc_map_strides`), and
     csrc/attention_3xtf32.cu (float32: a prologue that ropes K for K2/K3 and
     splits K and V into tf32 hi and lo, then the key tiles);
@@ -31,9 +32,10 @@ head dim picks the entry:
     another head is read; the key-tile kernel at that width runs K4-K6's
     softmax step (exp2 in bf16, the expf step in float32) and its threads
     store each row's head_dim columns.
-Counts: `rope_attention_tc.launches` (bf16 K2/K3), `softmax_attention_tc.
-launches` (bf16 K4-K6), `rope_attention_3xtf32.launches` and
-`softmax_attention_3xtf32.launches` (float32), at every head dim. A kernel
+Counts: `rope_attention_tc.launches` (bf16 K2/K3), of which
+`rope_attention_tc.key_tile_launches` took the key-tile schedule,
+`softmax_attention_tc.launches` (bf16 K4-K6), `rope_attention_3xtf32.launches`
+and `softmax_attention_3xtf32.launches` (float32), at every head dim. A kernel
 that fails to build or launch raises; float16 has no family and is refused.
 
 `attention_3xtf32_plain` and `rope_attention_3xtf32_plain` restate the
@@ -306,16 +308,18 @@ def rope_attention_tc(q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads,
     """Launch the tensor-core K2/K3 kernel (bf16) on base pointers with a
     common row stride in elements; out [B, S, C] bf16. At DIRECT_HEAD_DIMS
     the library call launches, on `stream`, the one-pass kernel at head_dim
-    64 and S <= 256, else the RoPE prologue of K plus the key-tile kernel
-    (`tc_schedule`); only the latter gets a roped-K scratch (of the
-    library's t3d_rope_attention_tc_scratch_bytes: 0 at head_dim 64 and S <=
-    ONE_PASS_MAX_SEQ, else a bf16 [B, H, S, D]), and every pointer and the
+    64 and S <= 256, else the RoPE prologue (of K, and of Q at head_dim 64)
+    plus the key-tile kernel (`tc_schedule`); only the latter gets a roped
+    scratch (of the library's t3d_rope_attention_tc_scratch_bytes: 0 at
+    head_dim 64 and S <= ONE_PASS_MAX_SEQ, else a bf16 [B, H, S, D] of roped
+    K, and one of roped Q after it at head_dim 64), and every pointer and the
     row stride must be 16-byte aligned. `lib`: another build of
-    csrc/rope_attention_tc.cu,
-    loaded by `bind_tc_lib` (this checkout's by default). Every other head
+    csrc/rope_attention_tc.cu, loaded by `bind_tc_lib` (this checkout's by
+    default). Every other head
     dim takes csrc/attention_tc.cu's packed entry (any alignment;
     `_launch_packed`). The library call runs with out's card current.
-    Counts its own calls in `rope_attention_tc.launches`."""
+    Counts its own calls in `rope_attention_tc.launches`, and those that
+    take the key-tile schedule also in `rope_attention_tc.key_tile_launches`."""
     b, s, c = out.shape
     d = c // num_heads
     if d not in DIRECT_HEAD_DIMS:
@@ -336,9 +340,12 @@ def rope_attention_tc(q_ptr, k_ptr, v_ptr, row_stride, cos, sin, out, num_heads,
                                        float(scale), stream)
     _build.check(lib, rc, f"{what} launch")
     _build.count_launch(rope_attention_tc)
+    if d != 64 or s > ONE_PASS_MAX_SEQ:  # tc_schedule's KEY_TILE
+        _build.count_launch(rope_attention_tc, "key_tile_launches")
 
 
 rope_attention_tc.launches = 0
+rope_attention_tc.key_tile_launches = 0
 
 # the longest S the one-pass schedule of the tensor-core K2/K3 kernel holds
 # whole (csrc/rope_attention_tc.cu, one_pass::kMaxSeq)
@@ -350,10 +357,12 @@ def tc_schedule(batch: int, heads: int, seq: int, sms: int, head_dim: int = 64):
     """The schedule the tensor-core K2/K3 kernel takes for a call on a card
     of `sms` SMs, as csrc/rope_attention_tc.cu's
     t3d_rope_attention_tc_schedule chooses it: (KEY_TILE, 1) at a head_dim
-    other than 64 and past ONE_PASS_MAX_SEQ (the 64-key online softmax, 128
-    query rows a block); else (ONE_PASS, parts), the parts each head's query
-    rows are cut into: 1 where the B*H heads alone give every SM an item,
-    else parts of two 64-row tiles if that does, else of one tile."""
+    other than 64 and past ONE_PASS_MAX_SEQ (the 64-key online softmax: at
+    head_dim 64 over 192 query rows at a time, a producer warpgroup and three
+    consumers in ping-pong, else over 128); else (ONE_PASS, parts), the parts
+    each head's query rows are cut into: 1 where the B*H heads alone give
+    every SM an item, else parts of two 64-row tiles if that does, else of
+    one tile."""
     if head_dim != 64 or seq > ONE_PASS_MAX_SEQ:
         return KEY_TILE, 1
     row_tiles = -(-seq // 64)
